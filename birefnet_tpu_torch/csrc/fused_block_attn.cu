@@ -1,0 +1,392 @@
+// Fused Swin window-attention block on a padded NHWC canvas:
+//   out = x + proj(attention(qkv(zero_pads(LN1(x)))))
+//
+// Replaces birefnet_tpu/ops/pallas/fused_block_attn.py::_fused (the bf16,
+// non-int8 branch of _kernel). The TPU kernel holds a whole strip of
+// windows (up to 264 x 1536 tokens) in VMEM and runs every step in one
+// body. A Hopper block has 227 KB of shared memory, and one 144x144 f32
+// score tile alone takes 83 KB, so the work runs as three hand-written
+// kernels on one stream:
+//
+// 1. gemm_kernel<LN>: qkv = LN1(x) Wqkv^T + b over all T = B*Hp*Wp tokens.
+//    128x128 output tiles on bf16 tensor-core mma (wmma, f32 accumulation);
+//    each 128x32 A tile is normalized with the rows' f32 LN statistics as
+//    it is staged in shared memory, and pad tokens are zeroed after the
+//    norm (the cyclic-shift remap or the roll-free `origin` offset, as the
+//    TPU kernel does). qkv goes to a [T, 3C] bf16 scratch.
+// 2. window_attn_kernel: one block per (window, head, image) reads its
+//    head's q/k/v rows straight from the scratch at the window's token
+//    positions (no window_partition copy); each warp then owns 16-row
+//    query strips: scores q k^T + rel-pos bias (+ SW-MSA mask), the f32
+//    softmax and P v stay in the warp's shared-memory strip (~101 KB per
+//    block, two blocks per SM); the head output goes to a [T, C] scratch in
+//    canvas order.
+// 3. gemm_kernel<false, true>: out = x + (attn Wproj^T + b), token-local.
+//
+// What bounds it on the card: the qkv and proj products are 8 C^2 flops
+// per token (stage 2 of Swin-L: ~0.9 TFLOP per forward), so the GEMMs must
+// run near tensor-core rate; here they use 16x16 wmma tiles with
+// synchronous shared-memory staging, well below the wgmma/TMA rate. The
+// attention core is small (4 * 144 * C flops per token) and latency
+// bound. The qkv round trip through device memory (6 C bytes per
+// token each way) is the price of the split.
+//
+// The softmax stays in f32 with one normalization per row, unlike the
+// TPU's packed head groups that round exp(s - m) to bf16 before P v.
+// Rounding points (as in the JAX kernel): qkv + bias -> bf16; q * d^-0.5
+// -> bf16; softmax probabilities -> bf16; P v -> bf16; proj + bias -> bf16;
+// + x -> bf16.
+
+#include "common.cuh"
+
+using namespace nvcuda;
+
+namespace {
+
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
+constexpr int kD = 32;  // head dim
+constexpr float kScale = 0.17677669529663687f;  // kD ** -0.5
+
+struct Geometry {
+  int Hp, Wp, C, heads, ws, shift, origin, h_real, w_real;
+};
+
+// True at real tokens of the canvas, the coordinates the TPU kernel
+// computes from its grid (canvas row r, column c).
+__device__ __forceinline__ bool token_valid(const Geometry& g, int r, int c) {
+  int gr = r, gc = c;
+  if (g.shift) {
+    gr = (gr + g.shift) % g.Hp;
+    gc = (gc + g.shift) % g.Wp;
+  }
+  return !(gr < g.origin || gr >= g.origin + g.h_real || gc < g.origin ||
+           gc >= g.origin + g.w_real);
+}
+
+// ---------------------------------------------------------------------------
+// GEMM: out[M, N] = A'[M, K] W[N, K]^T + bias, A' = LN1(A) with pad tokens
+// zeroed when LN, else A. With RESIDUAL, out = round(round(...) + res).
+// Instantiated as <LN, !RESIDUAL> for qkv and <!LN, RESIDUAL> for proj.
+// M and N are multiples of 16, K a multiple of 32.
+// ---------------------------------------------------------------------------
+
+constexpr int kBM = 128, kBN = 128, kBK = 32, kLd = kBK + 8;
+
+__device__ __forceinline__ uint4 normalize8(uint4 raw, float mean, float rstd,
+                                            bool valid, const float* g,
+                                            const float* b) {
+  const bf16* v = reinterpret_cast<const bf16*>(&raw);
+  uint4 out;
+  bf16* o = reinterpret_cast<bf16*>(&out);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const float h = (__bfloat162float(v[e]) - mean) * rstd * g[e] + b[e];
+    o[e] = __float2bfloat16(valid ? h : 0.f);
+  }
+  return out;
+}
+
+template <bool LN, bool RESIDUAL>
+__global__ void __launch_bounds__(kThreads)
+gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
+            const float* __restrict__ bias, const bf16* __restrict__ res,
+            bf16* __restrict__ out, int M, int N, int K,
+            const float* __restrict__ ln_g, const float* __restrict__ ln_b,
+            Geometry geo) {
+  __shared__ __align__(128) bf16 As[kBM * kLd];
+  __shared__ __align__(128) bf16 Bs[kBN * kLd];
+  __shared__ __align__(128) float stage[kWarps][16 * 16];
+  __shared__ float mean_s[kBM], rstd_s[kBM];
+  __shared__ bool valid_s[kBM];
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN;
+  const int wm = warp >> 1, wn = warp & 1;  // 4 x 2 warps, 32 x 64 each
+
+  if (LN) {
+    // Two-pass f32 statistics of the tile's rows (eps 1e-5 inside rsqrt).
+    for (int r = warp; r < kBM; r += kWarps) {
+      const int t = m0 + r;
+      float mean = 0.f, rstd = 0.f;
+      bool valid = false;
+      if (t < M) {
+        const bf16* xr = A + (size_t)t * K;
+        float s = 0.f;
+        for (int c = lane; c < K; c += 32) s += __bfloat162float(xr[c]);
+        mean = bt::warp_sum(s) / K;
+        float v = 0.f;
+        for (int c = lane; c < K; c += 32) {
+          const float d = __bfloat162float(xr[c]) - mean;
+          v += d * d;
+        }
+        rstd = rsqrtf(bt::warp_sum(v) / K + 1e-5f);
+        const int hw = geo.Hp * geo.Wp, p = t % hw;
+        valid = token_valid(geo, p / geo.Wp, p % geo.Wp);
+      }
+      if (lane == 0) {
+        mean_s[r] = mean;
+        rstd_s[r] = rstd;
+        valid_s[r] = valid;
+      }
+    }
+    __syncthreads();
+  }
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+
+  // Each thread stages 2 16-byte chunks of the A tile and 2 of the B tile.
+  // The next k step's chunks are loaded into registers while the tensor
+  // cores work on the current tile, so the L2 latency overlaps the mma.
+  constexpr int kChunks = kBM * kBK / 8 / kThreads;  // 2 (kBM == kBN)
+  uint4 ra[kChunks], rb[kChunks];
+  auto load_tile = [&](int k0) {
+#pragma unroll
+    for (int u = 0; u < kChunks; ++u) {
+      const int c = tid + u * kThreads, r = c / (kBK / 8), kc = (c % (kBK / 8)) * 8;
+      const int t = m0 + r, n = n0 + r;
+      ra[u] = t < M ? *reinterpret_cast<const uint4*>(A + (size_t)t * K + k0 + kc)
+                    : make_uint4(0, 0, 0, 0);
+      rb[u] = n < N ? *reinterpret_cast<const uint4*>(W + (size_t)n * K + k0 + kc)
+                    : make_uint4(0, 0, 0, 0);
+    }
+  };
+  load_tile(0);
+  for (int k0 = 0; k0 < K; k0 += kBK) {
+#pragma unroll
+    for (int u = 0; u < kChunks; ++u) {
+      const int c = tid + u * kThreads, r = c / (kBK / 8), kc = (c % (kBK / 8)) * 8;
+      uint4 a = ra[u];
+      if (LN && m0 + r < M)
+        a = normalize8(a, mean_s[r], rstd_s[r], valid_s[r], ln_g + k0 + kc,
+                       ln_b + k0 + kc);
+      *reinterpret_cast<uint4*>(As + r * kLd + kc) = a;
+      *reinterpret_cast<uint4*>(Bs + r * kLd + kc) = rb[u];
+    }
+    __syncthreads();
+    if (k0 + kBK < K) load_tile(k0 + kBK);
+#pragma unroll
+    for (int kk = 0; kk < kBK; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[2];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb[4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        wmma::load_matrix_sync(fa[i], As + (wm * 32 + i * 16) * kLd + kk, kLd);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        wmma::load_matrix_sync(fb[j], Bs + (wn * 64 + j * 16) * kLd + kk, kLd);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+
+  float* st = stage[warp];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int row = m0 + wm * 32 + i * 16, col = n0 + wn * 64 + j * 16;
+      if (row >= M || col >= N) continue;
+      wmma::store_matrix_sync(st, acc[i][j], 16, wmma::mem_row_major);
+      __syncwarp();
+      for (int e = lane; e < 256; e += 32) {
+        const int r = e / 16, c = e % 16;
+        const size_t gi = (size_t)(row + r) * N + col + c;
+        float y = bt::round_bf16(st[e] + bias[col + c]);
+        if (RESIDUAL) y += __bfloat162float(res[gi]);
+        out[gi] = __float2bfloat16(y);
+      }
+      __syncwarp();
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Attention core: one block per (window, head, image).
+// ---------------------------------------------------------------------------
+
+// Shared memory: q, k, v of the head ([n, 32] bf16 each, rows padded to 40
+// so fragment rows spread over the banks), and per warp one [16, n] f32
+// score strip whose rows are overwritten in place by their bf16
+// probabilities. About 101 KB at n = 144, so two blocks fit on an SM.
+constexpr int kQkvLd = kD + 8;
+
+size_t attn_smem_bytes(int n) {
+  return 3 * bt::align128(n * kQkvLd * 2) +
+         kWarps * bt::align128((size_t)16 * (n + 4) * 4);
+}
+
+__global__ void __launch_bounds__(kThreads)
+window_attn_kernel(const bf16* __restrict__ qkv, const float* __restrict__ bias,
+                   const float* __restrict__ mask, bf16* __restrict__ attn,
+                   Geometry g) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int ws = g.ws, n = ws * ws, C = g.C;
+  const int s_ld = n + 4;      // f32 score row stride
+  const int p_ld = 2 * s_ld;   // bf16 probability row stride (same bytes)
+  unsigned char* p = smem;
+  bf16* qs = reinterpret_cast<bf16*>(p);  p += bt::align128(n * kQkvLd * 2);
+  bf16* ks = reinterpret_cast<bf16*>(p);  p += bt::align128(n * kQkvLd * 2);
+  bf16* vs = reinterpret_cast<bf16*>(p);  p += bt::align128(n * kQkvLd * 2);
+
+  const int wc = g.Wp / ws;
+  const int win = blockIdx.x, head = blockIdx.y, b = blockIdx.z;
+  const int wr0 = (win / wc) * ws, wc0 = (win % wc) * ws;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* S = reinterpret_cast<float*>(p + warp * bt::align128((size_t)16 * s_ld * 4));
+  bf16* P = reinterpret_cast<bf16*>(S);
+  auto token = [&](int i) -> size_t {
+    return ((size_t)b * g.Hp + wr0 + i / ws) * g.Wp + wc0 + i % ws;
+  };
+
+  // q/k/v rows of this head: 8 bf16 (16 bytes) per load; q scaled.
+  for (int idx = threadIdx.x; idx < n * 3 * (kD / 8); idx += kThreads) {
+    const int i = idx / (3 * kD / 8), rem = idx % (3 * kD / 8);
+    const int part = rem / (kD / 8), d0 = (rem % (kD / 8)) * 8;
+    uint4 raw = *reinterpret_cast<const uint4*>(
+        qkv + token(i) * 3 * C + part * C + head * kD + d0);
+    if (part == 0) {
+      bf16* v = reinterpret_cast<bf16*>(&raw);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) v[e] = __float2bfloat16(__bfloat162float(v[e]) * kScale);
+    }
+    bf16* dst = part == 0 ? qs : (part == 1 ? ks : vs);
+    *reinterpret_cast<uint4*>(dst + i * kQkvLd + d0) = raw;
+  }
+  __syncthreads();
+
+  // Each warp owns 16-row query strips; no block barrier after the loads.
+  const int mt = n / 16;
+  const float* bias_h = bias + (size_t)head * n * n;
+  const float* mask_w = mask ? mask + (size_t)win * n * n : nullptr;
+  for (int rt = warp; rt < mt; rt += kWarps) {
+    // Scores S = q k^T for the strip.
+    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fq[kD / 16];
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk)
+      wmma::load_matrix_sync(fq[kk], qs + rt * 16 * kQkvLd + kk * 16, kQkvLd);
+    for (int ct = 0; ct < mt; ++ct) {
+      wmma::fragment<wmma::accumulator, 16, 16, 16, float> sc;
+      wmma::fill_fragment(sc, 0.f);
+#pragma unroll
+      for (int kk = 0; kk < kD / 16; ++kk) {
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fk;
+        wmma::load_matrix_sync(fk, ks + ct * 16 * kQkvLd + kk * 16, kQkvLd);
+        wmma::mma_sync(sc, fq[kk], fk, sc);
+      }
+      wmma::store_matrix_sync(S + ct * 16, sc, s_ld, wmma::mem_row_major);
+    }
+    __syncwarp();
+    // Row softmax in f32 over scores + bias (+ mask). Each row is read into
+    // registers before its bf16 probabilities overwrite it in place.
+    for (int r = 0; r < 16; ++r) {
+      const int i = rt * 16 + r;
+      float v[(144 + 31) / 32];
+      float m = -INFINITY;
+#pragma unroll
+      for (int u = 0; u < (144 + 31) / 32; ++u) {
+        const int j = lane + 32 * u;
+        v[u] = -INFINITY;
+        if (j < n) {
+          v[u] = S[r * s_ld + j] + bias_h[i * n + j];
+          if (mask_w) v[u] += mask_w[i * n + j];
+        }
+        m = fmaxf(m, v[u]);
+      }
+      m = bt::warp_max(m);
+      float sum = 0.f;
+#pragma unroll
+      for (int u = 0; u < (144 + 31) / 32; ++u) {
+        v[u] = lane + 32 * u < n ? expf(v[u] - m) : 0.f;
+        sum += v[u];
+      }
+      sum = bt::warp_sum(sum);  // also orders every lane's reads before the writes
+#pragma unroll
+      for (int u = 0; u < (144 + 31) / 32; ++u) {
+        const int j = lane + 32 * u;
+        if (j < n) P[r * p_ld + j] = __float2bfloat16(v[u] / sum);
+      }
+    }
+    __syncwarp();
+    // O = P v for the strip, staged in the strip's first 16 x 32 floats
+    // (their probabilities are consumed before the store).
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> o[kD / 16];
+#pragma unroll
+    for (int ct = 0; ct < kD / 16; ++ct) wmma::fill_fragment(o[ct], 0.f);
+    for (int kk = 0; kk < n; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fp;
+      wmma::load_matrix_sync(fp, P + kk, p_ld);
+#pragma unroll
+      for (int ct = 0; ct < kD / 16; ++ct) {
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fv;
+        wmma::load_matrix_sync(fv, vs + kk * kQkvLd + ct * 16, kQkvLd);
+        wmma::mma_sync(o[ct], fp, fv, o[ct]);
+      }
+    }
+    __syncwarp();
+#pragma unroll
+    for (int ct = 0; ct < kD / 16; ++ct)
+      wmma::store_matrix_sync(S + ct * 16, o[ct], kD, wmma::mem_row_major);
+    __syncwarp();
+    for (int e = lane; e < 16 * kD; e += 32) {
+      const int r = e / kD, dd = e % kD;
+      attn[token(rt * 16 + r) * C + head * kD + dd] = __float2bfloat16(S[e]);
+    }
+    __syncwarp();
+  }
+}
+
+}  // namespace
+
+// x, out [B, Hp, Wp, C] bf16; ln_g, ln_b [C] f32; wqkv [3C, C] bf16;
+// bqkv [3C] f32; wproj [C, C] bf16; bproj [C] f32; bias [heads, N, N] f32;
+// mask [nW, N, N] f32 or null; qkv_scratch [B*Hp*Wp, 3C] bf16;
+// attn_scratch [B, Hp, Wp, C] bf16. Head dim 32, N = ws*ws a multiple of
+// 16 and at most 144, C a multiple of 64.
+extern "C" int bt_fused_block_attn_bf16(
+    const void* x, const void* ln_g, const void* ln_b, const void* wqkv,
+    const void* bqkv, const void* wproj, const void* bproj, const void* bias,
+    const void* mask, void* qkv_scratch, void* attn_scratch, void* out, int B,
+    int Hp, int Wp, int C, int heads, int ws, int shift, int origin, int h_real,
+    int w_real, void* stream) {
+  const int n = ws * ws;
+  if (C != heads * kD || C % 64 != 0 || n % 16 != 0 || n > 144 || Hp % ws != 0 ||
+      Wp % ws != 0 || B <= 0)
+    return (int)cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  const Geometry g{Hp, Wp, C, heads, ws, shift, origin, h_real, w_real};
+  const int T = B * Hp * Wp;
+  auto* xb = static_cast<const bf16*>(x);
+  auto* qkv = static_cast<bf16*>(qkv_scratch);
+  auto* attn = static_cast<bf16*>(attn_scratch);
+
+  gemm_kernel<true, false><<<dim3((T + kBM - 1) / kBM, (3 * C + kBN - 1) / kBN),
+                             kThreads, 0, s>>>(
+      xb, static_cast<const bf16*>(wqkv), static_cast<const float*>(bqkv), nullptr,
+      qkv, T, 3 * C, C, static_cast<const float*>(ln_g),
+      static_cast<const float*>(ln_b), g);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  const size_t smem = attn_smem_bytes(n);
+  err = cudaFuncSetAttribute(window_attn_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  window_attn_kernel<<<dim3((Hp / ws) * (Wp / ws), heads, B), kThreads, smem, s>>>(
+      qkv, static_cast<const float*>(bias), static_cast<const float*>(mask), attn, g);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  gemm_kernel<false, true><<<dim3((T + kBM - 1) / kBM, (C + kBN - 1) / kBN),
+                             kThreads, 0, s>>>(
+      attn, static_cast<const bf16*>(wproj), static_cast<const float*>(bproj), xb,
+      static_cast<bf16*>(out), T, C, C, nullptr, nullptr, g);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,47 @@
+"""Naive windowed multi-head attention with relative-position bias.
+
+Counterpart of birefnet_tpu/ops/attention.py: softmax((q*scale) @ k^T +
+bias [+ mask]) @ v with the softmax in f32, all windows and heads batched.
+`window_attention_forward` wraps it with the qkv and proj projections
+(models/swin.py in the JAX package); it serves the unfused Swin block and
+the plain version of the fused block-attention kernel
+(ops/kernels/fused_block_attn.py).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from . import layers as L
+
+
+def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     bias: torch.Tensor,
+                     mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q, k, v: [B_, heads, N, d] with B_ = batch * nW; bias [heads, N, N];
+    mask [nW, N, N] of 0/-100 or None. Returns [B_, heads, N, d]."""
+    b_, heads, n, d = q.shape
+    q = q * (d ** -0.5)
+    # Scores in f32 from the (bf16) operands, as the JAX package takes them.
+    attn = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    attn = attn + bias.float()[None]
+    if mask is not None:
+        nw = mask.shape[0]
+        attn = attn.reshape(b_ // nw, nw, heads, n, n)
+        attn = attn + mask.float()[None, :, None]
+        attn = attn.reshape(b_, heads, n, n)
+    attn = torch.softmax(attn, dim=-1)
+    return torch.matmul(attn.to(v.dtype), v)
+
+
+def window_attention_forward(params, x: torch.Tensor,
+                             mask: Optional[torch.Tensor],
+                             num_heads: int) -> torch.Tensor:
+    """W-MSA on window tokens [B_, N, C]: qkv, window attention, proj."""
+    b_, n, c = x.shape
+    qkv = L.linear(params["qkv"], x)
+    qkv = qkv.reshape(b_, n, 3, num_heads, c // num_heads).permute(2, 0, 3, 1, 4)
+    out = window_attention(qkv[0], qkv[1], qkv[2], params["cached_bias"], mask)
+    return L.linear(params["proj"], out.transpose(1, 2).reshape(b_, n, c))

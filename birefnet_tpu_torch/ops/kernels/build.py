@@ -1,0 +1,102 @@
+"""Build and load the hand-written CUDA kernels.
+
+The CUDA C++ sources under birefnet_tpu_torch/csrc/ are compiled by nvcc
+into one shared library with a plain C interface, at first use, and loaded
+with ctypes:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+        -Xcompiler -fPIC -o build/kernels/libbirefnet_kernels_<hash>.so \
+        birefnet_tpu_torch/csrc/*.cu
+
+The file name carries a hash of the sources and flags, so an edited source
+builds a new library and a stale one is never loaded. Nothing is built
+when the package is imported. Every C entry returns `cudaGetLastError()`
+after its launches; `check` raises on a non-zero code.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+_CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def sources():
+    """The CUDA sources the library is built from, in a fixed order."""
+    return sorted(glob.glob(os.path.join(_CSRC_DIR, "*.cu"))
+                  + glob.glob(os.path.join(_CSRC_DIR, "*.cuh")))
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError(
+            "nvcc not found (looked on PATH and in /usr/local/cuda/bin): "
+            "the CUDA kernels need the CUDA toolkit to build")
+    return path
+
+
+def library_path() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        with open(src, "rb") as f:
+            h.update(os.path.basename(src).encode() + f.read())
+    return os.path.join(BUILD_DIR,
+                        f"libbirefnet_kernels_{h.hexdigest()[:16]}.so")
+
+
+def build(verbose: bool = False) -> str:
+    """Compile the library unless a build of the same sources exists.
+    Returns its path; raises with nvcc's output when compilation fails."""
+    path = library_path()
+    if os.path.exists(path):
+        return path
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+           *[s for s in sources() if s.endswith(".cu")]]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, path)
+    if verbose:
+        print(f"[build] nvcc {len(sources())} files in "
+              f"{time.perf_counter() - t0:.1f}s -> {path}")
+        print(proc.stderr.strip())
+    return path
+
+
+@functools.lru_cache(maxsize=1)
+def library() -> ctypes.CDLL:
+    return ctypes.CDLL(build())
+
+
+@functools.lru_cache(maxsize=None)
+def function(name: str, n_pointers: int, n_ints: int):
+    """The C entry `name` taking pointers, then ints, then the stream;
+    every pointer and the stream are c_void_p."""
+    fn = getattr(library(), name)
+    fn.argtypes = ([ctypes.c_void_p] * n_pointers + [ctypes.c_int] * n_ints
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def check(code: int, name: str) -> None:
+    if code != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
+                           f"cudaError {code}")

@@ -38,6 +38,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "tpu: kernel-legality tier, needs the real TPU chip "
         "(run with BIREFNET_TEST_TPU=1)")
+    config.addinivalue_line(
+        "markers", "cuda: birefnet_tpu_torch kernel tier, needs an NVIDIA "
+        "GPU (run with BIREFNET_TEST_CUDA=1)")
 
 
 @pytest.fixture(scope="session")

@@ -1,0 +1,170 @@
+"""birefnet_tpu_torch kernels on the card: each hand-written kernel against
+its plain PyTorch version on the same bf16 inputs.
+
+These tests need an NVIDIA GPU and skip without one. Run them on the card
+with
+    BIREFNET_TEST_CUDA=1 python -m pytest --noconftest tests/test_torch_cuda.py
+(`--noconftest` because tests/conftest.py imports jax, which the GPU
+machine does not have; this file imports torch and the port only).
+
+Bound for every comparison: max|kernel - plain| <= 2e-2 * max|plain|. The
+two round to bf16 at the same points but sum in other orders, and the
+plain version rounds its matmul outputs to bf16 before adding the f32
+biases where the kernels add them in f32 first.
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from birefnet_tpu_torch.models import swin
+from birefnet_tpu_torch.ops import window as W
+from birefnet_tpu_torch.ops.kernels import (fused_block_attn, fused_mlp,
+                                            row_ln, tap_conv)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if (os.environ.get("BIREFNET_TEST_CUDA", "0") != "1"
+            or not torch.cuda.is_available()):
+        pytest.skip("needs BIREFNET_TEST_CUDA=1 and a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _randn(gen, shape, dev, scale=1.0, dtype=torch.float32):
+    return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+
+def _assert_close(got, want):
+    got, want = got.float(), want.float()
+    assert got.shape == want.shape
+    assert torch.isfinite(got).all()
+    err = (got - want).abs().max().item()
+    bound = 2e-2 * want.abs().max().item()
+    assert err <= bound, f"max|kernel - plain| {err} > {bound}"
+
+
+@pytest.mark.parametrize("shape", [(1000, 192), (37, 3072), (2, 7, 9, 768)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_row_ln_kernel_matches_plain(dev, shape, dtype):
+    gen = torch.Generator(dev).manual_seed(0)
+    c = shape[-1]
+    x = _randn(gen, shape, dev, 3.0, dtype)
+    p = {"scale": _randn(gen, (c,), dev), "bias": _randn(gen, (c,), dev)}
+    n0 = row_ln.layer_norm_rows.launches
+    got = row_ln.layer_norm_rows(p, x)
+    assert row_ln.layer_norm_rows.launches == n0 + 1
+    _assert_close(got, row_ln.layer_norm_rows_plain(p, x))
+
+
+def _mlp_params(gen, c, dev):
+    bf = torch.bfloat16
+    return ({"scale": 1 + 0.1 * _randn(gen, (c,), dev),
+             "bias": 0.1 * _randn(gen, (c,), dev)},
+            {"fc1": {"weight": _randn(gen, (4 * c, c), dev, 0.05, bf),
+                     "bias": _randn(gen, (4 * c,), dev, 0.1)},
+             "fc2": {"weight": _randn(gen, (c, 4 * c), dev, 0.05, bf),
+                     "bias": _randn(gen, (c,), dev, 0.1)}})
+
+
+@pytest.mark.parametrize("t,c", [(100, 64), (512, 192), (48, 1536)])
+def test_fused_mlp_kernel_matches_plain(dev, t, c):
+    gen = torch.Generator(dev).manual_seed(1)
+    x = _randn(gen, (t, c), dev, 1.0, torch.bfloat16)
+    n2, mlp = _mlp_params(gen, c, dev)
+    n0 = fused_mlp.fused_mlp_residual.launches
+    got = fused_mlp.fused_mlp_residual(x, n2, mlp)
+    assert fused_mlp.fused_mlp_residual.launches == n0 + 1
+    _assert_close(got, fused_mlp.fused_mlp_residual_plain(x, n2, mlp))
+
+
+def _block_params(gen, c, heads, dev):
+    bf = torch.bfloat16
+    return ({"scale": 1 + 0.1 * _randn(gen, (c,), dev),
+             "bias": 0.1 * _randn(gen, (c,), dev)},
+            {"qkv": {"weight": _randn(gen, (3 * c, c), dev, 0.05, bf),
+                     "bias": _randn(gen, (3 * c,), dev)},
+             "proj": {"weight": _randn(gen, (c, c), dev, 0.05, bf),
+                      "bias": _randn(gen, (c,), dev)},
+             "cached_bias": _randn(gen, (heads, 144, 144), dev)})
+
+
+@pytest.mark.parametrize("shift", [0, 6])
+@pytest.mark.parametrize("hw", [(24, 24), (20, 17), (16, 16)])
+@pytest.mark.parametrize("heads,c", [(2, 64), (6, 192)])
+def test_fused_block_attn_kernel_matches_plain(dev, shift, hw, heads, c):
+    gen = torch.Generator(dev).manual_seed(2)
+    h, w = hw
+    x = _randn(gen, (2, h, w, c), dev, 1.0, torch.bfloat16)
+    norm1, attn = _block_params(gen, c, heads, dev)
+    hp, wp = -(-h // 12) * 12, -(-w // 12) * 12
+    mask = W.sw_msa_mask(hp, wp, 12, 6, dev)
+    canvas, k_shift, k_mask, origin = swin.fused_block_canvas(x, 12, shift,
+                                                              mask)
+    args = (canvas, norm1, attn, 12, k_shift, heads, k_mask, h, w, origin)
+    n0 = fused_block_attn.fused_window_block_attention.launches
+    got = fused_block_attn.fused_window_block_attention(*args)
+    assert fused_block_attn.fused_window_block_attention.launches == n0 + 1
+    want = fused_block_attn.fused_window_block_attention_plain(*args)
+    # Only the real tokens are defined; the caller crops the pad region.
+    crop = (slice(None), slice(origin, origin + h), slice(origin, origin + w))
+    if k_shift:
+        got = W.roll_2d(got, k_shift, k_shift)
+        want = W.roll_2d(want, k_shift, k_shift)
+    _assert_close(got[crop], want[crop])
+
+
+@pytest.mark.parametrize("shape", [(2, 32, 40, 3), (1, 70, 130, 3)])
+def test_tap_conv_kernel_matches_plain(dev, shape):
+    gen = torch.Generator(dev).manual_seed(3)
+    x = _randn(gen, shape, dev, 1.0, torch.bfloat16)
+    k = _randn(gen, (5, 5, 3, 1), dev)
+    b = _randn(gen, (1,), dev)
+    n0 = tap_conv.tap_conv_same.launches
+    got = tap_conv.tap_conv_same(x, k, b)
+    assert tap_conv.tap_conv_same.launches == n0 + 1
+    _assert_close(got, tap_conv.tap_conv_same_plain(x, k, b))
+
+
+def test_kernels_refuse_f32(dev):
+    x = torch.zeros((16, 64), device=dev)
+    n2, mlp = _mlp_params(torch.Generator(dev).manual_seed(4), 64, dev)
+    with pytest.raises(TypeError):
+        fused_mlp.fused_mlp_residual(x, n2, mlp)
+    with pytest.raises(TypeError):
+        tap_conv.tap_conv_same(torch.zeros((1, 8, 8, 3), device=dev),
+                               torch.zeros((5, 5, 3), device=dev))
+
+
+def test_swin_kernel_tier_matches_f32_plain(dev):
+    """A narrow ws=12 Swin on the kernel tier in bf16 against the plain f32
+    forward on the card; every kernel of the backbone launches."""
+    from birefnet_tpu_torch.configs import ComputeConfig, SwinConfig
+    from birefnet_tpu_torch.params import (_Source, _swin, _swin_entries,
+                                           cast_matmul_weights, tree_map)
+
+    cfg = SwinConfig(embed_dim=64, depths=(2, 2, 2, 2), num_heads=(2, 4, 8, 16))
+    rng = np.random.default_rng(5)
+    flat = {k: rng.normal(0, 0.05, s).astype(np.float32)
+            for k, s in _swin_entries("bb", cfg)}
+    params = tree_map(lambda _, v: v.to(dev), _swin(_Source(flat), "bb", cfg))
+    x = torch.from_numpy(rng.normal(size=(2, 96, 96, 3)).astype(np.float32))
+    x = x.to(dev)
+    ref = swin.swin_forward(params, cfg, x, ComputeConfig())
+    counters = (fused_block_attn.fused_window_block_attention,
+                fused_mlp.fused_mlp_residual, row_ln.layer_norm_rows)
+    before = [f.launches for f in counters]
+    got = swin.swin_forward(cast_matmul_weights(params, torch.bfloat16), cfg,
+                            x.to(torch.bfloat16),
+                            ComputeConfig(dtype=torch.bfloat16,
+                                          use_flash_attention=True))
+    assert [f.launches - b for f, b in zip(counters, before)] == [8, 8, 8]
+    for g, r in zip(got, ref):
+        err = (g.float() - r).abs().mean().item()
+        assert err < 5e-2, f"mean |bf16 kernels - f32 plain| = {err}"

@@ -1,0 +1,83 @@
+"""birefnet_tpu_torch.serve end to end on the CPU, and the port's native
+host-resize bindings against the JAX package's.
+
+serve.main decodes three PNGs of different sizes, runs them through the
+pipeline at a tiny model size (64x64, f32, CPU, the swin_v1_t backbone to
+keep the checkpoint small) in batches of 2 and writes one mask per image
+at the image's own size.
+"""
+
+import os
+
+import numpy as np
+import pytest
+from PIL import Image
+from safetensors.numpy import save_file
+
+import birefnet_tpu_torch as pt
+from birefnet_tpu.utils import native as jnative
+from birefnet_tpu_torch import serve
+from birefnet_tpu_torch.utils import native
+
+
+@pytest.fixture(scope="module")
+def ckpt_path(tmp_path_factory):
+    path = tmp_path_factory.mktemp("ck") / "m.safetensors"
+    save_file(pt.random_checkpoint(pt.BiRefNetConfig.for_backbone("swin_v1_t"),
+                                   3), str(path))
+    return str(path)
+
+
+def test_serve_main_writes_masks_at_image_sizes(tmp_path, ckpt_path):
+    rng = np.random.default_rng(0)
+    img_dir = tmp_path / "imgs"
+    img_dir.mkdir()
+    sizes = [(80, 70), (64, 64), (100, 40)]
+    for i, (h, w) in enumerate(sizes):
+        Image.fromarray(rng.integers(0, 255, (h, w, 3), dtype=np.uint8),
+                        "RGB").save(img_dir / f"im{i}.png")
+    out_dir = tmp_path / "masks"
+    rc = serve.main([str(img_dir), "--out", str(out_dir), "--checkpoint",
+                     ckpt_path, "--batch", "2", "--size", "64", "--dtype",
+                     "float32", "--cpu", "--backbone", "swin_v1_t"])
+    assert rc == 0
+    assert sorted(os.listdir(out_dir)) == [f"im{i}_mask.png" for i in range(3)]
+    for i, (h, w) in enumerate(sizes):
+        m = np.asarray(Image.open(out_dir / f"im{i}_mask.png"))
+        assert m.shape == (h, w) and m.dtype == np.uint8
+
+
+@pytest.mark.parametrize("flag", [["--dp", "2"], ["--int8-mlp"],
+                                  ["--deform-mode", "deformable"],
+                                  ["--aot-dir", "x"]])
+def test_serve_refuses_unported_flags(tmp_path, flag):
+    with pytest.raises(SystemExit) as exc:
+        serve.main([str(tmp_path), "--checkpoint", "unused"] + flag)
+    assert exc.value.code == 2
+
+
+def test_segment_restores_each_size():
+    images = [np.zeros((30, 50, 3), np.uint8), np.zeros((64, 64, 3), np.uint8)]
+    seen = []
+
+    def infer(frames):
+        import torch
+        seen.append(frames.shape)
+        return torch.full(frames.shape[:3], 200, dtype=torch.uint8)
+
+    masks = serve.segment(infer, images, 64, 2)
+    assert seen == [(2, 64, 64, 3)]
+    assert [m.shape for m in masks] == [(30, 50), (64, 64)]
+    assert all(int(m.min()) == int(m.max()) == 200 for m in masks)
+
+
+def test_native_resizes_match_jax_package():
+    rng = np.random.default_rng(1)
+    img = rng.integers(0, 256, (37, 53, 3), dtype=np.uint8)
+    for ours, theirs in ((native.resize_triangle_u8, jnative.resize_triangle_u8),
+                         (native.resize_lanczos3_u8, jnative.resize_lanczos3_u8)):
+        a = ours(img, 24, 70).astype(np.int32)
+        b = theirs(img, 24, 70).astype(np.int32)
+        # the two builds may round a .5 boundary apart (compiler flags)
+        assert a.shape == b.shape == (24, 70, 3)
+        assert np.abs(a - b).max() <= 1
