@@ -149,6 +149,15 @@ class ComputeConfig:
     tensor every kernel wrapper takes its plain PyTorch version; on a CUDA
     tensor it launches the kernel or raises.
 
+    `int8_mlp` / `int8_attn` select the W8A8 path, as in the JAX package
+    (birefnet_tpu/configs.py:277-293): `pipeline.make_infer_fn` quantizes
+    the wide Swin blocks' MLP and attention qkv/proj weights once
+    (`params.quantize_mlp_int8` / `quantize_attn_int8`, C >= 768: Swin-L
+    stages 2 and 3), and the fused MLP and block-attention wrappers run
+    their int8 kernels for every block that carries the quantized leaves.
+    So int8 engages only on the kernel tier, at C >= 768; the unfused path
+    reads the f32 `weight` leaves and ignores the quantized ones.
+
     Only `deform_mode="regular"` (offsets ignored: the reference's CPU
     semantics, which the mask-MAE gate compares against) is ported; it is
     the default here, where the JAX package defaults to "deformable".
@@ -167,12 +176,8 @@ class ComputeConfig:
         if self.deform_mode != "regular":
             raise NotImplementedError(
                 f"deform_mode={self.deform_mode!r} is not ported yet "
-                "(ROADMAP.md queue A, item 'faithful deform_conv2d'); "
+                "(ROADMAP.md, 'Still to port', item 'Faithful deform_conv2d'); "
                 "use deform_mode='regular'")
-        if self.int8_mlp or self.int8_attn:
-            raise NotImplementedError(
-                "int8_mlp/int8_attn are not ported yet (ROADMAP.md queue B, "
-                "item 'K1 int8 branch and K3 _fused_i8')")
         if self.dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"dtype must be float32 or bfloat16, "
                              f"got {self.dtype}")

@@ -36,8 +36,23 @@
 // Rounding points (as in the JAX kernel): qkv + bias -> bf16; q * d^-0.5
 // -> bf16; softmax probabilities -> bf16; P v -> bf16; proj + bias -> bf16;
 // + x -> bf16.
+//
+// W8A8 entry, bt_fused_block_attn_i8: the int8 branch of the same TPU
+// kernel (fused_block_attn.py:100-112, 208-215; ComputeConfig.int8_attn).
+// The proj input's per-token scale needs each token's absmax over all C
+// channels, which come from C/32 different (window, head) blocks of the
+// attention core, so both projections get a row pre-pass (int8.cuh):
+// 1. quant_rows<LN, PAD>: LN1 (f32 statistics) -> pad tokens zeroed ->
+//    rows rounded to bf16 -> per-token int8 codes [T, C] + scales [T];
+// 2. i8 gemm<kStoreBf16>: qkv = acc * (sx * sw) + b -> bf16 [T, 3C];
+// 3. window_attn_kernel, unchanged, -> attention rows bf16 [T, C];
+// 4. quant_rows: per-token int8 of the attention rows (same scratch);
+// 5. i8 gemm<kResidualBf16>: out = x + bf16(acc * (sa * sw) + b).
+// The int8 round trips add 2 C bytes per token each way; the qkv products
+// (8 C^2 integer ops per token) run at the int8 tensor-core rate.
 
 #include "common.cuh"
+#include "int8.cuh"
 
 using namespace nvcuda;
 
@@ -48,21 +63,8 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kD = 32;  // head dim
 constexpr float kScale = 0.17677669529663687f;  // kD ** -0.5
 
-struct Geometry {
-  int Hp, Wp, C, heads, ws, shift, origin, h_real, w_real;
-};
-
-// True at real tokens of the canvas, the coordinates the TPU kernel
-// computes from its grid (canvas row r, column c).
-__device__ __forceinline__ bool token_valid(const Geometry& g, int r, int c) {
-  int gr = r, gc = c;
-  if (g.shift) {
-    gr = (gr + g.shift) % g.Hp;
-    gc = (gc + g.shift) % g.Wp;
-  }
-  return !(gr < g.origin || gr >= g.origin + g.h_real || gc < g.origin ||
-           gc >= g.origin + g.w_real);
-}
+using bt::Geometry;
+using bt::token_valid;
 
 // ---------------------------------------------------------------------------
 // GEMM: out[M, N] = A'[M, K] W[N, K]^T + bias, A' = LN1(A) with pad tokens
@@ -389,4 +391,54 @@ extern "C" int bt_fused_block_attn_bf16(
       attn, static_cast<const bf16*>(wproj), static_cast<const float*>(bproj), xb,
       static_cast<bf16*>(out), T, C, C, nullptr, nullptr, g);
   return (int)cudaGetLastError();
+}
+
+// As bt_fused_block_attn_bf16, with W8A8 projections: wqkv [3C, C] and
+// wproj [C, C] int8, sqkv [3C] and sproj [C] f32 per-output-channel
+// scales; codes [T, C] int8 and scales [T] f32 scratch (T = B*Hp*Wp).
+extern "C" int bt_fused_block_attn_i8(
+    const void* x, const void* ln_g, const void* ln_b, const void* wqkv,
+    const void* sqkv, const void* bqkv, const void* wproj, const void* sproj,
+    const void* bproj, const void* bias, const void* mask, void* codes,
+    void* scales, void* qkv_scratch, void* attn_scratch, void* out, int B, int Hp,
+    int Wp, int C, int heads, int ws, int shift, int origin, int h_real,
+    int w_real, void* stream) {
+  namespace i8 = bt::i8;
+  const int n = ws * ws;
+  if (C != heads * kD || C % 64 != 0 || n % 16 != 0 || n > 144 || Hp % ws != 0 ||
+      Wp % ws != 0 || B <= 0)
+    return (int)cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  const Geometry g{Hp, Wp, C, heads, ws, shift, origin, h_real, w_real};
+  const int T = B * Hp * Wp;
+  auto* xb = static_cast<const bf16*>(x);
+  auto* q = static_cast<int8_t*>(codes);
+  auto* sc = static_cast<float*>(scales);
+  auto* qkv = static_cast<bf16*>(qkv_scratch);
+  auto* attn = static_cast<bf16*>(attn_scratch);
+
+  cudaError_t err = i8::quant_rows<bf16, true, true>(
+      xb, static_cast<const float*>(ln_g), static_cast<const float*>(ln_b), q, sc, T, C,
+      g, s);
+  if (err != cudaSuccess) return (int)err;
+  err = i8::gemm<i8::kStoreBf16>(q, sc, static_cast<const int8_t*>(wqkv),
+                                 static_cast<const float*>(sqkv),
+                                 static_cast<const float*>(bqkv), nullptr, qkv, T,
+                                 3 * C, C, s);
+  if (err != cudaSuccess) return (int)err;
+
+  const size_t smem = attn_smem_bytes(n);
+  err = cudaFuncSetAttribute(window_attn_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  window_attn_kernel<<<dim3((Hp / ws) * (Wp / ws), heads, B), kThreads, smem, s>>>(
+      qkv, static_cast<const float*>(bias), static_cast<const float*>(mask), attn, g);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  err = i8::quant_rows<bf16, false, false>(attn, nullptr, nullptr, q, sc, T, C, g, s);
+  if (err != cudaSuccess) return (int)err;
+  return (int)i8::gemm<i8::kResidualBf16>(
+      q, sc, static_cast<const int8_t*>(wproj), static_cast<const float*>(sproj),
+      static_cast<const float*>(bproj), xb, out, T, C, C, s);
 }

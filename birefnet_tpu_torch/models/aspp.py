@@ -25,7 +25,7 @@ def deform_conv_aspp_forward(params, x: torch.Tensor, kernel_size: int,
     if compute.deform_mode != "regular":
         raise NotImplementedError(
             f"deform_mode={compute.deform_mode!r} is not ported yet "
-            "(ROADMAP.md queue A, item 'faithful deform_conv2d')")
+            "(ROADMAP.md, 'Still to port', item 'Faithful deform_conv2d')")
     return L.conv2d(params["regular_conv"], x, stride=stride, padding=padding)
 
 

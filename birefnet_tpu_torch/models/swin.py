@@ -10,6 +10,11 @@ Tiers (as in the JAX package, models/swin.py:111-121, 355-374): with
 and fused-MLP kernels and the standalone norms run the row-LN kernel; any
 other window size runs unfused except ws=7, whose middle tier (the
 packed-qkv flash-attention kernel) is not ported yet and raises.
+
+W8A8 (ComputeConfig.int8_mlp/int8_attn) is no tier of its own: blocks
+whose params carry `weight_q8` leaves (params.quantize_*_int8) reach the
+int8 kernels through the same fused wrappers, which dispatch on them; the
+unfused path reads only the `weight` leaves.
 """
 
 from __future__ import annotations
@@ -26,8 +31,8 @@ from ..ops import window as W
 from ..ops.kernels import fused_block_attn, fused_mlp, row_ln
 
 _MIDDLE_TIER = ("the ws=7 middle tier needs the flash_window_attention_qkv "
-                "kernel, which is not ported yet (ROADMAP.md queue B, item "
-                "'K6 and its K7/K8 wrappers')")
+                "kernel, which is not ported yet (ROADMAP.md, 'Still to "
+                "port', item 'K6 and its K7/K8 wrappers')")
 
 
 def _tier(compute: ComputeConfig, window_size: int) -> ComputeConfig:

@@ -5,7 +5,8 @@ bias [+ mask]) @ v with the softmax in f32, all windows and heads batched.
 `window_attention_forward` wraps it with the qkv and proj projections
 (models/swin.py in the JAX package); it serves the unfused Swin block and
 the plain version of the fused block-attention kernel
-(ops/kernels/fused_block_attn.py).
+(ops/kernels/fused_block_attn.py), whose W8A8 plain version calls
+`qkv_window_attention` between its int8 projections.
 """
 
 from __future__ import annotations
@@ -36,12 +37,22 @@ def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.matmul(attn.to(v.dtype), v)
 
 
+def qkv_window_attention(qkv: torch.Tensor, bias: torch.Tensor,
+                         mask: Optional[torch.Tensor],
+                         num_heads: int) -> torch.Tensor:
+    """Multi-head window attention from packed qkv [B_, N, 3C] (q, k, v
+    each head-major over C) -> [B_, N, C]."""
+    b_, n, c3 = qkv.shape
+    c = c3 // 3
+    qkv = qkv.reshape(b_, n, 3, num_heads, c // num_heads).permute(2, 0, 3, 1, 4)
+    out = window_attention(qkv[0], qkv[1], qkv[2], bias, mask)
+    return out.transpose(1, 2).reshape(b_, n, c)
+
+
 def window_attention_forward(params, x: torch.Tensor,
                              mask: Optional[torch.Tensor],
                              num_heads: int) -> torch.Tensor:
     """W-MSA on window tokens [B_, N, C]: qkv, window attention, proj."""
-    b_, n, c = x.shape
-    qkv = L.linear(params["qkv"], x)
-    qkv = qkv.reshape(b_, n, 3, num_heads, c // num_heads).permute(2, 0, 3, 1, 4)
-    out = window_attention(qkv[0], qkv[1], qkv[2], params["cached_bias"], mask)
-    return L.linear(params["proj"], out.transpose(1, 2).reshape(b_, n, c))
+    out = qkv_window_attention(L.linear(params["qkv"], x),
+                               params["cached_bias"], mask, num_heads)
+    return L.linear(params["proj"], out)

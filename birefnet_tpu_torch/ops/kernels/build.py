@@ -2,11 +2,13 @@
 
 The CUDA C++ sources under birefnet_tpu_torch/csrc/ are compiled by nvcc
 into one shared library with a plain C interface, at first use, and loaded
-with ctypes:
+with ctypes. Each source compiles in its own nvcc process, all started
+together, and the objects are linked into the library:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-        -Xcompiler -fPIC -o build/kernels/libbirefnet_kernels_<hash>.so \
-        birefnet_tpu_torch/csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+        -Xcompiler -fPIC -Xptxas -v -c -o <objects>/<name>.o csrc/<name>.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared \
+        -o build/kernels/libbirefnet_kernels_<hash>.so <objects>/*.o
 
 The file name carries a hash of the sources and flags, so an edited source
 builds a new library and a stale one is never loaded. Nothing is built
@@ -29,8 +31,9 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 _CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                           "-Xptxas", "-v")
 
 
 def sources():
@@ -57,26 +60,43 @@ def library_path() -> str:
                         f"libbirefnet_kernels_{h.hexdigest()[:16]}.so")
 
 
+def _run(cmds):
+    """Run the nvcc commands in parallel; return their stderr in order, or
+    raise with the output of every command that failed."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for cmd in cmds]
+    outs = [proc.communicate() for proc in procs]
+    failed = [f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}\n{err}"
+              for cmd, proc, (out, err) in zip(cmds, procs, outs)
+              if proc.returncode != 0]
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return [err for _, err in outs]
+
+
 def build(verbose: bool = False) -> str:
     """Compile the library unless a build of the same sources exists.
     Returns its path; raises with nvcc's output when compilation fails."""
     path = library_path()
     if os.path.exists(path):
         return path
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[s for s in sources() if s.endswith(".cu")]]
+    obj_dir = f"{path[:-3]}.{os.getpid()}.obj"
+    os.makedirs(obj_dir, exist_ok=True)
+    cus = [s for s in sources() if s.endswith(".cu")]
+    objs = [os.path.join(obj_dir, os.path.basename(s)[:-3] + ".o") for s in cus]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+    logs = _run([[nvcc, *NVCC_FLAGS, "-c", "-o", o, s]
+                 for s, o in zip(cus, objs)])
+    tmp = f"{path}.{os.getpid()}.tmp"
+    _run([[nvcc, *ARCH_FLAGS, "-shared", "-o", tmp, *objs]])
     os.replace(tmp, path)
+    shutil.rmtree(obj_dir, ignore_errors=True)
     if verbose:
-        print(f"[build] nvcc {len(sources())} files in "
+        print(f"[build] nvcc {len(cus)} sources in parallel in "
               f"{time.perf_counter() - t0:.1f}s -> {path}")
-        print(proc.stderr.strip())
+        print("\n".join(log.strip() for log in logs))
     return path
 
 

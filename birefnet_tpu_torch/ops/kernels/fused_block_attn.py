@@ -19,9 +19,18 @@ source note of csrc/fused_block_attn.cu. The softmax
 stays in f32 per head; the TPU's packed head groups, which round exp(s-m)
 to bf16, are not copied.
 
-The kernel takes bf16 only. `fused_window_block_attention` takes the plain
-version for a CPU tensor and launches the kernels for a CUDA tensor or
-raises.
+W8A8 (ComputeConfig.int8_attn): blocks whose qkv carries `weight_q8`
+(params.quantize_attn_int8) run `fused_window_block_attention_int8`, the
+port of the int8 branch of the same TPU kernel (`_kernel`'s `sqkv_ref`
+path, fused_block_attn.py:100-112, 208-215). Its CUDA route
+(`bt_fused_block_attn_i8`) is five launches: LN1 + pad-zero + bf16
+rounding + per-token int8 rows, an int8 qkv GEMM with dequant and bias,
+the unchanged bf16 attention core, per-token int8 of the attention rows,
+and an int8 proj GEMM with dequant, bias and the residual.
+
+The kernels take bf16 activations only. Both wrappers take their plain
+version for a CPU tensor and launch their kernels for a CUDA tensor or
+raise; each counts its own launches.
 """
 
 from __future__ import annotations
@@ -31,8 +40,9 @@ from typing import Optional
 import torch
 
 from .. import layers as L
+from .. import quant
 from .. import window as W
-from ..attention import window_attention_forward
+from ..attention import qkv_window_attention, window_attention_forward
 from . import build
 
 
@@ -65,6 +75,30 @@ def fused_window_block_attention_plain(
     y = window_attention_forward(attn_params, W.window_partition(h, window_size),
                                  attn_mask, num_heads)
     return x + W.window_reverse(y, window_size, hp, wp)
+
+
+def fused_window_block_attention_int8_plain(
+        x: torch.Tensor, norm1_params, attn_params, window_size: int,
+        shift_size: int, num_heads: int, attn_mask: Optional[torch.Tensor],
+        h_real: int, w_real: int, origin: int = 0) -> torch.Tensor:
+    """Plain PyTorch version of the W8A8 branch, with the JAX kernel's
+    rounding points: LN1 in f32, pad tokens zeroed, rows rounded to
+    x.dtype, per-token int8, exact qkv product, dequant + bias rounded to
+    x.dtype; the attention core as in the bf16 version; per-token int8 of
+    the attention rows, exact proj product, dequant + bias rounded to
+    x.dtype, + x."""
+    _, hp, wp, _ = x.shape
+    h = L.layer_norm(norm1_params, x.float())
+    valid = _pad_token_mask(hp, wp, shift_size, origin, h_real, w_real,
+                            x.device)
+    h = torch.where(valid[None, :, :, None], h, torch.zeros((), device=h.device))
+    q, sx = quant.quantize_rows(h.to(x.dtype).float())
+    qkv = quant.int8_linear(q, sx, attn_params["qkv"]).to(x.dtype)
+    o = qkv_window_attention(W.window_partition(qkv, window_size),
+                             attn_params["cached_bias"], attn_mask, num_heads)
+    o = W.window_reverse(o, window_size, hp, wp)
+    qa, sa = quant.quantize_rows(o.float())
+    return x + quant.int8_linear(qa, sa, attn_params["proj"]).to(x.dtype)
 
 
 def _check(x, ws, heads, tensors):
@@ -102,8 +136,13 @@ def fused_window_block_attention(
     shift_size=0 and origin=ws-shift for the roll-free partition) or None.
     The Swin block's shortcut add is always fused (the JAX function's
     `residual=True`, the only value its model passes). Pad-region outputs
-    are unspecified; the caller crops them.
+    are unspecified; the caller crops them. W8A8 blocks (qkv carries
+    `weight_q8`) go to fused_window_block_attention_int8.
     """
+    if "weight_q8" in attn_params["qkv"]:
+        return fused_window_block_attention_int8(
+            x, norm1_params, attn_params, window_size, shift_size, num_heads,
+            attn_mask, h_real, w_real, origin)
     if x.device.type == "cpu":
         return fused_window_block_attention_plain(
             x, norm1_params, attn_params, window_size, shift_size, num_heads,
@@ -139,3 +178,55 @@ def fused_window_block_attention(
 
 
 fused_window_block_attention.launches = 0
+
+
+def fused_window_block_attention_int8(
+        x: torch.Tensor, norm1_params, attn_params, window_size: int,
+        shift_size: int, num_heads: int, attn_mask: Optional[torch.Tensor],
+        h_real: int, w_real: int, origin: int = 0) -> torch.Tensor:
+    """W8A8 x + proj(window attention(LN1(x))), the contract of
+    fused_window_block_attention: plain version on the CPU, the CUDA
+    kernels on a CUDA tensor (bf16 only)."""
+    if x.device.type == "cpu":
+        return fused_window_block_attention_int8_plain(
+            x, norm1_params, attn_params, window_size, shift_size, num_heads,
+            attn_mask, h_real, w_real, origin)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_block_attn_int8 runs on cpu or cuda, got "
+                         f"{x.device}")
+    b, hp, wp, c = x.shape
+    ws, n = window_size, window_size * window_size
+    f32, i8 = torch.float32, torch.int8
+    qkv_p, proj_p = attn_params["qkv"], attn_params["proj"]
+    args = [("ln scale", norm1_params["scale"], f32, (c,)),
+            ("ln bias", norm1_params["bias"], f32, (c,)),
+            ("qkv weight_q8", qkv_p["weight_q8"], i8, (3 * c, c)),
+            ("qkv scale_q8", qkv_p["scale_q8"], f32, (3 * c,)),
+            ("qkv bias", qkv_p["bias"], f32, (3 * c,)),
+            ("proj weight_q8", proj_p["weight_q8"], i8, (c, c)),
+            ("proj scale_q8", proj_p["scale_q8"], f32, (c,)),
+            ("proj bias", proj_p["bias"], f32, (c,)),
+            ("rel-pos bias", attn_params["cached_bias"], f32,
+             (num_heads, n, n))]
+    if attn_mask is not None:
+        args.append(("mask", attn_mask, f32, ((hp // ws) * (wp // ws), n, n)))
+    _check(x, ws, num_heads, [("x", x, torch.bfloat16, tuple(x.shape))] + args)
+    t = b * hp * wp
+    codes = torch.empty((t, c), dtype=i8, device=x.device)
+    scales = torch.empty((t,), dtype=f32, device=x.device)
+    qkv = torch.empty((t, 3 * c), dtype=x.dtype, device=x.device)
+    attn = torch.empty_like(x)
+    out = torch.empty_like(x)
+    ptrs = [a.data_ptr() for _, a, _, _ in args[:9]]
+    mask_ptr = attn_mask.data_ptr() if attn_mask is not None else None
+    fn = build.function("bt_fused_block_attn_i8", 16, 10)
+    code = fn(x.data_ptr(), *ptrs, mask_ptr, codes.data_ptr(),
+              scales.data_ptr(), qkv.data_ptr(), attn.data_ptr(),
+              out.data_ptr(), b, hp, wp, c, num_heads, ws, shift_size, origin,
+              h_real, w_real, torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(code, "fused_block_attn_int8")
+    fused_window_block_attention_int8.launches += 1
+    return out
+
+
+fused_window_block_attention_int8.launches = 0

@@ -353,7 +353,9 @@ def build_param_tree(tensors: Mapping[str, np.ndarray], cfg: BiRefNetConfig,
 
 def from_jax_params(tree) -> Dict:
     """The JAX package's parameter tree (numpy or jax arrays: HWIO conv and
-    [in, out] linear "kernel" leaves, folded BN) -> this package's tree."""
+    [in, out] linear "kernel" leaves, folded BN) -> this package's tree.
+    A tree quantized by the JAX package's `quantize_*_int8` carries int8
+    `kernel_q8` [in, out] leaves; they become int8 `weight_q8` [out, in]."""
     out = {}
     for k, v in tree.items():
         if isinstance(v, Mapping):
@@ -361,9 +363,70 @@ def from_jax_params(tree) -> Dict:
         elif k == "kernel":
             a = np.asarray(v, dtype=np.float32)
             out["weight"] = _t(a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T)
+        elif k == "kernel_q8":
+            out["weight_q8"] = torch.from_numpy(
+                np.ascontiguousarray(np.asarray(v, dtype=np.int8).T))
         else:
             out[k] = _t(np.asarray(v, dtype=np.float32))
     return out
+
+
+# Input width from which the Swin blocks' MLP and attention projections are
+# quantized (the JAX package's threshold: Swin-L stages 2 and 3, C = 768
+# and 1536, where its TPU measurements found the W8A8 kernels faster).
+INT8_MLP_MIN_CHANNELS = 768
+
+
+def _quantize_out_channels(w: torch.Tensor):
+    """Symmetric per-output-channel int8 of a [out, in] weight from its f32
+    values: scale = max(amax, 1e-30) / 127, q = clip(round(w / scale)),
+    rounding half to even, divisions as the JAX package computes them.
+    Returns (int8 [out, in], f32 [out])."""
+    w = w.float()
+    scale = torch.clamp_min(w.abs().amax(dim=1), 1e-30) / 127.0
+    q = torch.clamp(torch.round(w / scale[:, None]), -127.0, 127.0)
+    return q.to(torch.int8).contiguous(), scale
+
+
+def _quantize_blocks(tree, key: str, layers: Tuple[str, str],
+                     min_channels: int):
+    """Add `weight_q8`/`scale_q8` beside `weight` to the two linears of
+    every `key` sub-tree (a Swin block's "mlp" or "attn") whose input width
+    is at least min_channels."""
+    if not isinstance(tree, Mapping):
+        return tree
+    out = {}
+    for k, v in tree.items():
+        if (k == key and isinstance(v, Mapping)
+                and all(name in v for name in layers)
+                and v[layers[0]]["weight"].shape[1] >= min_channels):
+            new = dict(v)
+            for name in layers:
+                q, s = _quantize_out_channels(v[name]["weight"])
+                new[name] = dict(v[name], weight_q8=q, scale_q8=s)
+            out[k] = new
+        else:
+            out[k] = _quantize_blocks(v, key, layers, min_channels)
+    return out
+
+
+def quantize_mlp_int8(params, min_channels: int = INT8_MLP_MIN_CHANNELS):
+    """W8A8 weights for the wide Swin MLPs (ComputeConfig.int8_mlp).
+
+    Counterpart of birefnet_tpu.params.quantize_mlp_int8: for every block
+    whose mlp input width C >= min_channels, fc1 and fc2 gain `weight_q8`
+    (int8 [out, in]) and `scale_q8` (f32 [out]; weight = q * scale),
+    computed once from the f32 weights. The `weight` leaves stay for the
+    unfused path; ops/kernels/fused_mlp.py dispatches on `weight_q8`."""
+    return _quantize_blocks(params, "mlp", ("fc1", "fc2"), min_channels)
+
+
+def quantize_attn_int8(params, min_channels: int = INT8_MLP_MIN_CHANNELS):
+    """W8A8 weights for the wide Swin attention qkv/proj projections
+    (ComputeConfig.int8_attn), the same scheme and selectivity as
+    quantize_mlp_int8; ops/kernels/fused_block_attn.py dispatches on
+    `weight_q8`. The attention core itself stays in the activation dtype."""
+    return _quantize_blocks(params, "attn", ("qkv", "proj"), min_channels)
 
 
 def tree_map(fn: Callable[[str, torch.Tensor], torch.Tensor], tree) -> Dict:

@@ -18,7 +18,8 @@ import torch
 from .configs import IMAGENET_MEAN, IMAGENET_STD, BiRefNetConfig, ComputeConfig
 from .models import birefnet
 from .ops.resize import resize_bilinear_half_pixel, resize_lanczos3
-from .params import cast_matmul_weights, to_device
+from .params import (cast_matmul_weights, quantize_attn_int8,
+                     quantize_mlp_int8, to_device)
 
 
 def preprocess(frames_u8: torch.Tensor, size: Tuple[int, int] = (1024, 1024),
@@ -49,13 +50,26 @@ def make_infer_fn(params, cfg: BiRefNetConfig,
                   as_uint8: bool = True):
     """Build the uint8-in -> mask-out inference function on `device`.
 
-    The matmul and conv weights are cast to `compute.dtype` and the tree is
-    moved to `device` once, here. The returned function takes [B, H, W, 3]
-    uint8 frames (numpy or tensor) and returns [B, out_h, out_w] masks on
-    the device, out_size defaulting to the frame size.
+    `device` defaults to the CUDA device; pass "cpu" to run the plain
+    PyTorch versions on the CPU. The tree is moved to `device` once, here;
+    under `compute.int8_mlp` / `int8_attn` the wide Swin blocks' weights
+    are quantized from the f32 values (params.quantize_*_int8) before the
+    matmul and conv weights are cast to `compute.dtype`, as the JAX
+    package does. The returned function takes [B, H, W, 3] uint8 frames
+    (numpy or tensor) and returns [B, out_h, out_w] masks on the device,
+    out_size defaulting to the frame size.
     """
-    device = torch.device(device if device is not None else "cpu")
-    params = to_device(cast_matmul_weights(params, compute.dtype), device)
+    device = torch.device(device if device is not None else "cuda")
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("make_infer_fn runs on the CUDA device unless "
+                           "device='cpu' is given, and no CUDA device is "
+                           "available")
+    params = to_device(params, device)
+    if compute.int8_mlp:
+        params = quantize_mlp_int8(params)
+    if compute.int8_attn:
+        params = quantize_attn_int8(params)
+    params = cast_matmul_weights(params, compute.dtype)
 
     @torch.inference_mode()
     def infer(frames_u8) -> torch.Tensor:

@@ -9,10 +9,12 @@ PIL and writes `<name>_mask.png` files.
 
 Usage:
   python -m birefnet_tpu_torch.serve imgs/*.jpg --out masks/ \
-      --checkpoint model.safetensors --batch 2 --dtype bfloat16
+      --checkpoint model.safetensors --batch 2 --dtype bfloat16 \
+      --int8-mlp --int8-attn
 
-Single device only: the JAX package's --dp/--spatial meshes, --aot-dir
-executables and the deformable modes are not ported and are refused.
+It runs on the CUDA device, and on the CPU only under --cpu. Single device
+only: the JAX package's --dp/--spatial meshes, --aot-dir executables and
+the deformable modes are not ported and are refused.
 """
 
 from __future__ import annotations
@@ -79,23 +81,29 @@ def main(argv=None) -> int:
                                  "auto"))
     parser.add_argument("--cpu", action="store_true",
                         help="run on the CPU (plain PyTorch, no kernels)")
+    parser.add_argument("--int8-mlp", action="store_true",
+                        help="W8A8 int8 MLP kernels at the wide Swin stages "
+                        "(C >= 768; CUDA kernel tier only)")
+    parser.add_argument("--int8-attn", action="store_true",
+                        help="W8A8 int8 attention qkv/proj at the same "
+                        "stages (CUDA kernel tier only)")
     # Accepted for command-line parity with birefnet_tpu.serve, refused below.
-    parser.add_argument("--int8-mlp", action="store_true")
-    parser.add_argument("--int8-attn", action="store_true")
     parser.add_argument("--aot-dir", default=None)
     parser.add_argument("--dp", type=int, default=0)
     parser.add_argument("--spatial", type=int, default=1)
     args = parser.parse_args(argv)
 
     unported = {"--dp": args.dp, "--spatial": args.spatial != 1,
-                "--aot-dir": args.aot_dir, "--int8-mlp": args.int8_mlp,
-                "--int8-attn": args.int8_attn,
+                "--aot-dir": args.aot_dir,
                 "--deform-mode": args.deform_mode != "regular"}
     refused = [flag for flag, on in unported.items() if on]
     if refused:
         parser.error(f"{', '.join(refused)} not ported to birefnet_tpu_torch "
                      "yet (single device, bf16/f32, deform-mode regular; see "
                      "ROADMAP.md)")
+    if not args.cpu and not torch.cuda.is_available():
+        parser.error("no CUDA device is available; pass --cpu to run on "
+                     "the CPU")
 
     paths = _paths(args.inputs)
     if not paths:
@@ -111,13 +119,13 @@ def main(argv=None) -> int:
 
     cfg = dataclasses.replace(BiRefNetConfig.for_backbone(args.backbone),
                               size=(args.size, args.size))
-    device = torch.device("cpu" if args.cpu or not torch.cuda.is_available()
-                          else "cuda")
+    device = torch.device("cpu" if args.cpu else "cuda")
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
     compute = ComputeConfig(
         dtype=dtype,
         use_flash_attention=(device.type == "cuda" and dtype == torch.bfloat16
-                             and "DISABLE_FLASH_ATTN" not in os.environ))
+                             and "DISABLE_FLASH_ATTN" not in os.environ),
+        int8_mlp=args.int8_mlp, int8_attn=args.int8_attn)
     print(f"Loading {args.checkpoint} ...")
     params = load_checkpoint(args.checkpoint, cfg)
     infer = make_infer_fn(params, cfg, compute, device,

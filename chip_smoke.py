@@ -6,23 +6,36 @@
 Phases, each printed as it runs; any failure exits non-zero:
 
 1. the device, and `nvidia-smi --query-gpu=name,power.limit`;
-2. build the CUDA kernels from birefnet_tpu_torch/csrc with nvcc;
+2. build the CUDA kernels from birefnet_tpu_torch/csrc with nvcc (one nvcc
+   process per source, all in parallel);
 3. check each hand-written kernel against its plain PyTorch version on the
-   same bf16 inputs at every shape the Swin-L 1024^2 batch-2 forward gives
-   it (bound max|kernel - plain| <= 2e-2 * max|plain|) and time both;
-4. drive the main path, pipeline.make_infer_fn (Swin-L, 1024^2, batch 2,
-   bf16, kernel tier, regular deform mode, random_checkpoint(cfg, 0)), on
-   uint8 frames: count each kernel's launches in that one call (48 / 48 /
-   16 / 1), check the masks against the f32 plain pipeline on the card
-   (mask MAE < 1e-3, TF32 off), and check the f32 plain forward at 64^2
-   against the JAX package's committed golden logits;
-5. serve 4 in-memory requests of different sizes through serve.segment;
+   same inputs at every shape the Swin-L 1024^2 batch-2 forward gives it
+   (bound max|kernel - plain| <= 2e-2 * max|plain|), bf16 kernels on bf16
+   weights and the W8A8 kernels (K1-int8, K3) on weights quantized from
+   f32 by params.quantize_*_int8; time each kernel, its plain version and,
+   where one PyTorch call computes the same function, that call; compute
+   each call's bound (the larger of its bytes over 3.35 TB/s and its
+   operations over the H100's published peak for their type);
+4. drive both paths of pipeline.make_infer_fn (Swin-L, 1024^2, batch 2,
+   bf16, kernel tier, regular deform mode, random_checkpoint(cfg, 0)) on
+   uint8 frames, each with every launch count set to 0 just before it:
+   the bf16 tier (48 / 0 / 48 / 0 / 16 / 1 launches of K1, K1-int8, K2,
+   K3, row_ln, tap_conv) and the int8 main path, int8_mlp and int8_attn on
+   (8 / 40 / 8 / 40 / 16 / 1); check each mask against the f32 plain
+   pipeline on the card (mask MAE < 1e-3, TF32 off), print the int8
+   mask's difference from the bf16 tier's, and check the f32 plain forward
+   at 64^2 against the JAX package's committed golden logits;
+5. serve 4 in-memory requests of different sizes through serve.segment on
+   the bf16 tier and on the int8 path;
 6. time the pipeline's images/s with CUDA events (median of 5 calls after
-   warm-up) on the kernel tier and on the plain bf16 tier.
+   warm-up) on the int8 path, the bf16 kernel tier and the plain bf16
+   tier, in turns.
 
-The line before the last is the JSON kernel report, the last line
-`{"ok": true, "device": {...}}`. Without a CUDA device, or without the
-package beside this file, it exits 1 and prints no result.
+The line before the last is the nvidia-smi name/power line, the one
+before it the JSON kernel report (`launches` from the int8 main path,
+`launches_by_path` from both), the last line `{"ok": true, "device":
+{...}}`. Without a CUDA device, or without the package beside this file,
+it exits 1 and prints no result.
 """
 
 import json
@@ -40,7 +53,11 @@ STAGES = {"full": [(256, 192, 6, 2), (128, 384, 12, 2), (64, 768, 24, 18),
                    (32, 1536, 48, 2)],
           "half": [(128, 192, 6, 2), (64, 384, 12, 2), (32, 768, 24, 18),
                    (16, 1536, 48, 2)]}
+INT8_MIN_C = 768  # params.INT8_MLP_MIN_CHANNELS
 BOUND = 2e-2
+# Published H100 SXM peaks (dense): memory bytes/s and operations/s by type.
+MEM_RATE = 3.35e12
+PEAK = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 
 
 def fail(msg: str) -> None:
@@ -66,16 +83,27 @@ def cuda_ms(torch, fn, reps: int = 10) -> float:
     return start.elapsed_time(end) / reps
 
 
-class KernelReport:
-    """Per-kernel max error and time per forward (sum over shapes of the
-    per-call time times the calls per forward at that shape)."""
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
-    def __init__(self, name, route, source, replaces):
+
+class KernelReport:
+    """Per-kernel max error, and per forward (sum over shapes of the calls
+    per forward times the per-call value): kernel, plain and library time,
+    and the bound."""
+
+    def __init__(self, name, route, source, replaces, wrapper):
+        self.wrapper = wrapper
         self.entry = {"name": name, "route": route, "source": source,
                       "replaces": replaces, "launches": None,
-                      "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
+                      "launches_by_path": {}, "max_abs_err": 0.0, "ms": 0.0,
+                      "plain_ms": 0.0, "bound_ms": 0.0, "bound_by": None,
+                      "library_ms": None}
+        self.bytes_ms = self.ops_ms = 0.0
 
-    def check(self, torch, label, calls, kernel_fn, plain_fn, crop=None):
+    def check(self, torch, label, calls, kernel_fn, plain_fn, work,
+              crop=None, library_fn=None):
+        """work = (bytes moved, {type: operations}) of one call."""
         got, want = kernel_fn(), plain_fn()
         torch.cuda.synchronize()
         if crop is not None:
@@ -87,18 +115,33 @@ class KernelReport:
         err = float((got - want).abs().max())
         bound = BOUND * float(want.abs().max())
         ms, plain_ms = cuda_ms(torch, kernel_fn), cuda_ms(torch, plain_fn)
+        byte_ms = work[0] / MEM_RATE * 1e3
+        op_ms = sum(n / PEAK[kind] for kind, n in work[1].items()) * 1e3
+        lib = ""
+        if library_fn is not None:
+            lib_ms = cuda_ms(torch, library_fn)
+            lib = f"  library {lib_ms:.4f} ms"
+            self.entry["library_ms"] = (self.entry["library_ms"] or 0.0) + \
+                calls * lib_ms
         log(f"{self.entry['name']:<17} {label:<34} max|k-p| {err:.3e} "
             f"(bound {bound:.3e})  kernel {ms:.4f} ms  plain {plain_ms:.4f} "
-            f"ms  x{calls}/forward")
+            f"ms{lib}  least {max(byte_ms, op_ms):.4f} ms  x{calls}/forward")
         if not err <= bound:
             fail(f"{self.entry['name']} {label}: max|k-p| {err} > {bound}")
         e = self.entry
         e["max_abs_err"] = max(e["max_abs_err"], err)
         e["ms"] += calls * ms
         e["plain_ms"] += calls * plain_ms
+        e["bound_ms"] += calls * max(byte_ms, op_ms)
+        self.bytes_ms += calls * byte_ms
+        self.ops_ms += calls * op_ms
+        e["bound_by"] = "bytes" if self.bytes_ms >= self.ops_ms else "operations"
 
 
 def check_kernels(torch, dev):
+    import torch.nn.functional as F
+
+    from birefnet_tpu_torch import params as P
     from birefnet_tpu_torch.models import swin
     from birefnet_tpu_torch.ops import window as W
     from birefnet_tpu_torch.ops.kernels import (fused_block_attn, fused_mlp,
@@ -113,54 +156,106 @@ def check_kernels(torch, dev):
     def ln_params(c):
         return {"scale": 1 + 0.1 * randn((c,)), "bias": 0.1 * randn((c,))}
 
-    k1 = KernelReport("fused_block_attn", "cuda",
-                      "birefnet_tpu_torch/csrc/fused_block_attn.cu",
-                      "birefnet_tpu/ops/pallas/fused_block_attn.py:250")
-    k2 = KernelReport("fused_mlp", "cuda", "birefnet_tpu_torch/csrc/fused_mlp.cu",
-                      "birefnet_tpu/ops/pallas/fused_mlp.py:166")
-    k4 = KernelReport("row_ln", "triton",
-                      "birefnet_tpu_torch/ops/kernels/row_ln_triton.py",
-                      "birefnet_tpu/ops/pallas/row_ln.py:43")
-    k5 = KernelReport("tap_conv", "cuda", "birefnet_tpu_torch/csrc/tap_conv.cu",
-                      "birefnet_tpu/ops/pallas/tap_conv.py:55")
+    def lin(i, o):
+        return {"weight": randn((o, i), 0.05), "bias": 0.1 * randn((o,))}
+
+    reports = {
+        "fused_block_attn": KernelReport(
+            "fused_block_attn", "cuda", "birefnet_tpu_torch/csrc/fused_block_attn.cu",
+            "birefnet_tpu/ops/pallas/fused_block_attn.py:250",
+            fused_block_attn.fused_window_block_attention),
+        "fused_block_attn_int8": KernelReport(
+            "fused_block_attn_int8", "cuda",
+            "birefnet_tpu_torch/csrc/fused_block_attn.cu",
+            "birefnet_tpu/ops/pallas/fused_block_attn.py:100",
+            fused_block_attn.fused_window_block_attention_int8),
+        "fused_mlp": KernelReport(
+            "fused_mlp", "cuda", "birefnet_tpu_torch/csrc/fused_mlp.cu",
+            "birefnet_tpu/ops/pallas/fused_mlp.py:166", fused_mlp.fused_mlp_residual),
+        "fused_mlp_int8": KernelReport(
+            "fused_mlp_int8", "cuda", "birefnet_tpu_torch/csrc/fused_mlp_i8.cu",
+            "birefnet_tpu/ops/pallas/fused_mlp.py:186",
+            fused_mlp.fused_mlp_residual_int8),
+        "row_ln": KernelReport(
+            "row_ln", "triton", "birefnet_tpu_torch/ops/kernels/row_ln_triton.py",
+            "birefnet_tpu/ops/pallas/row_ln.py:43", row_ln.layer_norm_rows),
+        "tap_conv": KernelReport(
+            "tap_conv", "cuda", "birefnet_tpu_torch/csrc/tap_conv.cu",
+            "birefnet_tpu/ops/pallas/tap_conv.py:55", tap_conv.tap_conv_same),
+    }
+    k1, k1q = reports["fused_block_attn"], reports["fused_block_attn_int8"]
+    k2, k3 = reports["fused_mlp"], reports["fused_mlp_int8"]
+    k4, k5 = reports["row_ln"], reports["tap_conv"]
 
     for pass_name, stages in STAGES.items():
         for i, (h, c, heads, depth) in enumerate(stages):
             x = randn((BATCH, h, h, c), 1.0, bf)
             norm1 = ln_params(c)
-            attn = {"qkv": {"weight": randn((3 * c, c), 0.05, bf),
-                            "bias": 0.1 * randn((3 * c,))},
-                    "proj": {"weight": randn((c, c), 0.05, bf),
-                             "bias": 0.1 * randn((c,))},
-                    "cached_bias": randn((heads, WS * WS, WS * WS))}
+            attn32 = {"qkv": lin(c, 3 * c), "proj": lin(c, c),
+                      "cached_bias": randn((heads, WS * WS, WS * WS))}
+            attn = P.cast_matmul_weights(attn32, bf)
+            attn_q = P.cast_matmul_weights(
+                P.quantize_attn_int8({"attn": attn32}, 0)["attn"], bf)
             hp = -(-h // WS) * WS
             cyclic_mask = W.sw_msa_mask(hp, hp, WS, WS // 2, dev)
             for shift in (0, WS // 2):
                 canvas, k_shift, mask, origin = swin.fused_block_canvas(
                     x, WS, shift, cyclic_mask)
-                args = (canvas, norm1, attn, WS, k_shift, heads, mask, h, h,
-                        origin)
                 route = ("offset" if origin else "roll") if shift else "unshifted"
+                t = canvas.numel() // c
+                core = 4 * WS * WS * c * t  # q k^T and P v, every head
+                side = nbytes(canvas, norm1["scale"], norm1["bias"],
+                              attn["cached_bias"], mask) + canvas.numel() * 2
 
-                def crop(t, k_shift=k_shift, origin=origin):
+                def crop(y, k_shift=k_shift, origin=origin):
                     if k_shift:
-                        t = W.roll_2d(t, k_shift, k_shift)
-                    return t[:, origin:origin + h, origin:origin + h]
+                        y = W.roll_2d(y, k_shift, k_shift)
+                    return y[:, origin:origin + h, origin:origin + h]
 
-                k1.check(torch, f"{pass_name} st{i} Hp={hp} C={c} {route}",
-                         depth // 2,
-                         lambda: fused_block_attn.fused_window_block_attention(*args),
-                         lambda: fused_block_attn.fused_window_block_attention_plain(*args),
-                         crop)
+                for rep, p, kernel, plain, weights, ops in (
+                        (k1, attn, fused_block_attn.fused_window_block_attention,
+                         fused_block_attn.fused_window_block_attention_plain,
+                         (attn["qkv"]["weight"], attn["qkv"]["bias"],
+                          attn["proj"]["weight"], attn["proj"]["bias"]),
+                         {"bf16": 8 * c * c * t + core}),
+                        (k1q, attn_q,
+                         fused_block_attn.fused_window_block_attention_int8,
+                         fused_block_attn.fused_window_block_attention_int8_plain,
+                         tuple(attn_q[n][k] for n in ("qkv", "proj")
+                               for k in ("weight_q8", "scale_q8", "bias")),
+                         {"int8": 8 * c * c * t, "bf16": core})):
+                    if rep is k1q and c < INT8_MIN_C:
+                        continue
+                    args = (canvas, norm1, p, WS, k_shift, heads, mask, h, h,
+                            origin)
+                    rep.check(torch, f"{pass_name} st{i} Hp={hp} C={c} {route}",
+                              depth // 2,
+                              lambda kernel=kernel, args=args: kernel(*args),
+                              lambda plain=plain, args=args: plain(*args),
+                              (side + nbytes(*weights), ops), crop)
             x2 = randn((BATCH * h * h, c), 1.0, bf)
             norm2 = ln_params(c)
-            mlp = {"fc1": {"weight": randn((4 * c, c), 0.05, bf),
-                           "bias": 0.1 * randn((4 * c,))},
-                   "fc2": {"weight": randn((c, 4 * c), 0.05, bf),
-                           "bias": 0.1 * randn((c,))}}
-            k2.check(torch, f"{pass_name} st{i} T={x2.shape[0]} C={c}", depth,
+            mlp32 = {"fc1": lin(c, 4 * c), "fc2": lin(4 * c, c)}
+            mlp = P.cast_matmul_weights(mlp32, bf)
+            mlp_q = P.cast_matmul_weights(
+                P.quantize_mlp_int8({"mlp": mlp32}, 0)["mlp"], bf)
+            t = x2.shape[0]
+            side = 2 * nbytes(x2) + nbytes(norm2["scale"], norm2["bias"])
+            k2.check(torch, f"{pass_name} st{i} T={t} C={c}", depth,
                      lambda: fused_mlp.fused_mlp_residual(x2, norm2, mlp),
-                     lambda: fused_mlp.fused_mlp_residual_plain(x2, norm2, mlp))
+                     lambda: fused_mlp.fused_mlp_residual_plain(x2, norm2, mlp),
+                     (side + nbytes(*(mlp[n][k] for n in ("fc1", "fc2")
+                                      for k in ("weight", "bias"))),
+                      {"bf16": 16 * c * c * t}))
+            if c >= INT8_MIN_C:
+                k3.check(torch, f"{pass_name} st{i} T={t} C={c}", depth,
+                         lambda: fused_mlp.fused_mlp_residual_int8(x2, norm2, mlp_q),
+                         lambda: fused_mlp.fused_mlp_residual_int8_plain(
+                             x2, norm2, mlp_q),
+                         (side + nbytes(*(mlp_q[n][k] for n in ("fc1", "fc2")
+                                          for k in ("weight_q8", "scale_q8",
+                                                    "bias"))),
+                          {"int8": 16 * c * c * t}))
             # Row-LN sites: the stage-output norm, plus the patch-embed norm
             # before stage 0 and the patch-merge norm after stages 0-2.
             sites = [("stage norm", BATCH * h * h, c)]
@@ -171,19 +266,47 @@ def check_kernels(torch, dev):
             for site, n, cc in sites:
                 xr = randn((n, cc), 3.0, bf)
                 p = ln_params(cc)
+                pb = {k: v.to(bf) for k, v in p.items()}
                 k4.check(torch, f"{pass_name} {site} [{n},{cc}]", 1,
                          lambda: row_ln.layer_norm_rows(p, xr),
-                         lambda: row_ln.layer_norm_rows_plain(p, xr))
+                         lambda: row_ln.layer_norm_rows_plain(p, xr),
+                         (2 * nbytes(xr) + nbytes(p["scale"], p["bias"]),
+                          {"f32": 8 * n * cc}),
+                         library_fn=lambda: F.layer_norm(
+                             xr, (cc,), pb["scale"], pb["bias"], 1e-5))
 
     xi = randn((BATCH, SIZE, SIZE, 3), 1.0, bf)
     kk, kb = randn((5, 5, 3, 1), 0.2), randn((1,))
+    xc = xi.permute(0, 3, 1, 2)  # channels-last NCHW view
+    wc, bc = kk[..., 0].permute(2, 0, 1)[None].to(bf), kb.to(bf)
     k5.check(torch, f"[{BATCH},{SIZE},{SIZE},3]", 1,
              lambda: tap_conv.tap_conv_same(xi, kk, kb),
-             lambda: tap_conv.tap_conv_same_plain(xi, kk, kb))
-    return {"fused_block_attn": (k1, fused_block_attn.fused_window_block_attention),
-            "fused_mlp": (k2, fused_mlp.fused_mlp_residual),
-            "row_ln": (k4, row_ln.layer_norm_rows),
-            "tap_conv": (k5, tap_conv.tap_conv_same)}
+             lambda: tap_conv.tap_conv_same_plain(xi, kk, kb),
+             (nbytes(xi, kk, kb) + BATCH * SIZE * SIZE * 2,
+              {"f32": 2 * 75 * BATCH * SIZE * SIZE}),
+             library_fn=lambda: F.conv2d(xc, wc, bc, padding=2))
+    return reports
+
+
+def drive(torch, reports, infer, frames, want, path):
+    """One make_infer_fn call with every count set to 0 just before it;
+    checks the counts read just after against `want`."""
+    for r in reports.values():
+        r.wrapper.launches = 0
+    mask = infer(frames)
+    torch.cuda.synchronize()
+    counts = {name: r.wrapper.launches for name, r in reports.items()}
+    log(f"phase 4: {path}: launches in one make_infer_fn call: {counts}")
+    if counts != want:
+        fail(f"{path} launch counts {counts} != {want}")
+    for name, r in reports.items():
+        r.entry["launches_by_path"][path] = counts[name]
+    if tuple(mask.shape) != (BATCH, SIZE, SIZE) or not bool(
+            torch.isfinite(mask).all()) or float(mask.min()) < 0 or float(
+            mask.max()) > 1:
+        fail(f"{path}: bad mask: shape {tuple(mask.shape)}, range "
+             f"[{float(mask.min())}, {float(mask.max())}]")
+    return mask
 
 
 def main() -> int:
@@ -219,7 +342,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     with torch.inference_mode():
-        kernels = check_kernels(torch, dev)
+        reports = check_kernels(torch, dev)
     log("phase 3: every kernel within its bound at every slice shape")
 
     cfg = BiRefNetConfig.swin_l()
@@ -228,32 +351,29 @@ def main() -> int:
         0, 256, size=(BATCH, SIZE, SIZE, 3), dtype=np.uint8)
     frames_dev = torch.from_numpy(frames).to(dev)
     bf16 = ComputeConfig(dtype=torch.bfloat16, use_flash_attention=True)
-    infer = pipeline.make_infer_fn(params, cfg, bf16, dev, as_uint8=False)
-    for _, fn in kernels.values():
-        fn.launches = 0
-    mask = infer(frames_dev)
-    torch.cuda.synchronize()
-    want = {"fused_block_attn": 48, "fused_mlp": 48, "row_ln": 16, "tap_conv": 1}
-    counts = {name: fn.launches for name, (_, fn) in kernels.items()}
-    log(f"phase 4: launches in one make_infer_fn call: {counts}")
-    if counts != want:
-        fail(f"launch counts {counts} != {want}")
-    for name, (report, _) in kernels.items():
-        report.entry["launches"] = counts[name]
-    if tuple(mask.shape) != (BATCH, SIZE, SIZE) or not bool(
-            torch.isfinite(mask).all()) or float(mask.min()) < 0 or float(
-            mask.max()) > 1:
-        fail(f"bad mask: shape {tuple(mask.shape)}, range "
-             f"[{float(mask.min())}, {float(mask.max())}]")
-    ref_infer = pipeline.make_infer_fn(params, cfg, ComputeConfig(), dev,
+    int8 = bf16.with_overrides(int8_mlp=True, int8_attn=True)
+    names = list(reports)
+    tiers = {"bf16": (bf16, dict(zip(names, (48, 0, 48, 0, 16, 1)))),
+             "int8": (int8, dict(zip(names, (8, 40, 8, 40, 16, 1))))}
+    ref = pipeline.make_infer_fn(params, cfg, ComputeConfig(), dev,
+                                 as_uint8=False)(frames_dev)
+    masks = {}
+    for path, (compute, want) in tiers.items():
+        infer = pipeline.make_infer_fn(params, cfg, compute, dev,
                                        as_uint8=False)
-    ref = ref_infer(frames_dev)
-    mae = float((mask - ref).abs().mean())
-    log(f"phase 4: bf16 kernel-tier mask MAE vs f32 plain pipeline = {mae:.3e} "
-        f"(gate < 1e-3)")
-    if not mae < 1e-3:
-        fail(f"mask MAE {mae} >= 1e-3")
-    del ref_infer, ref
+        masks[path] = drive(torch, reports, infer, frames_dev, want, path)
+        del infer
+        mae = float((masks[path] - ref).abs().mean())
+        log(f"phase 4: {path}: mask MAE vs f32 plain pipeline = {mae:.3e} "
+            f"(gate < 1e-3)")
+        if not mae < 1e-3:
+            fail(f"{path} mask MAE {mae} >= 1e-3")
+    d = (masks["int8"] - masks["bf16"]).abs()
+    log(f"phase 4: int8 vs bf16 kernel-tier masks: mean |diff| "
+        f"{float(d.mean()):.3e}, max {float(d.max()):.3e} (not gated)")
+    for r in reports.values():
+        r.entry["launches"] = r.entry["launches_by_path"]["int8"]
+    del ref, masks, d
 
     golden = os.path.join(ROOT, "tests", "goldens", "logits_jax.npy")
     golden_cfg = BiRefNetConfig.swin_l()
@@ -271,22 +391,26 @@ def main() -> int:
         fail(f"golden logits differ by {diff.max()}")
     del params_golden
 
-    serve_infer = pipeline.make_infer_fn(params, cfg, bf16, dev,
-                                         out_size=(SIZE, SIZE))
     rng = np.random.default_rng(7)
     sizes = [(720, 1280), (1024, 1024), (480, 640), (1500, 900)]
     images = [rng.integers(0, 256, (h, w, 3), dtype=np.uint8) for h, w in sizes]
-    masks = serve.segment(serve_infer, images, SIZE, BATCH)
-    got = [m.shape for m in masks]
-    log(f"phase 5: served {len(masks)} requests, mask shapes {got}")
-    if got != sizes or any(m.dtype != np.uint8 for m in masks):
-        fail(f"served mask shapes {got} != {sizes}")
+    for path, (compute, _) in tiers.items():
+        serve_infer = pipeline.make_infer_fn(params, cfg, compute, dev,
+                                             out_size=(SIZE, SIZE))
+        served = serve.segment(serve_infer, images, SIZE, BATCH)
+        got = [m.shape for m in served]
+        log(f"phase 5: {path}: served {len(served)} requests, mask shapes {got}")
+        if got != sizes or any(m.dtype != np.uint8 for m in served):
+            fail(f"{path}: served mask shapes {got} != {sizes}")
+        del serve_infer
 
-    plain = pipeline.make_infer_fn(params, cfg,
-                                   ComputeConfig(dtype=torch.bfloat16), dev)
-    fast = pipeline.make_infer_fn(params, cfg, bf16, dev)
-    for name, fn in (("kernel tier", fast), ("plain bf16", plain),
-                     ("kernel tier", fast)):
+    fns = {"int8 path": pipeline.make_infer_fn(params, cfg, int8, dev),
+           "bf16 kernel tier": pipeline.make_infer_fn(params, cfg, bf16, dev),
+           "plain bf16": pipeline.make_infer_fn(
+               params, cfg, ComputeConfig(dtype=torch.bfloat16), dev)}
+    order = list(fns) + list(fns)[::-1]
+    for name in order:
+        fn = fns[name]
         ms = []
         fn(frames_dev)
         for _ in range(5):
@@ -301,7 +425,7 @@ def main() -> int:
         log(f"phase 6: {name}: median {med:.2f} ms per batch of {BATCH} -> "
             f"{BATCH / (med / 1e3):.2f} img/s ({smi})")
 
-    print(json.dumps({"kernels": [r.entry for r, _ in kernels.values()]}))
+    print(json.dumps({"kernels": [r.entry for r in reports.values()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -10,7 +10,9 @@ machine does not have; this file imports torch and the port only).
 Bound for every comparison: max|kernel - plain| <= 2e-2 * max|plain|. The
 two round to bf16 at the same points but sum in other orders, and the
 plain version rounds its matmul outputs to bf16 before adding the f32
-biases where the kernels add them in f32 first.
+biases where the kernels add them in f32 first. The int8 kernels' integer
+products are exact like their plain versions'; a LayerNorm or softmax sum
+in another order can flip one int8 code by a step.
 """
 
 import os
@@ -19,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from birefnet_tpu_torch import params as pparams
 from birefnet_tpu_torch.models import swin
 from birefnet_tpu_torch.ops import window as W
 from birefnet_tpu_torch.ops.kernels import (fused_block_attn, fused_mlp,
@@ -120,6 +123,60 @@ def test_fused_block_attn_kernel_matches_plain(dev, shift, hw, heads, c):
     _assert_close(got[crop], want[crop])
 
 
+def _quantized(tree, key):
+    """The tree's `key` linears quantized from f32, then cast to bf16."""
+    fn = (pparams.quantize_mlp_int8 if key == "mlp"
+          else pparams.quantize_attn_int8)
+    return pparams.cast_matmul_weights(fn({key: tree}, 0)[key],
+                                       torch.bfloat16)
+
+
+@pytest.mark.parametrize("t,c", [(100, 64), (512, 192), (48, 1536)])
+def test_fused_mlp_int8_kernel_matches_plain(dev, t, c):
+    gen = torch.Generator(dev).manual_seed(6)
+    x = _randn(gen, (t, c), dev, 1.0, torch.bfloat16)
+    n2, mlp = _mlp_params(gen, c, dev)
+    mlp = _quantized(pparams.tree_map(lambda _, v: v.float(), mlp), "mlp")
+    n0, n16 = (fused_mlp.fused_mlp_residual_int8.launches,
+               fused_mlp.fused_mlp_residual.launches)
+    got = fused_mlp.fused_mlp_residual(x, n2, mlp)
+    assert fused_mlp.fused_mlp_residual_int8.launches == n0 + 1
+    assert fused_mlp.fused_mlp_residual.launches == n16
+    _assert_close(got, fused_mlp.fused_mlp_residual_int8_plain(x, n2, mlp))
+
+
+@pytest.mark.parametrize("shift", [0, 6])
+@pytest.mark.parametrize("hw", [(24, 24), (20, 17), (16, 16)])
+@pytest.mark.parametrize("heads,c", [(2, 64), (6, 192)])
+def test_fused_block_attn_int8_kernel_matches_plain(dev, shift, hw, heads, c):
+    gen = torch.Generator(dev).manual_seed(7)
+    h, w = hw
+    x = _randn(gen, (2, h, w, c), dev, 1.0, torch.bfloat16)
+    norm1, attn = _block_params(gen, c, heads, dev)
+    attn = _quantized(pparams.tree_map(lambda _, v: v.float(), attn), "attn")
+    hp, wp = -(-h // 12) * 12, -(-w // 12) * 12
+    canvas, k_shift, k_mask, origin = swin.fused_block_canvas(
+        x, 12, shift, W.sw_msa_mask(hp, wp, 12, 6, dev))
+    args = (canvas, norm1, attn, 12, k_shift, heads, k_mask, h, w, origin)
+    n0 = fused_block_attn.fused_window_block_attention_int8.launches
+    got = fused_block_attn.fused_window_block_attention(*args)
+    assert fused_block_attn.fused_window_block_attention_int8.launches == n0 + 1
+    want = fused_block_attn.fused_window_block_attention_int8_plain(*args)
+    crop = (slice(None), slice(origin, origin + h), slice(origin, origin + w))
+    if k_shift:
+        got = W.roll_2d(got, k_shift, k_shift)
+        want = W.roll_2d(want, k_shift, k_shift)
+    _assert_close(got[crop], want[crop])
+
+
+def test_int8_kernels_refuse_f32(dev):
+    gen = torch.Generator(dev).manual_seed(8)
+    n2, mlp = _mlp_params(gen, 64, dev)
+    mlp = _quantized(pparams.tree_map(lambda _, v: v.float(), mlp), "mlp")
+    with pytest.raises(TypeError):
+        fused_mlp.fused_mlp_residual(torch.zeros((16, 64), device=dev), n2, mlp)
+
+
 @pytest.mark.parametrize("shape", [(2, 32, 40, 3), (1, 70, 130, 3)])
 def test_tap_conv_kernel_matches_plain(dev, shape):
     gen = torch.Generator(dev).manual_seed(3)
@@ -168,3 +225,35 @@ def test_swin_kernel_tier_matches_f32_plain(dev):
     for g, r in zip(got, ref):
         err = (g.float() - r).abs().mean().item()
         assert err < 5e-2, f"mean |bf16 kernels - f32 plain| = {err}"
+
+
+def test_swin_int8_kernel_tier_matches_f32_plain(dev):
+    """The narrow Swin with its stages 2 and 3 (C >= 256) quantized: those
+    blocks launch the int8 kernels, the others the bf16 ones."""
+    from birefnet_tpu_torch.configs import ComputeConfig, SwinConfig
+    from birefnet_tpu_torch.params import (_Source, _swin, _swin_entries,
+                                           cast_matmul_weights, tree_map)
+
+    cfg = SwinConfig(embed_dim=64, depths=(2, 2, 2, 2), num_heads=(2, 4, 8, 16))
+    rng = np.random.default_rng(9)
+    flat = {k: rng.normal(0, 0.05, s).astype(np.float32)
+            for k, s in _swin_entries("bb", cfg)}
+    params = tree_map(lambda _, v: v.to(dev), _swin(_Source(flat), "bb", cfg))
+    x = torch.from_numpy(rng.normal(size=(2, 128, 128, 3)).astype(np.float32))
+    x = x.to(dev)
+    ref = swin.swin_forward(params, cfg, x, ComputeConfig())
+    q = pparams.quantize_attn_int8(pparams.quantize_mlp_int8(params, 256), 256)
+    counters = (fused_block_attn.fused_window_block_attention,
+                fused_block_attn.fused_window_block_attention_int8,
+                fused_mlp.fused_mlp_residual, fused_mlp.fused_mlp_residual_int8,
+                row_ln.layer_norm_rows)
+    before = [f.launches for f in counters]
+    got = swin.swin_forward(cast_matmul_weights(q, torch.bfloat16), cfg,
+                            x.to(torch.bfloat16),
+                            ComputeConfig(dtype=torch.bfloat16,
+                                          use_flash_attention=True,
+                                          int8_mlp=True, int8_attn=True))
+    assert [f.launches - b for f, b in zip(counters, before)] == [4, 4, 4, 4, 8]
+    for g, r in zip(got, ref):
+        err = (g.float() - r).abs().mean().item()
+        assert err < 5e-2, f"mean |int8 kernels - f32 plain| = {err}"

@@ -82,9 +82,28 @@ def test_strict_loader_reports_schema_errors(flat):
         pt.build_param_tree(missing, PCFG)
 
 
-@pytest.mark.parametrize("kw", [{"int8_mlp": True}, {"int8_attn": True},
-                                {"deform_mode": "deformable"},
-                                {"deform_mode": "deformable-local"}])
+# The deformable modes stay refused on every tier and dtype, int8 or not.
+@pytest.mark.parametrize("kw", [
+    {"deform_mode": "deformable", "dtype": torch.bfloat16,
+     "use_flash_attention": True},
+    {"deform_mode": "deformable-local", "int8_mlp": True, "int8_attn": True},
+    {"deform_mode": "deformable"},
+    {"deform_mode": "deformable-local"}])
 def test_unported_compute_options_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pt.ComputeConfig(**kw)
+
+
+@pytest.mark.parametrize("kw", [{"int8_mlp": True}, {"int8_attn": True},
+                                {"int8_mlp": True, "int8_attn": True,
+                                 "dtype": torch.bfloat16,
+                                 "use_flash_attention": True}])
+def test_int8_compute_options_construct(kw):
+    compute = pt.ComputeConfig(**kw)
+    for k, v in kw.items():
+        assert getattr(compute, k) == v
+
+
+def test_int8_threshold_matches_jax():
+    from birefnet_tpu import params as jparams
+    assert pparams.INT8_MLP_MIN_CHANNELS == jparams.INT8_MLP_MIN_CHANNELS

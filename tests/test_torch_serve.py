@@ -47,13 +47,53 @@ def test_serve_main_writes_masks_at_image_sizes(tmp_path, ckpt_path):
         assert m.shape == (h, w) and m.dtype == np.uint8
 
 
-@pytest.mark.parametrize("flag", [["--dp", "2"], ["--int8-mlp"],
+@pytest.mark.parametrize("flag", [["--dp", "2"], ["--spatial", "2"],
                                   ["--deform-mode", "deformable"],
                                   ["--aot-dir", "x"]])
 def test_serve_refuses_unported_flags(tmp_path, flag):
     with pytest.raises(SystemExit) as exc:
         serve.main([str(tmp_path), "--checkpoint", "unused"] + flag)
     assert exc.value.code == 2
+
+
+def test_serve_without_gpu_or_cpu_flag_exits(tmp_path, monkeypatch, capsys):
+    """No silent CPU fallback: without --cpu serve needs a CUDA device."""
+    import torch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit) as exc:
+        serve.main([str(tmp_path), "--checkpoint", "unused", "--int8-mlp",
+                    "--int8-attn"])
+    assert exc.value.code == 2
+    assert "--cpu" in capsys.readouterr().err
+
+
+def test_serve_main_int8_flags_on_cpu(tmp_path, ckpt_path):
+    """--int8-mlp/--int8-attn are accepted; on the CPU (no kernel tier)
+    the quantized leaves are built and ignored, as in the JAX package."""
+    img_dir = tmp_path / "imgs"
+    img_dir.mkdir()
+    Image.fromarray(np.full((50, 60, 3), 128, np.uint8), "RGB").save(
+        img_dir / "a.png")
+    rc = serve.main([str(img_dir), "--out", str(tmp_path / "m"),
+                     "--checkpoint", ckpt_path, "--size", "64", "--dtype",
+                     "float32", "--cpu", "--backbone", "swin_v1_t",
+                     "--int8-mlp", "--int8-attn"])
+    assert rc == 0
+    m = np.asarray(Image.open(tmp_path / "m" / "a_mask.png"))
+    assert m.shape == (50, 60) and m.dtype == np.uint8
+
+
+def test_make_infer_fn_defaults_to_cuda(monkeypatch):
+    """make_infer_fn runs on the card unless the caller asks for the CPU;
+    without a card it raises instead of falling back."""
+    import torch
+    from birefnet_tpu_torch import pipeline
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = pt.BiRefNetConfig(size=(64, 64))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pipeline.make_infer_fn({}, cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pipeline.make_infer_fn({}, cfg, pt.ComputeConfig(), "cuda")
 
 
 def test_segment_restores_each_size():
