@@ -3,12 +3,14 @@
 The CUDA C++ sources under birefnet_tpu_torch/csrc/ are compiled by nvcc
 into one shared library with a plain C interface, at first use, and loaded
 with ctypes. Each source compiles in its own nvcc process, all started
-together, and the objects are linked into the library:
+together (so the build takes as long as the slowest source, not their
+sum), and the objects are linked into the library; <flags> is
+`-gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC
+-Xptxas -v`:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
-        -Xcompiler -fPIC -Xptxas -v -c -o <objects>/<name>.o csrc/<name>.cu
-    nvcc -gencode arch=compute_90a,code=sm_90a -shared \
-        -o build/kernels/libbirefnet_kernels_<hash>.so <objects>/*.o
+    nvcc <flags> -c -o <objects>/<name>.o csrc/<name>.cu
+    nvcc <flags> -shared -o build/kernels/libbirefnet_kernels_<hash>.so \
+        <objects>/*.o
 
 The file name carries a hash of the sources and flags, so an edited source
 builds a new library and a stale one is never loaded. Nothing is built
@@ -31,9 +33,8 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 _CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
-ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
-NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
-                           "-Xptxas", "-v")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def sources():
@@ -90,7 +91,7 @@ def build(verbose: bool = False) -> str:
     logs = _run([[nvcc, *NVCC_FLAGS, "-c", "-o", o, s]
                  for s, o in zip(cus, objs)])
     tmp = f"{path}.{os.getpid()}.tmp"
-    _run([[nvcc, *ARCH_FLAGS, "-shared", "-o", tmp, *objs]])
+    _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]])
     os.replace(tmp, path)
     shutil.rmtree(obj_dir, ignore_errors=True)
     if verbose:

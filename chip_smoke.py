@@ -12,19 +12,25 @@ Phases, each printed as it runs; any failure exits non-zero:
    same inputs at every shape the Swin-L 1024^2 batch-2 forward gives it
    (bound max|kernel - plain| <= 2e-2 * max|plain|), bf16 kernels on bf16
    weights and the W8A8 kernels (K1-int8, K3) on weights quantized from
-   f32 by params.quantize_*_int8; time each kernel, its plain version and,
-   where one PyTorch call computes the same function, that call; compute
-   each call's bound (the larger of its bytes over 3.35 TB/s and its
-   operations over the H100's published peak for their type);
+   f32 by params.quantize_*_int8, those two also to a bound on
+   mean|kernel - plain| / mean|plain|; time each kernel, its plain version
+   and, where one PyTorch call computes the same function, that call;
+   compute each call's bound (the larger of its bytes over 3.35 TB/s and
+   the operations its real tokens need over the H100's published peak for
+   their type);
 4. drive both paths of pipeline.make_infer_fn (Swin-L, 1024^2, batch 2,
    bf16, kernel tier, regular deform mode, random_checkpoint(cfg, 0)) on
    uint8 frames, each with every launch count set to 0 just before it:
    the bf16 tier (48 / 0 / 48 / 0 / 16 / 1 launches of K1, K1-int8, K2,
    K3, row_ln, tap_conv) and the int8 main path, int8_mlp and int8_attn on
    (8 / 40 / 8 / 40 / 16 / 1); check each mask against the f32 plain
-   pipeline on the card (mask MAE < 1e-3, TF32 off), print the int8
-   mask's difference from the bf16 tier's, and check the f32 plain forward
-   at 64^2 against the JAX package's committed golden logits;
+   pipeline on the card (mask MAE < 1e-3, TF32 off) and each call's
+   backbone features against the f32 pipeline's (the int8 path's error at
+   most FEATURE_RATIO times the bf16 tier's, and int8 scales rolled by one
+   channel must break that bound: the masks of a random checkpoint barely
+   see the backbone), print the int8 mask's difference from the bf16
+   tier's, and check the f32 plain forward at 64^2 against the JAX
+   package's committed golden logits;
 5. serve 4 in-memory requests of different sizes through serve.segment on
    the bf16 tier and on the int8 path;
 6. time the pipeline's images/s with CUDA events (median of 5 calls after
@@ -53,8 +59,20 @@ STAGES = {"full": [(256, 192, 6, 2), (128, 384, 12, 2), (64, 768, 24, 18),
                    (32, 1536, 48, 2)],
           "half": [(128, 192, 6, 2), (64, 384, 12, 2), (32, 768, 24, 18),
                    (16, 1536, 48, 2)]}
-INT8_MIN_C = 768  # params.INT8_MLP_MIN_CHANNELS
 BOUND = 2e-2
+# The int8 kernels also hold mean|kernel - plain| / mean|plain| to a bound.
+# Both sides sum exactly in integers, so they differ only where a LayerNorm
+# or softmax sum in another order flips an int8 code: on the H100 at most
+# 3.2e-4 for K1-int8 (its bf16 attention core feeds the proj quantization)
+# and 1.0e-5 for K3. A copy of K1-int8 that skipped the bf16 rounding of
+# the normed rows broke its bound at every shape, and copies of both that
+# dequantized every 64th channel with its neighbour's scale broke theirs.
+MEAN_BOUND_K1_I8, MEAN_BOUND_K3 = 1e-3, 1e-4
+# Backbone features against the f32 plain pipeline's, mean|f - f32| /
+# mean|f32| per stage tensor: the int8 path's worst at most FEATURE_RATIO
+# times the bf16 kernel tier's in the same run (the H100 read 2.4x), and a
+# tree whose int8 scales are rolled by one channel must break that bound.
+FEATURE_RATIO = 4.0
 # Published H100 SXM peaks (dense): memory bytes/s and operations/s by type.
 MEM_RATE = 3.35e12
 PEAK = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
@@ -92,11 +110,13 @@ class KernelReport:
     per forward times the per-call value): kernel, plain and library time,
     and the bound."""
 
-    def __init__(self, name, route, source, replaces, wrapper):
+    def __init__(self, name, route, source, replaces, wrapper, mean_bound=None):
         self.wrapper = wrapper
+        self.mean_bound = mean_bound
         self.entry = {"name": name, "route": route, "source": source,
                       "replaces": replaces, "launches": None,
-                      "launches_by_path": {}, "max_abs_err": 0.0, "ms": 0.0,
+                      "launches_by_path": {}, "max_abs_err": 0.0,
+                      "mean_rel_err": 0.0, "ms": 0.0,
                       "plain_ms": 0.0, "bound_ms": 0.0, "bound_by": None,
                       "library_ms": None}
         self.bytes_ms = self.ops_ms = 0.0
@@ -114,6 +134,7 @@ class KernelReport:
                  f"{tuple(want.shape)} or non-finite output")
         err = float((got - want).abs().max())
         bound = BOUND * float(want.abs().max())
+        mean_rel = float((got - want).abs().mean() / want.abs().mean())
         ms, plain_ms = cuda_ms(torch, kernel_fn), cuda_ms(torch, plain_fn)
         byte_ms = work[0] / MEM_RATE * 1e3
         op_ms = sum(n / PEAK[kind] for kind, n in work[1].items()) * 1e3
@@ -124,12 +145,17 @@ class KernelReport:
             self.entry["library_ms"] = (self.entry["library_ms"] or 0.0) + \
                 calls * lib_ms
         log(f"{self.entry['name']:<17} {label:<34} max|k-p| {err:.3e} "
-            f"(bound {bound:.3e})  kernel {ms:.4f} ms  plain {plain_ms:.4f} "
-            f"ms{lib}  least {max(byte_ms, op_ms):.4f} ms  x{calls}/forward")
+            f"(bound {bound:.3e})  mean|k-p|/mean|p| {mean_rel:.3e}  kernel "
+            f"{ms:.4f} ms  plain {plain_ms:.4f} ms{lib}  least "
+            f"{max(byte_ms, op_ms):.4f} ms  x{calls}/forward")
         if not err <= bound:
             fail(f"{self.entry['name']} {label}: max|k-p| {err} > {bound}")
+        if self.mean_bound is not None and not mean_rel <= self.mean_bound:
+            fail(f"{self.entry['name']} {label}: mean|k-p|/mean|p| {mean_rel} "
+                 f"> {self.mean_bound}")
         e = self.entry
         e["max_abs_err"] = max(e["max_abs_err"], err)
+        e["mean_rel_err"] = max(e["mean_rel_err"], mean_rel)
         e["ms"] += calls * ms
         e["plain_ms"] += calls * plain_ms
         e["bound_ms"] += calls * max(byte_ms, op_ms)
@@ -168,14 +194,15 @@ def check_kernels(torch, dev):
             "fused_block_attn_int8", "cuda",
             "birefnet_tpu_torch/csrc/fused_block_attn.cu",
             "birefnet_tpu/ops/pallas/fused_block_attn.py:100",
-            fused_block_attn.fused_window_block_attention_int8),
+            fused_block_attn.fused_window_block_attention_int8,
+            MEAN_BOUND_K1_I8),
         "fused_mlp": KernelReport(
             "fused_mlp", "cuda", "birefnet_tpu_torch/csrc/fused_mlp.cu",
             "birefnet_tpu/ops/pallas/fused_mlp.py:166", fused_mlp.fused_mlp_residual),
         "fused_mlp_int8": KernelReport(
             "fused_mlp_int8", "cuda", "birefnet_tpu_torch/csrc/fused_mlp_i8.cu",
             "birefnet_tpu/ops/pallas/fused_mlp.py:186",
-            fused_mlp.fused_mlp_residual_int8),
+            fused_mlp.fused_mlp_residual_int8, MEAN_BOUND_K3),
         "row_ln": KernelReport(
             "row_ln", "triton", "birefnet_tpu_torch/ops/kernels/row_ln_triton.py",
             "birefnet_tpu/ops/pallas/row_ln.py:43", row_ln.layer_norm_rows),
@@ -202,8 +229,13 @@ def check_kernels(torch, dev):
                 canvas, k_shift, mask, origin = swin.fused_block_canvas(
                     x, WS, shift, cyclic_mask)
                 route = ("offset" if origin else "roll") if shift else "unshifted"
-                t = canvas.numel() // c
-                core = 4 * WS * WS * c * t  # q k^T and P v, every head
+                # Operations the function needs: qkv and proj (8 C^2) and
+                # q k^T and P v over the window's WS^2 keys (4 WS^2 C) for
+                # each real token. A pad token's normed row is zero, so its
+                # k and v are the qkv bias and need no product, and its
+                # output is cropped. Bytes stay those of the whole canvas.
+                t = BATCH * h * h
+                core = 4 * WS * WS * c * t
                 side = nbytes(canvas, norm1["scale"], norm1["bias"],
                               attn["cached_bias"], mask) + canvas.numel() * 2
 
@@ -224,7 +256,7 @@ def check_kernels(torch, dev):
                          tuple(attn_q[n][k] for n in ("qkv", "proj")
                                for k in ("weight_q8", "scale_q8", "bias")),
                          {"int8": 8 * c * c * t, "bf16": core})):
-                    if rep is k1q and c < INT8_MIN_C:
+                    if rep is k1q and c < P.INT8_MLP_MIN_CHANNELS:
                         continue
                     args = (canvas, norm1, p, WS, k_shift, heads, mask, h, h,
                             origin)
@@ -247,7 +279,7 @@ def check_kernels(torch, dev):
                      (side + nbytes(*(mlp[n][k] for n in ("fc1", "fc2")
                                       for k in ("weight", "bias"))),
                       {"bf16": 16 * c * c * t}))
-            if c >= INT8_MIN_C:
+            if c >= P.INT8_MLP_MIN_CHANNELS:
                 k3.check(torch, f"{pass_name} st{i} T={t} C={c}", depth,
                          lambda: fused_mlp.fused_mlp_residual_int8(x2, norm2, mlp_q),
                          lambda: fused_mlp.fused_mlp_residual_int8_plain(
@@ -288,12 +320,42 @@ def check_kernels(torch, dev):
     return reports
 
 
-def drive(torch, reports, infer, frames, want, path):
+def with_features(bmodel, infer, frames):
+    """infer(frames), and the backbone stage features its call computed
+    (both passes), caught where models/birefnet.py calls swin_forward."""
+    feats, swin_forward = [], bmodel.swin_forward
+
+    def caught(*args, **kw):
+        out = swin_forward(*args, **kw)
+        feats.extend(out)
+        return out
+
+    bmodel.swin_forward = caught
+    try:
+        return infer(frames), feats
+    finally:
+        bmodel.swin_forward = swin_forward
+
+
+def feature_error(path, feats, ref_feats) -> float:
+    """Logs mean|f - ref| / mean|ref| per stage tensor; returns the largest."""
+    if len(feats) != len(ref_feats):
+        fail(f"{path}: {len(feats)} backbone features, want {len(ref_feats)}")
+    rel = [float((f.float() - r).abs().mean() / r.abs().mean())
+           for f, r in zip(feats, ref_feats)]
+    log(f"phase 4: {path}: backbone features vs f32 plain pipeline, "
+        f"mean|f - f32| / mean|f32| per stage (full pass, half pass): "
+        + " ".join(f"{e:.3e}" for e in rel))
+    return max(rel)
+
+
+def drive(torch, bmodel, reports, infer, frames, want, path):
     """One make_infer_fn call with every count set to 0 just before it;
-    checks the counts read just after against `want`."""
+    checks the counts read just after against `want`. Returns the mask and
+    the backbone features."""
     for r in reports.values():
         r.wrapper.launches = 0
-    mask = infer(frames)
+    mask, feats = with_features(bmodel, infer, frames)
     torch.cuda.synchronize()
     counts = {name: r.wrapper.launches for name, r in reports.items()}
     log(f"phase 4: {path}: launches in one make_infer_fn call: {counts}")
@@ -306,7 +368,7 @@ def drive(torch, reports, infer, frames, want, path):
             mask.max()) > 1:
         fail(f"{path}: bad mask: shape {tuple(mask.shape)}, range "
              f"[{float(mask.min())}, {float(mask.max())}]")
-    return mask
+    return mask, feats
 
 
 def main() -> int:
@@ -332,8 +394,9 @@ def main() -> int:
     from birefnet_tpu_torch.configs import BiRefNetConfig, ComputeConfig
     from birefnet_tpu_torch.models import birefnet as bmodel
     from birefnet_tpu_torch.ops.kernels import build
-    from birefnet_tpu_torch.params import (build_param_tree, random_checkpoint,
-                                           to_device)
+    from birefnet_tpu_torch.params import (build_param_tree, quantize_attn_int8,
+                                           quantize_mlp_int8, random_checkpoint,
+                                           to_device, tree_map)
 
     t0 = time.perf_counter()
     build.build(verbose=True)
@@ -355,25 +418,43 @@ def main() -> int:
     names = list(reports)
     tiers = {"bf16": (bf16, dict(zip(names, (48, 0, 48, 0, 16, 1)))),
              "int8": (int8, dict(zip(names, (8, 40, 8, 40, 16, 1))))}
-    ref = pipeline.make_infer_fn(params, cfg, ComputeConfig(), dev,
-                                 as_uint8=False)(frames_dev)
-    masks = {}
+    ref, ref_feats = with_features(bmodel, pipeline.make_infer_fn(
+        params, cfg, ComputeConfig(), dev, as_uint8=False), frames_dev)
+    masks, feature_err = {}, {}
     for path, (compute, want) in tiers.items():
         infer = pipeline.make_infer_fn(params, cfg, compute, dev,
                                        as_uint8=False)
-        masks[path] = drive(torch, reports, infer, frames_dev, want, path)
+        masks[path], feats = drive(torch, bmodel, reports, infer, frames_dev,
+                                   want, path)
         del infer
         mae = float((masks[path] - ref).abs().mean())
         log(f"phase 4: {path}: mask MAE vs f32 plain pipeline = {mae:.3e} "
             f"(gate < 1e-3)")
         if not mae < 1e-3:
             fail(f"{path} mask MAE {mae} >= 1e-3")
+        feature_err[path] = feature_error(path, feats, ref_feats)
+        del feats
+    limit = FEATURE_RATIO * feature_err["bf16"]
+    log(f"phase 4: int8 features' largest relative error {feature_err['int8']:.3e} "
+        f"(gate <= {FEATURE_RATIO} x the bf16 tier's {feature_err['bf16']:.3e} "
+        f"= {limit:.3e})")
+    if not feature_err["int8"] <= limit:
+        fail(f"int8 backbone features off by {feature_err['int8']} > {limit}")
+    # Negative control: int8 scales rolled by one channel (every channel
+    # dequantized with its neighbour's scale) must break the feature gate.
+    rolled = tree_map(lambda k, v: torch.roll(v, 1) if k == "scale_q8" else v,
+                      quantize_attn_int8(quantize_mlp_int8(params)))
+    _, feats = with_features(bmodel, pipeline.make_infer_fn(
+        rolled, cfg, bf16, dev, as_uint8=False), frames_dev)
+    if not feature_error("rolled int8 scales", feats, ref_feats) > limit:
+        fail("the feature gate does not see int8 scales rolled by one channel")
+    del rolled, feats
     d = (masks["int8"] - masks["bf16"]).abs()
     log(f"phase 4: int8 vs bf16 kernel-tier masks: mean |diff| "
         f"{float(d.mean()):.3e}, max {float(d.max()):.3e} (not gated)")
     for r in reports.values():
         r.entry["launches"] = r.entry["launches_by_path"]["int8"]
-    del ref, masks, d
+    del ref, ref_feats, masks, d
 
     golden = os.path.join(ROOT, "tests", "goldens", "logits_jax.npy")
     golden_cfg = BiRefNetConfig.swin_l()

@@ -12,7 +12,8 @@ two round to bf16 at the same points but sum in other orders, and the
 plain version rounds its matmul outputs to bf16 before adding the f32
 biases where the kernels add them in f32 first. The int8 kernels' integer
 products are exact like their plain versions'; a LayerNorm or softmax sum
-in another order can flip one int8 code by a step.
+in another order can flip one int8 code by a step, so they also hold a
+bound on the mean difference (MEAN_BOUND_I8).
 """
 
 import os
@@ -28,6 +29,11 @@ from birefnet_tpu_torch.ops.kernels import (fused_block_attn, fused_mlp,
                                             row_ln, tap_conv)
 
 pytestmark = pytest.mark.cuda
+# The int8 kernels are also held to mean|kernel - plain| / mean|plain|: at
+# these shapes the H100's readings sit well below this bound, and copies of
+# the kernels that skipped K1-int8's bf16 rounding of the normed rows or
+# dequantized every 64th channel with its neighbour's scale broke it.
+MEAN_BOUND_I8 = 1e-4
 
 
 @pytest.fixture(scope="module")
@@ -44,13 +50,16 @@ def _randn(gen, shape, dev, scale=1.0, dtype=torch.float32):
     return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
 
 
-def _assert_close(got, want):
+def _assert_close(got, want, mean_bound=None):
     got, want = got.float(), want.float()
     assert got.shape == want.shape
     assert torch.isfinite(got).all()
     err = (got - want).abs().max().item()
     bound = 2e-2 * want.abs().max().item()
     assert err <= bound, f"max|kernel - plain| {err} > {bound}"
+    if mean_bound is not None:
+        rel = ((got - want).abs().mean() / want.abs().mean()).item()
+        assert rel <= mean_bound, f"mean|kernel - plain| / mean|plain| {rel}"
 
 
 @pytest.mark.parametrize("shape", [(1000, 192), (37, 3072), (2, 7, 9, 768)])
@@ -142,7 +151,8 @@ def test_fused_mlp_int8_kernel_matches_plain(dev, t, c):
     got = fused_mlp.fused_mlp_residual(x, n2, mlp)
     assert fused_mlp.fused_mlp_residual_int8.launches == n0 + 1
     assert fused_mlp.fused_mlp_residual.launches == n16
-    _assert_close(got, fused_mlp.fused_mlp_residual_int8_plain(x, n2, mlp))
+    _assert_close(got, fused_mlp.fused_mlp_residual_int8_plain(x, n2, mlp),
+                  MEAN_BOUND_I8)
 
 
 @pytest.mark.parametrize("shift", [0, 6])
@@ -166,7 +176,7 @@ def test_fused_block_attn_int8_kernel_matches_plain(dev, shift, hw, heads, c):
     if k_shift:
         got = W.roll_2d(got, k_shift, k_shift)
         want = W.roll_2d(want, k_shift, k_shift)
-    _assert_close(got[crop], want[crop])
+    _assert_close(got[crop], want[crop], MEAN_BOUND_I8)
 
 
 def test_int8_kernels_refuse_f32(dev):

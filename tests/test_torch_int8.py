@@ -296,9 +296,12 @@ def test_make_infer_fn_int8_matches_jax(interpret_reciprocal, monkeypatch):
     package's pipeline. Stages 2 and 3 of both backbone passes run W8A8:
     40 MLP and 40 block-attention sites. The random checkpoint's masks sit
     near 0.5 and barely move with int8, so the masks check the pipeline
-    around the int8 blocks (mean 1e-6) and the sites are counted."""
+    around the int8 blocks (mean 1e-6), the sites are counted, and the
+    full-scale backbone features of the make_infer_fn call are held to the
+    JAX package's int8 backbone on the same preprocessed frames."""
     from birefnet_tpu import pipeline as jpipeline
     from birefnet_tpu_torch import pipeline as ppipeline
+    from birefnet_tpu_torch.models import birefnet as pbirefnet
 
     jcfg = bt.BiRefNetConfig(size=(128, 128))
     pcfg = pt.BiRefNetConfig(size=(128, 128))
@@ -307,9 +310,22 @@ def test_make_infer_fn_int8_matches_jax(interpret_reciprocal, monkeypatch):
                                                dtype=np.uint8)
     jcompute = bt.ComputeConfig(use_flash_attention=True, int8_mlp=True,
                                 int8_attn=True, deform_mode="regular")
-    want = np.asarray(jpipeline.make_infer_fn(
-        bt.build_param_tree(flat, jcfg), jcfg, jcompute, as_uint8=False)(
-            jnp.asarray(frames)))
+    jtree = bt.build_param_tree(flat, jcfg)
+    want = np.asarray(jpipeline.make_infer_fn(jtree, jcfg, jcompute,
+                                              as_uint8=False)(
+        jnp.asarray(frames)))
+    jq = jparams.quantize_attn_int8(jparams.quantize_mlp_int8(jtree))
+    want_feats = [np.asarray(f) for f in jax.jit(
+        lambda p, x: jswin.swin_forward(p, jcfg.swin_config(), x, jcompute))(
+            jq["bb"], jpipeline.preprocess(jnp.asarray(frames), jcfg.size))]
+    feats = []
+
+    def captured(*args, **kw):
+        out = pswin.swin_forward(*args, **kw)
+        feats.append(out)
+        return out
+
+    monkeypatch.setattr(pbirefnet, "swin_forward", captured)
     calls = {"mlp": 0, "attn": 0}
 
     def counted(key, fn):
@@ -323,10 +339,28 @@ def test_make_infer_fn_int8_matches_jax(interpret_reciprocal, monkeypatch):
     monkeypatch.setattr(
         fused_block_attn, "fused_window_block_attention_int8_plain", counted(
             "attn", fused_block_attn.fused_window_block_attention_int8_plain))
+    ptree = pt.build_param_tree(flat, pcfg)
     got = ppipeline.make_infer_fn(
-        pt.build_param_tree(flat, pcfg), pcfg,
-        pt.ComputeConfig(use_flash_attention=True, int8_mlp=True,
-                         int8_attn=True), "cpu", as_uint8=False)(frames)
+        ptree, pcfg, pt.ComputeConfig(use_flash_attention=True, int8_mlp=True,
+                                      int8_attn=True), "cpu",
+        as_uint8=False)(frames)
     assert calls == {"mlp": 40, "attn": 40}
     assert got.shape == want.shape == (2, 128, 128)
     assert np.abs(got.numpy() - want).mean() < 1e-6
+    # Stage features (mean |f| about 0.05): the int8 flips of 18 blocks
+    # read max 9.8e-3 and mean 6.5e-4 here; the f32 backbone reads about
+    # the same, so this holds the int8 path to the JAX one within its own
+    # rounding noise. Scales dequantizing the wrong channels read 10x that.
+    assert len(feats) == 2  # the full- and half-scale backbone passes
+    for g, w_ in zip(feats[0], want_feats):
+        _assert_few_steps(g.numpy(), w_, MAX_ERR, 1e-3)
+    rolled = pparams.tree_map(
+        lambda k, v: torch.roll(v, 1) if k == "scale_q8" else v,
+        pparams.quantize_attn_int8(pparams.quantize_mlp_int8(ptree["bb"])))
+    with torch.inference_mode():
+        bad = pswin.swin_forward(
+            rolled, pcfg.swin_config(),
+            ppipeline.preprocess(torch.from_numpy(frames), pcfg.size),
+            pt.ComputeConfig(use_flash_attention=True))
+    assert all(np.abs(g.numpy() - w_).mean() > 4e-3
+               for g, w_ in zip(bad[2:], want_feats[2:]))
