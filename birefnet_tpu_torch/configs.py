@@ -142,21 +142,26 @@ class ComputeConfig:
     """Runtime compute policy (counterpart of birefnet_tpu ComputeConfig).
 
     `use_flash_attention` turns on the kernel tier: the ws=12 Swin blocks
-    run the fused block-attention and fused-MLP kernels, the standalone
-    LayerNorms run the row-LN kernel, and the bf16 decoder head runs the
-    tap-conv kernel (ops/kernels/). The JAX package's `use_fused_block`
-    knob only selects its ws=7 middle tier, which is not ported. On a CPU
-    tensor every kernel wrapper takes its plain PyTorch version; on a CUDA
-    tensor it launches the kernel or raises.
+    run the fused block-attention and fused-MLP kernels, the ws=7 blocks
+    (swin_t, swin_s) the middle tier (the packed-qkv window-attention
+    kernel between plain qkv and proj products, then the fused-MLP
+    kernel), the standalone LayerNorms run the row-LN kernel, and the bf16
+    decoder head runs the tap-conv kernel (ops/kernels/). The tier follows
+    from the window size, as in the JAX package, whose `use_fused_block`
+    knob the port does not copy. On a CPU tensor every kernel wrapper
+    takes its plain PyTorch version; on a CUDA tensor it launches the
+    kernel or raises.
 
     `int8_mlp` / `int8_attn` select the W8A8 path, as in the JAX package
     (birefnet_tpu/configs.py:277-293): `pipeline.make_infer_fn` quantizes
     the wide Swin blocks' MLP and attention qkv/proj weights once
     (`params.quantize_mlp_int8` / `quantize_attn_int8`, C >= 768: Swin-L
-    stages 2 and 3), and the fused MLP and block-attention wrappers run
-    their int8 kernels for every block that carries the quantized leaves.
-    So int8 engages only on the kernel tier, at C >= 768; the unfused path
-    reads the f32 `weight` leaves and ignores the quantized ones.
+    stages 2 and 3, swin_t stage 3), and the fused MLP and block-attention
+    wrappers run their int8 kernels for every block that carries the
+    quantized leaves. So int8 engages only on the kernel tier, at C >= 768;
+    the unfused path and the ws=7 middle tier's qkv and proj products read
+    the `weight` leaves and ignore the quantized ones (int8_attn changes
+    nothing at ws=7, as in the JAX package).
 
     Only `deform_mode="regular"` (offsets ignored: the reference's CPU
     semantics, which the mask-MAE gate compares against) is ported; it is

@@ -33,8 +33,8 @@
 //
 // The softmax stays in f32 with one normalization per row, unlike the
 // TPU's packed head groups that round exp(s - m) to bf16 before P v.
-// Rounding points (as in the JAX kernel): qkv + bias -> bf16; q * d^-0.5
-// -> bf16; softmax probabilities -> bf16; P v -> bf16; proj + bias -> bf16;
+// Rounding points (as in the JAX kernel): qkv + bias -> bf16; q * bf16(d^-0.5)
+// -> bf16; rel-pos bias and mask -> bf16; softmax probabilities -> bf16; P v -> bf16; proj + bias -> bf16;
 // + x -> bf16.
 //
 // W8A8 entry, bt_fused_block_attn_i8: the int8 branch of the same TPU
@@ -61,7 +61,8 @@ namespace {
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kD = 32;  // head dim
-constexpr float kScale = 0.17677669529663687f;  // kD ** -0.5
+// kD ** -0.5 rounded to bf16, as the JAX kernel's bf16 q * scale takes it.
+constexpr float kScale = 0.1767578125f;
 
 using bt::Geometry;
 using bt::token_valid;
@@ -297,8 +298,11 @@ window_attn_kernel(const bf16* __restrict__ qkv, const float* __restrict__ bias,
         const int j = lane + 32 * u;
         v[u] = -INFINITY;
         if (j < n) {
-          v[u] = S[r * s_ld + j] + bias_h[i * n + j];
-          if (mask_w) v[u] += mask_w[i * n + j];
+          // The bias and mask addends rounded to bf16 and summed first, as
+          // the JAX kernel takes them with bf16 activations.
+          float extra = bt::round_bf16(bias_h[i * n + j]);
+          if (mask_w) extra += bt::round_bf16(mask_w[i * n + j]);
+          v[u] = S[r * s_ld + j] + extra;
         }
         m = fmaxf(m, v[u]);
       }

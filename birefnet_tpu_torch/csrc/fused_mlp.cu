@@ -1,12 +1,14 @@
 // Fused Swin MLP half-block: out = x + fc2(GELU_erf(LN2(x) W1^T + b1)) W2^T + b2.
 //
 // Replaces birefnet_tpu/ops/pallas/fused_mlp.py::_fused (the bf16 _kernel).
-// One block of 16 warps owns BM = 16 * RG token rows (RG = 4/4/2/1 at
-// C = 192/384/768/1536) and a range of the 4C hidden units. It normalizes
-// its rows into shared memory, then walks its hidden units in chunks of
-// 256: each warp computes one 16-wide hidden tile for all RG row groups
-// with bf16 tensor-core mma (f32 accumulation), bias and exact GELU are
-// applied in f32 and the chunk is rounded to bf16 in shared memory, and
+// One block of 16 warps owns BM = 16 * RG token rows (RG = 4/4/4/2/1 at
+// C = 96/192/384/768/1536) and a range of the 4C hidden units. It
+// normalizes its rows into shared memory, then walks its hidden units in
+// chunks of 256 (the last one shorter where 4C is no multiple of 256, as
+// at C = 96: 384 = 256 + 128): each warp computes one 16-wide hidden tile
+// for all RG row groups with bf16 tensor-core mma (f32 accumulation), bias
+// and exact GELU are applied in f32 and the chunk is rounded to bf16 in
+// shared memory, and
 // each warp (row group rg, column group cg of 16 / RG) accumulates its
 // share of the fc2 output in registers (at most 6 16x16 tiles). The
 // [T, 4C] hidden never reaches device memory.
@@ -102,9 +104,10 @@ fused_mlp_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_g,
   for (int i = 0; i < TILES; ++i) wmma::fill_fragment(acc[i], 0.f);
 
   for (int hc = hc_begin; hc < hc_end; hc += kChunk) {
+    const int len = min(kChunk, hc_end - hc);  // a multiple of 64
     // fc1: warp w computes hidden units [hc + 16w, hc + 16w + 16) for every
     // row group, loading each weight fragment once.
-    {
+    if (warp * 16 < len) {
       wmma::fragment<wmma::accumulator, 16, 16, 16, float> a1[RG];
 #pragma unroll
       for (int r = 0; r < RG; ++r) wmma::fill_fragment(a1[r], 0.f);
@@ -130,6 +133,7 @@ fused_mlp_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_g,
     __syncthreads();
     for (int i = threadIdx.x; i < kRows * kChunk; i += kThreads) {
       const int r = i / kChunk, c = i % kChunk;
+      if (c >= len) continue;
       const float v = stage[r * kStageLd + c] + b1[hc + c];
       hid[r * kHidLd + c] =
           __float2bfloat16(v * 0.5f * (1.f + erff(v * 0.70710678118654752f)));
@@ -137,7 +141,7 @@ fused_mlp_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_g,
     __syncthreads();
     // fc2: accumulate this chunk into the warp's output tiles of its rows.
 #pragma unroll 4
-    for (int kk = 0; kk < kChunk; kk += 16) {
+    for (int kk = 0; kk < len; kk += 16) {
       wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
       wmma::load_matrix_sync(fa, hid + rg * 16 * kHidLd + kk, kHidLd);
 #pragma unroll
@@ -206,7 +210,7 @@ cudaError_t launch(const bf16* x, const float* g, const float* b, const bf16* w1
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return err;
-  const int chunks = 4 * C / kChunk;
+  const int chunks = (4 * C + kChunk - 1) / kChunk;
   const int per_split = (chunks + splits - 1) / splits;
   const dim3 grid((T + 16 * RG - 1) / (16 * RG), splits);
   fused_mlp_kernel<RG, TILES><<<grid, kThreads, smem, stream>>>(
@@ -221,19 +225,19 @@ cudaError_t launch(const bf16* x, const float* g, const float* b, const bf16* w1
 }  // namespace
 
 // x, out [T, C] bf16; ln_g, ln_b [C] f32; w1 [4C, C] bf16; b1 [4C] f32;
-// w2 [C, 4C] bf16; b2 [C] f32. C % 64 == 0 and C <= 1536. `row_groups`
+// w2 [C, 4C] bf16; b2 [C] f32. C % 16 == 0 and C <= 1536. `row_groups`
 // (1, 2 or 4; BM = 16 * row_groups rows per block) must satisfy
-// row_groups * C <= 1536; `splits` divides the 4C/256 hidden chunks over
-// that many blocks per row block (T % 16 == 0 and `partial` an f32
+// row_groups * C <= 1536; `splits` divides the ceil(4C/256) hidden chunks
+// over that many blocks per row block (T % 16 == 0 and `partial` an f32
 // [splits, T, C] scratch when splits > 1, ignored otherwise) and must
-// divide 4C/256 evenly.
+// divide ceil(4C/256) evenly.
 extern "C" int bt_fused_mlp_bf16(const void* x, const void* ln_g, const void* ln_b,
                                  const void* w1, const void* b1, const void* w2,
                                  const void* b2, void* out, void* partial, int T,
                                  int C, int row_groups, int splits, void* stream) {
   const int rg = row_groups;
-  if (C % 64 != 0 || C > 1536 || T <= 0 || (rg != 1 && rg != 2 && rg != 4) ||
-      rg * C > 1536 || splits < 1 || (4 * C / kChunk) % splits != 0 ||
+  if (C % 16 != 0 || C > 1536 || T <= 0 || (rg != 1 && rg != 2 && rg != 4) ||
+      rg * C > 1536 || splits < 1 || ((4 * C + kChunk - 1) / kChunk) % splits != 0 ||
       (splits > 1 && (T % 16 != 0 || partial == nullptr)))
     return (int)cudaErrorInvalidValue;
   const int cg = kWarps / rg;

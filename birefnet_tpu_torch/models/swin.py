@@ -7,14 +7,18 @@ JAX package scans over block pairs.
 
 Tiers (as in the JAX package, models/swin.py:111-121, 355-374): with
 `compute.use_flash_attention` a ws=12 block runs the fused block-attention
-and fused-MLP kernels and the standalone norms run the row-LN kernel; any
-other window size runs unfused except ws=7, whose middle tier (the
-packed-qkv flash-attention kernel) is not ported yet and raises.
+and fused-MLP kernels; a ws=7 block (swin_t, swin_s) runs the middle tier:
+the plain LN1, pad, roll and window partition, the qkv and proj products
+outside any kernel, the packed-qkv window-attention kernel (K6) between
+them, and the fused-MLP kernel; the standalone norms run the row-LN
+kernel. Any other window size runs unfused.
 
 W8A8 (ComputeConfig.int8_mlp/int8_attn) is no tier of its own: blocks
 whose params carry `weight_q8` leaves (params.quantize_*_int8) reach the
 int8 kernels through the same fused wrappers, which dispatch on them; the
-unfused path reads only the `weight` leaves.
+unfused path and the middle tier's qkv and proj products read only the
+`weight` leaves, as the JAX package's L.linear reads only `kernel`, so
+int8_attn changes nothing at ws=7.
 """
 
 from __future__ import annotations
@@ -28,20 +32,14 @@ from ..configs import ComputeConfig, SwinConfig
 from ..ops import attention as attn_ops
 from ..ops import layers as L
 from ..ops import window as W
-from ..ops.kernels import fused_block_attn, fused_mlp, row_ln
-
-_MIDDLE_TIER = ("the ws=7 middle tier needs the flash_window_attention_qkv "
-                "kernel, which is not ported yet (ROADMAP.md, 'Still to "
-                "port', item 'K6 and its K7/K8 wrappers')")
+from ..ops.kernels import (flash_window_attn, fused_block_attn, fused_mlp,
+                           row_ln)
 
 
 def _tier(compute: ComputeConfig, window_size: int) -> ComputeConfig:
-    """Resolve the kernel tier for a window geometry."""
-    if not compute.use_flash_attention:
-        return compute
-    if window_size == 7:
-        raise NotImplementedError(_MIDDLE_TIER)
-    if window_size != 12:
+    """Resolve the kernel tier for a window geometry: ws=12 runs the fused
+    block, ws=7 the middle tier, any other window size unfused."""
+    if compute.use_flash_attention and window_size not in (7, 12):
         return compute.with_overrides(use_flash_attention=False)
     return compute
 
@@ -94,7 +92,7 @@ def swin_block_forward(params, x: torch.Tensor, window_size: int,
     b, h, w, c = x.shape
     ws = window_size
     compute = _tier(compute, ws)
-    if compute.use_flash_attention:
+    if compute.use_flash_attention and ws == 12:
         canvas, k_shift, mask, origin = fused_block_canvas(x, ws, shift_size,
                                                            attn_mask)
         y = fused_block_attn.fused_window_block_attention(
@@ -113,12 +111,22 @@ def swin_block_forward(params, x: torch.Tensor, window_size: int,
     if shift_size > 0:
         x = W.roll_2d(x, -shift_size, -shift_size)
         mask = attn_mask
-    attn = attn_ops.window_attention_forward(
-        params["attn"], W.window_partition(x, ws), mask, num_heads)
+    windows = W.window_partition(x, ws)
+    if compute.use_flash_attention:  # the ws=7 middle tier
+        p = params["attn"]
+        attn = flash_window_attn.flash_window_attention_qkv(
+            L.linear(p["qkv"], windows), p["cached_bias"], mask, num_heads)
+        attn = L.linear(p["proj"], attn)
+    else:
+        attn = attn_ops.window_attention_forward(params["attn"], windows, mask,
+                                                 num_heads)
     x = W.window_reverse(attn, ws, hp, wp)
     if shift_size > 0:
         x = W.roll_2d(x, shift_size, shift_size)
     x = shortcut + x[:, :h, :w, :]
+    if compute.use_flash_attention:
+        return fused_mlp.fused_mlp_residual(x.contiguous(), params["norm2"],
+                                            params["mlp"])
     return x + mlp_forward(params["mlp"], L.layer_norm(params["norm2"], x))
 
 

@@ -6,7 +6,9 @@ bias [+ mask]) @ v with the softmax in f32, all windows and heads batched.
 (models/swin.py in the JAX package); it serves the unfused Swin block and
 the plain version of the fused block-attention kernel
 (ops/kernels/fused_block_attn.py), whose W8A8 plain version calls
-`qkv_window_attention` between its int8 projections.
+`qkv_window_attention` between its int8 projections. `round_addends`
+gives the bias and mask as the kernel tier takes them, for the plain
+versions of the block-attention and window-attention kernels.
 """
 
 from __future__ import annotations
@@ -24,7 +26,8 @@ def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q, k, v: [B_, heads, N, d] with B_ = batch * nW; bias [heads, N, N];
     mask [nW, N, N] of 0/-100 or None. Returns [B_, heads, N, d]."""
     b_, heads, n, d = q.shape
-    q = q * (d ** -0.5)
+    # The scale in q.dtype, as the JAX package multiplies (bf16 rounds it).
+    q = q * torch.tensor(d ** -0.5, dtype=q.dtype)
     # Scores in f32 from the (bf16) operands, as the JAX package takes them.
     attn = torch.matmul(q.float(), k.float().transpose(-1, -2))
     attn = attn + bias.float()[None]
@@ -47,6 +50,17 @@ def qkv_window_attention(qkv: torch.Tensor, bias: torch.Tensor,
     qkv = qkv.reshape(b_, n, 3, num_heads, c // num_heads).permute(2, 0, 3, 1, 4)
     out = window_attention(qkv[0], qkv[1], qkv[2], bias, mask)
     return out.transpose(1, 2).reshape(b_, n, c)
+
+
+def round_addends(dtype: torch.dtype, bias: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None):
+    """The score addends as the kernel tier takes them: with bf16
+    activations the rel-pos bias and the mask are rounded to bf16 (as the
+    JAX kernels take them, flash_window_attn via models/swin.py:85-87 and
+    fused_block_attn.py:348-351); the unfused path keeps them in f32."""
+    if dtype != torch.bfloat16:
+        return bias, mask
+    return bias.to(dtype), None if mask is None else mask.to(dtype)
 
 
 def window_attention_forward(params, x: torch.Tensor,

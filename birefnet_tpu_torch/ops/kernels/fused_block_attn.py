@@ -42,7 +42,8 @@ import torch
 from .. import layers as L
 from .. import quant
 from .. import window as W
-from ..attention import qkv_window_attention, window_attention_forward
+from ..attention import (qkv_window_attention, round_addends,
+                         window_attention_forward)
 from . import build
 
 
@@ -65,15 +66,18 @@ def fused_window_block_attention_plain(
         shift_size: int, num_heads: int, attn_mask: Optional[torch.Tensor],
         h_real: int, w_real: int, origin: int = 0) -> torch.Tensor:
     """Plain PyTorch version: window partition, naive window attention and
-    window reverse around LN1 and the projections."""
+    window reverse around LN1 and the projections; the rel-pos bias and the
+    mask are rounded as the kernel takes them (round_addends)."""
     _, hp, wp, _ = x.shape
     h = L.layer_norm(norm1_params, x)
     valid = _pad_token_mask(hp, wp, shift_size, origin, h_real, w_real,
                             x.device)
     h = torch.where(valid[None, :, :, None], h, torch.zeros((), dtype=h.dtype,
                                                            device=h.device))
-    y = window_attention_forward(attn_params, W.window_partition(h, window_size),
-                                 attn_mask, num_heads)
+    bias, mask = round_addends(x.dtype, attn_params["cached_bias"], attn_mask)
+    y = window_attention_forward(dict(attn_params, cached_bias=bias),
+                                 W.window_partition(h, window_size), mask,
+                                 num_heads)
     return x + W.window_reverse(y, window_size, hp, wp)
 
 
@@ -86,7 +90,8 @@ def fused_window_block_attention_int8_plain(
     x.dtype, per-token int8, exact qkv product, dequant + bias rounded to
     x.dtype; the attention core as in the bf16 version; per-token int8 of
     the attention rows, exact proj product, dequant + bias rounded to
-    x.dtype, + x."""
+    x.dtype, + x. The rel-pos bias and the mask are rounded as in the bf16
+    version."""
     _, hp, wp, _ = x.shape
     h = L.layer_norm(norm1_params, x.float())
     valid = _pad_token_mask(hp, wp, shift_size, origin, h_real, w_real,
@@ -94,8 +99,9 @@ def fused_window_block_attention_int8_plain(
     h = torch.where(valid[None, :, :, None], h, torch.zeros((), device=h.device))
     q, sx = quant.quantize_rows(h.to(x.dtype).float())
     qkv = quant.int8_linear(q, sx, attn_params["qkv"]).to(x.dtype)
-    o = qkv_window_attention(W.window_partition(qkv, window_size),
-                             attn_params["cached_bias"], attn_mask, num_heads)
+    bias, mask = round_addends(x.dtype, attn_params["cached_bias"], attn_mask)
+    o = qkv_window_attention(W.window_partition(qkv, window_size), bias, mask,
+                             num_heads)
     o = W.window_reverse(o, window_size, hp, wp)
     qa, sa = quant.quantize_rows(o.float())
     return x + quant.int8_linear(qa, sa, attn_params["proj"]).to(x.dtype)

@@ -4,7 +4,8 @@
 
 Replaces birefnet_tpu/ops/pallas/fused_mlp.py::_fused (bf16 branch), called
 from models/swin.py for every Swin block: 48 calls per Swin-L forward, on
-[T, C] tokens from [131072, 192] to [512, 1536].
+[T, C] tokens from [131072, 192] to [512, 1536], and 24 per swin_t forward
+(20 with int8_mlp), from [131072, 96] to [512, 768].
 
 On the card the MLP is 16*C FLOPs per token byte, so the unfused version is
 bound by writing and re-reading the [T, 4C] hidden activation; the kernel
@@ -51,12 +52,13 @@ def fused_mlp_residual_plain(x: torch.Tensor, norm2_params,
 def _plan(t: int, c: int, device) -> tuple:
     """(row_groups, splits) of the kernel launch: 16 * row_groups token rows
     per block (row_groups * C <= 1536 keeps the fc2 sum in registers), and
-    the fewest hidden splits, a divisor of the 4C/256 hidden chunks, that
-    give at least one block per SM."""
+    the fewest hidden splits, a divisor of the ceil(4C/256) hidden chunks
+    (the last one shorter at C = 96), that give at least one block per
+    SM."""
     row_groups = 4 if c <= 384 else (2 if c <= 768 else 1)
     blocks = -(-t // (16 * row_groups))
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    chunks = 4 * c // 256
+    chunks = -(-4 * c // 256)
     splits = 1
     if t % 16 == 0:
         while blocks * splits < sms and splits < chunks:
@@ -79,14 +81,14 @@ def fused_mlp_residual_int8_plain(x: torch.Tensor, norm2_params,
     return x + quant.int8_linear(q2, sx2, fc2).to(x.dtype)
 
 
-def _check(x: torch.Tensor, tensors) -> None:
+def _check(x: torch.Tensor, tensors, multiple: int) -> None:
     if x.dtype != torch.bfloat16:
         raise TypeError(f"fused_mlp kernel takes bf16 activations, got "
                         f"{x.dtype} (run f32 with use_flash_attention=False)")
     c = x.shape[-1]
-    if c % 64 or c > 1536:
-        raise ValueError(f"fused_mlp kernel needs C % 64 == 0 and C <= 1536, "
-                         f"got C={c}")
+    if c % multiple or c > 1536:
+        raise ValueError(f"fused_mlp kernel needs C % {multiple} == 0 and "
+                         f"C <= 1536, got C={c}")
     if not x.is_contiguous():
         raise ValueError("fused_mlp needs a contiguous input")
     for name, t, dtype, shape in tensors:
@@ -118,7 +120,7 @@ def fused_mlp_residual(x: torch.Tensor, norm2_params,
             ("fc1 bias", mlp_params["fc1"]["bias"], f32, (4 * c,)),
             ("fc2 weight", mlp_params["fc2"]["weight"], bf, (c, 4 * c)),
             ("fc2 bias", mlp_params["fc2"]["bias"], f32, (c,))]
-    _check(x, args)
+    _check(x, args, 16)
     t = x.numel() // c
     row_groups, splits = _plan(t, c, x.device)
     out = torch.empty_like(x)
@@ -156,7 +158,7 @@ def fused_mlp_residual_int8(x: torch.Tensor, norm2_params,
             ("fc2 weight_q8", fc2["weight_q8"], i8, (c, 4 * c)),
             ("fc2 scale_q8", fc2["scale_q8"], f32, (c,)),
             ("fc2 bias", fc2["bias"], f32, (c,))]
-    _check(x, args)
+    _check(x, args, 64)
     t = x.numel() // c
     codes = torch.empty((t, 4 * c), dtype=i8, device=x.device)
     scales = torch.empty((t,), dtype=f32, device=x.device)

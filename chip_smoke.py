@@ -9,39 +9,52 @@ Phases, each printed as it runs; any failure exits non-zero:
 2. build the CUDA kernels from birefnet_tpu_torch/csrc with nvcc (one nvcc
    process per source, all in parallel);
 3. check each hand-written kernel against its plain PyTorch version on the
-   same inputs at every shape the Swin-L 1024^2 batch-2 forward gives it
-   (bound max|kernel - plain| <= 2e-2 * max|plain|), bf16 kernels on bf16
-   weights and the W8A8 kernels (K1-int8, K3) on weights quantized from
-   f32 by params.quantize_*_int8, those two also to a bound on
-   mean|kernel - plain| / mean|plain|; time each kernel, its plain version
-   and, where one PyTorch call computes the same function, that call;
-   compute each call's bound (the larger of its bytes over 3.35 TB/s and
-   the operations its real tokens need over the H100's published peak for
-   their type);
-4. drive both paths of pipeline.make_infer_fn (Swin-L, 1024^2, batch 2,
-   bf16, kernel tier, regular deform mode, random_checkpoint(cfg, 0)) on
-   uint8 frames, each with every launch count set to 0 just before it:
-   the bf16 tier (48 / 0 / 48 / 0 / 16 / 1 launches of K1, K1-int8, K2,
-   K3, row_ln, tap_conv) and the int8 main path, int8_mlp and int8_attn on
-   (8 / 40 / 8 / 40 / 16 / 1); check each mask against the f32 plain
-   pipeline on the card (mask MAE < 1e-3, TF32 off) and each call's
-   backbone features against the f32 pipeline's (the int8 path's error at
-   most FEATURE_RATIO times the bf16 tier's, and int8 scales rolled by one
-   channel must break that bound: the masks of a random checkpoint barely
-   see the backbone), print the int8 mask's difference from the bf16
-   tier's, and check the f32 plain forward at 64^2 against the JAX
-   package's committed golden logits;
+   same inputs (bound max|kernel - plain| <= 2e-2 * max|plain|) at every
+   shape the 1024^2 batch-2 forwards give it: Swin-L (K1, K1-int8, K2, K3,
+   K4, K5) and swin_t (K6 masked and unmasked at every stage of both
+   backbone passes, K2 including C = 96, K3 at stage 3, K4 at the swin_t
+   widths); K7 and
+   K8, which no forward calls, at the JAX package's test shapes. bf16
+   kernels run on bf16 weights, the W8A8 kernels (K1-int8, K3) on weights
+   quantized from f32 by params.quantize_*_int8; those two and K6-K8 also
+   hold a bound on mean|kernel - plain| / mean|plain|. Time each kernel,
+   its plain version and, where one PyTorch call computes the same
+   function, that call; compute each call's bound (the larger of its bytes
+   over 3.35 TB/s and the operations its real tokens need over the H100's
+   published peak for their type). Check that K1, K1-int8 and K6 take the
+   rel-pos bias rounded to bf16: a bias B and bf16(B) give bitwise the
+   same output;
+4. drive pipeline.make_infer_fn at 1024^2, batch 2, bf16, kernel tier,
+   regular deform mode, random_checkpoint(cfg, 0) (swin_t's rel-pos bias
+   tables scaled to std 1, REL_POS_BIAS_SCALE), on uint8 frames, for
+   four paths, each with every launch count set to 0 just before it and
+   read just after: Swin-L on the bf16 tier (K1 / K1-int8 / K2 / K3 /
+   row_ln / tap_conv / K6 / K7 / K8: 48/0/48/0/16/1/0/0/0) and its int8
+   main path, int8_mlp and int8_attn on (8/40/8/40/16/1/0/0/0); swin_t
+   (the ws=7 middle tier) on the bf16 tier (0/0/24/0/16/1/24/0/0) and with
+   both int8 flags (0/0/20/4/16/1/24/0/0: int8_attn is inert at ws=7).
+   Each mask is held to the f32 plain pipeline of its model on the card
+   (mask MAE < 1e-3, TF32 off) and each call's backbone features to the
+   f32 pipeline's: Swin-L's int8 path's error at most FEATURE_RATIO times
+   its bf16 tier's, swin_t's bf16 tier's at most FEATURE_RATIO_T times the
+   plain bf16 pipeline's at every stage (and a tree whose rel-pos bias is
+   rolled by one head must break that), swin_t's int8 path's at most
+   FEATURE_RATIO times its bf16 tier's; the masks of a random checkpoint
+   barely see the backbone. Also the f32 plain forward at 64^2 against the
+   JAX package's committed golden logits;
 5. serve 4 in-memory requests of different sizes through serve.segment on
-   the bf16 tier and on the int8 path;
+   every path;
 6. time the pipeline's images/s with CUDA events (median of 5 calls after
-   warm-up) on the int8 path, the bf16 kernel tier and the plain bf16
-   tier, in turns.
+   warm-up) in turns: Swin-L int8 path, bf16 kernel tier, plain bf16;
+   swin_t int8 path, bf16 kernel tier, plain bf16.
 
 The line before the last is the nvidia-smi name/power line, the one
-before it the JSON kernel report (`launches` from the int8 main path,
-`launches_by_path` from both), the last line `{"ok": true, "device":
-{...}}`. Without a CUDA device, or without the package beside this file,
-it exits 1 and prints no result.
+before it the JSON kernel report: per kernel `launches` from its main path
+(Swin-L int8 for K1-K5, swin_t bf16 for K6-K8), `launches_by_path` from
+all four, and the times and bound of its main model's forward (one call at
+each checked shape for K7 and K8), with each model's under `by_model`. The
+last line is `{"ok": true, "device": {...}}`. Without a CUDA device, or
+without the package beside this file, it exits 1 and prints no result.
 """
 
 import json
@@ -49,16 +62,24 @@ import os
 import subprocess
 import sys
 import time
+from functools import partial
 
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-BATCH, SIZE, WS = 2, 1024, 12
-# Swin-L stage geometry per backbone pass: (H of the stage, C, heads, depth).
-STAGES = {"full": [(256, 192, 6, 2), (128, 384, 12, 2), (64, 768, 24, 18),
-                   (32, 1536, 48, 2)],
-          "half": [(128, 192, 6, 2), (64, 384, 12, 2), (32, 768, 24, 18),
-                   (16, 1536, 48, 2)]}
+BATCH, SIZE = 2, 1024
+# Stage geometry per model and backbone pass: (H of the stage, C, heads,
+# depth); window 12 for Swin-L, 7 for swin_t.
+MODELS = {
+    "swin_l": (12, {"full": [(256, 192, 6, 2), (128, 384, 12, 2),
+                             (64, 768, 24, 18), (32, 1536, 48, 2)],
+                    "half": [(128, 192, 6, 2), (64, 384, 12, 2),
+                             (32, 768, 24, 18), (16, 1536, 48, 2)]}),
+    "swin_t": (7, {"full": [(256, 96, 3, 2), (128, 192, 6, 2),
+                            (64, 384, 12, 6), (32, 768, 24, 2)],
+                   "half": [(128, 96, 3, 2), (64, 192, 6, 2),
+                            (32, 384, 12, 6), (16, 768, 24, 2)]}),
+}
 BOUND = 2e-2
 # The int8 kernels also hold mean|kernel - plain| / mean|plain| to a bound.
 # Both sides sum exactly in integers, so they differ only where a LayerNorm
@@ -68,11 +89,26 @@ BOUND = 2e-2
 # the normed rows broke its bound at every shape, and copies of both that
 # dequantized every 64th channel with its neighbour's scale broke theirs.
 MEAN_BOUND_K1_I8, MEAN_BOUND_K3 = 1e-3, 1e-4
+# The window-attention kernel (K6-K8) rounds at the plain version's points,
+# so only f32 sums in another order differ: mean|k - p| / mean|p| read at
+# most 3.6e-7 on the H100 over every K6-K8 shape, and is bounded at 1e-5.
+MEAN_BOUND_FWA = 1e-5
 # Backbone features against the f32 plain pipeline's, mean|f - f32| /
-# mean|f32| per stage tensor: the int8 path's worst at most FEATURE_RATIO
-# times the bf16 kernel tier's in the same run (the H100 read 2.4x), and a
-# tree whose int8 scales are rolled by one channel must break that bound.
+# mean|f32| per stage tensor: an int8 path's worst at most FEATURE_RATIO
+# times its bf16 kernel tier's in the same run (Swin-L read 2.4x), and a
+# Swin-L tree whose int8 scales are rolled by one channel must break that.
 FEATURE_RATIO = 4.0
+# swin_t's bf16 kernel tier against the plain bf16 pipeline, stage by stage:
+# err(kernel tier) <= FEATURE_RATIO_T * err(plain bf16).
+FEATURE_RATIO_T = 2.0
+# random_checkpoint draws every tensor at std 0.05, at which the rel-pos
+# bias barely moves the scores: a bias rolled by one head read 1.002x the
+# plain bf16 error on the H100, so the gate could not see it. swin_t's
+# tables are scaled to std 1, a factor chosen so that the rolled-bias
+# control breaks the gate (it read 5.50x); no trained table sets it. The
+# bias path itself is held by the K6 checks and the bitwise B-vs-bf16(B)
+# checks of phase 3.
+REL_POS_BIAS_SCALE = 20.0
 # Published H100 SXM peaks (dense): memory bytes/s and operations/s by type.
 MEM_RATE = 3.35e12
 PEAK = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
@@ -106,22 +142,24 @@ def nbytes(*tensors) -> int:
 
 
 class KernelReport:
-    """Per-kernel max error, and per forward (sum over shapes of the calls
-    per forward times the per-call value): kernel, plain and library time,
-    and the bound."""
+    """Per-kernel max and mean error, and per model's forward (sum over
+    shapes of the calls per forward times the per-call value): kernel,
+    plain and library time, and the bound."""
 
-    def __init__(self, name, route, source, replaces, wrapper, mean_bound=None):
+    def __init__(self, name, route, source, replaces, wrapper, main_path,
+                 mean_bound=None):
         self.wrapper = wrapper
+        self.main_path = main_path
         self.mean_bound = mean_bound
         self.entry = {"name": name, "route": route, "source": source,
                       "replaces": replaces, "launches": None,
                       "launches_by_path": {}, "max_abs_err": 0.0,
-                      "mean_rel_err": 0.0, "ms": 0.0,
-                      "plain_ms": 0.0, "bound_ms": 0.0, "bound_by": None,
-                      "library_ms": None}
-        self.bytes_ms = self.ops_ms = 0.0
+                      "mean_rel_err": 0.0, "ms": None, "plain_ms": None,
+                      "bound_ms": None, "bound_by": None, "library_ms": None,
+                      "by_model": {}}
+        self.sums = {}
 
-    def check(self, torch, label, calls, kernel_fn, plain_fn, work,
+    def check(self, torch, model, label, calls, kernel_fn, plain_fn, work,
               crop=None, library_fn=None):
         """work = (bytes moved, {type: operations}) of one call."""
         got, want = kernel_fn(), plain_fn()
@@ -135,16 +173,13 @@ class KernelReport:
         err = float((got - want).abs().max())
         bound = BOUND * float(want.abs().max())
         mean_rel = float((got - want).abs().mean() / want.abs().mean())
+        del got, want
         ms, plain_ms = cuda_ms(torch, kernel_fn), cuda_ms(torch, plain_fn)
         byte_ms = work[0] / MEM_RATE * 1e3
         op_ms = sum(n / PEAK[kind] for kind, n in work[1].items()) * 1e3
-        lib = ""
-        if library_fn is not None:
-            lib_ms = cuda_ms(torch, library_fn)
-            lib = f"  library {lib_ms:.4f} ms"
-            self.entry["library_ms"] = (self.entry["library_ms"] or 0.0) + \
-                calls * lib_ms
-        log(f"{self.entry['name']:<17} {label:<34} max|k-p| {err:.3e} "
+        lib_ms = cuda_ms(torch, library_fn) if library_fn is not None else None
+        lib = "" if lib_ms is None else f"  library {lib_ms:.4f} ms"
+        log(f"{self.entry['name']:<21} {model} {label:<34} max|k-p| {err:.3e} "
             f"(bound {bound:.3e})  mean|k-p|/mean|p| {mean_rel:.3e}  kernel "
             f"{ms:.4f} ms  plain {plain_ms:.4f} ms{lib}  least "
             f"{max(byte_ms, op_ms):.4f} ms  x{calls}/forward")
@@ -156,21 +191,76 @@ class KernelReport:
         e = self.entry
         e["max_abs_err"] = max(e["max_abs_err"], err)
         e["mean_rel_err"] = max(e["mean_rel_err"], mean_rel)
-        e["ms"] += calls * ms
-        e["plain_ms"] += calls * plain_ms
-        e["bound_ms"] += calls * max(byte_ms, op_ms)
-        self.bytes_ms += calls * byte_ms
-        self.ops_ms += calls * op_ms
-        e["bound_by"] = "bytes" if self.bytes_ms >= self.ops_ms else "operations"
+        m = self.sums.setdefault(model, {"ms": 0.0, "plain_ms": 0.0,
+                                         "bound_ms": 0.0, "library_ms": None,
+                                         "bytes_ms": 0.0, "ops_ms": 0.0})
+        m["ms"] += calls * ms
+        m["plain_ms"] += calls * plain_ms
+        m["bound_ms"] += calls * max(byte_ms, op_ms)
+        m["bytes_ms"] += calls * byte_ms
+        m["ops_ms"] += calls * op_ms
+        if lib_ms is not None:
+            m["library_ms"] = (m["library_ms"] or 0.0) + calls * lib_ms
+
+    def finish(self, main_model):
+        """Fill the report's times from its main model's sums."""
+        e = self.entry
+        for model, m in self.sums.items():
+            m["bound_by"] = ("bytes" if m.pop("bytes_ms") >= m.pop("ops_ms")
+                             else "operations")
+            e["by_model"][model] = m
+        for key in ("ms", "plain_ms", "bound_ms", "library_ms", "bound_by"):
+            e[key] = self.sums[main_model][key]
+        e["launches"] = e["launches_by_path"][self.main_path]
 
 
-def check_kernels(torch, dev):
+def make_reports():
+    from birefnet_tpu_torch.ops.kernels import (flash_window_attn,
+                                                fused_block_attn, fused_mlp,
+                                                row_ln, tap_conv)
+    csrc, pallas = "birefnet_tpu_torch/csrc/", "birefnet_tpu/ops/pallas/"
+    fwa = csrc + "flash_window_attn.cu"
+    rows = [
+        ("fused_block_attn", "cuda", csrc + "fused_block_attn.cu",
+         pallas + "fused_block_attn.py:250",
+         fused_block_attn.fused_window_block_attention, "swin_l int8", None),
+        ("fused_block_attn_int8", "cuda", csrc + "fused_block_attn.cu",
+         pallas + "fused_block_attn.py:100",
+         fused_block_attn.fused_window_block_attention_int8, "swin_l int8",
+         MEAN_BOUND_K1_I8),
+        ("fused_mlp", "cuda", csrc + "fused_mlp.cu",
+         pallas + "fused_mlp.py:166", fused_mlp.fused_mlp_residual,
+         "swin_l int8", None),
+        ("fused_mlp_int8", "cuda", csrc + "fused_mlp_i8.cu",
+         pallas + "fused_mlp.py:186", fused_mlp.fused_mlp_residual_int8,
+         "swin_l int8", MEAN_BOUND_K3),
+        ("row_ln", "triton", "birefnet_tpu_torch/ops/kernels/row_ln_triton.py",
+         pallas + "row_ln.py:43", row_ln.layer_norm_rows, "swin_l int8", None),
+        ("tap_conv", "cuda", csrc + "tap_conv.cu", pallas + "tap_conv.py:55",
+         tap_conv.tap_conv_same, "swin_l int8", None),
+        ("flash_window_attn_qkv", "cuda", fwa,
+         pallas + "flash_window_attn.py:163",
+         flash_window_attn.flash_window_attention_qkv, "swin_t bf16",
+         MEAN_BOUND_FWA),
+        ("flash_window_attn_masked", "cuda", fwa,
+         pallas + "flash_window_attn.py:91",
+         flash_window_attn.flash_window_attention, "swin_t bf16",
+         MEAN_BOUND_FWA),
+        ("flash_window_attn_plain", "cuda", fwa,
+         pallas + "flash_window_attn.py:119", flash_window_attn.flash_attention,
+         "swin_t bf16", MEAN_BOUND_FWA),
+    ]
+    return {r[0]: KernelReport(*r) for r in rows}
+
+
+def check_kernels(torch, dev, reports):
     import torch.nn.functional as F
 
     from birefnet_tpu_torch import params as P
     from birefnet_tpu_torch.models import swin
     from birefnet_tpu_torch.ops import window as W
-    from birefnet_tpu_torch.ops.kernels import (fused_block_attn, fused_mlp,
+    from birefnet_tpu_torch.ops.kernels import (flash_window_attn,
+                                                fused_block_attn, fused_mlp,
                                                 row_ln, tap_conv)
 
     gen = torch.Generator(dev).manual_seed(0)
@@ -185,139 +275,229 @@ def check_kernels(torch, dev):
     def lin(i, o):
         return {"weight": randn((o, i), 0.05), "bias": 0.1 * randn((o,))}
 
-    reports = {
-        "fused_block_attn": KernelReport(
-            "fused_block_attn", "cuda", "birefnet_tpu_torch/csrc/fused_block_attn.cu",
-            "birefnet_tpu/ops/pallas/fused_block_attn.py:250",
-            fused_block_attn.fused_window_block_attention),
-        "fused_block_attn_int8": KernelReport(
-            "fused_block_attn_int8", "cuda",
-            "birefnet_tpu_torch/csrc/fused_block_attn.cu",
-            "birefnet_tpu/ops/pallas/fused_block_attn.py:100",
-            fused_block_attn.fused_window_block_attention_int8,
-            MEAN_BOUND_K1_I8),
-        "fused_mlp": KernelReport(
-            "fused_mlp", "cuda", "birefnet_tpu_torch/csrc/fused_mlp.cu",
-            "birefnet_tpu/ops/pallas/fused_mlp.py:166", fused_mlp.fused_mlp_residual),
-        "fused_mlp_int8": KernelReport(
-            "fused_mlp_int8", "cuda", "birefnet_tpu_torch/csrc/fused_mlp_i8.cu",
-            "birefnet_tpu/ops/pallas/fused_mlp.py:186",
-            fused_mlp.fused_mlp_residual_int8, MEAN_BOUND_K3),
-        "row_ln": KernelReport(
-            "row_ln", "triton", "birefnet_tpu_torch/ops/kernels/row_ln_triton.py",
-            "birefnet_tpu/ops/pallas/row_ln.py:43", row_ln.layer_norm_rows),
-        "tap_conv": KernelReport(
-            "tap_conv", "cuda", "birefnet_tpu_torch/csrc/tap_conv.cu",
-            "birefnet_tpu/ops/pallas/tap_conv.py:55", tap_conv.tap_conv_same),
-    }
+    def sdpa(q, k, v, bias, mask):
+        """The library yardstick of K6-K8: one SDPA call on q, k, v
+        [B_, heads, N, d], with the bias (rounded as the kernel takes it)
+        and mask[w % nW] prebuilt here as one additive bf16 [B_, heads, N,
+        N] tensor, outside the timed calls."""
+        b_, heads, n, _ = q.shape
+        addend = bias.to(bf).float()[None]
+        if mask is not None:
+            addend = addend + mask.repeat(b_ // mask.shape[0], 1, 1)[:, None]
+        return partial(F.scaled_dot_product_attention, q, k, v,
+                       attn_mask=addend.expand(b_, heads, n, n).to(bf)
+                       .contiguous())
+
     k1, k1q = reports["fused_block_attn"], reports["fused_block_attn_int8"]
     k2, k3 = reports["fused_mlp"], reports["fused_mlp_int8"]
     k4, k5 = reports["row_ln"], reports["tap_conv"]
+    k6, k7 = reports["flash_window_attn_qkv"], reports["flash_window_attn_masked"]
+    k8 = reports["flash_window_attn_plain"]
 
-    for pass_name, stages in STAGES.items():
-        for i, (h, c, heads, depth) in enumerate(stages):
-            x = randn((BATCH, h, h, c), 1.0, bf)
-            norm1 = ln_params(c)
-            attn32 = {"qkv": lin(c, 3 * c), "proj": lin(c, c),
-                      "cached_bias": randn((heads, WS * WS, WS * WS))}
-            attn = P.cast_matmul_weights(attn32, bf)
-            attn_q = P.cast_matmul_weights(
-                P.quantize_attn_int8({"attn": attn32}, 0)["attn"], bf)
-            hp = -(-h // WS) * WS
-            cyclic_mask = W.sw_msa_mask(hp, hp, WS, WS // 2, dev)
-            for shift in (0, WS // 2):
-                canvas, k_shift, mask, origin = swin.fused_block_canvas(
-                    x, WS, shift, cyclic_mask)
-                route = ("offset" if origin else "roll") if shift else "unshifted"
-                # Operations the function needs: qkv and proj (8 C^2) and
-                # q k^T and P v over the window's WS^2 keys (4 WS^2 C) for
-                # each real token. A pad token's normed row is zero, so its
-                # k and v are the qkv bias and need no product, and its
-                # output is cropped. Bytes stay those of the whole canvas.
-                t = BATCH * h * h
-                core = 4 * WS * WS * c * t
-                side = nbytes(canvas, norm1["scale"], norm1["bias"],
-                              attn["cached_bias"], mask) + canvas.numel() * 2
+    def check_k1(model, label, depth, x, h, c, heads, ws, hp):
+        norm1 = ln_params(c)
+        attn32 = {"qkv": lin(c, 3 * c), "proj": lin(c, c),
+                  "cached_bias": randn((heads, ws * ws, ws * ws))}
+        attn = P.cast_matmul_weights(attn32, bf)
+        attn_q = P.cast_matmul_weights(
+            P.quantize_attn_int8({"attn": attn32}, 0)["attn"], bf)
+        cyclic_mask = W.sw_msa_mask(hp, hp, ws, ws // 2, dev)
+        for shift in (0, ws // 2):
+            canvas, k_shift, mask, origin = swin.fused_block_canvas(
+                x, ws, shift, cyclic_mask)
+            route = ("offset" if origin else "roll") if shift else "unshifted"
+            # Operations the function needs: qkv and proj (8 C^2) and
+            # q k^T and P v over the window's ws^2 keys (4 ws^2 C) for
+            # each real token. A pad token's normed row is zero, so its
+            # k and v are the qkv bias and need no product, and its
+            # output is cropped. Bytes stay those of the whole canvas.
+            t = BATCH * h * h
+            core = 4 * ws * ws * c * t
+            side = nbytes(canvas, norm1["scale"], norm1["bias"],
+                          attn["cached_bias"], mask) + canvas.numel() * 2
 
-                def crop(y, k_shift=k_shift, origin=origin):
-                    if k_shift:
-                        y = W.roll_2d(y, k_shift, k_shift)
-                    return y[:, origin:origin + h, origin:origin + h]
+            def crop(y, k_shift=k_shift, origin=origin):
+                if k_shift:
+                    y = W.roll_2d(y, k_shift, k_shift)
+                return y[:, origin:origin + h, origin:origin + h]
 
-                for rep, p, kernel, plain, weights, ops in (
-                        (k1, attn, fused_block_attn.fused_window_block_attention,
-                         fused_block_attn.fused_window_block_attention_plain,
-                         (attn["qkv"]["weight"], attn["qkv"]["bias"],
-                          attn["proj"]["weight"], attn["proj"]["bias"]),
-                         {"bf16": 8 * c * c * t + core}),
-                        (k1q, attn_q,
-                         fused_block_attn.fused_window_block_attention_int8,
-                         fused_block_attn.fused_window_block_attention_int8_plain,
-                         tuple(attn_q[n][k] for n in ("qkv", "proj")
-                               for k in ("weight_q8", "scale_q8", "bias")),
-                         {"int8": 8 * c * c * t, "bf16": core})):
-                    if rep is k1q and c < P.INT8_MLP_MIN_CHANNELS:
-                        continue
-                    args = (canvas, norm1, p, WS, k_shift, heads, mask, h, h,
-                            origin)
-                    rep.check(torch, f"{pass_name} st{i} Hp={hp} C={c} {route}",
-                              depth // 2,
-                              lambda kernel=kernel, args=args: kernel(*args),
-                              lambda plain=plain, args=args: plain(*args),
-                              (side + nbytes(*weights), ops), crop)
-            x2 = randn((BATCH * h * h, c), 1.0, bf)
-            norm2 = ln_params(c)
-            mlp32 = {"fc1": lin(c, 4 * c), "fc2": lin(4 * c, c)}
-            mlp = P.cast_matmul_weights(mlp32, bf)
-            mlp_q = P.cast_matmul_weights(
-                P.quantize_mlp_int8({"mlp": mlp32}, 0)["mlp"], bf)
-            t = x2.shape[0]
-            side = 2 * nbytes(x2) + nbytes(norm2["scale"], norm2["bias"])
-            k2.check(torch, f"{pass_name} st{i} T={t} C={c}", depth,
-                     lambda: fused_mlp.fused_mlp_residual(x2, norm2, mlp),
-                     lambda: fused_mlp.fused_mlp_residual_plain(x2, norm2, mlp),
-                     (side + nbytes(*(mlp[n][k] for n in ("fc1", "fc2")
-                                      for k in ("weight", "bias"))),
-                      {"bf16": 16 * c * c * t}))
-            if c >= P.INT8_MLP_MIN_CHANNELS:
-                k3.check(torch, f"{pass_name} st{i} T={t} C={c}", depth,
-                         lambda: fused_mlp.fused_mlp_residual_int8(x2, norm2, mlp_q),
-                         lambda: fused_mlp.fused_mlp_residual_int8_plain(
-                             x2, norm2, mlp_q),
-                         (side + nbytes(*(mlp_q[n][k] for n in ("fc1", "fc2")
-                                          for k in ("weight_q8", "scale_q8",
-                                                    "bias"))),
-                          {"int8": 16 * c * c * t}))
-            # Row-LN sites: the stage-output norm, plus the patch-embed norm
-            # before stage 0 and the patch-merge norm after stages 0-2.
-            sites = [("stage norm", BATCH * h * h, c)]
-            if i == 0:
-                sites.append(("patch-embed norm", BATCH * h * h, c))
-            if i < 3:
-                sites.append(("patch-merge norm", BATCH * h * h // 4, 4 * c))
-            for site, n, cc in sites:
-                xr = randn((n, cc), 3.0, bf)
-                p = ln_params(cc)
-                pb = {k: v.to(bf) for k, v in p.items()}
-                k4.check(torch, f"{pass_name} {site} [{n},{cc}]", 1,
-                         lambda: row_ln.layer_norm_rows(p, xr),
-                         lambda: row_ln.layer_norm_rows_plain(p, xr),
-                         (2 * nbytes(xr) + nbytes(p["scale"], p["bias"]),
-                          {"f32": 8 * n * cc}),
-                         library_fn=lambda: F.layer_norm(
-                             xr, (cc,), pb["scale"], pb["bias"], 1e-5))
+            for rep, p, kernel, plain, weights, ops in (
+                    (k1, attn, fused_block_attn.fused_window_block_attention,
+                     fused_block_attn.fused_window_block_attention_plain,
+                     (attn["qkv"]["weight"], attn["qkv"]["bias"],
+                      attn["proj"]["weight"], attn["proj"]["bias"]),
+                     {"bf16": 8 * c * c * t + core}),
+                    (k1q, attn_q,
+                     fused_block_attn.fused_window_block_attention_int8,
+                     fused_block_attn.fused_window_block_attention_int8_plain,
+                     tuple(attn_q[n][k] for n in ("qkv", "proj")
+                           for k in ("weight_q8", "scale_q8", "bias")),
+                     {"int8": 8 * c * c * t, "bf16": core})):
+                if rep is k1q and c < P.INT8_MLP_MIN_CHANNELS:
+                    continue
+                args = (canvas, norm1, p, ws, k_shift, heads, mask, h, h,
+                        origin)
+                rep.check(torch, model, f"{label} {route}", depth // 2,
+                          lambda kernel=kernel, args=args: kernel(*args),
+                          lambda plain=plain, args=args: plain(*args),
+                          (side + nbytes(*weights), ops), crop)
+
+    def check_k6(label, depth, h, c, heads, hp):
+        """K6 at one swin_t stage: B_ = BATCH * (hp / 7)^2 windows of the
+        packed projection, unmasked and masked blocks."""
+        b_, d = BATCH * (hp // 7) ** 2, c // heads
+        qkv = randn((b_, 49, 3 * c), 1.0, bf)
+        bias = randn((heads, 49, 49))
+        # The library call's operands, prebuilt outside its time: q, k, v
+        # as contiguous [B_, heads, N, d] and the additive bias + mask.
+        q, k, v = qkv.view(b_, 49, 3, heads, d).permute(
+            2, 0, 3, 1, 4).contiguous()
+        for mask in (None, W.sw_msa_mask(hp, hp, 7, 3, dev)):
+            args = (qkv, bias, mask, heads)
+            # Queries of real tokens only (2 h^2 of them); every window
+            # token counts as a key and value, and in the bytes.
+            k6.check(torch, "swin_t",
+                     f"{label} B_={b_} C={c}{'' if mask is None else ' masked'}",
+                     depth // 2,
+                     partial(flash_window_attn.flash_window_attention_qkv,
+                             *args),
+                     partial(flash_window_attn.flash_window_attention_qkv_plain,
+                             *args),
+                     (nbytes(qkv, bias, mask) + b_ * 49 * c * 2,
+                      {"bf16": 4 * 49 * c * BATCH * h * h}),
+                     library_fn=sdpa(q, k, v, bias, mask))
+
+    def check_k2_k3_k4(model, label, i, depth, h, c):
+        x2 = randn((BATCH * h * h, c), 1.0, bf)
+        norm2 = ln_params(c)
+        mlp32 = {"fc1": lin(c, 4 * c), "fc2": lin(4 * c, c)}
+        mlp = P.cast_matmul_weights(mlp32, bf)
+        mlp_q = P.cast_matmul_weights(
+            P.quantize_mlp_int8({"mlp": mlp32}, 0)["mlp"], bf)
+        t = x2.shape[0]
+        side = 2 * nbytes(x2) + nbytes(norm2["scale"], norm2["bias"])
+        k2.check(torch, model, f"{label} T={t} C={c}", depth,
+                 lambda: fused_mlp.fused_mlp_residual(x2, norm2, mlp),
+                 lambda: fused_mlp.fused_mlp_residual_plain(x2, norm2, mlp),
+                 (side + nbytes(*(mlp[n][k] for n in ("fc1", "fc2")
+                                  for k in ("weight", "bias"))),
+                  {"bf16": 16 * c * c * t}))
+        if c >= P.INT8_MLP_MIN_CHANNELS:
+            # Every K3 site of both int8 paths: Swin-L's stages 2-3 and
+            # swin_t's stage 3 (C = 768, T = 2048 and 512).
+            k3.check(torch, model, f"{label} T={t} C={c}", depth,
+                     lambda: fused_mlp.fused_mlp_residual_int8(x2, norm2, mlp_q),
+                     lambda: fused_mlp.fused_mlp_residual_int8_plain(
+                         x2, norm2, mlp_q),
+                     (side + nbytes(*(mlp_q[n][k] for n in ("fc1", "fc2")
+                                      for k in ("weight_q8", "scale_q8",
+                                                "bias"))),
+                      {"int8": 16 * c * c * t}))
+        # Row-LN sites: the stage-output norm, plus the patch-embed norm
+        # before stage 0 and the patch-merge norm after stages 0-2.
+        sites = [("stage norm", BATCH * h * h, c)]
+        if i == 0:
+            sites.append(("patch-embed norm", BATCH * h * h, c))
+        if i < 3:
+            sites.append(("patch-merge norm", BATCH * h * h // 4, 4 * c))
+        for site, n, cc in sites:
+            xr = randn((n, cc), 3.0, bf)
+            p = ln_params(cc)
+            pb = {k: v.to(bf) for k, v in p.items()}
+            k4.check(torch, model, f"{label} {site} [{n},{cc}]", 1,
+                     lambda: row_ln.layer_norm_rows(p, xr),
+                     lambda: row_ln.layer_norm_rows_plain(p, xr),
+                     (2 * nbytes(xr) + nbytes(p["scale"], p["bias"]),
+                      {"f32": 8 * n * cc}),
+                     library_fn=lambda: F.layer_norm(
+                         xr, (cc,), pb["scale"], pb["bias"], 1e-5))
+
+    for model, (ws, stages) in MODELS.items():
+        for pass_name, geometry in stages.items():
+            for i, (h, c, heads, depth) in enumerate(geometry):
+                hp = -(-h // ws) * ws
+                label = f"{pass_name} st{i} Hp={hp}"
+                if model == "swin_l":
+                    check_k1(model, f"{label} C={c}", depth,
+                             randn((BATCH, h, h, c), 1.0, bf), h, c, heads, ws,
+                             hp)
+                else:
+                    check_k6(label, depth, h, c, heads, hp)
+                check_k2_k3_k4(model, f"{pass_name} st{i}", i, depth, h, c)
+
+    # K7 and K8 at the JAX package's test shapes (no forward calls them):
+    # (B_, heads, N, d, nW or None); one call at each shape.
+    for rep, label, b_, heads, n, d, nw, causal in (
+            (k7, "shifted mask", 36, 4, 144, 32, 9, None),
+            (k7, "mask period", 8, 2, 16, 8, 4, None),
+            (k8, "simple bias", 4, 2, 16, 8, None, None),
+            (k8, "flash_attention", 4, 2, 16, 8, None, False),
+            (k8, "flash_attention causal", 4, 2, 16, 8, None, True)):
+        q, k, v = (randn((b_, heads, n, d), 1.0, bf) for _ in range(3))
+        if causal is None:
+            bias = randn((heads, n, n))
+            mask = None if nw is None else torch.where(
+                torch.rand((nw, n, n), generator=gen, device=dev) < 0.3,
+                -100.0, 0.0)
+            kernel = partial(flash_window_attn.flash_window_attention,
+                             q, k, v, bias, mask)
+            plain = partial(flash_window_attn.flash_window_attention_plain,
+                            q, k, v, bias, mask)
+        else:
+            bias = flash_window_attn.causal_bias(q, causal)
+            mask = None
+            kernel = partial(flash_window_attn.flash_attention, q, k, v,
+                             causal)
+            plain = partial(flash_window_attn.flash_attention_plain, q, k, v,
+                            causal)
+        rep.check(torch, "api", f"{label} ({b_},{heads},{n},{d})", 1, kernel,
+                  plain, (nbytes(q, k, v, bias, mask) + nbytes(q),
+                          {"bf16": 4 * n * n * d * b_ * heads}),
+                  library_fn=sdpa(q, k, v, bias, mask))
 
     xi = randn((BATCH, SIZE, SIZE, 3), 1.0, bf)
     kk, kb = randn((5, 5, 3, 1), 0.2), randn((1,))
     xc = xi.permute(0, 3, 1, 2)  # channels-last NCHW view
     wc, bc = kk[..., 0].permute(2, 0, 1)[None].to(bf), kb.to(bf)
-    k5.check(torch, f"[{BATCH},{SIZE},{SIZE},3]", 1,
-             lambda: tap_conv.tap_conv_same(xi, kk, kb),
-             lambda: tap_conv.tap_conv_same_plain(xi, kk, kb),
-             (nbytes(xi, kk, kb) + BATCH * SIZE * SIZE * 2,
-              {"f32": 2 * 75 * BATCH * SIZE * SIZE}),
-             library_fn=lambda: F.conv2d(xc, wc, bc, padding=2))
-    return reports
+    for model in MODELS:  # the same head call in both models
+        k5.check(torch, model, f"[{BATCH},{SIZE},{SIZE},3]", 1,
+                 lambda: tap_conv.tap_conv_same(xi, kk, kb),
+                 lambda: tap_conv.tap_conv_same_plain(xi, kk, kb),
+                 (nbytes(xi, kk, kb) + BATCH * SIZE * SIZE * 2,
+                  {"f32": 2 * 75 * BATCH * SIZE * SIZE}),
+                 library_fn=lambda: F.conv2d(xc, wc, bc, padding=2))
+
+    # The kernel tier takes the rel-pos bias rounded to bf16 (as the JAX
+    # kernels do): a bias B and bf16(B) give bitwise the same K1, K1-int8
+    # and K6 outputs.
+    c, heads = 768, 24
+    x = randn((BATCH, 24, 24, c), 1.0, bf)
+    norm1 = ln_params(c)
+    attn32 = {"qkv": lin(c, 3 * c), "proj": lin(c, c)}
+    trees = {"fused_block_attn": P.cast_matmul_weights(attn32, bf),
+             "fused_block_attn_int8": P.cast_matmul_weights(
+                 P.quantize_attn_int8({"attn": attn32}, 0)["attn"], bf)}
+    qkv = randn((BATCH * 25, 49, 3 * 96), 1.0, bf)
+    mask7 = W.sw_msa_mask(35, 35, 7, 3, dev)
+    for name in (*trees, "flash_window_attn_qkv"):
+        if name in trees:
+            bias = randn((heads, 144, 144), 3.0)
+
+            def run(b, tree=trees[name]):
+                return fused_block_attn.fused_window_block_attention(
+                    x, norm1, dict(tree, cached_bias=b), 12, 0, heads, None,
+                    24, 24)
+        else:
+            bias = randn((3, 49, 49), 3.0)
+
+            def run(b):
+                return flash_window_attn.flash_window_attention_qkv(
+                    qkv, b, mask7, 3)
+        rounded = bias.to(bf).float()
+        same = torch.equal(run(bias), run(rounded))
+        log(f"{name}: bias B and bf16(B) give bitwise-equal outputs: {same}")
+        if torch.equal(bias, rounded) or not same:
+            fail(f"{name} does not take the rel-pos bias rounded to bf16")
 
 
 def with_features(bmodel, infer, frames):
@@ -337,8 +517,9 @@ def with_features(bmodel, infer, frames):
         bmodel.swin_forward = swin_forward
 
 
-def feature_error(path, feats, ref_feats) -> float:
-    """Logs mean|f - ref| / mean|ref| per stage tensor; returns the largest."""
+def feature_errors(path, feats, ref_feats):
+    """mean|f - ref| / mean|ref| per stage tensor (full pass, half pass),
+    logged."""
     if len(feats) != len(ref_feats):
         fail(f"{path}: {len(feats)} backbone features, want {len(ref_feats)}")
     rel = [float((f.float() - r).abs().mean() / r.abs().mean())
@@ -346,7 +527,7 @@ def feature_error(path, feats, ref_feats) -> float:
     log(f"phase 4: {path}: backbone features vs f32 plain pipeline, "
         f"mean|f - f32| / mean|f32| per stage (full pass, half pass): "
         + " ".join(f"{e:.3e}" for e in rel))
-    return max(rel)
+    return rel
 
 
 def drive(torch, bmodel, reports, infer, frames, want, path):
@@ -369,6 +550,59 @@ def drive(torch, bmodel, reports, infer, frames, want, path):
         fail(f"{path}: bad mask: shape {tuple(mask.shape)}, range "
              f"[{float(mask.min())}, {float(mask.max())}]")
     return mask, feats
+
+
+def drive_model(torch, bmodel, pipeline, reports, cfg, params, frames, tiers,
+                plain_bf16):
+    """Phase 4 for one model: its f32 plain reference, then each path.
+    Returns {path: max feature error} and the reference features."""
+    from birefnet_tpu_torch.configs import ComputeConfig
+
+    dev = frames.device
+    ref, ref_feats = with_features(bmodel, pipeline.make_infer_fn(
+        params, cfg, ComputeConfig(), dev, as_uint8=False), frames)
+    errs, masks = {}, {}
+    if plain_bf16:
+        _, feats = with_features(bmodel, pipeline.make_infer_fn(
+            params, cfg, ComputeConfig(dtype=torch.bfloat16), dev,
+            as_uint8=False), frames)
+        errs["plain bf16"] = feature_errors(f"{cfg.backbone} plain bf16", feats,
+                                            ref_feats)
+        del feats
+    for path, (compute, want) in tiers.items():
+        infer = pipeline.make_infer_fn(params, cfg, compute, dev,
+                                       as_uint8=False)
+        masks[path], feats = drive(torch, bmodel, reports, infer, frames, want,
+                                   path)
+        del infer
+        mae = float((masks[path] - ref).abs().mean())
+        log(f"phase 4: {path}: mask MAE vs f32 plain pipeline = {mae:.3e} "
+            f"(gate < 1e-3)")
+        if not mae < 1e-3:
+            fail(f"{path} mask MAE {mae} >= 1e-3")
+        errs[path] = feature_errors(path, feats, ref_feats)
+        del feats
+    paths = list(tiers)
+    d = (masks[paths[1]] - masks[paths[0]]).abs()
+    log(f"phase 4: {paths[1]} vs {paths[0]} masks: mean |diff| "
+        f"{float(d.mean()):.3e}, max {float(d.max()):.3e} (not gated)")
+    return errs, ref_feats
+
+
+def int8_gate(path, errs, bf16_path):
+    limit = FEATURE_RATIO * max(errs[bf16_path])
+    log(f"phase 4: {path} features' largest relative error "
+        f"{max(errs[path]):.3e} (gate <= {FEATURE_RATIO} x {bf16_path}'s "
+        f"{max(errs[bf16_path]):.3e} = {limit:.3e})")
+    if not max(errs[path]) <= limit:
+        fail(f"{path} backbone features off by {max(errs[path])} > {limit}")
+    return limit
+
+
+def stage_ratio(errs, plain):
+    """The largest stage-by-stage ratio of a path's feature error to the
+    plain bf16 pipeline's."""
+    return max(e / p for e, p in zip(errs, plain))
 
 
 def main() -> int:
@@ -404,57 +638,79 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    reports = make_reports()
     with torch.inference_mode():
-        reports = check_kernels(torch, dev)
+        check_kernels(torch, dev, reports)
     log("phase 3: every kernel within its bound at every slice shape")
 
-    cfg = BiRefNetConfig.swin_l()
-    params = build_param_tree(random_checkpoint(cfg, 0), cfg)
     frames = np.random.default_rng(42).integers(
         0, 256, size=(BATCH, SIZE, SIZE, 3), dtype=np.uint8)
     frames_dev = torch.from_numpy(frames).to(dev)
     bf16 = ComputeConfig(dtype=torch.bfloat16, use_flash_attention=True)
     int8 = bf16.with_overrides(int8_mlp=True, int8_attn=True)
     names = list(reports)
-    tiers = {"bf16": (bf16, dict(zip(names, (48, 0, 48, 0, 16, 1)))),
-             "int8": (int8, dict(zip(names, (8, 40, 8, 40, 16, 1))))}
-    ref, ref_feats = with_features(bmodel, pipeline.make_infer_fn(
-        params, cfg, ComputeConfig(), dev, as_uint8=False), frames_dev)
-    masks, feature_err = {}, {}
-    for path, (compute, want) in tiers.items():
-        infer = pipeline.make_infer_fn(params, cfg, compute, dev,
-                                       as_uint8=False)
-        masks[path], feats = drive(torch, bmodel, reports, infer, frames_dev,
-                                   want, path)
-        del infer
-        mae = float((masks[path] - ref).abs().mean())
-        log(f"phase 4: {path}: mask MAE vs f32 plain pipeline = {mae:.3e} "
-            f"(gate < 1e-3)")
-        if not mae < 1e-3:
-            fail(f"{path} mask MAE {mae} >= 1e-3")
-        feature_err[path] = feature_error(path, feats, ref_feats)
-        del feats
-    limit = FEATURE_RATIO * feature_err["bf16"]
-    log(f"phase 4: int8 features' largest relative error {feature_err['int8']:.3e} "
-        f"(gate <= {FEATURE_RATIO} x the bf16 tier's {feature_err['bf16']:.3e} "
-        f"= {limit:.3e})")
-    if not feature_err["int8"] <= limit:
-        fail(f"int8 backbone features off by {feature_err['int8']} > {limit}")
+    # Launches per make_infer_fn call, in the order of `reports`.
+    paths = {
+        "swin_l": {"swin_l bf16": (bf16, (48, 0, 48, 0, 16, 1, 0, 0, 0)),
+                   "swin_l int8": (int8, (8, 40, 8, 40, 16, 1, 0, 0, 0))},
+        "swin_t": {"swin_t bf16": (bf16, (0, 0, 24, 0, 16, 1, 24, 0, 0)),
+                   "swin_t int8": (int8, (0, 0, 20, 4, 16, 1, 24, 0, 0))},
+    }
+    cfgs = {"swin_l": BiRefNetConfig.swin_l(),
+            "swin_t": BiRefNetConfig.for_backbone("swin_v1_t")}
+    flat = {m: random_checkpoint(cfg, 0) for m, cfg in cfgs.items()}
+    flat["swin_t"] = {k: v * REL_POS_BIAS_SCALE if k.endswith(
+        "relative_position_bias_table") else v for k, v in flat["swin_t"].items()}
+    params = {m: build_param_tree(flat[m], cfg) for m, cfg in cfgs.items()}
+    del flat
+    tiers = {m: {p: (c, dict(zip(names, w))) for p, (c, w) in ps.items()}
+             for m, ps in paths.items()}
+
+    # Swin-L: the int8 path against its bf16 tier, and the rolled-scale
+    # negative control.
+    errs, ref_feats = drive_model(torch, bmodel, pipeline, reports,
+                                  cfgs["swin_l"], params["swin_l"], frames_dev,
+                                  tiers["swin_l"], plain_bf16=False)
+    limit = int8_gate("swin_l int8", errs, "swin_l bf16")
     # Negative control: int8 scales rolled by one channel (every channel
     # dequantized with its neighbour's scale) must break the feature gate.
     rolled = tree_map(lambda k, v: torch.roll(v, 1) if k == "scale_q8" else v,
-                      quantize_attn_int8(quantize_mlp_int8(params)))
+                      quantize_attn_int8(quantize_mlp_int8(params["swin_l"])))
     _, feats = with_features(bmodel, pipeline.make_infer_fn(
-        rolled, cfg, bf16, dev, as_uint8=False), frames_dev)
-    if not feature_error("rolled int8 scales", feats, ref_feats) > limit:
+        rolled, cfgs["swin_l"], bf16, dev, as_uint8=False), frames_dev)
+    if not max(feature_errors("swin_l rolled int8 scales", feats,
+                              ref_feats)) > limit:
         fail("the feature gate does not see int8 scales rolled by one channel")
-    del rolled, feats
-    d = (masks["int8"] - masks["bf16"]).abs()
-    log(f"phase 4: int8 vs bf16 kernel-tier masks: mean |diff| "
-        f"{float(d.mean()):.3e}, max {float(d.max()):.3e} (not gated)")
+    del rolled, feats, ref_feats
+
+    # swin_t: the bf16 kernel tier against the plain bf16 pipeline stage by
+    # stage, the int8 flags against the bf16 tier, and a rel-pos bias
+    # rolled by one head as the negative control.
+    errs, ref_feats = drive_model(torch, bmodel, pipeline, reports,
+                                  cfgs["swin_t"], params["swin_t"], frames_dev,
+                                  tiers["swin_t"], plain_bf16=True)
+    ratio = stage_ratio(errs["swin_t bf16"], errs["plain bf16"])
+    log(f"phase 4: swin_t bf16 kernel tier's feature error, stage by stage, at "
+        f"most {ratio:.3f} x the plain bf16 pipeline's (gate <= "
+        f"{FEATURE_RATIO_T})")
+    if not ratio <= FEATURE_RATIO_T:
+        fail(f"swin_t kernel-tier features {ratio} x the plain bf16 error")
+    int8_gate("swin_t int8", errs, "swin_t bf16")
+    rolled = tree_map(lambda k, v: torch.roll(v, 1, 0) if k == "cached_bias"
+                      else v, params["swin_t"])
+    _, feats = with_features(bmodel, pipeline.make_infer_fn(
+        rolled, cfgs["swin_t"], bf16, dev, as_uint8=False), frames_dev)
+    bad = stage_ratio(feature_errors("swin_t rolled rel-pos bias", feats,
+                                     ref_feats), errs["plain bf16"])
+    log(f"phase 4: swin_t with the rel-pos bias rolled by one head: {bad:.3f} x "
+        f"the plain bf16 error (must break the gate {FEATURE_RATIO_T})")
+    if not bad > FEATURE_RATIO_T:
+        fail("the feature gate does not see a rel-pos bias rolled by one head")
+    del rolled, feats, ref_feats
     for r in reports.values():
-        r.entry["launches"] = r.entry["launches_by_path"]["int8"]
-    del ref, ref_feats, masks, d
+        r.finish("api" if r in (reports["flash_window_attn_masked"],
+                                reports["flash_window_attn_plain"])
+                 else r.main_path.split()[0])
 
     golden = os.path.join(ROOT, "tests", "goldens", "logits_jax.npy")
     golden_cfg = BiRefNetConfig.swin_l()
@@ -475,36 +731,44 @@ def main() -> int:
     rng = np.random.default_rng(7)
     sizes = [(720, 1280), (1024, 1024), (480, 640), (1500, 900)]
     images = [rng.integers(0, 256, (h, w, 3), dtype=np.uint8) for h, w in sizes]
-    for path, (compute, _) in tiers.items():
-        serve_infer = pipeline.make_infer_fn(params, cfg, compute, dev,
-                                             out_size=(SIZE, SIZE))
-        served = serve.segment(serve_infer, images, SIZE, BATCH)
-        got = [m.shape for m in served]
-        log(f"phase 5: {path}: served {len(served)} requests, mask shapes {got}")
-        if got != sizes or any(m.dtype != np.uint8 for m in served):
-            fail(f"{path}: served mask shapes {got} != {sizes}")
-        del serve_infer
+    for model, model_tiers in tiers.items():
+        for path, (compute, _) in model_tiers.items():
+            serve_infer = pipeline.make_infer_fn(params[model], cfgs[model],
+                                                 compute, dev,
+                                                 out_size=(SIZE, SIZE))
+            served = serve.segment(serve_infer, images, SIZE, BATCH)
+            got = [m.shape for m in served]
+            log(f"phase 5: {path}: served {len(served)} requests, mask shapes "
+                f"{got}")
+            if got != sizes or any(m.dtype != np.uint8 for m in served):
+                fail(f"{path}: served mask shapes {got} != {sizes}")
+            del serve_infer
 
-    fns = {"int8 path": pipeline.make_infer_fn(params, cfg, int8, dev),
-           "bf16 kernel tier": pipeline.make_infer_fn(params, cfg, bf16, dev),
-           "plain bf16": pipeline.make_infer_fn(
-               params, cfg, ComputeConfig(dtype=torch.bfloat16), dev)}
-    order = list(fns) + list(fns)[::-1]
-    for name in order:
-        fn = fns[name]
-        ms = []
-        fn(frames_dev)
-        for _ in range(5):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
+    for model in MODELS:
+        fns = {f"{model} int8 path": pipeline.make_infer_fn(
+                   params[model], cfgs[model], int8, dev),
+               f"{model} bf16 kernel tier": pipeline.make_infer_fn(
+                   params[model], cfgs[model], bf16, dev),
+               f"{model} plain bf16": pipeline.make_infer_fn(
+                   params[model], cfgs[model],
+                   ComputeConfig(dtype=torch.bfloat16), dev)}
+        order = list(fns) + list(fns)[::-1]
+        for name in order:
+            fn = fns[name]
+            ms = []
             fn(frames_dev)
-            end.record()
-            torch.cuda.synchronize()
-            ms.append(start.elapsed_time(end))
-        med = sorted(ms)[len(ms) // 2]
-        log(f"phase 6: {name}: median {med:.2f} ms per batch of {BATCH} -> "
-            f"{BATCH / (med / 1e3):.2f} img/s ({smi})")
+            for _ in range(5):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                fn(frames_dev)
+                end.record()
+                torch.cuda.synchronize()
+                ms.append(start.elapsed_time(end))
+            med = sorted(ms)[len(ms) // 2]
+            log(f"phase 6: {name}: median {med:.2f} ms per batch of {BATCH} "
+                f"-> {BATCH / (med / 1e3):.2f} img/s ({smi})")
+        del fns
 
     print(json.dumps({"kernels": [r.entry for r in reports.values()]}))
     print(smi)

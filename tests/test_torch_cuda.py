@@ -25,8 +25,8 @@ import torch
 from birefnet_tpu_torch import params as pparams
 from birefnet_tpu_torch.models import swin
 from birefnet_tpu_torch.ops import window as W
-from birefnet_tpu_torch.ops.kernels import (fused_block_attn, fused_mlp,
-                                            row_ln, tap_conv)
+from birefnet_tpu_torch.ops.kernels import (flash_window_attn, fused_block_attn,
+                                            fused_mlp, row_ln, tap_conv)
 
 pytestmark = pytest.mark.cuda
 # The int8 kernels are also held to mean|kernel - plain| / mean|plain|: at
@@ -62,7 +62,8 @@ def _assert_close(got, want, mean_bound=None):
         assert rel <= mean_bound, f"mean|kernel - plain| / mean|plain| {rel}"
 
 
-@pytest.mark.parametrize("shape", [(1000, 192), (37, 3072), (2, 7, 9, 768)])
+@pytest.mark.parametrize("shape", [(1000, 192), (37, 3072), (2, 7, 9, 768),
+                                   (1000, 96), (50, 384)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_row_ln_kernel_matches_plain(dev, shape, dtype):
     gen = torch.Generator(dev).manual_seed(0)
@@ -85,7 +86,8 @@ def _mlp_params(gen, c, dev):
                      "bias": _randn(gen, (c,), dev, 0.1)}})
 
 
-@pytest.mark.parametrize("t,c", [(100, 64), (512, 192), (48, 1536)])
+@pytest.mark.parametrize("t,c", [(100, 64), (512, 192), (48, 1536), (100, 96),
+                                 (4096, 96)])
 def test_fused_mlp_kernel_matches_plain(dev, t, c):
     gen = torch.Generator(dev).manual_seed(1)
     x = _randn(gen, (t, c), dev, 1.0, torch.bfloat16)
@@ -140,7 +142,8 @@ def _quantized(tree, key):
                                        torch.bfloat16)
 
 
-@pytest.mark.parametrize("t,c", [(100, 64), (512, 192), (48, 1536)])
+@pytest.mark.parametrize("t,c", [(100, 64), (512, 192), (512, 768),
+                                 (48, 1536)])
 def test_fused_mlp_int8_kernel_matches_plain(dev, t, c):
     gen = torch.Generator(dev).manual_seed(6)
     x = _randn(gen, (t, c), dev, 1.0, torch.bfloat16)
@@ -267,3 +270,128 @@ def test_swin_int8_kernel_tier_matches_f32_plain(dev):
     for g, r in zip(got, ref):
         err = (g.float() - r).abs().mean().item()
         assert err < 5e-2, f"mean |int8 kernels - f32 plain| = {err}"
+
+
+# Mean bound of the window-attention kernel against its plain version: both
+# round at the same points, so only sums in another order differ (the H100
+# read at most 3.6e-7 at the swin_t shapes in chip_smoke.py).
+MEAN_BOUND_FWA = 1e-5
+
+
+@pytest.mark.parametrize("masked", [False, True])
+# swin_t stage 0 at 35^2 (25 windows per image) and stage 3 at 21^2, and a
+# ws=12 geometry; B_ is two images' windows.
+@pytest.mark.parametrize("b_,ws,heads,hp", [(50, 7, 3, 35), (18, 7, 24, 21),
+                                            (8, 12, 2, 24)])
+def test_flash_qkv_kernel_matches_plain(dev, b_, ws, heads, hp, masked):
+    gen = torch.Generator(dev).manual_seed(10)
+    n, c = ws * ws, heads * 32
+    qkv = _randn(gen, (b_, n, 3 * c), dev, 1.0, torch.bfloat16)
+    bias = _randn(gen, (heads, n, n), dev, 3.0)
+    mask = W.sw_msa_mask(hp, hp, ws, ws // 2, dev) if masked else None
+    n0 = flash_window_attn.flash_window_attention_qkv.launches
+    got = flash_window_attn.flash_window_attention_qkv(qkv, bias, mask, heads)
+    assert flash_window_attn.flash_window_attention_qkv.launches == n0 + 1
+    _assert_close(got, flash_window_attn.flash_window_attention_qkv_plain(
+        qkv, bias, mask, heads), MEAN_BOUND_FWA)
+
+
+# The JAX package's test shapes: (B_, heads, N, d, nW or None).
+@pytest.mark.parametrize("b_,heads,n,d,nw", [
+    (4, 2, 16, 8, None), (36, 4, 144, 32, 9), (8, 2, 16, 8, 4),
+    (6, 2, 256, 64, 3), (5, 3, 49, 24, None)])
+def test_flash_window_attention_kernel_matches_plain(dev, b_, heads, n, d, nw):
+    gen = torch.Generator(dev).manual_seed(11)
+    q, k, v = (_randn(gen, (b_, heads, n, d), dev, 1.0, torch.bfloat16)
+               for _ in range(3))
+    bias = _randn(gen, (heads, n, n), dev)
+    mask = None
+    if nw is not None:
+        mask = torch.where(torch.rand((nw, n, n), generator=gen, device=dev)
+                           < 0.3, -100.0, 0.0)
+    n0 = flash_window_attn.flash_window_attention.launches
+    got = flash_window_attn.flash_window_attention(q, k, v, bias, mask)
+    assert flash_window_attn.flash_window_attention.launches == n0 + 1
+    _assert_close(got, flash_window_attn.flash_window_attention_plain(
+        q, k, v, bias, mask), MEAN_BOUND_FWA)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_attention_kernel_matches_plain(dev, causal):
+    gen = torch.Generator(dev).manual_seed(12)
+    q, k, v = (_randn(gen, (4, 2, 16, 8), dev, 1.0, torch.bfloat16)
+               for _ in range(3))
+    n0 = flash_window_attn.flash_attention.launches
+    got = flash_window_attn.flash_attention(q, k, v, causal)
+    assert flash_window_attn.flash_attention.launches == n0 + 1
+    _assert_close(got, flash_window_attn.flash_attention_plain(q, k, v, causal),
+                  MEAN_BOUND_FWA)
+
+
+def test_flash_window_attn_refuses_f32_and_wide_heads(dev):
+    q = torch.zeros((2, 1, 16, 8), device=dev)
+    with pytest.raises(TypeError):
+        flash_window_attn.flash_attention(q, q, q)
+    wide = torch.zeros((2, 1, 16, 72), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of 8 up to 64"):
+        flash_window_attn.flash_attention(wide, wide, wide)
+
+
+@pytest.mark.parametrize("kernel", ["fused_block_attn", "fused_block_attn_int8",
+                                    "flash_window_attn_qkv"])
+def test_kernels_round_the_bias_to_bf16(dev, kernel):
+    """The K1, K1-int8 and K6 kernels take the rel-pos bias rounded to bf16:
+    a bias B and bf16(B) give bitwise the same output."""
+    gen = torch.Generator(dev).manual_seed(13)
+    heads, c = 2, 64
+    ws = 7 if kernel == "flash_window_attn_qkv" else 12
+    bias = _randn(gen, (heads, ws * ws, ws * ws), dev, 3.0)
+    rounded = bias.bfloat16().float()
+    assert not torch.equal(bias, rounded)
+    if kernel == "flash_window_attn_qkv":
+        qkv = _randn(gen, (8, 49, 3 * c), dev, 1.0, torch.bfloat16)
+
+        def run(b):
+            return flash_window_attn.flash_window_attention_qkv(qkv, b, None,
+                                                                heads)
+    else:
+        norm1, attn = _block_params(gen, c, heads, dev)
+        if kernel == "fused_block_attn_int8":
+            attn = _quantized(pparams.tree_map(lambda _, v: v.float(), attn),
+                              "attn")
+        x = _randn(gen, (2, 24, 24, c), dev, 1.0, torch.bfloat16)
+
+        def run(b):
+            return fused_block_attn.fused_window_block_attention(
+                x, norm1, dict(attn, cached_bias=b), 12, 0, heads, None, 24, 24)
+    assert torch.equal(run(bias), run(rounded))
+
+
+def test_swin_middle_tier_matches_f32_plain(dev):
+    """A narrow ws=7 Swin on the kernel tier in bf16 against the plain f32
+    forward on the card: K6, K2 and row_ln launch."""
+    from birefnet_tpu_torch.configs import ComputeConfig, SwinConfig
+    from birefnet_tpu_torch.params import (_Source, _swin, _swin_entries,
+                                           cast_matmul_weights, tree_map)
+
+    cfg = SwinConfig(embed_dim=96, depths=(2, 2, 2, 2), num_heads=(3, 6, 12, 24),
+                     window_size=7)
+    rng = np.random.default_rng(14)
+    flat = {k: rng.normal(0, 0.05, s).astype(np.float32)
+            for k, s in _swin_entries("bb", cfg)}
+    params = tree_map(lambda _, v: v.to(dev), _swin(_Source(flat), "bb", cfg))
+    x = torch.from_numpy(rng.normal(size=(2, 128, 128, 3)).astype(np.float32))
+    x = x.to(dev)
+    ref = swin.swin_forward(params, cfg, x, ComputeConfig())
+    counters = (flash_window_attn.flash_window_attention_qkv,
+                fused_mlp.fused_mlp_residual, row_ln.layer_norm_rows,
+                fused_block_attn.fused_window_block_attention)
+    before = [f.launches for f in counters]
+    got = swin.swin_forward(cast_matmul_weights(params, torch.bfloat16), cfg,
+                            x.to(torch.bfloat16),
+                            ComputeConfig(dtype=torch.bfloat16,
+                                          use_flash_attention=True))
+    assert [f.launches - b for f, b in zip(counters, before)] == [8, 8, 8, 0]
+    for g, r in zip(got, ref):
+        err = (g.float() - r).abs().mean().item()
+        assert err < 5e-2, f"mean |bf16 kernels - f32 plain| = {err}"

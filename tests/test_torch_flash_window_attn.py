@@ -1,0 +1,119 @@
+"""The window-attention kernel module (K6, K7, K8) on the CPU: the port's
+plain versions against the JAX package's Pallas kernels in interpret mode,
+on the same inputs made by numpy from a seed.
+
+The wrappers take the plain version for a CPU tensor, so these tests also
+check that a CPU call launches nothing. The CUDA kernel is checked against
+the same plain versions on the card (test_torch_cuda.py).
+
+Tolerances: f32 atol 2e-5 / rtol 1e-4 (sums in other orders). bf16: every
+element within one bf16 ulp of the JAX value; both sides round at the same
+points (q * bf16 scale, the bias and mask addends, the probabilities, the
+output), so only an f32 sum in another order can move a value across a
+rounding boundary.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from birefnet_tpu.ops.pallas import flash_window_attn as jfwa
+from birefnet_tpu_torch.ops import window as W
+from birefnet_tpu_torch.ops.kernels import flash_window_attn as fwa
+
+TOL = dict(atol=2e-5, rtol=1e-4)
+WRAPPERS = (fwa.flash_window_attention_qkv, fwa.flash_window_attention,
+            fwa.flash_attention)
+
+
+def _rand(rng, shape, scale=1.0):
+    return (rng.normal(size=shape) * scale).astype(np.float32)
+
+
+def _assert_within_one_bf16_ulp(got: torch.Tensor, want: np.ndarray):
+    got = got.float().numpy()
+    mag = np.maximum(np.abs(want), np.float32(2.0 ** -126))
+    ulp = np.exp2(np.floor(np.log2(mag)) - 7)
+    over = np.abs(got - want) > ulp
+    assert not over.any(), (f"{over.sum()} of {over.size} elements off by "
+                            f"more than one bf16 ulp, max |diff| "
+                            f"{np.abs(got - want).max()}")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("ws", [7, 12])
+def test_flash_qkv_plain_matches_pallas(ws, masked, dtype):
+    """K6 on the packed [B_, N, 3C] projection at N = 49 and 144: two
+    images of 2x2 windows, 2 heads of 32."""
+    rng = np.random.default_rng(ws + masked)
+    n, heads, c = ws * ws, 2, 64
+    qkv = _rand(rng, (8, n, 3 * c))
+    bias = _rand(rng, (heads, n, n), 3.0)
+    mask = W.sw_msa_mask(2 * ws, 2 * ws, ws, ws // 2).numpy() if masked else None
+    jdt = jnp.dtype(dtype)
+    want = np.asarray(jfwa.flash_window_attention_qkv(
+        jnp.asarray(qkv, jdt), jnp.asarray(bias, jdt),
+        None if mask is None else jnp.asarray(mask, jdt), heads,
+        interpret=True).astype(jnp.float32))
+    tdt = getattr(torch, dtype)
+    before = [f.launches for f in WRAPPERS]
+    got = fwa.flash_window_attention_qkv(
+        torch.from_numpy(qkv).to(tdt), torch.from_numpy(bias),
+        None if mask is None else torch.from_numpy(mask), heads)
+    assert [f.launches for f in WRAPPERS] == before
+    assert got.shape == (8, n, c) and got.dtype == tdt
+    if dtype == "float32":
+        np.testing.assert_allclose(got.numpy(), want, **TOL)
+    else:
+        _assert_within_one_bf16_ulp(got, want)
+
+
+@pytest.mark.parametrize("b_,heads,n,d,nw", [
+    (4, 2, 16, 8, None),     # test_simple_bias
+    (36, 4, 144, 32, 9),     # test_swin_l_stage0_shape / shifted mask
+    (8, 2, 16, 8, 4),        # test_mask_period_batching
+])
+def test_flash_window_attention_plain_matches_pallas(b_, heads, n, d, nw):
+    """K7 (masked) and K8 (unmasked) at the JAX package's test shapes."""
+    rng = np.random.default_rng(b_ + n)
+    q, k, v = (_rand(rng, (b_, heads, n, d)) for _ in range(3))
+    bias = _rand(rng, (heads, n, n))
+    mask = None
+    if nw is not None:
+        mask = np.where(rng.uniform(size=(nw, n, n)) < 0.3, -100.0,
+                        0.0).astype(np.float32)
+    want = np.asarray(jfwa.flash_window_attention(
+        *(jnp.asarray(a) for a in (q, k, v, bias)),
+        None if mask is None else jnp.asarray(mask), interpret=True))
+    before = [f.launches for f in WRAPPERS]
+    got = fwa.flash_window_attention(
+        *(torch.from_numpy(a) for a in (q, k, v, bias)),
+        None if mask is None else torch.from_numpy(mask))
+    assert [f.launches for f in WRAPPERS] == before
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_attention_plain_matches_pallas(causal):
+    """K8 through the bias-free entry point, (4, 2, 16, 8)."""
+    rng = np.random.default_rng(5 + causal)
+    q, k, v = (_rand(rng, (4, 2, 16, 8)) for _ in range(3))
+    want = np.asarray(jfwa.flash_attention(
+        *(jnp.asarray(a) for a in (q, k, v)), causal=causal, interpret=True))
+    before = [f.launches for f in WRAPPERS]
+    got = fwa.flash_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                              causal=causal)
+    assert [f.launches for f in WRAPPERS] == before
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+def test_flash_wrappers_refuse_other_devices():
+    x = torch.zeros((2, 49, 96), device="meta")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        fwa.flash_window_attention_qkv(x, x[0, :1], None, 1)
+    q = torch.zeros((2, 1, 16, 8), device="meta")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        fwa.flash_attention(q, q, q)

@@ -86,6 +86,31 @@ def _assert_few_steps(got, want, max_err=MAX_ERR, mean_err=MEAN_ERR):
     assert d.mean() <= mean_err, f"mean |diff| {d.mean()}"
 
 
+def _jax_infer_with_features(monkeypatch, jtree, jcfg, jcompute, frames):
+    """The JAX package's make_infer_fn masks for uint8 frames and the
+    full-scale backbone features of the same call, from one compiled
+    program: birefnet.forward's swin_forward is wrapped while the
+    pipeline's body is traced, and its first pass's stage outputs are
+    returned beside the mask."""
+    from birefnet_tpu import pipeline as jpipeline
+    from birefnet_tpu.models import birefnet as jbirefnet
+
+    passes, swin_forward = [], jbirefnet.swin_forward
+
+    def captured(*args, **kw):
+        out = swin_forward(*args, **kw)
+        passes.append(out)
+        return out
+
+    monkeypatch.setattr(jbirefnet, "swin_forward", captured)
+    body = jpipeline.make_infer_fn(jtree, jcfg, jcompute,
+                                   as_uint8=False).__wrapped__
+    mask, feats = jax.jit(lambda f: (body(f), passes[0]))(jnp.asarray(frames))
+    monkeypatch.setattr(jbirefnet, "swin_forward", swin_forward)
+    assert len(passes) == 2  # the full- and half-scale backbone passes
+    return np.asarray(mask), [np.asarray(f) for f in feats]
+
+
 @pytest.fixture
 def interpret_reciprocal(monkeypatch):
     """The port's 3-term erf with the reciprocal the JAX kernel gets in
@@ -298,8 +323,7 @@ def test_make_infer_fn_int8_matches_jax(interpret_reciprocal, monkeypatch):
     near 0.5 and barely move with int8, so the masks check the pipeline
     around the int8 blocks (mean 1e-6), the sites are counted, and the
     full-scale backbone features of the make_infer_fn call are held to the
-    JAX package's int8 backbone on the same preprocessed frames."""
-    from birefnet_tpu import pipeline as jpipeline
+    JAX package's int8 backbone in its own make_infer_fn call."""
     from birefnet_tpu_torch import pipeline as ppipeline
     from birefnet_tpu_torch.models import birefnet as pbirefnet
 
@@ -310,14 +334,8 @@ def test_make_infer_fn_int8_matches_jax(interpret_reciprocal, monkeypatch):
                                                dtype=np.uint8)
     jcompute = bt.ComputeConfig(use_flash_attention=True, int8_mlp=True,
                                 int8_attn=True, deform_mode="regular")
-    jtree = bt.build_param_tree(flat, jcfg)
-    want = np.asarray(jpipeline.make_infer_fn(jtree, jcfg, jcompute,
-                                              as_uint8=False)(
-        jnp.asarray(frames)))
-    jq = jparams.quantize_attn_int8(jparams.quantize_mlp_int8(jtree))
-    want_feats = [np.asarray(f) for f in jax.jit(
-        lambda p, x: jswin.swin_forward(p, jcfg.swin_config(), x, jcompute))(
-            jq["bb"], jpipeline.preprocess(jnp.asarray(frames), jcfg.size))]
+    want, want_feats = _jax_infer_with_features(
+        monkeypatch, bt.build_param_tree(flat, jcfg), jcfg, jcompute, frames)
     feats = []
 
     def captured(*args, **kw):
@@ -364,3 +382,67 @@ def test_make_infer_fn_int8_matches_jax(interpret_reciprocal, monkeypatch):
             pt.ComputeConfig(use_flash_attention=True))
     assert all(np.abs(g.numpy() - w_).mean() > 4e-3
                for g, w_ in zip(bad[2:], want_feats[2:]))
+
+
+def test_make_infer_fn_swin_t_matches_jax(interpret_reciprocal, monkeypatch):
+    """The ws=7 slice as a whole: swin_t at 128^2, batch 2, through
+    make_infer_fn with both int8 flags on the kernel tier (f32
+    activations), port on the CPU against the JAX package's pipeline. Each
+    backbone pass runs 12 middle-tier blocks: 12 K6 sites, and 10 K2 and 2
+    K3 sites (int8_mlp quantizes stage 3, C = 768; int8_attn quantizes the
+    stage-3 qkv and proj, which the middle tier does not read). The masks
+    are held to mean 1e-6, the sites are counted, and the full-scale
+    backbone features of the make_infer_fn call to those of the JAX
+    middle tier's make_infer_fn call."""
+    import dataclasses
+
+    from birefnet_tpu_torch import pipeline as ppipeline
+    from birefnet_tpu_torch.models import birefnet as pbirefnet
+    from birefnet_tpu_torch.ops.kernels import flash_window_attn
+
+    jcfg = dataclasses.replace(bt.BiRefNetConfig.for_backbone("swin_v1_t"),
+                               size=(128, 128))
+    pcfg = dataclasses.replace(pt.BiRefNetConfig.for_backbone("swin_v1_t"),
+                               size=(128, 128))
+    flat = bt.random_checkpoint(jcfg, 8)
+    frames = np.random.default_rng(2).integers(0, 256, (2, 128, 128, 3),
+                                               dtype=np.uint8)
+    jcompute = bt.ComputeConfig(use_flash_attention=True, int8_mlp=True,
+                                int8_attn=True, deform_mode="regular")
+    want, want_feats = _jax_infer_with_features(
+        monkeypatch, bt.build_param_tree(flat, jcfg), jcfg, jcompute, frames)
+    feats = []
+
+    def captured(*args, **kw):
+        out = pswin.swin_forward(*args, **kw)
+        feats.append(out)
+        return out
+
+    monkeypatch.setattr(pbirefnet, "swin_forward", captured)
+    calls = {"k6": 0, "k2": 0, "k3": 0}
+
+    def counted(key, fn):
+        def wrapper(*args, **kw):
+            calls[key] += 1
+            return fn(*args, **kw)
+        return wrapper
+
+    monkeypatch.setattr(
+        flash_window_attn, "flash_window_attention_qkv_plain", counted(
+            "k6", flash_window_attn.flash_window_attention_qkv_plain))
+    monkeypatch.setattr(fused_mlp, "fused_mlp_residual_plain", counted(
+        "k2", fused_mlp.fused_mlp_residual_plain))
+    monkeypatch.setattr(fused_mlp, "fused_mlp_residual_int8_plain", counted(
+        "k3", fused_mlp.fused_mlp_residual_int8_plain))
+    ptree = pt.build_param_tree(flat, pcfg)
+    got = ppipeline.make_infer_fn(
+        ptree, pcfg, pt.ComputeConfig(use_flash_attention=True, int8_mlp=True,
+                                      int8_attn=True), "cpu",
+        as_uint8=False)(frames)
+    assert calls == {"k6": 24, "k2": 20, "k3": 4}
+    assert got.shape == want.shape == (2, 128, 128)
+    assert np.abs(got.numpy() - want).mean() < 1e-6
+    assert len(feats) == 2  # the full- and half-scale backbone passes
+    assert [g.shape[-1] for g in feats[0]] == [96, 192, 384, 768]
+    for g, w_ in zip(feats[0], want_feats):
+        _assert_few_steps(g.numpy(), w_, MAX_ERR, 1e-3)

@@ -5,7 +5,10 @@ on the same f32 inputs made by numpy from a seed.
 The wrappers take the plain version for a CPU tensor, so these tests also
 check that a CPU call launches nothing. The CUDA kernels themselves are
 checked against the same plain versions on the card (test_torch_cuda.py).
-Tolerance: atol 2e-5, rtol 1e-4 (f32, sums in other orders).
+Tolerance: atol 2e-5, rtol 1e-4 (f32, sums in other orders). One test
+runs bf16: the kernel tier takes the rel-pos bias rounded to bf16, as the
+JAX kernels do, so a bias and its bf16 rounding give bitwise the same
+output.
 """
 
 import numpy as np
@@ -22,9 +25,10 @@ from birefnet_tpu.ops.pallas.row_ln import layer_norm_rows as jax_row_ln
 from birefnet_tpu.ops.pallas.tap_conv import tap_conv_same as jax_tap_conv
 from birefnet_tpu_torch.models import swin
 from birefnet_tpu_torch.ops import window as W
-from birefnet_tpu_torch.ops.kernels import (fused_block_attn, fused_mlp,
-                                            row_ln, tap_conv)
-from birefnet_tpu_torch.params import from_jax_params
+from birefnet_tpu_torch.ops.kernels import (flash_window_attn, fused_block_attn,
+                                            fused_mlp, row_ln, tap_conv)
+from birefnet_tpu_torch.params import (cast_matmul_weights, from_jax_params,
+                                       quantize_attn_int8)
 
 TOL = dict(atol=2e-5, rtol=1e-4)
 
@@ -79,7 +83,7 @@ def test_fused_block_attn_plain_matches_pallas(shift, hw, heads, c):
     np.testing.assert_allclose(got.numpy()[real], want[real], **TOL)
 
 
-@pytest.mark.parametrize("c", [64, 192])
+@pytest.mark.parametrize("c", [64, 96, 192])
 def test_fused_mlp_plain_matches_pallas(c):
     rng = np.random.default_rng(c)
     x = _rand(rng, (2, 8, 8, c))
@@ -95,7 +99,8 @@ def test_fused_mlp_plain_matches_pallas(c):
     np.testing.assert_allclose(got.numpy(), want, **TOL)
 
 
-@pytest.mark.parametrize("n,c", [(200, 192), (24, 3072), (1000, 768)])
+@pytest.mark.parametrize("n,c", [(200, 192), (24, 3072), (1000, 768),
+                                 (392, 96)])
 def test_row_ln_plain_matches_pallas(n, c):
     rng = np.random.default_rng(n + c)
     x = _rand(rng, (n, c), 3.0)
@@ -123,14 +128,57 @@ def test_tap_conv_plain_matches_pallas():
     np.testing.assert_allclose(got.numpy(), want, **TOL)
 
 
-@pytest.mark.parametrize("hp,wp", [(24, 24), (36, 24), (264, 264)])
-def test_sw_msa_masks_match_jax(hp, wp):
-    np.testing.assert_array_equal(W.sw_msa_mask(hp, wp, 12, 6).numpy(),
-                                  jwindow.sw_msa_mask(hp, wp, 12, 6))
-    np.testing.assert_array_equal(W.sw_msa_mask_offset(hp, wp, 12, 6).numpy(),
-                                  jwindow.sw_msa_mask_offset(hp, wp, 12, 6))
-    np.testing.assert_array_equal(W.relative_position_index(12),
-                                  jwindow.relative_position_index(12))
+@pytest.mark.parametrize("ws,hp,wp", [
+    (12, 24, 24), (12, 36, 24), (12, 264, 264),
+    (7, 35, 35), (7, 21, 28), (7, 259, 259)])
+def test_sw_msa_masks_match_jax(ws, hp, wp):
+    s = ws // 2
+    np.testing.assert_array_equal(W.sw_msa_mask(hp, wp, ws, s).numpy(),
+                                  jwindow.sw_msa_mask(hp, wp, ws, s))
+    np.testing.assert_array_equal(W.sw_msa_mask_offset(hp, wp, ws, s).numpy(),
+                                  jwindow.sw_msa_mask_offset(hp, wp, ws, s))
+    np.testing.assert_array_equal(W.relative_position_index(ws),
+                                  jwindow.relative_position_index(ws))
+
+
+@pytest.mark.parametrize("kernel", ["fused_block_attn",
+                                    "fused_block_attn_int8",
+                                    "flash_window_attn_qkv"])
+def test_kernel_tier_rounds_the_bias_to_bf16(kernel):
+    """With bf16 activations the plain versions of K1, K1-int8 and K6 take
+    the rel-pos bias rounded to bf16, as the JAX kernels do: a bias B and
+    bf16(B) give bitwise the same output."""
+    rng = np.random.default_rng(30)
+    c, heads, ws = 64, 2, 12
+    n = ws * ws
+    bias = torch.from_numpy(_rand(rng, (heads, n, n), 3.0))
+    rounded = bias.bfloat16().float()
+    assert not torch.equal(bias, rounded)
+    if kernel == "flash_window_attn_qkv":
+        qkv = torch.from_numpy(_rand(rng, (4, n, 3 * c))).bfloat16()
+        mask = W.sw_msa_mask(2 * ws, ws, ws, ws // 2)
+
+        def run(b):
+            return flash_window_attn.flash_window_attention_qkv(qkv, b, mask,
+                                                                heads)
+    else:
+        attn = {"qkv": _lin(rng, c, 3 * c), "proj": _lin(rng, c, c)}
+        attn = from_jax_params(attn)
+        if kernel == "fused_block_attn_int8":
+            attn = quantize_attn_int8({"attn": attn}, 0)["attn"]
+        attn = cast_matmul_weights(attn, torch.bfloat16)
+        norm1 = from_jax_params(_ln(rng, c))
+        x = torch.from_numpy(_rand(rng, (2, 24, 24, c))).bfloat16()
+        plain = getattr(fused_block_attn,
+                        f"fused_window_block_attention"
+                        f"{'_int8' if 'int8' in kernel else ''}_plain")
+
+        def run(b):
+            return plain(x, norm1, dict(attn, cached_bias=b), ws, 0, heads,
+                         None, 24, 24)
+    got, want = run(bias), run(rounded)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, want)
 
 
 def test_wrappers_refuse_other_devices():

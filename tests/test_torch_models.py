@@ -74,11 +74,60 @@ def test_swin_forward_matches_jax(narrow_swin, swin_input_and_jax_features,
                                    rtol=1e-4, err_msg=f"stage {i}")
 
 
-def test_ws7_kernel_tier_is_not_ported():
-    cfg = pt.SwinConfig.swin_t()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pswin.swin_forward({}, cfg, torch.zeros(1, 32, 32, 3),
-                           pt.ComputeConfig(use_flash_attention=True))
+@pytest.fixture(scope="module")
+def narrow_ws7():
+    """The narrow Swin with window 7 (the middle tier's geometry) at 128^2,
+    batch 2, and the JAX middle tier's features."""
+    jcfg = bt.SwinConfig(window_size=7, **NARROW)
+    pcfg = pt.SwinConfig(window_size=7, **NARROW)
+    flat = _flat(jparams._swin_entries("bb", jcfg), 13)
+    jp = _jnp(jparams._swin(jparams._Source(flat), "bb", jcfg))
+    x = (np.random.default_rng(6).normal(size=(2, 128, 128, 3)) * 0.5).astype(
+        np.float32)
+    want = jax.jit(lambda p, x: jswin.swin_forward(
+        p, jcfg, x, bt.ComputeConfig(use_flash_attention=True)))(
+            jp, jnp.asarray(x))
+    return pcfg, pparams._swin(pparams._Source(flat), "bb", pcfg), x, [
+        np.asarray(f) for f in want]
+
+
+@pytest.mark.parametrize("int8_attn", [False, True])
+def test_swin_middle_tier_matches_jax(narrow_ws7, monkeypatch, int8_attn):
+    """ws=7 on the kernel tier: the port's middle tier (K6 and K2 through
+    their plain versions) against the JAX middle tier (its Pallas kernels
+    in interpret mode), f32. With the attention weights quantized and
+    int8_attn on, nothing changes: the middle tier's qkv and proj products
+    read the `weight` leaves, as JAX's L.linear reads `kernel`."""
+    from birefnet_tpu_torch.ops.kernels import flash_window_attn, fused_mlp
+
+    pcfg, tp, x, want = narrow_ws7
+    calls = {"k6": 0, "k2": 0}
+
+    def counted(key, fn):
+        def wrapper(*args, **kw):
+            calls[key] += 1
+            return fn(*args, **kw)
+        return wrapper
+
+    monkeypatch.setattr(flash_window_attn, "flash_window_attention_qkv_plain",
+                        counted("k6", flash_window_attn
+                                .flash_window_attention_qkv_plain))
+    monkeypatch.setattr(fused_mlp, "fused_mlp_residual_plain", counted(
+        "k2", fused_mlp.fused_mlp_residual_plain))
+    compute = pt.ComputeConfig(use_flash_attention=True, int8_attn=int8_attn)
+    tree = pparams.quantize_attn_int8(tp, 64) if int8_attn else tp
+    with torch.inference_mode():
+        got = pswin.swin_forward(tree, pcfg, torch.from_numpy(x), compute)
+    assert calls == {"k6": 8, "k2": 8}
+    assert [tuple(g.shape) for g in got] == [(2, 32, 32, 64), (2, 16, 16, 128),
+                                             (2, 8, 8, 256), (2, 4, 4, 512)]
+    for i, (g, w) in enumerate(zip(got, want)):
+        np.testing.assert_allclose(g.numpy(), w, atol=2e-5, rtol=1e-4,
+                                   err_msg=f"stage {i}")
+    if int8_attn:
+        with torch.inference_mode():
+            ref = pswin.swin_forward(tp, pcfg, torch.from_numpy(x), compute)
+        assert all(torch.equal(g, r) for g, r in zip(got, ref))
 
 
 @pytest.fixture(scope="module")

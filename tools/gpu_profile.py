@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Where the device time goes in one pipeline call of the PyTorch port.
 
-    python3 tools/gpu_profile.py [--tiers int8,bf16,plain] [--top 20]
+    python3 tools/gpu_profile.py [--backbone swin_v1_l] [--tiers int8,bf16,plain]
+                                 [--top 20]
 
-For each tier, builds pipeline.make_infer_fn for Swin-L at 1024^2, batch
-2, bf16, regular deform mode, random_checkpoint(cfg, 0) (the chip_smoke.py
-main path: "int8" = kernel tier with int8_mlp and int8_attn, "bf16" =
-kernel tier, "plain" = no kernels), warms it up with two calls, then
+For each tier, builds pipeline.make_infer_fn for the backbone (Swin-L by
+default; swin_v1_t runs the ws=7 middle tier) at 1024^2, batch 2, bf16,
+regular deform mode, random_checkpoint(cfg, 0) (the chip_smoke.py paths:
+"int8" = kernel tier with int8_mlp and int8_attn, "bf16" = kernel tier,
+"plain" = no kernels), warms it up with two calls, then
 records one call under torch.profiler (CPU and CUDA activities). Prints,
 per tier: the call's wall time (host clock around the call and a
 synchronize), the summed device kernel time, the device idle share
@@ -27,6 +29,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # (group, substrings of the kernel name), first match wins.
 GROUPS = [
+    ("K6 window attention (middle tier)", ("flash_window_attn_kernel",)),
     ("K1-int8/K3 int8 GEMM, bf16 out (qkv)", ("i8::gemm_kernel<0>",)),
     ("K1-int8/K3 int8 GEMM + residual (proj, fc2)", ("i8::gemm_kernel<1>",)),
     ("K3 int8 GEMM + GELU (fc1)", ("i8::gemm_kernel<2>",)),
@@ -35,10 +38,10 @@ GROUPS = [
     ("K1 bf16 LN+qkv GEMM", ("gemm_kernel<true, false>",)),
     ("K1 bf16 proj GEMM", ("gemm_kernel<false, true>",)),
     ("K2 fused_mlp", ("fused_mlp_kernel", "mlp_split_epilogue")),
-    ("K4 row_ln (Triton)", ("_row_ln",)),
+    ("K4 row_ln (Triton)", ("row_ln_kernel",)),
     ("K5 tap_conv", ("tap_conv5_kernel",)),
     ("cuDNN convolutions", ("conv", "cudnn", "xmma_fprop", "dgrad", "wgrad")),
-    ("cuBLAS GEMMs", ("gemm", "cutlass", "xmma", "gemv")),
+    ("cuBLAS GEMMs", ("gemm", "cutlass", "xmma", "gemv", "nvjet")),
     ("elementwise, copies, reductions", ("elementwise", "copy", "Memcpy",
                                          "Memset", "reduce", "cat", "roll",
                                          "index", "fill", "softmax", "norm")),
@@ -54,6 +57,9 @@ def group_of(name: str) -> str:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--backbone", default="swin_v1_l",
+                        choices=("swin_v1_t", "swin_v1_s", "swin_v1_b",
+                                 "swin_v1_l"))
     parser.add_argument("--tiers", default="int8,bf16")
     parser.add_argument("--top", type=int, default=20)
     args = parser.parse_args()
@@ -74,10 +80,11 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip()
-    print(f"[profile] {smi}; torch {torch.__version__}", flush=True)
+    print(f"[profile] {args.backbone}; {smi}; torch {torch.__version__}",
+          flush=True)
     build.build()
     dev = torch.device("cuda")
-    cfg = BiRefNetConfig.swin_l()
+    cfg = BiRefNetConfig.for_backbone(args.backbone)
     params = build_param_tree(random_checkpoint(cfg, 0), cfg)
     frames = torch.from_numpy(np.random.default_rng(42).integers(
         0, 256, size=(2, 1024, 1024, 3), dtype=np.uint8)).to(dev)
