@@ -14,21 +14,20 @@
 //    it is staged in shared memory, and pad tokens are zeroed after the
 //    norm (the cyclic-shift remap or the roll-free `origin` offset, as the
 //    TPU kernel does). qkv goes to a [T, 3C] bf16 scratch.
-// 2. window_attn_kernel: one block per (window, head, image) reads its
-//    head's q/k/v rows straight from the scratch at the window's token
-//    positions (no window_partition copy); each warp then owns 16-row
-//    query strips: scores q k^T + rel-pos bias (+ SW-MSA mask), the f32
-//    softmax and P v stay in the warp's shared-memory strip (~101 KB per
-//    block, two blocks per SM); the head output goes to a [T, C] scratch in
-//    canvas order.
+// 2. the window-attention core of window_core.cuh (CanvasRows): reads each
+//    window's q/k/v rows straight from the scratch at the window's token
+//    positions (no window_partition copy), keeps scores and probabilities
+//    in registers, and writes the head outputs to a [T, C] scratch in
+//    canvas order. The same core serves flash_window_attn.cu; its note
+//    says what bounds it and how its design answers that.
 // 3. gemm_kernel<false, true>: out = x + (attn Wproj^T + b), token-local.
 //
 // What bounds it on the card: the qkv and proj products are 8 C^2 flops
 // per token (stage 2 of Swin-L: ~0.9 TFLOP per forward), so the GEMMs must
 // run near tensor-core rate; here they use 16x16 wmma tiles with
 // synchronous shared-memory staging, well below the wgmma/TMA rate. The
-// attention core is small (4 * 144 * C flops per token) and latency
-// bound. The qkv round trip through device memory (6 C bytes per
+// attention core is small (4 * 144 * C flops per token) and bound by its
+// 8 C bytes per token. The qkv round trip through device memory (6 C bytes per
 // token each way) is the price of the split.
 //
 // The softmax stays in f32 with one normalization per row, unlike the
@@ -45,7 +44,7 @@
 // 1. quant_rows<LN, PAD>: LN1 (f32 statistics) -> pad tokens zeroed ->
 //    rows rounded to bf16 -> per-token int8 codes [T, C] + scales [T];
 // 2. i8 gemm<kStoreBf16>: qkv = acc * (sx * sw) + b -> bf16 [T, 3C];
-// 3. window_attn_kernel, unchanged, -> attention rows bf16 [T, C];
+// 3. the attention core, as in the bf16 entry, -> attention rows bf16 [T, C];
 // 4. quant_rows: per-token int8 of the attention rows (same scratch);
 // 5. i8 gemm<kResidualBf16>: out = x + bf16(acc * (sa * sw) + b).
 // The int8 round trips add 2 C bytes per token each way; the qkv products
@@ -53,6 +52,7 @@
 
 #include "common.cuh"
 #include "int8.cuh"
+#include "window_core.cuh"
 
 using namespace nvcuda;
 
@@ -61,8 +61,6 @@ namespace {
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kD = 32;  // head dim
-// kD ** -0.5 rounded to bf16, as the JAX kernel's bf16 q * scale takes it.
-constexpr float kScale = 0.1767578125f;
 
 using bt::Geometry;
 using bt::token_valid;
@@ -211,149 +209,31 @@ gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
   }
 }
 
-// ---------------------------------------------------------------------------
-// Attention core: one block per (window, head, image).
-// ---------------------------------------------------------------------------
-
-// Shared memory: q, k, v of the head ([n, 32] bf16 each, rows padded to 40
-// so fragment rows spread over the banks), and per warp one [16, n] f32
-// score strip whose rows are overwritten in place by their bf16
-// probabilities. About 101 KB at n = 144, so two blocks fit on an SM.
-constexpr int kQkvLd = kD + 8;
-
-size_t attn_smem_bytes(int n) {
-  return 3 * bt::align128(n * kQkvLd * 2) +
-         kWarps * bt::align128((size_t)16 * (n + 4) * 4);
-}
-
-__global__ void __launch_bounds__(kThreads)
-window_attn_kernel(const bf16* __restrict__ qkv, const float* __restrict__ bias,
-                   const float* __restrict__ mask, bf16* __restrict__ attn,
-                   Geometry g) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int ws = g.ws, n = ws * ws, C = g.C;
-  const int s_ld = n + 4;      // f32 score row stride
-  const int p_ld = 2 * s_ld;   // bf16 probability row stride (same bytes)
-  unsigned char* p = smem;
-  bf16* qs = reinterpret_cast<bf16*>(p);  p += bt::align128(n * kQkvLd * 2);
-  bf16* ks = reinterpret_cast<bf16*>(p);  p += bt::align128(n * kQkvLd * 2);
-  bf16* vs = reinterpret_cast<bf16*>(p);  p += bt::align128(n * kQkvLd * 2);
-
-  const int wc = g.Wp / ws;
-  const int win = blockIdx.x, head = blockIdx.y, b = blockIdx.z;
-  const int wr0 = (win / wc) * ws, wc0 = (win % wc) * ws;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* S = reinterpret_cast<float*>(p + warp * bt::align128((size_t)16 * s_ld * 4));
-  bf16* P = reinterpret_cast<bf16*>(S);
-  auto token = [&](int i) -> size_t {
-    return ((size_t)b * g.Hp + wr0 + i / ws) * g.Wp + wc0 + i % ws;
-  };
-
-  // q/k/v rows of this head: 8 bf16 (16 bytes) per load; q scaled.
-  for (int idx = threadIdx.x; idx < n * 3 * (kD / 8); idx += kThreads) {
-    const int i = idx / (3 * kD / 8), rem = idx % (3 * kD / 8);
-    const int part = rem / (kD / 8), d0 = (rem % (kD / 8)) * 8;
-    uint4 raw = *reinterpret_cast<const uint4*>(
-        qkv + token(i) * 3 * C + part * C + head * kD + d0);
-    if (part == 0) {
-      bf16* v = reinterpret_cast<bf16*>(&raw);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) v[e] = __float2bfloat16(__bfloat162float(v[e]) * kScale);
-    }
-    bf16* dst = part == 0 ? qs : (part == 1 ? ks : vs);
-    *reinterpret_cast<uint4*>(dst + i * kQkvLd + d0) = raw;
-  }
-  __syncthreads();
-
-  // Each warp owns 16-row query strips; no block barrier after the loads.
-  const int mt = n / 16;
-  const float* bias_h = bias + (size_t)head * n * n;
-  const float* mask_w = mask ? mask + (size_t)win * n * n : nullptr;
-  for (int rt = warp; rt < mt; rt += kWarps) {
-    // Scores S = q k^T for the strip.
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fq[kD / 16];
-#pragma unroll
-    for (int kk = 0; kk < kD / 16; ++kk)
-      wmma::load_matrix_sync(fq[kk], qs + rt * 16 * kQkvLd + kk * 16, kQkvLd);
-    for (int ct = 0; ct < mt; ++ct) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> sc;
-      wmma::fill_fragment(sc, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < kD / 16; ++kk) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fk;
-        wmma::load_matrix_sync(fk, ks + ct * 16 * kQkvLd + kk * 16, kQkvLd);
-        wmma::mma_sync(sc, fq[kk], fk, sc);
-      }
-      wmma::store_matrix_sync(S + ct * 16, sc, s_ld, wmma::mem_row_major);
-    }
-    __syncwarp();
-    // Row softmax in f32 over scores + bias (+ mask). Each row is read into
-    // registers before its bf16 probabilities overwrite it in place.
-    for (int r = 0; r < 16; ++r) {
-      const int i = rt * 16 + r;
-      float v[(144 + 31) / 32];
-      float m = -INFINITY;
-#pragma unroll
-      for (int u = 0; u < (144 + 31) / 32; ++u) {
-        const int j = lane + 32 * u;
-        v[u] = -INFINITY;
-        if (j < n) {
-          // The bias and mask addends rounded to bf16 and summed first, as
-          // the JAX kernel takes them with bf16 activations.
-          float extra = bt::round_bf16(bias_h[i * n + j]);
-          if (mask_w) extra += bt::round_bf16(mask_w[i * n + j]);
-          v[u] = S[r * s_ld + j] + extra;
-        }
-        m = fmaxf(m, v[u]);
-      }
-      m = bt::warp_max(m);
-      float sum = 0.f;
-#pragma unroll
-      for (int u = 0; u < (144 + 31) / 32; ++u) {
-        v[u] = lane + 32 * u < n ? expf(v[u] - m) : 0.f;
-        sum += v[u];
-      }
-      sum = bt::warp_sum(sum);  // also orders every lane's reads before the writes
-#pragma unroll
-      for (int u = 0; u < (144 + 31) / 32; ++u) {
-        const int j = lane + 32 * u;
-        if (j < n) P[r * p_ld + j] = __float2bfloat16(v[u] / sum);
-      }
-    }
-    __syncwarp();
-    // O = P v for the strip, staged in the strip's first 16 x 32 floats
-    // (their probabilities are consumed before the store).
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> o[kD / 16];
-#pragma unroll
-    for (int ct = 0; ct < kD / 16; ++ct) wmma::fill_fragment(o[ct], 0.f);
-    for (int kk = 0; kk < n; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fp;
-      wmma::load_matrix_sync(fp, P + kk, p_ld);
-#pragma unroll
-      for (int ct = 0; ct < kD / 16; ++ct) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fv;
-        wmma::load_matrix_sync(fv, vs + kk * kQkvLd + ct * 16, kQkvLd);
-        wmma::mma_sync(o[ct], fp, fv, o[ct]);
-      }
-    }
-    __syncwarp();
-#pragma unroll
-    for (int ct = 0; ct < kD / 16; ++ct)
-      wmma::store_matrix_sync(S + ct * 16, o[ct], kD, wmma::mem_row_major);
-    __syncwarp();
-    for (int e = lane; e < 16 * kD; e += 32) {
-      const int r = e / kD, dd = e % kD;
-      attn[token(rt * 16 + r) * C + head * kD + dd] = __float2bfloat16(S[e]);
-    }
-    __syncwarp();
-  }
+// The attention core on the qkv scratch (window_core.cuh, CanvasRows): head
+// dim 32, N = ws^2 of 16, 64 or 144 tokens, a bias, and no mask, region ids
+// or a dense f32 mask. Only those lean forms are built for this layout; the
+// core refuses any other.
+cudaError_t attention_core(const bf16* qkv, const void* bias, const void* mask,
+                           int mask_kind, bf16* attn, int B, const Geometry& g,
+                           cudaStream_t s) {
+  namespace core = bt::core;
+  const int nwin = (g.Hp / g.ws) * (g.Wp / g.ws), n = g.ws * g.ws;
+  const bt::CanvasRows rows{qkv, attn, g.Hp, g.Wp, g.C, g.ws, (65536 + g.ws - 1) / g.ws};
+  const bt::Addends ad{static_cast<const float*>(bias), mask, mask_kind, nwin};
+  if (n <= 64)
+    return core::launch_class<bt::CanvasRows, 8, kD, true, false>(rows, ad, B * nwin,
+                                                                  g.heads, n, kD, false, s);
+  return core::launch_class<bt::CanvasRows, 18, kD, true, false>(rows, ad, B * nwin,
+                                                                 g.heads, n, kD, false, s);
 }
 
 }  // namespace
 
 // x, out [B, Hp, Wp, C] bf16; ln_g, ln_b [C] f32; wqkv [3C, C] bf16;
 // bqkv [3C] f32; wproj [C, C] bf16; bproj [C] f32; bias [heads, N, N] f32;
-// mask [nW, N, N] f32 or null; qkv_scratch [B*Hp*Wp, 3C] bf16;
+// mask by mask_kind (window_core.cuh): null, dense [nW, N, N] f32, or
+// region ids [nW, N] int32, window win of an image taking entry win;
+// qkv_scratch [B*Hp*Wp, 3C] bf16;
 // attn_scratch [B, Hp, Wp, C] bf16. Head dim 32, N = ws*ws a multiple of
 // 16 and at most 144, C a multiple of 64.
 extern "C" int bt_fused_block_attn_bf16(
@@ -361,10 +241,12 @@ extern "C" int bt_fused_block_attn_bf16(
     const void* bqkv, const void* wproj, const void* bproj, const void* bias,
     const void* mask, void* qkv_scratch, void* attn_scratch, void* out, int B,
     int Hp, int Wp, int C, int heads, int ws, int shift, int origin, int h_real,
-    int w_real, void* stream) {
+    int w_real, int mask_kind, void* stream) {
   const int n = ws * ws;
   if (C != heads * kD || C % 64 != 0 || n % 16 != 0 || n > 144 || Hp % ws != 0 ||
-      Wp % ws != 0 || B <= 0)
+      Wp % ws != 0 || B <= 0 || bias == nullptr ||
+      (mask_kind != bt::kNoMask && mask_kind != bt::kMaskF32 && mask_kind != bt::kRegionIds) ||
+      ((mask_kind == bt::kNoMask) != (mask == nullptr)))
     return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   const Geometry g{Hp, Wp, C, heads, ws, shift, origin, h_real, w_real};
@@ -381,13 +263,7 @@ extern "C" int bt_fused_block_attn_bf16(
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  const size_t smem = attn_smem_bytes(n);
-  err = cudaFuncSetAttribute(window_attn_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  window_attn_kernel<<<dim3((Hp / ws) * (Wp / ws), heads, B), kThreads, smem, s>>>(
-      qkv, static_cast<const float*>(bias), static_cast<const float*>(mask), attn, g);
-  err = cudaGetLastError();
+  err = attention_core(qkv, bias, mask, mask_kind, attn, B, g, s);
   if (err != cudaSuccess) return (int)err;
 
   gemm_kernel<false, true><<<dim3((T + kBM - 1) / kBM, (C + kBN - 1) / kBN),
@@ -406,11 +282,13 @@ extern "C" int bt_fused_block_attn_i8(
     const void* bproj, const void* bias, const void* mask, void* codes,
     void* scales, void* qkv_scratch, void* attn_scratch, void* out, int B, int Hp,
     int Wp, int C, int heads, int ws, int shift, int origin, int h_real,
-    int w_real, void* stream) {
+    int w_real, int mask_kind, void* stream) {
   namespace i8 = bt::i8;
   const int n = ws * ws;
   if (C != heads * kD || C % 64 != 0 || n % 16 != 0 || n > 144 || Hp % ws != 0 ||
-      Wp % ws != 0 || B <= 0)
+      Wp % ws != 0 || B <= 0 || bias == nullptr ||
+      (mask_kind != bt::kNoMask && mask_kind != bt::kMaskF32 && mask_kind != bt::kRegionIds) ||
+      ((mask_kind == bt::kNoMask) != (mask == nullptr)))
     return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   const Geometry g{Hp, Wp, C, heads, ws, shift, origin, h_real, w_real};
@@ -431,13 +309,7 @@ extern "C" int bt_fused_block_attn_i8(
                                  3 * C, C, s);
   if (err != cudaSuccess) return (int)err;
 
-  const size_t smem = attn_smem_bytes(n);
-  err = cudaFuncSetAttribute(window_attn_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  window_attn_kernel<<<dim3((Hp / ws) * (Wp / ws), heads, B), kThreads, smem, s>>>(
-      qkv, static_cast<const float*>(bias), static_cast<const float*>(mask), attn, g);
-  err = cudaGetLastError();
+  err = attention_core(qkv, bias, mask, mask_kind, attn, B, g, s);
   if (err != cudaSuccess) return (int)err;
 
   err = i8::quant_rows<bf16, false, false>(attn, nullptr, nullptr, q, sc, T, C, g, s);

@@ -64,7 +64,8 @@ def fused_block_canvas(x: torch.Tensor, window_size: int, shift_size: int,
     Returns (canvas, kernel_shift, mask, origin). A shifted block whose
     window-pad slack covers ws - shift on both axes takes the roll-free
     offset partition: pad `origin` = ws - shift rows/cols at the top-left,
-    with the offset SW-MSA mask (window.py::sw_msa_mask_offset). Any other
+    with the offset SW-MSA mask (window.py::sw_msa_mask_offset, or its
+    region ids when `attn_mask` is given as region ids). Any other
     shifted block pads bottom/right and rolls by -shift (the caller rolls
     the result back), with the cyclic `attn_mask`. The block output is the
     kernel output cropped to [origin, origin + h) x [origin, origin + w).
@@ -75,8 +76,12 @@ def fused_block_canvas(x: torch.Tensor, window_size: int, shift_size: int,
     if shift_size > 0 and (-h) % ws >= p0 and (-w) % ws >= p0:
         hp, wp = h + (-h) % ws, w + (-w) % ws
         canvas = F.pad(x, (0, 0, p0, wp - w - p0, p0, hp - h - p0))
-        return (canvas, 0,
-                W.sw_msa_mask_offset(hp, wp, ws, shift_size, x.device), p0)
+        if W.is_region_ids(attn_mask):
+            mask = W.sw_msa_region_ids(hp, wp, ws, shift_size, x.device,
+                                       offset=True)
+        else:
+            mask = W.sw_msa_mask_offset(hp, wp, ws, shift_size, x.device)
+        return canvas, 0, mask, p0
     canvas = W.pad_to_multiple(x, ws)
     if shift_size > 0:
         return W.roll_2d(canvas, -shift_size, -shift_size), shift_size, \
@@ -152,7 +157,13 @@ def basic_layer_forward(params, x: torch.Tensor, depth: int, num_heads: int,
     shift_size = window_size // 2
     hp = -(-h // window_size) * window_size
     wp = -(-w // window_size) * window_size
-    attn_mask = W.sw_msa_mask(hp, wp, window_size, shift_size, x.device)
+    # Built once per stage geometry (cached): the kernel tier takes the
+    # mask as region ids, the unfused path as the dense mask.
+    if _tier(compute, window_size).use_flash_attention:
+        attn_mask = W.sw_msa_region_ids(hp, wp, window_size, shift_size,
+                                        x.device)
+    else:
+        attn_mask = W.sw_msa_mask(hp, wp, window_size, shift_size, x.device)
     for j in range(depth):
         x = swin_block_forward(params[f"blocks_{j}"], x, window_size,
                                0 if j % 2 == 0 else shift_size, num_heads,

@@ -18,6 +18,7 @@ from typing import Optional
 import torch
 
 from . import layers as L
+from . import window as W
 
 
 def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -57,7 +58,10 @@ def round_addends(dtype: torch.dtype, bias: torch.Tensor,
     """The score addends as the kernel tier takes them: with bf16
     activations the rel-pos bias and the mask are rounded to bf16 (as the
     JAX kernels take them, flash_window_attn via models/swin.py:85-87 and
-    fused_block_attn.py:348-351); the unfused path keeps them in f32."""
+    fused_block_attn.py:348-351); the unfused path keeps them in f32. A
+    mask given as region ids (window.sw_msa_region_ids) is expanded to its
+    dense 0 / -100 form first."""
+    mask = W.dense_mask(mask)
     if dtype != torch.bfloat16:
         return bias, mask
     return bias.to(dtype), None if mask is None else mask.to(dtype)

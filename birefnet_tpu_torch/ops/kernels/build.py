@@ -29,6 +29,8 @@ import shutil
 import subprocess
 import time
 
+import torch
+
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 _CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -115,6 +117,12 @@ def function(name: str, n_pointers: int, n_ints: int):
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+def stream(device: torch.device) -> int:
+    """The current CUDA stream of `device` as the raw handle a C entry
+    takes (without building a torch.cuda.Stream object per launch)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def check(code: int, name: str) -> None:

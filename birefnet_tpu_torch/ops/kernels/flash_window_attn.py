@@ -7,8 +7,10 @@ the scale, the q product, the bias and mask addends and the probabilities
 are rounded to bf16; scores, softmax and the P v sum are f32.
 
 Replaces the three Pallas kernels of
-birefnet_tpu/ops/pallas/flash_window_attn.py with one CUDA kernel behind
-three entry points with the JAX names and contracts (minus `interpret`):
+birefnet_tpu/ops/pallas/flash_window_attn.py with one CUDA kernel, the
+window-attention core of csrc/window_core.cuh (shared with the fused Swin
+block, ops/kernels/fused_block_attn.py), behind three entry points with
+the JAX names and contracts (minus `interpret`):
 
 - `flash_window_attention_qkv` (K6, `_flash_qkv`) on the packed [B_, N, 3C]
   qkv projection -> [B_, N, C]: the attention core of the Swin ws=7 middle
@@ -16,18 +18,24 @@ three entry points with the JAX names and contracts (minus `interpret`):
 - `flash_window_attention` (K7 `_flash_masked` with a mask, K8
   `_flash_plain` without) on [B_, heads, N, d];
 - `flash_attention` (K8) with the JAX package's zero or causal -1e9 bias in
-  q.dtype.
+  q.dtype; the kernel takes a causal flag in place of the bias and adds
+  CAUSAL_NEG, that bias rounded to bf16, where a key lies after its query.
 
-The kernel reads q, k and v at element strides, so K6 takes its head's
-columns straight out of the packed projection. It is bound by device-memory
-bytes (see the source note). It takes bf16 only, N <= 256 and d a multiple
-of 8 up to 64, and raises outside them.
+The kernel reads q, k and v at element strides, so K6 takes its heads'
+columns straight out of the packed projection. It reads the addends as
+they are given, with no conversion per call (ops/kernels/window_core.py):
+the rel-pos bias in f32 (rounded to bf16 as it is staged), the mask as a
+dense [nW, N, N] f32 tensor or as the [nW, N] int32 region ids of an
+SW-MSA mask (window.sw_msa_region_ids, built once per geometry: -100
+where two tokens' ids differ). It is bound by device-memory bytes (see
+the source note). It takes bf16 only, N <= 256 and d a multiple of 8 up
+to 64, and raises outside them.
 
 Each entry point has a plain PyTorch version beside it, built on
 ops/attention.py::window_attention with the bias and mask rounded as the
-kernels round them (`round_addends`). A CPU tensor takes the plain version;
-a CUDA tensor launches the kernel or raises. Each entry point counts its
-own launches.
+kernels round them (`round_addends`, which also expands region ids). A
+CPU tensor takes the plain version; a CUDA tensor launches the kernel or
+raises. Each entry point counts its own launches.
 """
 
 from __future__ import annotations
@@ -38,6 +46,7 @@ import torch
 
 from ..attention import qkv_window_attention, round_addends, window_attention
 from . import build
+from . import window_core as core
 
 MAX_N, MAX_D = 256, 64
 
@@ -77,19 +86,24 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return flash_window_attention_plain(q, k, v, causal_bias(q, causal))
 
 
+# flash_attention's causal addend as the kernel applies it for its causal
+# flag: causal_bias's -1e9 rounded to bf16, the dtype the kernel takes.
+CAUSAL_NEG = float(torch.tensor(-1e9, dtype=torch.bfloat16))
+
+
 def _strides(t: torch.Tensor, name: str):
     """(window, head, token) element strides of a [B_, heads, N, d] view."""
     if t.dtype != torch.bfloat16:
         raise TypeError(f"flash_window_attn kernel takes bf16, got {name} "
                         f"{t.dtype} (run f32 with use_flash_attention=False)")
     s = t.stride()
-    if s[3] != 1 or any(x % 8 for x in s[:3]) or t.data_ptr() % 16:
+    if s[3] != 1 or (s[0] | s[1] | s[2]) % 8 or t.data_ptr() % 16:
         raise ValueError(f"flash_window_attn {name}: want a contiguous head "
                          f"dim and 16-byte aligned rows, got strides {s}")
     return s[:3]
 
 
-def _launch(q, k, v, out, bias, mask, num_heads) -> None:
+def _launch(q, k, v, out, bias, mask, num_heads, causal=False) -> None:
     """Launch the kernel on [B_, heads, N, d] views q, k, v and out."""
     b_, heads, n, d = q.shape
     if heads != num_heads or k.shape != q.shape or v.shape != q.shape:
@@ -99,25 +113,23 @@ def _launch(q, k, v, out, bias, mask, num_heads) -> None:
     if n > MAX_N or d % 8 or d > MAX_D:
         raise ValueError(f"flash_window_attn kernel needs N <= {MAX_N} and d "
                          f"a multiple of 8 up to {MAX_D}, got N={n}, d={d}")
-    addends = [("bias", bias, (heads, n, n))]
-    if mask is not None:
-        if b_ % mask.shape[0]:
-            raise ValueError(f"flash_window_attn: B_={b_} is not a multiple "
-                             f"of the mask's {mask.shape[0]} windows")
-        addends.append(("mask", mask, (mask.shape[0], n, n)))
-    for name, t, shape in addends:
-        if tuple(t.shape) != shape or t.device != q.device:
-            raise ValueError(f"flash_window_attn {name}: want {shape} on "
-                             f"{q.device}, got {tuple(t.shape)} on {t.device}")
-    strides = [x for t, name in ((q, "q"), (k, "k"), (v, "v"), (out, "out"))
-               for x in _strides(t, name)]
-    bias = bias.float().contiguous()
-    mask = None if mask is None else mask.float().contiguous()
-    fn = build.function("bt_flash_window_attn", 6, 17)
+    if bias is not None:
+        core.check_addend("flash_window_attn bias", bias, (heads, n, n),
+                          torch.float32, q.device)
+    kind = core.CAUSAL if causal else core.mask_kind("flash_window_attn",
+                                                     mask, n, q.device)
+    nw = 1 if mask is None else mask.shape[0]
+    if b_ % nw:
+        raise ValueError(f"flash_window_attn: B_={b_} is not a multiple of "
+                         f"the mask's {nw} windows")
+    strides = (*_strides(q, "q"), *_strides(k, "k"), *_strides(v, "v"),
+               *_strides(out, "out"))
+    fn = build.function("bt_flash_window_attn", 6, 18)
     code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-              bias.data_ptr(), None if mask is None else mask.data_ptr(),
-              *strides, b_, heads, n, d, 1 if mask is None else mask.shape[0],
-              torch.cuda.current_stream(q.device).cuda_stream)
+              None if bias is None else bias.data_ptr(),
+              None if mask is None else mask.data_ptr(),
+              *strides, b_, heads, n, d, nw, kind,
+              build.stream(q.device))
     build.check(code, "flash_window_attn")
 
 
@@ -134,8 +146,9 @@ def flash_window_attention_qkv(qkv: torch.Tensor, bias: torch.Tensor,
     """Fused window attention on the packed qkv projection.
 
     qkv: [B_, N, 3C], features ordered [q|k|v] x head-major (the torch
-    convention); bias: [heads, N, N]; mask: optional [nW, N, N] with
-    B_ % nW == 0. Returns [B_, N, C], ready for the output projection."""
+    convention); bias: [heads, N, N]; mask: optional [nW, N, N], or the
+    [nW, N] int32 region ids of an SW-MSA mask, with B_ % nW == 0. Returns
+    [B_, N, C], ready for the output projection."""
     if not _cuda(qkv, "flash_window_attention_qkv"):
         return flash_window_attention_qkv_plain(qkv, bias, mask, num_heads)
     b_, n, c3 = qkv.shape
@@ -162,7 +175,8 @@ def flash_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Drop-in for ops.attention.window_attention with the kernel tier's
     rounding: q, k, v [B_, heads, N, d], B_ = batch * nW; bias [heads, N, N];
-    mask optional [nW, N, N] (0 / -100), B_ % nW == 0."""
+    mask optional [nW, N, N] (0 / -100) or [nW, N] int32 region ids,
+    B_ % nW == 0."""
     if not _cuda(q, "flash_window_attention"):
         return flash_window_attention_plain(q, k, v, bias, mask)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
@@ -182,7 +196,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not _cuda(q, "flash_attention"):
         return flash_attention_plain(q, k, v, causal)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _launch(q, k, v, out, causal_bias(q, causal), None, q.shape[1])
+    _launch(q, k, v, out, None, None, q.shape[1], causal)
     flash_attention.launches += 1
     return out
 

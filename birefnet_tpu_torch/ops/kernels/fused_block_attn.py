@@ -12,12 +12,16 @@ Swin-L forward, on canvases from [2, 264, 264, 192] (6 heads) to
 
 A Hopper block cannot hold the TPU kernel's whole strip of windows, so the
 CUDA version runs three hand-written kernels: the LN1 + pad-zero + qkv
-product over all tokens, one block per (window, head) for the scores, the
-f32 softmax and P v in shared memory, and the token-local projection with
-bias and residual. Its bounds on the card and the design are in the
-source note of csrc/fused_block_attn.cu. The softmax
-stays in f32 per head; the TPU's packed head groups, which round exp(s-m)
-to bf16, are not copied.
+product over all tokens, the window-attention core of
+csrc/window_core.cuh (shared with K6-K8, ops/kernels/flash_window_attn.py)
+with scores and probabilities in registers, and the token-local
+projection with bias and residual. Its bounds on the card and the design
+are in the source notes of csrc/fused_block_attn.cu and
+csrc/window_core.cuh. The softmax stays in f32 per head; the TPU's packed
+head groups, which round exp(s-m) to bf16, are not copied. The core takes
+the f32 rel-pos bias and the SW-MSA mask dense or as the [nW, N] int32
+region ids the model passes (window.sw_msa_region_ids, built once per
+stage geometry), as they are: nothing is converted per call.
 
 W8A8 (ComputeConfig.int8_attn): blocks whose qkv carries `weight_q8`
 (params.quantize_attn_int8) run `fused_window_block_attention_int8`, the
@@ -25,7 +29,7 @@ port of the int8 branch of the same TPU kernel (`_kernel`'s `sqkv_ref`
 path, fused_block_attn.py:100-112, 208-215). Its CUDA route
 (`bt_fused_block_attn_i8`) is five launches: LN1 + pad-zero + bf16
 rounding + per-token int8 rows, an int8 qkv GEMM with dequant and bias,
-the unchanged bf16 attention core, per-token int8 of the attention rows,
+the same bf16 attention core, per-token int8 of the attention rows,
 and an int8 proj GEMM with dequant, bias and the residual.
 
 The kernels take bf16 activations only. Both wrappers take their plain
@@ -45,6 +49,7 @@ from .. import window as W
 from ..attention import (qkv_window_attention, round_addends,
                          window_attention_forward)
 from . import build
+from . import window_core as core
 
 
 def _pad_token_mask(hp: int, wp: int, shift: int, origin: int, h_real: int,
@@ -130,6 +135,24 @@ def _check(x, ws, heads, tensors):
                 f"{tuple(t.shape)} on {t.device}")
 
 
+def _addends(x, attn_params, attn_mask, ws, heads):
+    """The attention core's addends as given, with nothing converted per
+    call: (bias pointer, mask pointer, MaskKind). The rel-pos bias is
+    [heads, N, N] f32; the mask None, a dense [nW, N, N] f32 mask, or
+    [nW, N] int32 region ids, nW the canvas's windows."""
+    _, hp, wp, _ = x.shape
+    n, nw = ws * ws, (hp // ws) * (wp // ws)
+    bias = attn_params["cached_bias"]
+    core.check_addend("fused_block_attn rel-pos bias", bias, (heads, n, n),
+                      torch.float32, x.device)
+    kind = core.mask_kind("fused_block_attn", attn_mask, n, x.device)
+    if attn_mask is not None and attn_mask.shape[0] != nw:
+        raise ValueError(f"fused_block_attn mask: want {nw} windows, got "
+                         f"{attn_mask.shape[0]}")
+    return (bias.data_ptr(),
+            None if attn_mask is None else attn_mask.data_ptr(), kind)
+
+
 def fused_window_block_attention(
         x: torch.Tensor, norm1_params, attn_params, window_size: int,
         shift_size: int, num_heads: int, attn_mask: Optional[torch.Tensor],
@@ -139,7 +162,8 @@ def fused_window_block_attention(
     Same contract as the JAX function: x is [B, Hp, Wp, C], pre-norm, padded
     to window multiples and, for cyclic shifted blocks, rolled by -shift;
     attn_mask is the [nW, N, N] SW-MSA mask (the offset variant with
-    shift_size=0 and origin=ws-shift for the roll-free partition) or None.
+    shift_size=0 and origin=ws-shift for the roll-free partition), its
+    [nW, N] int32 region ids (the form models/swin.py passes), or None.
     The Swin block's shortcut add is always fused (the JAX function's
     `residual=True`, the only value its model passes). Pad-region outputs
     are unspecified; the caller crops them. W8A8 blocks (qkv carries
@@ -156,28 +180,24 @@ def fused_window_block_attention(
     if x.device.type != "cuda":
         raise ValueError(f"fused_block_attn runs on cpu or cuda, got {x.device}")
     b, hp, wp, c = x.shape
-    ws, n = window_size, window_size * window_size
+    ws = window_size
     f32, bf = torch.float32, torch.bfloat16
     args = [("ln scale", norm1_params["scale"], f32, (c,)),
             ("ln bias", norm1_params["bias"], f32, (c,)),
             ("qkv weight", attn_params["qkv"]["weight"], bf, (3 * c, c)),
             ("qkv bias", attn_params["qkv"]["bias"], f32, (3 * c,)),
             ("proj weight", attn_params["proj"]["weight"], bf, (c, c)),
-            ("proj bias", attn_params["proj"]["bias"], f32, (c,)),
-            ("rel-pos bias", attn_params["cached_bias"], f32,
-             (num_heads, n, n))]
-    if attn_mask is not None:
-        args.append(("mask", attn_mask, f32, ((hp // ws) * (wp // ws), n, n)))
+            ("proj bias", attn_params["proj"]["bias"], f32, (c,))]
     _check(x, ws, num_heads, [("x", x, bf, tuple(x.shape))] + args)
+    bias, mask_ptr, kind = _addends(x, attn_params, attn_mask, ws, num_heads)
     qkv = torch.empty((b, hp, wp, 3 * c), dtype=x.dtype, device=x.device)
     attn = torch.empty_like(x)
     out = torch.empty_like(x)
-    ptrs = [t.data_ptr() for _, t, _, _ in args[:7]]
-    mask_ptr = attn_mask.data_ptr() if attn_mask is not None else None
-    fn = build.function("bt_fused_block_attn_bf16", 12, 10)
-    code = fn(x.data_ptr(), *ptrs, mask_ptr, qkv.data_ptr(), attn.data_ptr(),
-              out.data_ptr(), b, hp, wp, c, num_heads, ws, shift_size, origin,
-              h_real, w_real, torch.cuda.current_stream(x.device).cuda_stream)
+    ptrs = [t.data_ptr() for _, t, _, _ in args]
+    fn = build.function("bt_fused_block_attn_bf16", 12, 11)
+    code = fn(x.data_ptr(), *ptrs, bias, mask_ptr, qkv.data_ptr(),
+              attn.data_ptr(), out.data_ptr(), b, hp, wp, c, num_heads, ws,
+              shift_size, origin, h_real, w_real, kind, build.stream(x.device))
     build.check(code, "fused_block_attn")
     fused_window_block_attention.launches += 1
     return out
@@ -201,7 +221,7 @@ def fused_window_block_attention_int8(
         raise ValueError(f"fused_block_attn_int8 runs on cpu or cuda, got "
                          f"{x.device}")
     b, hp, wp, c = x.shape
-    ws, n = window_size, window_size * window_size
+    ws = window_size
     f32, i8 = torch.float32, torch.int8
     qkv_p, proj_p = attn_params["qkv"], attn_params["proj"]
     args = [("ln scale", norm1_params["scale"], f32, (c,)),
@@ -211,25 +231,21 @@ def fused_window_block_attention_int8(
             ("qkv bias", qkv_p["bias"], f32, (3 * c,)),
             ("proj weight_q8", proj_p["weight_q8"], i8, (c, c)),
             ("proj scale_q8", proj_p["scale_q8"], f32, (c,)),
-            ("proj bias", proj_p["bias"], f32, (c,)),
-            ("rel-pos bias", attn_params["cached_bias"], f32,
-             (num_heads, n, n))]
-    if attn_mask is not None:
-        args.append(("mask", attn_mask, f32, ((hp // ws) * (wp // ws), n, n)))
+            ("proj bias", proj_p["bias"], f32, (c,))]
     _check(x, ws, num_heads, [("x", x, torch.bfloat16, tuple(x.shape))] + args)
+    bias, mask_ptr, kind = _addends(x, attn_params, attn_mask, ws, num_heads)
     t = b * hp * wp
     codes = torch.empty((t, c), dtype=i8, device=x.device)
     scales = torch.empty((t,), dtype=f32, device=x.device)
     qkv = torch.empty((t, 3 * c), dtype=x.dtype, device=x.device)
     attn = torch.empty_like(x)
     out = torch.empty_like(x)
-    ptrs = [a.data_ptr() for _, a, _, _ in args[:9]]
-    mask_ptr = attn_mask.data_ptr() if attn_mask is not None else None
-    fn = build.function("bt_fused_block_attn_i8", 16, 10)
-    code = fn(x.data_ptr(), *ptrs, mask_ptr, codes.data_ptr(),
+    ptrs = [a.data_ptr() for _, a, _, _ in args]
+    fn = build.function("bt_fused_block_attn_i8", 16, 11)
+    code = fn(x.data_ptr(), *ptrs, bias, mask_ptr, codes.data_ptr(),
               scales.data_ptr(), qkv.data_ptr(), attn.data_ptr(),
               out.data_ptr(), b, hp, wp, c, num_heads, ws, shift_size, origin,
-              h_real, w_real, torch.cuda.current_stream(x.device).cuda_stream)
+              h_real, w_real, kind, build.stream(x.device))
     build.check(code, "fused_block_attn_int8")
     fused_window_block_attention_int8.launches += 1
     return out

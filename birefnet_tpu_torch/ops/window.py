@@ -3,8 +3,10 @@
 Counterpart of birefnet_tpu/ops/window.py: partition/reverse, cyclic roll,
 the SW-MSA mask with -100.0 entries (reference: src/swin.rs:603-655), its
 roll-free offset variant, and the relative-position index, all with the
-JAX package's values. The masks are built on the device from arange, so
-no [nW, N, N] host array is copied per forward.
+JAX package's values. The masks are built on the device from arange, once
+per geometry and device (cached), in two forms: the dense [nW, N, N]
+additive mask of the plain path, and the [nW, N] int32 region ids the
+kernel tier takes (mask -100 where two tokens' ids differ).
 
 Windows are [B*nW, ws*ws, C] with the window grid enumerated row-major.
 """
@@ -12,6 +14,7 @@ Windows are [B*nW, ws*ws, C] with the window grid enumerated row-major.
 from __future__ import annotations
 
 import functools
+from typing import Optional
 
 import numpy as np
 import torch
@@ -66,29 +69,65 @@ def _region_ids_dev(hp: int, wp: int, window_size: int, shift_size: int,
     return m.reshape(hp // ws, wp // ws, ws * ws)
 
 
-def _ids_to_mask(m: torch.Tensor) -> torch.Tensor:
-    diff = m[:, None, :] - m[:, :, None]
-    neg = torch.tensor(-100.0, device=m.device, dtype=torch.float32)
-    zero = torch.tensor(0.0, device=m.device, dtype=torch.float32)
+def region_mask(ids: torch.Tensor) -> torch.Tensor:
+    """[nW, N] region ids -> the [nW, N, N] float32 mask of 0 / -100.0,
+    -100 where the ids of query i and key j differ."""
+    diff = ids[:, None, :] - ids[:, :, None]
+    neg = torch.tensor(-100.0, device=ids.device, dtype=torch.float32)
+    zero = torch.tensor(0.0, device=ids.device, dtype=torch.float32)
     return torch.where(diff != 0, neg, zero)
 
 
+def is_region_ids(mask: Optional[torch.Tensor]) -> bool:
+    """True for an [nW, N] int32 region-id form of an SW-MSA mask."""
+    return mask is not None and mask.dtype == torch.int32
+
+
+def dense_mask(mask: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """The [nW, N, N] additive mask of either form: region ids expand to
+    0 / -100, a dense mask or None passes through."""
+    return region_mask(mask) if is_region_ids(mask) else mask
+
+
+@functools.lru_cache(maxsize=64)
+def sw_msa_region_ids(hp: int, wp: int, window_size: int, shift_size: int,
+                      device=None, offset: bool = False) -> torch.Tensor:
+    """[nW, ws*ws] int32 region ids of the SW-MSA mask (9-region fill; with
+    `offset`, of the roll-free offset partition's mask), on `device`.
+
+    Built once per geometry and device and shared by every caller, which
+    must not write to it: the kernel tier's form of the mask
+    (ops/kernels/flash_window_attn.py), 4 bytes per token in place of the
+    dense mask's 4 N bytes."""
+    ws = window_size
+    with torch.inference_mode(False):
+        m = _region_ids_dev(hp, wp, ws, shift_size, device)
+        if offset:
+            m = torch.roll(m, shifts=(1, 1), dims=(0, 1))
+        return m.reshape(-1, ws * ws).contiguous()
+
+
+@functools.lru_cache(maxsize=64)
 def sw_msa_mask(hp: int, wp: int, window_size: int, shift_size: int,
                 device=None) -> torch.Tensor:
     """SW-MSA attention mask [nW, ws*ws, ws*ws] float32 of 0 / -100.0
-    (9-region fill; hp/wp are the window-padded dims), on `device`."""
-    m = _region_ids_dev(hp, wp, window_size, shift_size, device)
-    return _ids_to_mask(m.reshape(-1, window_size * window_size))
+    (9-region fill; hp/wp are the window-padded dims), on `device`; built
+    once per geometry and device (callers must not write to it)."""
+    with torch.inference_mode(False):
+        return region_mask(sw_msa_region_ids(hp, wp, window_size, shift_size,
+                                             device))
 
 
+@functools.lru_cache(maxsize=64)
 def sw_msa_mask_offset(hp: int, wp: int, window_size: int, shift_size: int,
                        device=None) -> torch.Tensor:
     """SW-MSA mask for the roll-free OFFSET window partition: the cyclic
     mask with the window grid rolled by one window (derivation in
-    birefnet_tpu/ops/window.py::sw_msa_mask_offset), on `device`."""
-    m = _region_ids_dev(hp, wp, window_size, shift_size, device)
-    m = torch.roll(m, shifts=(1, 1), dims=(0, 1))
-    return _ids_to_mask(m.reshape(-1, window_size * window_size))
+    birefnet_tpu/ops/window.py::sw_msa_mask_offset), on `device`; built
+    once per geometry and device."""
+    with torch.inference_mode(False):
+        return region_mask(sw_msa_region_ids(hp, wp, window_size, shift_size,
+                                             device, offset=True))
 
 
 def pad_to_multiple(x: torch.Tensor, multiple: int) -> torch.Tensor:

@@ -23,7 +23,12 @@ Phases, each printed as it runs; any failure exits non-zero:
    over 3.35 TB/s and the operations its real tokens need over the H100's
    published peak for their type). Check that K1, K1-int8 and K6 take the
    rel-pos bias rounded to bf16: a bias B and bf16(B) give bitwise the
-   same output;
+   same output. The window-attention core that K1 shares with K6-K8
+   (csrc/window_core.cuh) is also timed alone at every Swin-L stage shape
+   of both passes (B_ = 2 (Hp/12)^2 windows, 6-48 heads, N = 144, d = 32,
+   unmasked and with the offset mask's region ids) through
+   flash_window_attention, against its plain version and SDPA; its sums
+   per forward go under K1's entry as "core";
 4. drive pipeline.make_infer_fn at 1024^2, batch 2, bf16, kernel tier,
    regular deform mode, random_checkpoint(cfg, 0) (swin_t's rel-pos bias
    tables scaled to std 1, REL_POS_BIAS_SCALE), on uint8 frames, for
@@ -202,15 +207,21 @@ class KernelReport:
         if lib_ms is not None:
             m["library_ms"] = (m["library_ms"] or 0.0) + calls * lib_ms
 
+    def by_model(self):
+        """The per-forward sums of each model, with what bounds them."""
+        for model, m in self.sums.items():
+            if "bytes_ms" in m:
+                m["bound_by"] = ("bytes" if m.pop("bytes_ms") >= m.pop("ops_ms")
+                                 else "operations")
+            self.entry["by_model"][model] = m
+        return self.entry["by_model"]
+
     def finish(self, main_model):
         """Fill the report's times from its main model's sums."""
         e = self.entry
-        for model, m in self.sums.items():
-            m["bound_by"] = ("bytes" if m.pop("bytes_ms") >= m.pop("ops_ms")
-                             else "operations")
-            e["by_model"][model] = m
+        m = self.by_model()[main_model]
         for key in ("ms", "plain_ms", "bound_ms", "library_ms", "bound_by"):
-            e[key] = self.sums[main_model][key]
+            e[key] = m[key]
         e["launches"] = e["launches_by_path"][self.main_path]
 
 
@@ -253,7 +264,17 @@ def make_reports():
     return {r[0]: KernelReport(*r) for r in rows}
 
 
-def check_kernels(torch, dev, reports):
+def make_core_report():
+    """The window-attention core alone (csrc/window_core.cuh) at the Swin-L
+    stage shapes, reported under K1's entry as "core"."""
+    from birefnet_tpu_torch.ops.kernels import flash_window_attn
+    return KernelReport(
+        "window_core", "cuda", "birefnet_tpu_torch/csrc/window_core.cuh",
+        "birefnet_tpu/ops/pallas/fused_block_attn.py:250",
+        flash_window_attn.flash_window_attention, None, MEAN_BOUND_FWA)
+
+
+def check_kernels(torch, dev, reports, core):
     import torch.nn.functional as F
 
     from birefnet_tpu_torch import params as P
@@ -301,7 +322,8 @@ def check_kernels(torch, dev, reports):
         attn = P.cast_matmul_weights(attn32, bf)
         attn_q = P.cast_matmul_weights(
             P.quantize_attn_int8({"attn": attn32}, 0)["attn"], bf)
-        cyclic_mask = W.sw_msa_mask(hp, hp, ws, ws // 2, dev)
+        # The mask as the model passes it: region ids, cached per geometry.
+        cyclic_mask = W.sw_msa_region_ids(hp, hp, ws, ws // 2, dev)
         for shift in (0, ws // 2):
             canvas, k_shift, mask, origin = swin.fused_block_canvas(
                 x, ws, shift, cyclic_mask)
@@ -352,7 +374,7 @@ def check_kernels(torch, dev, reports):
         # as contiguous [B_, heads, N, d] and the additive bias + mask.
         q, k, v = qkv.view(b_, 49, 3, heads, d).permute(
             2, 0, 3, 1, 4).contiguous()
-        for mask in (None, W.sw_msa_mask(hp, hp, 7, 3, dev)):
+        for mask in (None, W.sw_msa_region_ids(hp, hp, 7, 3, dev)):
             args = (qkv, bias, mask, heads)
             # Queries of real tokens only (2 h^2 of them); every window
             # token counts as a key and value, and in the bytes.
@@ -365,7 +387,31 @@ def check_kernels(torch, dev, reports):
                              *args),
                      (nbytes(qkv, bias, mask) + b_ * 49 * c * 2,
                       {"bf16": 4 * 49 * c * BATCH * h * h}),
-                     library_fn=sdpa(q, k, v, bias, mask))
+                     library_fn=sdpa(q, k, v, bias, W.dense_mask(mask)))
+
+    def check_core(label, depth, c, heads, hp):
+        """The attention core alone at one Swin-L stage, through
+        flash_window_attention on [B_, heads, 144, 32] views of a packed
+        [B_, 144, 3C] projection (the rows K1 reads): unmasked and with the
+        offset mask's region ids, depth / 2 calls of each per forward."""
+        b_ = BATCH * (hp // 12) ** 2
+        qkv = randn((b_, 144, 3 * c), 1.0, bf)
+        q, k, v = qkv.view(b_, 144, 3, heads, 32).permute(2, 0, 3, 1, 4)
+        qc, kc, vc = (t.contiguous() for t in (q, k, v))
+        bias = randn((heads, 144, 144))
+        for mask in (None, W.sw_msa_region_ids(hp, hp, 12, 6, dev,
+                                               offset=True)):
+            args = (q, k, v, bias, mask)
+            core.check(torch, "swin_l",
+                       f"{label} B_={b_} heads={heads}"
+                       f"{'' if mask is None else ' offset mask'}",
+                       depth // 2,
+                       partial(flash_window_attn.flash_window_attention, *args),
+                       partial(flash_window_attn.flash_window_attention_plain,
+                               *args),
+                       (nbytes(qkv, bias, mask) + b_ * 144 * c * 2,
+                        {"bf16": 4 * 144 * 144 * c * b_}),
+                       library_fn=sdpa(qc, kc, vc, bias, W.dense_mask(mask)))
 
     def check_k2_k3_k4(model, label, i, depth, h, c):
         x2 = randn((BATCH * h * h, c), 1.0, bf)
@@ -421,6 +467,7 @@ def check_kernels(torch, dev, reports):
                     check_k1(model, f"{label} C={c}", depth,
                              randn((BATCH, h, h, c), 1.0, bf), h, c, heads, ws,
                              hp)
+                    check_core(label, depth, c, heads, hp)
                 else:
                     check_k6(label, depth, h, c, heads, hp)
                 check_k2_k3_k4(model, f"{pass_name} st{i}", i, depth, h, c)
@@ -450,8 +497,10 @@ def check_kernels(torch, dev, reports):
                              causal)
             plain = partial(flash_window_attn.flash_attention_plain, q, k, v,
                             causal)
+        # flash_attention's kernel reads no bias (a causal flag or none).
         rep.check(torch, "api", f"{label} ({b_},{heads},{n},{d})", 1, kernel,
-                  plain, (nbytes(q, k, v, bias, mask) + nbytes(q),
+                  plain, (nbytes(q, k, v, None if causal is not None else bias,
+                                 mask) + nbytes(q),
                           {"bf16": 4 * n * n * d * b_ * heads}),
                   library_fn=sdpa(q, k, v, bias, mask))
 
@@ -638,10 +687,22 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    reports = make_reports()
+    reports, core = make_reports(), make_core_report()
     with torch.inference_mode():
-        check_kernels(torch, dev, reports)
+        check_kernels(torch, dev, reports, core)
     log("phase 3: every kernel within its bound at every slice shape")
+    sums = core.by_model()["swin_l"]
+    reports["fused_block_attn"].entry["core"] = dict(
+        sums, source=core.entry["source"],
+        max_abs_err=core.entry["max_abs_err"],
+        mean_rel_err=core.entry["mean_rel_err"])
+    for name, m in (("Swin-L attention core", sums),
+                    ("swin_t K6", reports["flash_window_attn_qkv"].by_model()
+                     ["swin_t"])):
+        log(f"phase 3: {name} per forward: kernel {m['ms']:.4f} ms, SDPA "
+            f"{m['library_ms']:.4f} ms, plain {m['plain_ms']:.4f} ms, bound "
+            f"{m['bound_ms']:.4f} ms ({m['bound_by']}); kernel / SDPA "
+            f"{m['ms'] / m['library_ms']:.3f} ({smi})")
 
     frames = np.random.default_rng(42).integers(
         0, 256, size=(BATCH, SIZE, SIZE, 3), dtype=np.uint8)

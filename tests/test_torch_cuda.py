@@ -299,7 +299,10 @@ def test_flash_qkv_kernel_matches_plain(dev, b_, ws, heads, hp, masked):
 # The JAX package's test shapes: (B_, heads, N, d, nW or None).
 @pytest.mark.parametrize("b_,heads,n,d,nw", [
     (4, 2, 16, 8, None), (36, 4, 144, 32, 9), (8, 2, 16, 8, 4),
-    (6, 2, 256, 64, 3), (5, 3, 49, 24, None)])
+    (6, 2, 256, 64, 3), (5, 3, 49, 24, None),
+    # head dims 8, 16, 40 and 64 of the core, N padded and not
+    (10, 3, 49, 8, 5), (6, 4, 49, 16, None), (4, 2, 144, 40, 2),
+    (6, 2, 100, 64, 3), (3, 6, 64, 64, None)])
 def test_flash_window_attention_kernel_matches_plain(dev, b_, heads, n, d, nw):
     gen = torch.Generator(dev).manual_seed(11)
     q, k, v = (_randn(gen, (b_, heads, n, d), dev, 1.0, torch.bfloat16)
@@ -317,15 +320,70 @@ def test_flash_window_attention_kernel_matches_plain(dev, b_, heads, n, d, nw):
 
 
 @pytest.mark.parametrize("causal", [False, True])
-def test_flash_attention_kernel_matches_plain(dev, causal):
+@pytest.mark.parametrize("shape", [(4, 2, 16, 8), (3, 2, 100, 24)])
+def test_flash_attention_kernel_matches_plain(dev, causal, shape):
     gen = torch.Generator(dev).manual_seed(12)
-    q, k, v = (_randn(gen, (4, 2, 16, 8), dev, 1.0, torch.bfloat16)
+    q, k, v = (_randn(gen, shape, dev, 1.0, torch.bfloat16)
                for _ in range(3))
     n0 = flash_window_attn.flash_attention.launches
     got = flash_window_attn.flash_attention(q, k, v, causal)
     assert flash_window_attn.flash_attention.launches == n0 + 1
     _assert_close(got, flash_window_attn.flash_attention_plain(q, k, v, causal),
                   MEAN_BOUND_FWA)
+
+
+# The core with the SW-MSA mask as region ids (the kernel tier's form) and
+# as the dense f32 mask: the Swin-L offset mask at N = 144, the underfilled
+# grids (Swin-L's half-pass stage 3, 8 windows x 48 heads; swin_t's,
+# 18 x 24 at N = 49), and a mask period nW smaller than B_. Held to the
+# plain version on the dense f32 tensors, and bitwise to the kernel on the
+# dense form of the same mask.
+@pytest.mark.parametrize("b_,heads,ws,hp,offset,form", [
+    (8, 48, 12, 24, True, "ids"), (8, 48, 12, 24, True, "dense"),
+    (18, 24, 7, 21, False, "ids"), (50, 3, 7, 35, False, "ids"),
+    (72, 6, 12, 36, True, "ids"), (32, 4, 12, 48, False, "ids")])
+def test_window_core_region_ids_match_plain(dev, b_, heads, ws, hp, offset,
+                                            form):
+    gen = torch.Generator(dev).manual_seed(15)
+    n, bf = ws * ws, torch.bfloat16
+    qkv = _randn(gen, (b_, n, 3 * heads * 32), dev, 1.0, bf)
+    q, k, v = qkv.view(b_, n, 3, heads, 32).permute(2, 0, 3, 1, 4)
+    bias = _randn(gen, (heads, n, n), dev, 3.0)
+    ids = W.sw_msa_region_ids(hp, hp, ws, ws // 2, dev, offset=offset)
+    dense = (W.sw_msa_mask_offset if offset else W.sw_msa_mask)(
+        hp, hp, ws, ws // 2, dev)
+    assert b_ % ids.shape[0] == 0
+    mask = dense if form == "dense" else ids
+    n0 = flash_window_attn.flash_window_attention.launches
+    got = flash_window_attn.flash_window_attention(q, k, v, bias, mask)
+    assert flash_window_attn.flash_window_attention.launches == n0 + 1
+    _assert_close(got, flash_window_attn.flash_window_attention_plain(
+        q, k, v, bias, dense), MEAN_BOUND_FWA)
+    assert torch.equal(got, flash_window_attn.flash_window_attention(
+        q, k, v, bias, dense))
+
+
+@pytest.mark.parametrize("hw", [(20, 17), (16, 16)])
+def test_fused_block_attn_takes_region_ids(dev, hw):
+    """K1 and K1-int8 on the region-id form of the cyclic and offset masks
+    (what models/swin.py passes) give bitwise their dense-mask outputs."""
+    gen = torch.Generator(dev).manual_seed(16)
+    h, w = hw
+    heads, c = 2, 64
+    x = _randn(gen, (2, h, w, c), dev, 1.0, torch.bfloat16)
+    norm1, attn = _block_params(gen, c, heads, dev)
+    attn_q = _quantized(pparams.tree_map(lambda _, v: v.float(), attn), "attn")
+    hp, wp = -(-h // 12) * 12, -(-w // 12) * 12
+    for tree in (attn, attn_q):
+        outs = []
+        for mask in (W.sw_msa_mask(hp, wp, 12, 6, dev),
+                     W.sw_msa_region_ids(hp, wp, 12, 6, dev)):
+            canvas, k_shift, k_mask, origin = swin.fused_block_canvas(
+                x, 12, 6, mask)
+            outs.append(fused_block_attn.fused_window_block_attention(
+                canvas, norm1, tree, 12, k_shift, heads, k_mask, h, w,
+                origin))
+        assert torch.equal(outs[0], outs[1])
 
 
 def test_flash_window_attn_refuses_f32_and_wide_heads(dev):
@@ -335,6 +393,23 @@ def test_flash_window_attn_refuses_f32_and_wide_heads(dev):
     wide = torch.zeros((2, 1, 16, 72), device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="multiple of 8 up to 64"):
         flash_window_attn.flash_attention(wide, wide, wide)
+
+
+@pytest.mark.parametrize("kernel", ["fused_block_attn", "flash_window_attn"])
+def test_window_core_refuses_a_bf16_bias(dev, kernel):
+    """The core reads the rel-pos bias as the f32 tensor it is given; a
+    bf16 one is refused, not converted per call."""
+    gen = torch.Generator(dev).manual_seed(17)
+    bias = _randn(gen, (2, 144, 144), dev, 1.0, torch.bfloat16)
+    with pytest.raises(ValueError, match="bias"):
+        if kernel == "fused_block_attn":
+            norm1, attn = _block_params(gen, 64, 2, dev)
+            x = _randn(gen, (2, 24, 24, 64), dev, 1.0, torch.bfloat16)
+            fused_block_attn.fused_window_block_attention(
+                x, norm1, dict(attn, cached_bias=bias), 12, 0, 2, None, 24, 24)
+        else:
+            q = _randn(gen, (2, 2, 144, 32), dev, 1.0, torch.bfloat16)
+            flash_window_attn.flash_window_attention(q, q, q, bias)
 
 
 @pytest.mark.parametrize("kernel", ["fused_block_attn", "fused_block_attn_int8",

@@ -19,9 +19,15 @@ import torch
 
 import jax.numpy as jnp
 
+from birefnet_tpu.ops import window as jwindow
 from birefnet_tpu.ops.pallas import flash_window_attn as jfwa
+from birefnet_tpu_torch.models import swin
 from birefnet_tpu_torch.ops import window as W
+from birefnet_tpu_torch.ops.attention import (qkv_window_attention,
+                                              round_addends, window_attention)
 from birefnet_tpu_torch.ops.kernels import flash_window_attn as fwa
+from birefnet_tpu_torch.ops.kernels import fused_block_attn
+from birefnet_tpu_torch.params import cast_matmul_weights, from_jax_params
 
 TOL = dict(atol=2e-5, rtol=1e-4)
 WRAPPERS = (fwa.flash_window_attention_qkv, fwa.flash_window_attention,
@@ -117,3 +123,98 @@ def test_flash_wrappers_refuse_other_devices():
     q = torch.zeros((2, 1, 16, 8), device="meta")
     with pytest.raises(ValueError, match="cpu or cuda"):
         fwa.flash_attention(q, q, q)
+
+
+# The kernel tier's form of the SW-MSA mask, built once: [nW, N] int32
+# region ids (cached per geometry). Fed to the plain versions they must
+# give bitwise the outputs of the dense f32 mask rounded by round_addends,
+# and the JAX interpret-mode kernel's within one bf16 ulp.
+@pytest.mark.parametrize("offset", [False, True])
+@pytest.mark.parametrize("ws", [7, 12])
+def test_region_ids_give_the_rounded_mask(ws, offset):
+    hp, shift, heads, c = 2 * ws, ws // 2, 2, 64
+    n = ws * ws
+    ids = W.sw_msa_region_ids(hp, hp, ws, shift, offset=offset)
+    assert ids is W.sw_msa_region_ids(hp, hp, ws, shift, offset=offset)
+    assert ids.dtype == torch.int32 and ids.shape == (4, n)
+    jmask = (jwindow.sw_msa_mask_offset if offset else jwindow.sw_msa_mask)(
+        hp, hp, ws, shift)
+    dense = (W.sw_msa_mask_offset if offset else W.sw_msa_mask)(hp, hp, ws,
+                                                                shift)
+    np.testing.assert_array_equal(W.region_mask(ids).numpy(), jmask)
+    assert torch.equal(W.dense_mask(ids), dense)
+
+    rng = np.random.default_rng(20 + ws + offset)
+    qkv = _rand(rng, (8, n, 3 * c))
+    bias = _rand(rng, (heads, n, n), 3.0)
+    qkv_t = torch.from_numpy(qkv).bfloat16()
+    bias_t = torch.from_numpy(bias)
+    want = qkv_window_attention(qkv_t, *round_addends(torch.bfloat16, bias_t,
+                                                      dense), heads)
+    got = fwa.flash_window_attention_qkv(qkv_t, bias_t, ids, heads)
+    assert torch.equal(got, want)
+    q, k, v = qkv_t.view(8, n, 3, heads, 32).permute(2, 0, 3, 1, 4)
+    assert torch.equal(
+        fwa.flash_window_attention(q, k, v, bias_t, ids),
+        window_attention(q, k, v, *round_addends(torch.bfloat16, bias_t,
+                                                 dense)))
+    if ws == 7:
+        ref = np.asarray(jfwa.flash_window_attention_qkv(
+            jnp.asarray(qkv, jnp.bfloat16), jnp.asarray(bias, jnp.bfloat16),
+            jnp.asarray(jmask, jnp.bfloat16), heads,
+            interpret=True).astype(jnp.float32))
+        _assert_within_one_bf16_ulp(got, ref)
+
+
+@pytest.mark.parametrize("hw", [(20, 17), (16, 16)])
+def test_block_canvas_keeps_the_mask_form(hw):
+    """fused_block_canvas gives the offset mask in the form it was given
+    (region ids or dense), and K1's plain version gives bitwise the same
+    block output from either (the roll and the offset partition)."""
+    rng = np.random.default_rng(30 + hw[1])
+    h, w = hw
+    ws, heads, c = 12, 2, 64
+    hp, wp = -(-h // ws) * ws, -(-w // ws) * ws
+    p = from_jax_params({
+        "norm1": {"scale": 1 + 0.1 * _rand(rng, (c,)),
+                  "bias": 0.1 * _rand(rng, (c,))},
+        "attn": {"qkv": {"kernel": _rand(rng, (c, 3 * c), 0.05),
+                         "bias": _rand(rng, (3 * c,))},
+                 "proj": {"kernel": _rand(rng, (c, c), 0.05),
+                          "bias": _rand(rng, (c,))},
+                 "cached_bias": _rand(rng, (heads, 144, 144))}})
+    attn = cast_matmul_weights(p["attn"], torch.bfloat16)
+    x = torch.from_numpy(_rand(rng, (2, h, w, c))).bfloat16()
+    outs = []
+    for mask in (W.sw_msa_mask(hp, wp, ws, 6),
+                 W.sw_msa_region_ids(hp, wp, ws, 6)):
+        canvas, k_shift, k_mask, origin = swin.fused_block_canvas(x, ws, 6,
+                                                                  mask)
+        assert W.is_region_ids(k_mask) == W.is_region_ids(mask)
+        outs.append(fused_block_attn.fused_window_block_attention(
+            canvas, p["norm1"], attn, ws, k_shift, heads, k_mask, h, w,
+            origin=origin))
+    assert origin == (6 if hw == (16, 16) else 0)
+    assert torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_causal_flag_matches_causal_bias(causal):
+    """The kernel's causal flag adds CAUSAL_NEG where a key lies after its
+    query: the same addend as causal_bias, so the plain version fed that
+    addend as a mask gives bitwise flash_attention's plain output, which
+    matches the JAX interpret-mode kernel."""
+    rng = np.random.default_rng(40 + causal)
+    n, heads = 16, 2
+    q, k, v = (_rand(rng, (4, heads, n, 8)) for _ in range(3))
+    qt, kt, vt = (torch.from_numpy(a).bfloat16() for a in (q, k, v))
+    i = torch.arange(n)
+    flag = torch.where((i[None, :] > i[:, None]) & causal, fwa.CAUSAL_NEG, 0.0)
+    assert torch.equal(flag.bfloat16().expand(heads, n, n),
+                       fwa.causal_bias(qt, causal))
+    got = window_attention(qt, kt, vt, torch.zeros((heads, n, n)), flag[None])
+    assert torch.equal(got, fwa.flash_attention(qt, kt, vt, causal))
+    want = np.asarray(jfwa.flash_attention(
+        *(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)), causal=causal,
+        interpret=True).astype(jnp.float32))
+    _assert_within_one_bf16_ulp(got, want)

@@ -27,14 +27,17 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# (group, substrings of the kernel name), first match wins.
+# (group, substrings of the kernel name), first match wins. The shared
+# window-attention core (csrc/window_core.cuh) runs as two template
+# instantiations, named by their row layout: CanvasRows for K1 and K1-int8,
+# StridedRows for K6 (and K7/K8).
 GROUPS = [
-    ("K6 window attention (middle tier)", ("flash_window_attn_kernel",)),
+    ("K1 attention core (bf16 and int8 routes)", ("CanvasRows",)),
+    ("K6 window attention (middle tier)", ("StridedRows",)),
     ("K1-int8/K3 int8 GEMM, bf16 out (qkv)", ("i8::gemm_kernel<0>",)),
     ("K1-int8/K3 int8 GEMM + residual (proj, fc2)", ("i8::gemm_kernel<1>",)),
     ("K3 int8 GEMM + GELU (fc1)", ("i8::gemm_kernel<2>",)),
     ("K1-int8/K3 row quantization", ("quant_rows_kernel",)),
-    ("K1 attention core (bf16 and int8 routes)", ("window_attn_kernel",)),
     ("K1 bf16 LN+qkv GEMM", ("gemm_kernel<true, false>",)),
     ("K1 bf16 proj GEMM", ("gemm_kernel<false, true>",)),
     ("K2 fused_mlp", ("fused_mlp_kernel", "mlp_split_epilogue")),
