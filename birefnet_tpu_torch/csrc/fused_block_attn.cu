@@ -40,15 +40,18 @@
 // kernel (fused_block_attn.py:100-112, 208-215; ComputeConfig.int8_attn).
 // The proj input's per-token scale needs each token's absmax over all C
 // channels, which come from C/32 different (window, head) blocks of the
-// attention core, so both projections get a row pre-pass (int8.cuh):
+// attention core, so both projections get a row pre-pass (int8.cuh; the
+// kernels are in int8_gemm.cu):
 // 1. quant_rows<LN, PAD>: LN1 (f32 statistics) -> pad tokens zeroed ->
-//    rows rounded to bf16 -> per-token int8 codes [T, C] + scales [T];
-// 2. i8 gemm<kStoreBf16>: qkv = acc * (sx * sw) + b -> bf16 [T, 3C];
+//    rows rounded to bf16 -> per-token int8 codes [T, C] + scales [T],
+//    each row read once into registers;
+// 2. i8 gemm<kStoreBf16>: qkv = acc * (sx * sw) + b -> bf16 [T, 3C], on
+//    wgmma s8 tensor cores fed by TMA;
 // 3. the attention core, as in the bf16 entry, -> attention rows bf16 [T, C];
 // 4. quant_rows: per-token int8 of the attention rows (same scratch);
 // 5. i8 gemm<kResidualBf16>: out = x + bf16(acc * (sa * sw) + b).
-// The int8 round trips add 2 C bytes per token each way; the qkv products
-// (8 C^2 integer ops per token) run at the int8 tensor-core rate.
+// The int8 round trips add 2 C bytes per token each way; the qkv and proj
+// products (8 C^2 integer ops per token) are bound by the int8 peak.
 
 #include "common.cuh"
 #include "int8.cuh"

@@ -10,15 +10,16 @@
 // design (csrc/fused_mlp.cu: the hidden walked in 256-wide chunks, split
 // over blocks) cannot give that absmax before its first chunk is used.
 // This kernel writes the hidden to device memory instead, as four
-// launches on one stream (int8.cuh):
+// launches on one stream (int8.cuh; the kernels are in int8_gemm.cu):
 // 1. quant_rows<LN>: LN2 with f32 statistics, NOT rounded to bf16 (unlike
 //    the block-attention route), -> int8 codes [T, C] + scales [T];
 // 2. i8 gemm<kGeluF32>: h = GELU3(acc * (sx * s1) + b1) -> f32 [T, 4C];
 // 3. quant_rows: per-token int8 of h over all 4C units -> codes [T, 4C]
-//    (the same scratch) + scales;
+//    (the same scratch) + scales; a hidden row (3072 or 6144 floats) is
+//    read once, into the registers of 256 or 512 threads;
 // 4. i8 gemm<kResidualBf16>: out = x + bf16(acc * (sx2 * s2) + b2).
 // Cost of the choice: the f32 hidden scratch is 16 C bytes per token
-// written once and read twice (at T = 8192, C = 768: 100 MB, about 0.1 ms
+// written once and read once (at T = 8192, C = 768: 100 MB, about 0.06 ms
 // of the card's 3.35 TB/s per call) plus 4 C bytes of int8 codes each way,
 // against the 16 C^2 integer ops per token of the two GEMMs (77 GOP, 39 us
 // at the 1,979 TOP/s int8 peak), which bound the function itself (its

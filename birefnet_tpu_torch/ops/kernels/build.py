@@ -109,12 +109,12 @@ def library() -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
-def function(name: str, n_pointers: int, n_ints: int):
-    """The C entry `name` taking pointers, then ints, then the stream;
-    every pointer and the stream are c_void_p."""
+def function(name: str, n_pointers: int, n_ints: int, n_floats: int = 0):
+    """The C entry `name` taking pointers, then ints, then floats, then the
+    stream; every pointer and the stream are c_void_p, a float c_float."""
     fn = getattr(library(), name)
     fn.argtypes = ([ctypes.c_void_p] * n_pointers + [ctypes.c_int] * n_ints
-                   + [ctypes.c_void_p])
+                   + [ctypes.c_float] * n_floats + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 

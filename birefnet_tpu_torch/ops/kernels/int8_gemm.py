@@ -1,0 +1,171 @@
+"""The int8 GEMM and the int8 row pass of csrc/int8_gemm.cu, called alone.
+
+The model reaches both only inside K1-int8 (`bt_fused_block_attn_i8`) and
+K3 (`bt_fused_mlp_i8`), whose C entries launch them on one stream. These
+two entries run them on their own, for the tests and chip_smoke.py, which
+hold them bit for bit against their plain versions:
+
+- `int8_gemm`: epilogue(acc * (sx * sw) + bias) with acc = q w_q8^T exact,
+  the epilogue one of "bf16" (round to bf16, K1-int8's qkv), "residual"
+  (res + bf16(y), K1-int8's proj and K3's fc2) or "gelu" (the 3-term erf
+  GELU in f32, K3's fc1); the plain version is ops/quant.py::int8_linear
+  cast the same way.
+- `quantize_rows`: per-token int8 codes and scales of x, of LayerNorm(x)
+  (K3's LN2) or of bf16(LayerNorm(x) with the canvas's pad tokens zeroed)
+  (K1-int8's LN1); the plain version is ops/quant.py::quantize_rows after
+  the same steps, its LayerNorm with the kernel's f32 statistics (sum / K,
+  then the mean square of x - mean).
+
+Each takes its plain version for a CPU tensor and launches its kernel for a
+CUDA tensor or raises; each counts its own launches.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from .. import quant
+from . import build
+from .fused_block_attn import _pad_token_mask
+
+EPILOGUES = {"bf16": 0, "residual": 1, "gelu": 2}
+# (Hp, Wp, shift, origin, h_real, w_real) of a padded canvas [B, Hp, Wp, C].
+Canvas = Tuple[int, int, int, int, int, int]
+
+
+def int8_gemm_plain(q: torch.Tensor, sx: torch.Tensor, params, epilogue: str,
+                    res: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version: int8_linear(q, sx) for q [M, K] int8 and sx [M, 1] f32,
+    then the epilogue."""
+    y = quant.int8_linear(q, sx, params)
+    if epilogue == "bf16":
+        return y.to(torch.bfloat16)
+    if epilogue == "residual":
+        return res + y.to(torch.bfloat16)
+    if epilogue == "gelu":
+        return quant.gelu_erf3(y)
+    raise ValueError(f"int8_gemm epilogue {epilogue!r} not in {list(EPILOGUES)}")
+
+
+def _check(name, t, dtype, shape, device):
+    if (t.dtype != dtype or tuple(t.shape) != shape or t.device != device
+            or not t.is_contiguous() or t.data_ptr() % 16):
+        raise ValueError(f"{name}: want contiguous 16-byte aligned {dtype} "
+                         f"{shape} on {device}, got {t.dtype} "
+                         f"{tuple(t.shape)} on {t.device}")
+
+
+def int8_gemm(q: torch.Tensor, sx: torch.Tensor, params, epilogue: str,
+              res: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """epilogue(q W^T dequantized) for q [M, K] int8, sx [M, 1] f32 and a
+    linear's `weight_q8` [N, K], `scale_q8` [N], `bias` [N]: bf16 [M, N]
+    ("bf16", "residual" with res bf16 [M, N]) or f32 ("gelu")."""
+    if epilogue not in EPILOGUES:
+        raise ValueError(f"int8_gemm epilogue {epilogue!r} not in "
+                         f"{list(EPILOGUES)}")
+    if q.device.type == "cpu":
+        return int8_gemm_plain(q, sx, params, epilogue, res)
+    if q.device.type != "cuda":
+        raise ValueError(f"int8_gemm runs on cpu or cuda, got {q.device}")
+    m, k = q.shape
+    n = params["weight_q8"].shape[0]
+    if n % 8 or k % 16:
+        raise ValueError(f"int8_gemm needs N % 8 == 0 and K % 16 == 0, got "
+                         f"N={n}, K={k}")
+    f32, dev = torch.float32, q.device
+    _check("int8_gemm q", q, torch.int8, (m, k), dev)
+    _check("int8_gemm sx", sx, f32, (m, 1), dev)
+    _check("int8_gemm weight_q8", params["weight_q8"], torch.int8, (n, k), dev)
+    _check("int8_gemm scale_q8", params["scale_q8"], f32, (n,), dev)
+    _check("int8_gemm bias", params["bias"], f32, (n,), dev)
+    if epilogue == "residual":
+        _check("int8_gemm res", res, torch.bfloat16, (m, n), dev)
+    out = torch.empty((m, n), device=dev,
+                      dtype=f32 if epilogue == "gelu" else torch.bfloat16)
+    fn = build.function("bt_i8_gemm", 7, 4)
+    code = fn(q.data_ptr(), sx.data_ptr(), params["weight_q8"].data_ptr(),
+              params["scale_q8"].data_ptr(), params["bias"].data_ptr(),
+              res.data_ptr() if epilogue == "residual" else None,
+              out.data_ptr(), m, n, k, EPILOGUES[epilogue], build.stream(dev))
+    build.check(code, "int8_gemm")
+    int8_gemm.launches += 1
+    return out
+
+
+int8_gemm.launches = 0
+
+
+def layer_norm_rows_f32(ln, x: torch.Tensor) -> torch.Tensor:
+    """LayerNorm of f32 rows [T, K] with the row pass's statistics: mean =
+    sum / K, rstd = rsqrt(sum((x - mean)^2) / K + 1e-5), then
+    (x - mean) * rstd * scale + bias, each step rounded to f32. The sums
+    are divided by a tensor of K: PyTorch multiplies by a rounded 1/K when
+    the divisor is a Python number, which is not the kernel's division."""
+    s = x.sum(-1, keepdim=True)
+    k = torch.full_like(s, x.shape[-1])
+    mean = s / k
+    d = x - mean
+    rstd = torch.rsqrt((d * d).sum(-1, keepdim=True) / k + 1e-5)
+    return d * rstd * ln["scale"] + ln["bias"]
+
+
+def quantize_rows_plain(x: torch.Tensor, ln=None,
+                        canvas: Optional[Canvas] = None):
+    """Plain version: (int8 codes [T, K], f32 scales [T, 1]) of the rows of
+    x [T, K]: of x itself, of LayerNorm(x) (`ln`), or of bf16(LayerNorm(x))
+    with the pad tokens of the canvas zeroed (`ln` and `canvas`; the rows
+    are [B, Hp, Wp] canvas tokens in order)."""
+    h = x.float()
+    if ln is not None:
+        h = layer_norm_rows_f32(ln, h)
+    if canvas is not None:
+        hp, wp = canvas[:2]
+        valid = _pad_token_mask(*canvas, x.device).reshape(-1)
+        valid = valid.repeat(x.shape[0] // (hp * wp))
+        h = torch.where(valid[:, None], h, torch.zeros((), device=h.device))
+        h = h.to(torch.bfloat16).float()
+    return quant.quantize_rows(h)
+
+
+def quantize_rows(x: torch.Tensor, ln=None, canvas: Optional[Canvas] = None):
+    """The row pass of `quantize_rows_plain`: bf16 rows in every form, f32
+    rows without LayerNorm (K3's hidden)."""
+    if canvas is not None and ln is None:
+        raise ValueError("quantize_rows: a canvas needs the LayerNorm")
+    if x.device.type == "cpu":
+        return quantize_rows_plain(x, ln, canvas)
+    if x.device.type != "cuda":
+        raise ValueError(f"quantize_rows runs on cpu or cuda, got {x.device}")
+    if x.ndim != 2 or x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"quantize_rows takes bf16 or f32 [T, K], got "
+                         f"{x.dtype} {tuple(x.shape)}")
+    t, k = x.shape
+    if x.dtype == torch.float32 and ln is not None:
+        raise ValueError("quantize_rows: f32 rows take no LayerNorm")
+    if k * x.element_size() % 16:
+        raise ValueError(f"quantize_rows needs rows of a multiple of 16 bytes, "
+                         f"got K={k}")
+    _check("quantize_rows x", x, x.dtype, (t, k), x.device)
+    mode = 0 if ln is None else 1 if canvas is None else 2
+    if ln is not None:
+        for name in ("scale", "bias"):
+            _check(f"quantize_rows ln {name}", ln[name], torch.float32, (k,),
+                   x.device)
+    if canvas is not None and t % (canvas[0] * canvas[1]):
+        raise ValueError(f"quantize_rows: {t} rows are no whole canvases of "
+                         f"{canvas[0]} x {canvas[1]}")
+    codes = torch.empty((t, k), dtype=torch.int8, device=x.device)
+    scales = torch.empty((t, 1), dtype=torch.float32, device=x.device)
+    fn = build.function("bt_i8_quant_rows", 5, 10)
+    code = fn(x.data_ptr(), None if ln is None else ln["scale"].data_ptr(),
+              None if ln is None else ln["bias"].data_ptr(), codes.data_ptr(),
+              scales.data_ptr(), t, k, int(x.dtype == torch.float32), mode,
+              *(canvas or (0, 0, 0, 0, 0, 0)), build.stream(x.device))
+    build.check(code, "quantize_rows")
+    quantize_rows.launches += 1
+    return codes, scales
+
+
+quantize_rows.launches = 0

@@ -19,7 +19,9 @@ Phases, each printed as it runs; any failure exits non-zero:
    quantized from f32 by params.quantize_*_int8; those two and K6-K8 also
    hold a bound on mean|kernel - plain| / mean|plain|. Time each kernel,
    its plain version and, where one PyTorch call computes the same
-   function, that call; compute each call's bound (the larger of its bytes
+   function, that call (for K4, F.layer_norm with the f32 affine where
+   PyTorch takes it beside a bf16 input, else the affine cast to bf16; the
+   log says which); compute each call's bound (the larger of its bytes
    over 3.35 TB/s and the operations its real tokens need over the H100's
    published peak for their type). Check that K1, K1-int8 and K6 take the
    rel-pos bias rounded to bf16: a bias B and bf16(B) give bitwise the
@@ -28,7 +30,15 @@ Phases, each printed as it runs; any failure exits non-zero:
    of both passes (B_ = 2 (Hp/12)^2 windows, 6-48 heads, N = 144, d = 32,
    unmasked and with the offset mask's region ids) through
    flash_window_attention, against its plain version and SDPA; its sums
-   per forward go under K1's entry as "core";
+   per forward go under K1's entry as "core". The int8 GEMM that K1-int8
+   and K3 share (csrc/int8_gemm.cu) is checked bitwise against its plain
+   version and timed alone at K1-int8's eight Swin-L shapes (qkv and proj
+   of stages 2-3, both passes) and K3's eight, against torch._int_mm (the
+   s32 product only, without the dequant epilogue); its sums go under
+   K1-int8's entry as "int8_gemm" (K3's sums under its key "k3"). Last,
+   every int8 GEMM and K1-int8 shape runs REPEATS times back to back, and
+   the last output must be bitwise the expected one (a fault that shows
+   only sometimes, such as a lost barrier phase, fails here);
 4. drive pipeline.make_infer_fn at 1024^2, batch 2, bf16, kernel tier,
    regular deform mode, random_checkpoint(cfg, 0) (swin_t's rel-pos bias
    tables scaled to std 1, REL_POS_BIAS_SCALE), on uint8 frames, for
@@ -114,6 +124,8 @@ FEATURE_RATIO_T = 2.0
 # bias path itself is held by the K6 checks and the bitwise B-vs-bf16(B)
 # checks of phase 3.
 REL_POS_BIAS_SCALE = 20.0
+# Calls of each int8 GEMM and K1-int8 shape in phase 3's repeat check.
+REPEATS = 200
 # Published H100 SXM peaks (dense): memory bytes/s and operations/s by type.
 MEM_RATE = 3.35e12
 PEAK = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
@@ -152,10 +164,11 @@ class KernelReport:
     plain and library time, and the bound."""
 
     def __init__(self, name, route, source, replaces, wrapper, main_path,
-                 mean_bound=None):
+                 mean_bound=None, bitwise=False):
         self.wrapper = wrapper
         self.main_path = main_path
         self.mean_bound = mean_bound
+        self.bitwise = bitwise
         self.entry = {"name": name, "route": route, "source": source,
                       "replaces": replaces, "launches": None,
                       "launches_by_path": {}, "max_abs_err": 0.0,
@@ -166,11 +179,15 @@ class KernelReport:
 
     def check(self, torch, model, label, calls, kernel_fn, plain_fn, work,
               crop=None, library_fn=None):
-        """work = (bytes moved, {type: operations}) of one call."""
+        """work = (bytes moved, {type: operations}) of one call. Returns
+        the kernel's time in ms."""
         got, want = kernel_fn(), plain_fn()
         torch.cuda.synchronize()
         if crop is not None:
             got, want = crop(got), crop(want)
+        if self.bitwise and not torch.equal(got, want):
+            fail(f"{self.entry['name']} {label}: not bitwise equal to its "
+                 f"plain version")
         got, want = got.float(), want.float()
         if got.shape != want.shape or not bool(torch.isfinite(got).all()):
             fail(f"{self.entry['name']} {label}: shape {tuple(got.shape)} vs "
@@ -206,6 +223,7 @@ class KernelReport:
         m["ops_ms"] += calls * op_ms
         if lib_ms is not None:
             m["library_ms"] = (m["library_ms"] or 0.0) + calls * lib_ms
+        return ms
 
     def by_model(self):
         """The per-forward sums of each model, with what bounds them."""
@@ -245,8 +263,8 @@ def make_reports():
         ("fused_mlp_int8", "cuda", csrc + "fused_mlp_i8.cu",
          pallas + "fused_mlp.py:186", fused_mlp.fused_mlp_residual_int8,
          "swin_l int8", MEAN_BOUND_K3),
-        ("row_ln", "triton", "birefnet_tpu_torch/ops/kernels/row_ln_triton.py",
-         pallas + "row_ln.py:43", row_ln.layer_norm_rows, "swin_l int8", None),
+        ("row_ln", "cuda", csrc + "row_ln.cu", pallas + "row_ln.py:43",
+         row_ln.layer_norm_rows, "swin_l int8", None),
         ("tap_conv", "cuda", csrc + "tap_conv.cu", pallas + "tap_conv.py:55",
          tap_conv.tap_conv_same, "swin_l int8", None),
         ("flash_window_attn_qkv", "cuda", fwa,
@@ -274,7 +292,47 @@ def make_core_report():
         flash_window_attn.flash_window_attention, None, MEAN_BOUND_FWA)
 
 
-def check_kernels(torch, dev, reports, core):
+def make_gemm_report():
+    """The int8 GEMM of csrc/int8_gemm.cu alone at K1-int8's eight Swin-L
+    shapes (and K3's as model "swin_l k3"), reported under K1-int8's entry
+    as "int8_gemm"; held bit for bit to its plain version."""
+    from birefnet_tpu_torch.ops.kernels import int8_gemm
+    return KernelReport(
+        "int8_gemm", "cuda", "birefnet_tpu_torch/csrc/int8_gemm.cu",
+        "birefnet_tpu/ops/pallas/fused_block_attn.py:208",
+        int8_gemm.int8_gemm, None, None, bitwise=True)
+
+
+def int_mm(torch, q, w):
+    """torch._int_mm(q, w^T), the library yardstick of the int8 GEMM (the s32
+    product only, without the dequant epilogue), or None where this PyTorch
+    refuses the operands."""
+    try:
+        torch._int_mm(q, w.t())
+    except RuntimeError as e:
+        log(f"torch._int_mm refused [{q.shape[0]},{q.shape[1]}] x "
+            f"[{w.shape[1]},{w.shape[0]}]: {str(e).splitlines()[0]}")
+        return None
+    return partial(torch._int_mm, q, w.t())
+
+
+def repeat_check(torch, calls, reps=REPEATS):
+    """Launch each (label, fn, want) `reps` times back to back, synchronize
+    once, and hold the last output bitwise to `want`: an intermittent fault
+    (a lost barrier phase, a race) shows as an error or a wrong output."""
+    t0 = time.perf_counter()
+    for label, fn, want in calls:
+        for _ in range(reps):
+            got = fn()
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"repeat check {label}: call {reps} differs from the first "
+                 f"(or plain) output")
+    log(f"phase 3: repeat check: {len(calls)} shapes x {reps} calls each, "
+        f"outputs bitwise as expected ({time.perf_counter() - t0:.1f} s)")
+
+
+def check_kernels(torch, dev, reports, core, gemm):
     import torch.nn.functional as F
 
     from birefnet_tpu_torch import params as P
@@ -282,9 +340,10 @@ def check_kernels(torch, dev, reports, core):
     from birefnet_tpu_torch.ops import window as W
     from birefnet_tpu_torch.ops.kernels import (flash_window_attn,
                                                 fused_block_attn, fused_mlp,
-                                                row_ln, tap_conv)
+                                                int8_gemm, row_ln, tap_conv)
 
     gen = torch.Generator(dev).manual_seed(0)
+    repeats = []  # (label, fn, expected output) for the repeat check
     bf = torch.bfloat16
 
     def randn(shape, scale=1.0, dtype=torch.float32):
@@ -363,6 +422,9 @@ def check_kernels(torch, dev, reports, core):
                           lambda kernel=kernel, args=args: kernel(*args),
                           lambda plain=plain, args=args: plain(*args),
                           (side + nbytes(*weights), ops), crop)
+                if rep is k1q:
+                    fn = partial(kernel, *args)
+                    repeats.append((f"K1-int8 {label} {route}", fn, fn()))
 
     def check_k6(label, depth, h, c, heads, hp):
         """K6 at one swin_t stage: B_ = BATCH * (hp / 7)^2 windows of the
@@ -413,6 +475,35 @@ def check_kernels(torch, dev, reports, core):
                         {"bf16": 4 * 144 * 144 * c * b_}),
                        library_fn=sdpa(qc, kc, vc, bias, W.dense_mask(mask)))
 
+    def check_gemm(label, depth, m, n, k, epilogue, model):
+        """The int8 GEMM alone at one shape, bitwise against its plain
+        version and timed against torch._int_mm; then kept for the repeat
+        check."""
+        gen_q = torch.Generator(dev).manual_seed(m + n + k)
+        q = torch.randint(-127, 128, (m, k), generator=gen_q, device=dev,
+                          dtype=torch.int8)
+        w = torch.randint(-127, 128, (n, k), generator=gen_q, device=dev,
+                          dtype=torch.int8)
+        sx = (0.5 + torch.rand((m, 1), generator=gen_q, device=dev)) / 127
+        sw = (0.5 + torch.rand((n,), generator=gen_q, device=dev)) / (
+            127 * k ** 0.5)
+        lin = {"weight_q8": w, "scale_q8": sw, "bias": randn((n,), 0.5)}
+        res = randn((m, n), 1.0, bf) if epilogue == "residual" else None
+        args = (q, sx, lin, epilogue, res)
+        out = m * n * (4 if epilogue == "gelu" else 2)
+        ms = gemm.check(torch, model, f"{label} {epilogue} [{m},{k}]x[{n},{k}]",
+                        depth, partial(int8_gemm.int8_gemm, *args),
+                        partial(int8_gemm.int8_gemm_plain, *args),
+                        (nbytes(q, sx, w, sw, lin["bias"], res) + out,
+                         {"int8": 2 * m * n * k}),
+                        library_fn=int_mm(torch, q, w))
+        log(f"{'int8_gemm':<21} {model} {label} {epilogue}: "
+            f"{2 * m * n * k / ms / 1e9:.1f} TOP/s "
+            f"({2 * m * n * k / ms / 1e9 / PEAK['int8'] * 1e12:.3f} of peak)")
+        repeats.append((f"int8_gemm {label} {epilogue}",
+                        partial(int8_gemm.int8_gemm, *args),
+                        int8_gemm.int8_gemm_plain(*args)))
+
     def check_k2_k3_k4(model, label, i, depth, h, c):
         x2 = randn((BATCH * h * h, c), 1.0, bf)
         norm2 = ln_params(c)
@@ -449,20 +540,41 @@ def check_kernels(torch, dev, reports, core):
         for site, n, cc in sites:
             xr = randn((n, cc), 3.0, bf)
             p = ln_params(cc)
-            pb = {k: v.to(bf) for k, v in p.items()}
+            # F.layer_norm with the kernel's f32 affine where PyTorch takes
+            # it beside a bf16 input, else with the affine cast to bf16.
+            affine = p if ln_f32_affine else {k: v.to(bf) for k, v in p.items()}
             k4.check(torch, model, f"{label} {site} [{n},{cc}]", 1,
                      lambda: row_ln.layer_norm_rows(p, xr),
                      lambda: row_ln.layer_norm_rows_plain(p, xr),
                      (2 * nbytes(xr) + nbytes(p["scale"], p["bias"]),
                       {"f32": 8 * n * cc}),
                      library_fn=lambda: F.layer_norm(
-                         xr, (cc,), pb["scale"], pb["bias"], 1e-5))
+                         xr, (cc,), affine["scale"], affine["bias"], 1e-5))
+
+    try:
+        F.layer_norm(randn((4, 64), 1.0, bf), (64,), randn((64,)),
+                     randn((64,)), 1e-5)
+        ln_f32_affine = True
+    except RuntimeError:
+        ln_f32_affine = False
+    log(f"phase 3: K4's library call F.layer_norm takes the "
+        f"{'f32' if ln_f32_affine else 'bf16'} affine beside bf16 input")
 
     for model, (ws, stages) in MODELS.items():
         for pass_name, geometry in stages.items():
             for i, (h, c, heads, depth) in enumerate(geometry):
                 hp = -(-h // ws) * ws
                 label = f"{pass_name} st{i} Hp={hp}"
+                if model == "swin_l" and c >= P.INT8_MLP_MIN_CHANNELS:
+                    # K1-int8's qkv and proj on the canvas, K3's fc1 and
+                    # fc2 on the real tokens; one of each per block.
+                    t_canvas, t_real = BATCH * hp * hp, BATCH * h * h
+                    for m, n, k, epilogue, which in (
+                            (t_canvas, 3 * c, c, "bf16", "swin_l"),
+                            (t_canvas, c, c, "residual", "swin_l"),
+                            (t_real, 4 * c, c, "gelu", "swin_l k3"),
+                            (t_real, c, 4 * c, "residual", "swin_l k3")):
+                        check_gemm(label, depth, m, n, k, epilogue, which)
                 if model == "swin_l":
                     check_k1(model, f"{label} C={c}", depth,
                              randn((BATCH, h, h, c), 1.0, bf), h, c, heads, ws,
@@ -547,6 +659,8 @@ def check_kernels(torch, dev, reports, core):
         log(f"{name}: bias B and bf16(B) give bitwise-equal outputs: {same}")
         if torch.equal(bias, rounded) or not same:
             fail(f"{name} does not take the rel-pos bias rounded to bf16")
+
+    repeat_check(torch, repeats)
 
 
 def with_features(bmodel, infer, frames):
@@ -688,14 +802,22 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     reports, core = make_reports(), make_core_report()
+    gemm = make_gemm_report()
     with torch.inference_mode():
-        check_kernels(torch, dev, reports, core)
+        check_kernels(torch, dev, reports, core, gemm)
     log("phase 3: every kernel within its bound at every slice shape")
     sums = core.by_model()["swin_l"]
     reports["fused_block_attn"].entry["core"] = dict(
         sums, source=core.entry["source"],
         max_abs_err=core.entry["max_abs_err"],
         mean_rel_err=core.entry["mean_rel_err"])
+    gemm_sums = gemm.by_model()
+    reports["fused_block_attn_int8"].entry["int8_gemm"] = dict(
+        gemm_sums["swin_l"], source=gemm.entry["source"],
+        max_abs_err=gemm.entry["max_abs_err"],
+        mean_rel_err=gemm.entry["mean_rel_err"],
+        library="torch._int_mm: the s32 product only, no dequant epilogue",
+        k3=gemm_sums["swin_l k3"])
     for name, m in (("Swin-L attention core", sums),
                     ("swin_t K6", reports["flash_window_attn_qkv"].by_model()
                      ["swin_t"])):
@@ -703,6 +825,14 @@ def main() -> int:
             f"{m['library_ms']:.4f} ms, plain {m['plain_ms']:.4f} ms, bound "
             f"{m['bound_ms']:.4f} ms ({m['bound_by']}); kernel / SDPA "
             f"{m['ms'] / m['library_ms']:.3f} ({smi})")
+    for name, m in (("K1-int8's int8 GEMMs", gemm_sums["swin_l"]),
+                    ("K3's int8 GEMMs", gemm_sums["swin_l k3"])):
+        lib = ("n/a" if m["library_ms"] is None
+               else f"{m['library_ms']:.4f} ms")
+        log(f"phase 3: {name} per forward: kernel {m['ms']:.4f} ms, "
+            f"torch._int_mm (no epilogue) {lib}, plain {m['plain_ms']:.4f} "
+            f"ms, bound {m['bound_ms']:.4f} ms ({m['bound_by']}); "
+            f"{m['bound_ms'] / m['ms']:.3f} of the bound ({smi})")
 
     frames = np.random.default_rng(42).integers(
         0, 256, size=(BATCH, SIZE, SIZE, 3), dtype=np.uint8)

@@ -26,7 +26,8 @@ from birefnet_tpu_torch import params as pparams
 from birefnet_tpu_torch.models import swin
 from birefnet_tpu_torch.ops import window as W
 from birefnet_tpu_torch.ops.kernels import (flash_window_attn, fused_block_attn,
-                                            fused_mlp, row_ln, tap_conv)
+                                            fused_mlp, int8_gemm, row_ln,
+                                            tap_conv)
 
 pytestmark = pytest.mark.cuda
 # The int8 kernels are also held to mean|kernel - plain| / mean|plain|: at
@@ -62,8 +63,13 @@ def _assert_close(got, want, mean_bound=None):
         assert rel <= mean_bound, f"mean|kernel - plain| / mean|plain| {rel}"
 
 
+# Every Swin-L and swin_t width (96 ... 3072), row counts that are no
+# multiple of the rows per block (bf16: 64 rows a block at C = 96 down to 2
+# at 3072; f32 half as many), and two widths off the 96 * 2^k ladder that
+# leave lanes of the last register slot idle (640 bf16, 200 f32 and bf16).
 @pytest.mark.parametrize("shape", [(1000, 192), (37, 3072), (2, 7, 9, 768),
-                                   (1000, 96), (50, 384)])
+                                   (1000, 96), (50, 384), (1001, 1536),
+                                   (101, 640), (99, 200)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_row_ln_kernel_matches_plain(dev, shape, dtype):
     gen = torch.Generator(dev).manual_seed(0)
@@ -74,6 +80,109 @@ def test_row_ln_kernel_matches_plain(dev, shape, dtype):
     got = row_ln.layer_norm_rows(p, x)
     assert row_ln.layer_norm_rows.launches == n0 + 1
     _assert_close(got, row_ln.layer_norm_rows_plain(p, x))
+
+
+# (M, N, K, epilogue): K1-int8's qkv ("bf16") and proj ("residual") and
+# K3's fc1 ("gelu") and fc2 ("residual") at every Swin-L int8 site of a
+# batch-2 1024^2 forward (full and half pass, stages 2 and 3), then every
+# epilogue at an M tail of 100 rows, once at K = 64 and N = 192 (tiles and a
+# k step that TMA fills past the matrix) and once at K1-int8's qkv width.
+INT8_GEMM_SHAPES = (
+    [(m, 3 * c, c, "bf16") for m, c in ((10368, 768), (2592, 1536),
+                                         (2592, 768), (1152, 1536))]
+    + [(m, c, c, "residual") for m, c in ((10368, 768), (2592, 1536),
+                                           (2592, 768), (1152, 1536))]
+    + [(m, 4 * c, c, "gelu") for m, c in ((8192, 768), (2048, 1536),
+                                           (2048, 768), (512, 1536))]
+    + [(m, c, 4 * c, "residual") for m, c in ((8192, 768), (2048, 1536),
+                                               (2048, 768), (512, 1536))]
+    + [(100, n, k, e) for e in ("bf16", "residual", "gelu")
+       for n, k in ((192, 64), (2304, 768))])
+
+
+def _int8_gemm_case(seed, m, n, k, dev):
+    """Codes, row scales and a quantized linear at which y is O(1)."""
+    gen = torch.Generator(dev).manual_seed(seed)
+    q = torch.randint(-127, 128, (m, k), generator=gen, device=dev,
+                      dtype=torch.int8)
+    w = torch.randint(-127, 128, (n, k), generator=gen, device=dev,
+                      dtype=torch.int8)
+    sx = (0.5 + torch.rand((m, 1), generator=gen, device=dev)) / 127
+    sw = (0.5 + torch.rand((n,), generator=gen, device=dev)) / (127 * k ** 0.5)
+    lin = {"weight_q8": w, "scale_q8": sw, "bias": _randn(gen, (n,), dev, 0.5)}
+    return q, sx, lin
+
+
+@pytest.mark.parametrize("m,n,k,epilogue", INT8_GEMM_SHAPES)
+def test_int8_gemm_matches_int8_linear_bitwise(dev, m, n, k, epilogue):
+    """The wgmma GEMM equals ops/quant.int8_linear cast as its epilogue
+    casts, bit for bit: the s32 sum is exact and the dequant rounds at the
+    plain version's points."""
+    q, sx, lin = _int8_gemm_case(m + n + k, m, n, k, dev)
+    res = (_randn(torch.Generator(dev).manual_seed(k), (m, n), dev, 1.0,
+                  torch.bfloat16) if epilogue == "residual" else None)
+    n0 = int8_gemm.int8_gemm.launches
+    got = int8_gemm.int8_gemm(q, sx, lin, epilogue, res)
+    assert int8_gemm.int8_gemm.launches == n0 + 1
+    want = int8_gemm.int8_gemm_plain(q, sx, lin, epilogue, res)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    diff = (got.float() - want.float()).abs()
+    assert torch.equal(got, want), (f"{int(diff.ne(0).sum())} of "
+                                    f"{diff.numel()} differ, max "
+                                    f"{float(diff.max())}")
+
+
+def _exact_ln_rows(gen, t, k, dev):
+    """bf16 rows whose f32 sums are exact in any order: each row is a
+    multiple of 1/4 in [-4, 4] plus k/2 values of 1/4 steps in [-8, 8] and
+    their negatives, shuffled; so mean and variance, and every value
+    after them, are the same however the sums run."""
+    half = torch.randint(-32, 33, (t, k // 2), generator=gen, device=dev)
+    d = torch.cat([half, -half], 1).float() / 4
+    d = d.gather(1, torch.rand((t, k), generator=gen, device=dev).argsort(1))
+    m = torch.randint(-16, 17, (t, 1), generator=gen, device=dev).float() / 4
+    return (m + d).to(torch.bfloat16)
+
+
+# (rows, K, dtype, LayerNorm, canvas (Hp, Wp, shift, origin, h_real,
+# w_real)): K1-int8's attention rows (bf16, no LN) and LN1 on the Swin-L
+# int8 canvases (rolled, offset, unshifted), K3's LN2 (bf16, LN, no
+# rounding) and its f32 hidden rows of 4C, and small rows off the ladder.
+QUANT_ROW_CASES = [
+    (2592, 768, "bf16", False, None), (1152, 1536, "bf16", False, None),
+    (100, 64, "bf16", False, None),
+    (2 * 36 * 36, 768, "bf16", True, (36, 36, 6, 0, 32, 32)),
+    (2 * 36 * 36, 768, "bf16", True, (36, 36, 0, 6, 32, 32)),
+    (2 * 24 * 24, 1536, "bf16", True, (24, 24, 0, 0, 16, 16)),
+    (2 * 72 * 72, 768, "bf16", True, (72, 72, 6, 0, 64, 64)),
+    (2048, 768, "bf16", True, None), (512, 1536, "bf16", True, None),
+    (8192, 3072, "f32", False, None), (512, 6144, "f32", False, None),
+    (100, 256, "f32", False, None),
+]
+
+
+@pytest.mark.parametrize("t,k,dtype,ln,canvas", QUANT_ROW_CASES)
+def test_quantize_rows_matches_plain_bitwise(dev, t, k, dtype, ln, canvas):
+    """The row pass's codes and scales equal ops/quant.quantize_rows after
+    the same LayerNorm, pad zeroing and bf16 rounding, bit for bit. The
+    LayerNorm cases take rows whose sums are exact in any order, so the
+    statistics cannot differ by summation order."""
+    gen = torch.Generator(dev).manual_seed(t + k)
+    if ln:
+        x = _exact_ln_rows(gen, t, k, dev)
+        lnp = {"scale": 1 + 0.1 * _randn(gen, (k,), dev),
+               "bias": 0.1 * _randn(gen, (k,), dev)}
+    else:
+        x = _randn(gen, (t, k), dev, 2.0,
+                   torch.float32 if dtype == "f32" else torch.bfloat16)
+        lnp = None
+    n0 = int8_gemm.quantize_rows.launches
+    codes, scales = int8_gemm.quantize_rows(x, lnp, canvas)
+    assert int8_gemm.quantize_rows.launches == n0 + 1
+    want_codes, want_scales = int8_gemm.quantize_rows_plain(x, lnp, canvas)
+    assert torch.equal(scales, want_scales)
+    assert torch.equal(codes, want_codes), (
+        f"{int(codes.ne(want_codes).sum())} of {codes.numel()} codes differ")
 
 
 def _mlp_params(gen, c, dev):

@@ -14,6 +14,15 @@ per tier: the call's wall time (host clock around the call and a
 synchronize), the summed device kernel time, the device idle share
 (1 - kernel time / wall time; one stream, so kernels do not overlap),
 the kernel time grouped by what it belongs to, and the top kernels.
+Then, for the backbone's 16 row-LayerNorm calls (K4, csrc/row_ln.cu) at
+their bf16 shapes, the time per call by CUDA events (mean over 20
+back-to-back calls, what a caller waits for) next to the profiler's device
+time per call (the kernel alone), the same two for F.layer_norm on the
+same input, and the call's byte bound: where event time is well above
+device time, the host launch path, not the device, sets the call's time.
+Last, the int8 GEMM of K1-int8 and K3 (csrc/int8_gemm.cu) alone at the
+int8 path's 16 shapes, with the same two times and TOP/s, beside
+torch._int_mm's (the s32 product only, without the dequant epilogue).
 Needs one CUDA device; exits 1 without one.
 """
 
@@ -22,6 +31,7 @@ import os
 import subprocess
 import sys
 import time
+from functools import partial
 
 import numpy as np
 
@@ -34,14 +44,15 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GROUPS = [
     ("K1 attention core (bf16 and int8 routes)", ("CanvasRows",)),
     ("K6 window attention (middle tier)", ("StridedRows",)),
-    ("K1-int8/K3 int8 GEMM, bf16 out (qkv)", ("i8::gemm_kernel<0>",)),
-    ("K1-int8/K3 int8 GEMM + residual (proj, fc2)", ("i8::gemm_kernel<1>",)),
-    ("K3 int8 GEMM + GELU (fc1)", ("i8::gemm_kernel<2>",)),
+    ("K1-int8 int8 GEMM, bf16 out (qkv)", ("gemm_kernel<0>(CUtensorMap",)),
+    ("K1-int8/K3 int8 GEMM + residual (proj, fc2)",
+     ("gemm_kernel<1>(CUtensorMap",)),
+    ("K3 int8 GEMM + GELU (fc1)", ("gemm_kernel<2>(CUtensorMap",)),
     ("K1-int8/K3 row quantization", ("quant_rows_kernel",)),
     ("K1 bf16 LN+qkv GEMM", ("gemm_kernel<true, false>",)),
     ("K1 bf16 proj GEMM", ("gemm_kernel<false, true>",)),
     ("K2 fused_mlp", ("fused_mlp_kernel", "mlp_split_epilogue")),
-    ("K4 row_ln (Triton)", ("row_ln_kernel",)),
+    ("K4 row_ln", ("row_ln_kernel",)),
     ("K5 tap_conv", ("tap_conv5_kernel",)),
     ("cuDNN convolutions", ("conv", "cudnn", "xmma_fprop", "dgrad", "wgrad")),
     ("cuBLAS GEMMs", ("gemm", "cutlass", "xmma", "gemv", "nvjet")),
@@ -56,6 +67,154 @@ def group_of(name: str) -> str:
         if any(k in name for k in keys):
             return group
     return "other"
+
+
+def row_ln_sites(cfg):
+    """The 16 row-LN calls of a 1024^2 batch-2 forward, ((site, [n, C])):
+    per backbone pass (stage-0 side 256, then 128), the patch-embed norm,
+    the four stage-output norms and the three patch-merge norms."""
+    sites = []
+    for pass_name, side in (("full", 256), ("half", 128)):
+        ch = cfg.backbone_channels
+        sites.append((f"{pass_name} patch-embed", (2 * side * side, ch[0])))
+        for i, c in enumerate(ch):
+            h = side >> i
+            sites.append((f"{pass_name} st{i} norm", (2 * h * h, c)))
+            if i < 3:
+                sites.append((f"{pass_name} st{i} merge",
+                              (2 * h * h // 4, 4 * c)))
+    return sites
+
+
+def device_ms_per_call(torch, profile, activities, fn, reps, name_key):
+    """The profiler's device time per call of the kernels whose name holds
+    name_key, over `reps` calls of fn."""
+    from torch.autograd import DeviceType
+    with profile(activities=activities) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(a.self_device_time_total for a in prof.key_averages()
+               if a.device_type == DeviceType.CUDA and name_key(a.key)) / (
+                   1e3 * reps)
+
+
+def event_ms_per_call(torch, fn, reps):
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def row_ln_table(torch, cfg, smi, reps=20):
+    """K4 per call: CUDA-event and device time against F.layer_norm's."""
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    from birefnet_tpu_torch.ops.kernels import row_ln
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    gen = torch.Generator("cuda").manual_seed(0)
+    total = {"k_ev": 0.0, "k_dev": 0.0, "l_ev": 0.0, "l_dev": 0.0, "bound": 0.0}
+    print(f"[profile] K4 row_ln per call, bf16, ms: kernel event / device, "
+          f"F.layer_norm event / device, byte bound ({smi})", flush=True)
+    for site, (n, c) in row_ln_sites(cfg):
+        x = (torch.randn((n, c), generator=gen, device="cuda") * 3).to(
+            torch.bfloat16)
+        p = {"scale": torch.ones(c, device="cuda"),
+             "bias": torch.zeros(c, device="cuda")}
+        try:  # the f32 affine beside bf16 input where PyTorch takes it
+            F.layer_norm(x, (c,), p["scale"], p["bias"], 1e-5)
+            affine = p
+        except RuntimeError:
+            affine = {k: v.to(torch.bfloat16) for k, v in p.items()}
+        kern = partial(row_ln.layer_norm_rows, p, x)
+        lib = partial(F.layer_norm, x, (c,), affine["scale"], affine["bias"],
+                      1e-5)
+        row = {"k_ev": event_ms_per_call(torch, kern, reps),
+               "k_dev": device_ms_per_call(torch, profile, acts, kern, reps,
+                                           lambda k: "row_ln_kernel" in k),
+               "l_ev": event_ms_per_call(torch, lib, reps),
+               "l_dev": device_ms_per_call(torch, profile, acts, lib, reps,
+                                           lambda k: "norm" in k.lower()),
+               "bound": (2 * n * c * 2 + 8 * c) / 3.35e12 * 1e3}
+        for key, v in row.items():
+            total[key] += v
+        print(f"[profile] K4 {site:<17} [{n},{c}]: {row['k_ev']:.4f} / "
+              f"{row['k_dev']:.4f}   F.layer_norm {row['l_ev']:.4f} / "
+              f"{row['l_dev']:.4f} ({affine['scale'].dtype} affine)   bound "
+              f"{row['bound']:.4f}", flush=True)
+    print(f"[profile] K4 per forward (16 calls): kernel {total['k_ev']:.4f} / "
+          f"{total['k_dev']:.4f}, F.layer_norm {total['l_ev']:.4f} / "
+          f"{total['l_dev']:.4f}, bound {total['bound']:.4f} ms ({smi})",
+          flush=True)
+
+
+def int8_gemm_shapes(cfg):
+    """(label, M, N, K, epilogue) of the int8 GEMMs of a 1024^2 batch-2
+    int8 forward, at the stages with C >= 768 of both passes: K3's fc1 and
+    fc2 on the real tokens and, for a window-12 backbone, K1-int8's qkv and
+    proj on the window canvas; each runs once per block."""
+    from birefnet_tpu_torch.params import INT8_MLP_MIN_CHANNELS
+
+    ws = cfg.swin_config().window_size
+    shapes = []
+    for pass_name, side in (("full", 256), ("half", 128)):
+        for i, c in enumerate(cfg.backbone_channels):
+            if c < INT8_MLP_MIN_CHANNELS:
+                continue
+            h = side >> i
+            hp = -(-h // ws) * ws
+            t, tc = 2 * h * h, 2 * hp * hp
+            if ws == 12:
+                shapes += [(f"{pass_name} st{i} qkv", tc, 3 * c, c, "bf16"),
+                           (f"{pass_name} st{i} proj", tc, c, c, "residual")]
+            shapes += [(f"{pass_name} st{i} fc1", t, 4 * c, c, "gelu"),
+                       (f"{pass_name} st{i} fc2", t, c, 4 * c, "residual")]
+    return shapes
+
+
+def int8_gemm_table(torch, cfg, smi, reps=20):
+    """The int8 GEMM alone per shape: CUDA-event and device time, TOP/s on
+    the device time, and torch._int_mm's two times (its s32 product only,
+    no dequant epilogue)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from birefnet_tpu_torch.ops.kernels import int8_gemm
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    gen = torch.Generator("cuda").manual_seed(0)
+    print(f"[profile] int8 GEMM per call, us: kernel event / device (TOP/s), "
+          f"torch._int_mm event / device ({smi})", flush=True)
+    for label, m, n, k, epilogue in int8_gemm_shapes(cfg):
+        q = torch.randint(-127, 128, (m, k), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        w = torch.randint(-127, 128, (n, k), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        lin = {"weight_q8": w,
+               "scale_q8": torch.full((n,), 1e-4, device="cuda"),
+               "bias": torch.zeros(n, device="cuda")}
+        sx = torch.full((m, 1), 1e-2, device="cuda")
+        res = (torch.zeros((m, n), device="cuda", dtype=torch.bfloat16)
+               if epilogue == "residual" else None)
+        kern = partial(int8_gemm.int8_gemm, q, sx, lin, epilogue, res)
+        lib = partial(torch._int_mm, q, w.t())
+        k_ev = event_ms_per_call(torch, kern, reps) * 1e3
+        k_dev = device_ms_per_call(torch, profile, acts, kern, reps,
+                                   lambda s: "gemm_kernel" in s) * 1e3
+        l_ev = event_ms_per_call(torch, lib, reps) * 1e3
+        l_dev = device_ms_per_call(torch, profile, acts, lib, reps,
+                                   lambda s: True) * 1e3
+        print(f"[profile] int8 GEMM {label:<14} {epilogue:<8} "
+              f"[{m},{k}]x[{n},{k}]: {k_ev:.1f} / {k_dev:.1f} "
+              f"({2 * m * n * k / k_dev / 1e6:.0f})   _int_mm {l_ev:.1f} / "
+              f"{l_dev:.1f}", flush=True)
 
 
 def main() -> int:
@@ -126,6 +285,8 @@ def main() -> int:
         for ms, n, name in sorted(kernels, reverse=True)[:args.top]:
             print(f"[profile] {tier}:   top {ms:9.3f} ms  x{n:<4d} {name[:110]}")
         del infer
+    row_ln_table(torch, cfg, smi)
+    int8_gemm_table(torch, cfg, smi)
     return 0
 
 
