@@ -3,32 +3,27 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 typedef __nv_bfloat16 bf16;
 
 namespace bt {
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16(v));
 }
 
 // Bytes of dynamic shared memory, rounded up so the next region starts on
-// a 128-byte boundary (wmma loads need 32-byte aligned pointers).
+// a 128-byte boundary.
 __host__ __device__ constexpr size_t align128(size_t n) { return (n + 127) & ~size_t(127); }
+
+// Epilogues of the wgmma GEMMs (wgmma_ring.cuh), on y = acc + bias (bf16
+// inputs) or the dequant acc * (sa * sw) + bias (int8 inputs), in f32:
+enum Epilogue {
+  kStore = 0,     // out bf16 = round(y)
+  kResidual = 1,  // out bf16 = round(round(y) + res), res bf16 like out
+  kGelu = 2,      // out = gelu_erf3(y): f32 for int8 inputs, rounded to bf16 for bf16
+};
 
 // A Swin block's padded NHWC canvas: Hp x Wp tokens of C channels in
 // windows of ws, rolled by -shift (cyclic shifted blocks) or holding the

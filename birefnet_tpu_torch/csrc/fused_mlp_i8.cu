@@ -6,18 +6,16 @@
 // Replaces birefnet_tpu/ops/pallas/fused_mlp.py::_fused_i8 (body
 // `_kernel_i8`, quantization `_quantize_rows`; ComputeConfig.int8_mlp).
 // The fc2 input is quantized per token over all 4C hidden units, so a
-// row's scale exists only once its whole hidden row does. The bf16 kernel's
-// design (csrc/fused_mlp.cu: the hidden walked in 256-wide chunks, split
-// over blocks) cannot give that absmax before its first chunk is used.
-// This kernel writes the hidden to device memory instead, as four
-// launches on one stream (int8.cuh; the kernels are in int8_gemm.cu):
+// row's scale exists only once its whole hidden row does. This kernel
+// writes the hidden to device memory, as four launches on one stream
+// (int8.cuh; the kernels are in int8_gemm.cu):
 // 1. quant_rows<LN>: LN2 with f32 statistics, NOT rounded to bf16 (unlike
 //    the block-attention route), -> int8 codes [T, C] + scales [T];
-// 2. i8 gemm<kGeluF32>: h = GELU3(acc * (sx * s1) + b1) -> f32 [T, 4C];
+// 2. i8 gemm<kGelu>: h = GELU3(acc * (sx * s1) + b1) -> f32 [T, 4C];
 // 3. quant_rows: per-token int8 of h over all 4C units -> codes [T, 4C]
 //    (the same scratch) + scales; a hidden row (3072 or 6144 floats) is
 //    read once, into the registers of 256 or 512 threads;
-// 4. i8 gemm<kResidualBf16>: out = x + bf16(acc * (sx2 * s2) + b2).
+// 4. i8 gemm<kResidual>: out = x + bf16(acc * (sx2 * s2) + b2).
 // Cost of the choice: the f32 hidden scratch is 16 C bytes per token
 // written once and read once (at T = 8192, C = 768: 100 MB, about 0.06 ms
 // of the card's 3.35 TB/s per call) plus 4 C bytes of int8 codes each way,
@@ -48,14 +46,14 @@ extern "C" int bt_fused_mlp_i8(const void* x, const void* ln_g, const void* ln_b
       xb, static_cast<const float*>(ln_g), static_cast<const float*>(ln_b), q, sc, T, C,
       bt::Geometry{}, s);
   if (err != cudaSuccess) return (int)err;
-  err = i8::gemm<i8::kGeluF32>(q, sc, static_cast<const int8_t*>(w1q),
+  err = i8::gemm<bt::kGelu>(q, sc, static_cast<const int8_t*>(w1q),
                                static_cast<const float*>(s1),
                                static_cast<const float*>(b1), nullptr, h, T, 4 * C, C, s);
   if (err != cudaSuccess) return (int)err;
   err = i8::quant_rows<float, false, false>(h, nullptr, nullptr, q, sc, T, 4 * C,
                                             bt::Geometry{}, s);
   if (err != cudaSuccess) return (int)err;
-  return (int)i8::gemm<i8::kResidualBf16>(q, sc, static_cast<const int8_t*>(w2q),
+  return (int)i8::gemm<bt::kResidual>(q, sc, static_cast<const int8_t*>(w2q),
                                           static_cast<const float*>(s2),
                                           static_cast<const float*>(b2), xb, out, T, C,
                                           4 * C, s);

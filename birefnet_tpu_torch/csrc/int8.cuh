@@ -14,9 +14,10 @@
 //    Writes int8 [T, K] and f32 [T] scales; each row is read once.
 // 2. gemm<EPI>: out[M, N] = epilogue(acc * (sa[m] * sw[n]) + b[n]) with
 //    acc = A[M, K] W[N, K]^T exact in s32, on wgmma s8 tensor cores fed by
-//    TMA. The dequant uses round-to-nearest multiplies and adds without
-//    contraction, so the f32 values before each rounding point are those
-//    of the plain PyTorch version (ops/quant.py), bit for bit.
+//    TMA; EPI an Epilogue of common.cuh (kGelu writes f32). The dequant
+//    uses round-to-nearest multiplies and adds without contraction, so the
+//    f32 values before each rounding point are those of the plain PyTorch
+//    version (ops/quant.py), bit for bit.
 
 #pragma once
 
@@ -24,12 +25,6 @@
 
 namespace bt {
 namespace i8 {
-
-enum Epilogue {
-  kStoreBf16 = 0,     // out bf16 = round(y)
-  kResidualBf16 = 1,  // out bf16 = round(round(y) + res)
-  kGeluF32 = 2,       // out f32 = gelu_erf3(y)
-};
 
 // Instantiated for <bf16, true, true>, <bf16, false, false>,
 // <bf16, true, false> and <float, false, false>. K * sizeof(Tin) % 16 == 0;
@@ -39,7 +34,7 @@ cudaError_t quant_rows(const Tin* x, const float* ln_g, const float* ln_b, int8_
                        float* scale, int T, int K, Geometry geo, cudaStream_t s);
 
 // M, N, K > 0 with N % 8 == 0 and K % 16 == 0; A, W 16-byte aligned. res
-// (for kResidualBf16) is [M, N] like out.
+// (for kResidual) is [M, N] like out.
 template <int EPI>
 cudaError_t gemm(const int8_t* A, const float* sa, const int8_t* W, const float* sw,
                  const float* bias, const bf16* res, void* out, int M, int N, int K,

@@ -1,0 +1,528 @@
+// The persistent, warp-specialized wgmma/TMA GEMM for sm_90a, shared by the
+// int8 GEMM (int8_gemm.cu: K1-int8 and K3) and the bf16 GEMM (bf16_gemm.cu:
+// K1 and K2). Each source instantiates gemm_kernel<In, EPI> for its own
+// input type; nothing here is compiled twice for one type.
+//
+//   out[M, N] = epilogue(A[M, K] W[N, K]^T), A and W row-major (K-major),
+//   int8 with an exact s32 sum dequantized as acc * (sa[m] * sw[n]) + b[n],
+//   or bf16 with an f32 sum, acc + b[n].
+//
+// - Tiles of 128 x 128 outputs, k steps of 128 bytes (128 int8 or 64 bf16
+//   values: one row of the 128-byte swizzle). One block per SM walks the
+//   tiles in order with a stride of the grid.
+// - Warpgroup 0 is the producer: one thread issues TMA loads of the A tile
+//   [128, 128 B] and the W tile [128, 128 B] of each k step into a ring of
+//   6 stages in dynamic shared memory (192 KB), with the 128-byte swizzle
+//   the wgmma descriptors read. Each stage has a full barrier (the TMA's
+//   transaction bytes) and an empty barrier (one arrival per consumer
+//   warp). TMA zero-fills rows past M and N and columns past K, which add
+//   nothing to the sums; stores are masked.
+// - Warpgroups 1 and 2 are consumers in ping-pong: each takes every other
+//   tile whole, 128 rows as two wgmma.mma_async m64n128 per 32 bytes of k
+//   (k32 s8 -> s32, or k16 bf16 -> f32), both operands K-major straight
+//   from the ring, 128 accumulators a thread (setmaxnreg moves registers
+//   from the producer to them). Their k loops take turns, so one
+//   consumer's epilogue runs while the other's wgmma keep the tensor cores
+//   busy. The epilogue goes through shared memory and stores 16-byte
+//   pieces; a residual is loaded when the tile starts, during the k loop.
+// Why ping-pong: with both consumers on one tile (64 rows each) the tensor
+// cores idle during every epilogue. In an A/B on the H100 (int8, profiler
+// device time, both designs with the staged epilogue) ping-pong was faster
+// at most K1-int8 and K3 shapes and in their sums per forward, and slower
+// only where a block gets a single tile, as one consumer then works alone.
+// Staging the epilogue through shared memory was itself faster, at every
+// shape, than storing 4 bytes a thread straight from the accumulators.
+// The TMA descriptors are encoded per call on the host
+// (cuTensorMapEncodeTiled, reached through the runtime's driver entry
+// point, so the library does not link libcuda), passed as
+// __grid_constant__ kernel parameters. A barrier phase that does not
+// complete within 10 s traps, so a fault fails the launch instead of
+// hanging the card.
+
+#pragma once
+
+#include <cuda.h>
+
+#include <type_traits>
+
+#include "common.cuh"
+
+namespace bt {
+namespace ring {
+namespace {
+
+// A&S 7.1.25 (3-term) erf GELU in f32, as the JAX bf16 and int8 MLP kernels
+// compute it (`_erf(fast=True)`), with an exact reciprocal.
+__device__ __forceinline__ float gelu_erf3(float h) {
+  const float z = __fmul_rn(h, 0.70710678118654752f);
+  const float a = fabsf(z);
+  const float t = 1.0f / __fadd_rn(1.0f, __fmul_rn(0.47047f, a));
+  const float poly = __fmul_rn(
+      t, __fadd_rn(0.3480242f, __fmul_rn(t, __fadd_rn(-0.0958798f, __fmul_rn(t, 0.7478556f)))));
+  const float e = __fsub_rn(1.0f, __fmul_rn(poly, expf(__fmul_rn(-a, a))));
+  return __fmul_rn(__fmul_rn(h, 0.5f), __fadd_rn(1.0f, z < 0.f ? -e : e));
+}
+
+constexpr int kBM = 128;           // tile rows
+constexpr int kBN = 128;           // tile columns
+constexpr int kBK = 128;           // bytes per k step: one swizzle row
+constexpr int kThreads = 3 * 128;  // producer warpgroup + two consumers
+constexpr int kABytes = kBM * kBK;  // the A tile of a stage; the W tile is as large
+constexpr int kStageBytes = 2 * kABytes;
+constexpr int kStages = 6;  // a 192 KB ring
+// Per consumer warpgroup, the tile's epilogue vectors (sa of its rows, sw
+// and bias of its columns) and the staging of one 64 x 32 chunk of
+// outputs, in rows of 40 words (f32) or 20 (bf16 pairs), padded so that the
+// accumulator layout's stores hit distinct banks.
+constexpr int kEpFloats = kBM + 2 * kBN;
+constexpr int kStgWords = 64 * 40;
+// The ring (1024-byte aligned for the swizzle), 2 barriers a stage, then
+// the two consumers' epilogue vectors and staging.
+constexpr int kSmem =
+    1024 + kStages * kStageBytes + 2 * kStages * 8 + 2 * (kEpFloats + kStgWords) * 4;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
+// Spin until the barrier's phase of this parity has completed. A phase
+// that does not complete within 10 s (a lost arrival or a wrong parity)
+// traps, so the launch fails with an error instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try(bar, parity)) return;
+  const uint64_t t0 = global_ns();
+  for (uint32_t n = 1;; ++n) {
+    if (mbar_try(bar, parity)) return;
+    if ((n & 1023) == 0 && global_ns() - t0 > 10000000000ull) __trap();
+  }
+}
+
+// A [rows, 128-byte] box at (k0 elements, r0) of a 2-D tensor map into
+// shared memory, completing on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int k0, int r0) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(k0), "r"(r0)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a K-major tile of 128-byte rows with
+// the 128-byte swizzle: start address, leading offset 1 (unused by this
+// layout), 1024 bytes between groups of 8 rows, layout 1 (SWIZZLE_128B).
+// Moving the start by 32 bytes (+2) steps k by one wgmma inside the row.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Named barrier `id` over `n` threads: wait for all of them, or arrive
+// without waiting.
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_acc(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// The 64 accumulators of a thread as asm operands, for the wgmma below.
+#define BT_WG_ACC(c)                                                                          \
+  "+" c(d[0]), "+" c(d[1]), "+" c(d[2]), "+" c(d[3]), "+" c(d[4]), "+" c(d[5]), "+" c(d[6]),   \
+      "+" c(d[7]), "+" c(d[8]), "+" c(d[9]), "+" c(d[10]), "+" c(d[11]), "+" c(d[12]),         \
+      "+" c(d[13]), "+" c(d[14]), "+" c(d[15]), "+" c(d[16]), "+" c(d[17]), "+" c(d[18]),      \
+      "+" c(d[19]), "+" c(d[20]), "+" c(d[21]), "+" c(d[22]), "+" c(d[23]), "+" c(d[24]),      \
+      "+" c(d[25]), "+" c(d[26]), "+" c(d[27]), "+" c(d[28]), "+" c(d[29]), "+" c(d[30]),      \
+      "+" c(d[31]), "+" c(d[32]), "+" c(d[33]), "+" c(d[34]), "+" c(d[35]), "+" c(d[36]),      \
+      "+" c(d[37]), "+" c(d[38]), "+" c(d[39]), "+" c(d[40]), "+" c(d[41]), "+" c(d[42]),      \
+      "+" c(d[43]), "+" c(d[44]), "+" c(d[45]), "+" c(d[46]), "+" c(d[47]), "+" c(d[48]),      \
+      "+" c(d[49]), "+" c(d[50]), "+" c(d[51]), "+" c(d[52]), "+" c(d[53]), "+" c(d[54]),      \
+      "+" c(d[55]), "+" c(d[56]), "+" c(d[57]), "+" c(d[58]), "+" c(d[59]), "+" c(d[60]),      \
+      "+" c(d[61]), "+" c(d[62]), "+" c(d[63])
+#define BT_WG_REGS                                                                             \
+  "{ %0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"                    \
+  " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"           \
+  " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"           \
+  " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+
+// D[64, 128] (+)= A[64, 32 bytes of k] B[128, 32 bytes of k]^T from two
+// shared-memory descriptors; acc == 0 overwrites. The input type decides
+// the instruction: s8 x s8 -> s32 (k32), or bf16 x bf16 -> f32 (k16, both
+// operands K-major: no transpose, unit scales).
+template <typename In>
+struct Mma;
+
+template <>
+struct Mma<int8_t> {
+  using Acc = int;
+  static constexpr CUtensorMapDataType kMapType = CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  __device__ __forceinline__ static void run(int (&d)[64], uint64_t da, uint64_t db, int acc) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 " BT_WG_REGS
+                 ", %64, %65, p;\n}\n"
+                 : BT_WG_ACC("r")
+                 : "l"(da), "l"(db), "r"(acc));
+  }
+};
+
+template <>
+struct Mma<bf16> {
+  using Acc = float;
+  static constexpr CUtensorMapDataType kMapType = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  __device__ __forceinline__ static void run(float (&d)[64], uint64_t da, uint64_t db, int acc) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " BT_WG_REGS
+                 ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+                 : BT_WG_ACC("f")
+                 : "l"(da), "l"(db), "r"(acc));
+  }
+};
+
+#undef BT_WG_ACC
+#undef BT_WG_REGS
+
+// EPI is an Epilogue (common.cuh). The int8 GEMM's y is the dequant
+// acc * (sa * sw) + b and its kGelu writes f32; the bf16 GEMM's y is
+// acc + b (sa, sw unused) and every epilogue writes bf16.
+template <typename In, int EPI>
+__global__ void __launch_bounds__(kThreads, 1)
+gemm_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constant__ CUtensorMap tmW,
+            const float* __restrict__ sa, const float* __restrict__ sw,
+            const float* __restrict__ bias, const bf16* __restrict__ res,
+            void* __restrict__ out, int M, int N, int K) {
+  using Acc = typename Mma<In>::Acc;
+  constexpr bool kI8 = std::is_same<In, int8_t>::value;
+  constexpr int kElems = kBK / (int)sizeof(In);  // k values per step
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t ring = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t full0 = ring + kStages * kStageBytes;
+  const uint32_t empty0 = full0 + kStages * 8;
+  const int tiles_n = (N + kBN - 1) / kBN;
+  const int tiles = (M + kBM - 1) / kBM * tiles_n;
+  const int ksteps = (K + kElems - 1) / kElems;
+  // This block's tiles: blockIdx.x + i * gridDim.x for i < n_local.
+  const int n_local = (tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+  const int wg = threadIdx.x >> 7;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, 4);  // lane 0 of each warp of the consumer
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // Producer. Its registers go to the consumers; one thread issues.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x != 0) return;
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int i = 0; i < n_local; ++i) {
+      const int tile = blockIdx.x + i * gridDim.x;
+      const int m0 = tile / tiles_n * kBM, n0 = tile % tiles_n * kBN;
+      for (int k = 0; k < ksteps; ++k) {
+        mbar_wait(empty0 + 8 * stage, phase ^ 1);
+        const uint32_t full = full0 + 8 * stage;
+        const uint32_t a = ring + stage * kStageBytes;
+        mbar_expect_tx(full, kStageBytes);
+        tma_load(a, &tmA, full, k * kElems, m0);
+        tma_load(a + kABytes, &tmW, full, k * kElems, n0);
+        if (++stage == kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  // Consumers, ping-pong: consumer c takes the block's tiles c, c + 2, ...
+  // whole, and their k loops alternate (named barriers 3 and 4, 256
+  // threads): each waits for the other's last wgmma to be issued before it
+  // issues its own, so one consumer's epilogue runs under the other's MMA.
+  // Each thread's loads for the epilogue (its sa, sw and bias entries, and
+  // the residual it adds) are issued when a tile starts, so they arrive
+  // during the k loop. The epilogue runs in chunks of 64 rows x 32 columns:
+  // each thread writes its values into a shared-memory staging chunk, then
+  // the warpgroup writes the chunk out in 16-byte pieces, a row's 64 or 128
+  // bytes contiguous (the accumulator layout alone would store 4 bytes a
+  // thread, 16 bytes a row).
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int c = wg - 1, tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+  float* ep = reinterpret_cast<float*>(smem_raw + (ring - smem_u32(smem_raw)) +
+                                       kStages * kStageBytes + 2 * kStages * 8) +
+              c * kEpFloats;
+  uint32_t* stg = reinterpret_cast<uint32_t*>(ep + (2 - c) * kEpFloats) + c * kStgWords;
+  constexpr bool kF32 = kI8 && EPI == kGelu;  // the int8 GELU writes f32
+  constexpr bool kRes = EPI == kResidual;
+  constexpr int kRowWords = kF32 ? 40 : 20;   // staging row stride
+  constexpr int kSegsRow = kF32 ? 8 : 4;      // 16-byte pieces of a chunk row
+  constexpr int kSegs = 64 * kSegsRow / 128;  // pieces per thread per chunk
+  if (c == 1 && n_local > 0) bar_arrive(3, 256);  // consumer 0 goes first
+  for (int i = c; i < n_local; i += 2) {
+    const int tile = blockIdx.x + i * gridDim.x;
+    const int m0 = tile / tiles_n * kBM, n0 = tile % tiles_n * kBN;
+    const float r_sa = kI8 && m0 + tid < M ? sa[m0 + tid] : 0.f;
+    const float r_sw = kI8 && n0 + tid < N ? sw[n0 + tid] : 0.f;
+    const float r_b = n0 + tid < N ? bias[n0 + tid] : 0.f;
+    // The residual at this thread's 16-byte pieces of every chunk
+    // (row half h, 32 columns ch).
+    uint4 rv[kRes ? 2 : 1][kRes ? 4 : 1][kRes ? kSegs : 1];
+    if (kRes) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int ch = 0; ch < 4; ++ch)
+#pragma unroll
+          for (int u = 0; u < kSegs; ++u) {
+            const int sgm = tid + 128 * u, row = m0 + 64 * h + sgm / kSegsRow;
+            const int col = n0 + 32 * ch + 8 * (sgm % kSegsRow);
+            rv[kRes ? h : 0][kRes ? ch : 0][kRes ? u : 0] =
+                row < M && col < N
+                    ? *reinterpret_cast<const uint4*>(res + (size_t)row * N + col)
+                    : make_uint4(0, 0, 0, 0);
+          }
+    }
+
+    Acc acc[2][64];  // rows 0-63 and 64-127 of the tile
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 64; ++e) acc[h][e] = 0;
+    bar_sync(3 + c, 256);
+    // One k step's wgmma group stays in flight: a stage is released once
+    // the group after it has been issued and it has completed.
+    int prev = -1;
+    for (int k = 0; k < ksteps; ++k) {
+      const int step = i * ksteps + k;  // this stage's place in the ring's sequence
+      const int stage = step % kStages;
+      mbar_wait(full0 + 8 * stage, (step / kStages) & 1);
+      const uint32_t a = ring + stage * kStageBytes;
+      const uint64_t da = sw128_desc(a), db = sw128_desc(a + kABytes);
+      fence_acc(acc[0]);
+      fence_acc(acc[1]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBK / 32; ++kk) {
+        Mma<In>::run(acc[0], da + 2 * kk, db + 2 * kk, (k | kk) != 0);
+        Mma<In>::run(acc[1], da + (64 * kBK >> 4) + 2 * kk, db + 2 * kk, (k | kk) != 0);
+      }
+      wgmma_commit();
+      fence_acc(acc[0]);
+      fence_acc(acc[1]);
+      wgmma_wait<1>();
+      if (prev >= 0 && lane == 0) mbar_arrive(empty0 + 8 * prev);
+      prev = stage;
+    }
+    if (i + 1 < n_local) bar_arrive(4 - c, 256);  // the other consumer's turn
+    wgmma_wait<0>();
+    fence_acc(acc[0]);
+    fence_acc(acc[1]);
+    if (lane == 0) mbar_arrive(empty0 + 8 * prev);
+
+    bar_sync(1 + c, 128);  // the last tile's epilogue is done with ep and stg
+    ep[tid] = r_sa;
+    ep[kBM + tid] = r_sw;
+    ep[kBM + kBN + tid] = r_b;
+    // Accumulator 4 j + 2 i + e of half h: row 64 h + 16 warp + lane / 4 +
+    // 8 i, column 8 j + 2 (lane % 4) + e of the tile.
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int ch = 0; ch < 4; ++ch) {
+        bar_sync(1 + c, 128);  // ep written; the last chunk's pieces read
+#pragma unroll
+        for (int i2 = 0; i2 < 2; ++i2) {
+          const int r = warp * 16 + (lane >> 2) + 8 * i2;
+          const float sx = ep[64 * h + r];
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            const int j = 4 * ch + jj, col = 8 * j + 2 * (lane & 3);
+            const float2 bv = *reinterpret_cast<const float2*>(ep + kBM + kBN + col);
+            float y0, y1;
+            if constexpr (kI8) {
+              const float2 swv = *reinterpret_cast<const float2*>(ep + kBM + col);
+              y0 = __fadd_rn(__fmul_rn((float)acc[h][4 * j + 2 * i2], __fmul_rn(sx, swv.x)), bv.x);
+              y1 = __fadd_rn(__fmul_rn((float)acc[h][4 * j + 2 * i2 + 1], __fmul_rn(sx, swv.y)),
+                             bv.y);
+            } else {
+              y0 = __fadd_rn(acc[h][4 * j + 2 * i2], bv.x);
+              y1 = __fadd_rn(acc[h][4 * j + 2 * i2 + 1], bv.y);
+            }
+            if constexpr (EPI == kGelu) {
+              y0 = gelu_erf3(y0);
+              y1 = gelu_erf3(y1);
+            }
+            if constexpr (kF32) {
+              *reinterpret_cast<float2*>(stg + r * kRowWords + 8 * jj + 2 * (lane & 3)) =
+                  make_float2(y0, y1);
+            } else {
+              *reinterpret_cast<__nv_bfloat162*>(stg + r * kRowWords + 4 * jj + (lane & 3)) =
+                  __floats2bfloat162_rn(y0, y1);
+            }
+          }
+        }
+        bar_sync(1 + c, 128);
+#pragma unroll
+        for (int u = 0; u < kSegs; ++u) {
+          const int sgm = tid + 128 * u, r = sgm / kSegsRow, q = sgm % kSegsRow;
+          const int row = m0 + 64 * h + r, col = n0 + 32 * ch + q * (kF32 ? 4 : 8);
+          if (row >= M || col >= N) continue;
+          uint4 v = *reinterpret_cast<const uint4*>(stg + r * kRowWords + 4 * q);
+          if (kRes) {
+            // round(y) was staged; out = round(round(y) + res).
+            const uint4 rr = rv[kRes ? h : 0][kRes ? ch : 0][kRes ? u : 0];
+            const uint32_t* yw = &v.x;
+            const uint32_t* rw = &rr.x;
+            uint4 o;
+            uint32_t* ow = &o.x;
+#pragma unroll
+            for (int w = 0; w < 4; ++w) {
+              const float2 y =
+                  __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(yw + w));
+              const float2 x =
+                  __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(rw + w));
+              const __nv_bfloat162 sum = __floats2bfloat162_rn(y.x + x.x, y.y + x.y);
+              ow[w] = *reinterpret_cast<const uint32_t*>(&sum);
+            }
+            v = o;
+          }
+          const size_t o = (size_t)row * N + col;
+          if (kF32)
+            *reinterpret_cast<uint4*>(static_cast<float*>(out) + o) = v;
+          else
+            *reinterpret_cast<uint4*>(static_cast<bf16*>(out) + o) = v;
+        }
+      }
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime so that the library
+// needs no link against libcuda.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                     &found);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A row-major [rows, K] matrix of In as TMA boxes of [box_rows, 128 bytes]
+// with the 128-byte swizzle; out-of-range rows and columns read as 0.
+template <typename In>
+bool encode(CUtensorMap* map, const In* base, int rows, int K, int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)K * sizeof(In)};
+  const cuuint32_t box[2] = {(cuuint32_t)(kBK / sizeof(In)), (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, Mma<In>::kMapType, 2, const_cast<In*>(base), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return n;
+}
+
+// One launch of gemm_kernel<In, EPI> on a grid of min(tiles, SMs) blocks.
+// M, N, K > 0 with N % 8 == 0 and K * sizeof(In) % 16 == 0; A, W, res and
+// out 16-byte aligned.
+template <typename In, int EPI>
+cudaError_t launch(const In* A, const In* W, const float* sa, const float* sw,
+                   const float* bias, const bf16* res, void* out, int M, int N, int K,
+                   cudaStream_t s) {
+  if (M <= 0 || N <= 0 || K <= 0 || N % 8 != 0 || K * (int)sizeof(In) % 16 != 0)
+    return cudaErrorInvalidValue;
+  static bool attr = false;
+  if (!attr) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        gemm_kernel<In, EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (err != cudaSuccess) return err;
+    attr = true;
+  }
+  CUtensorMap tmA, tmW;
+  if (!encode(&tmA, A, M, K, kBM) || !encode(&tmW, W, N, K, kBN)) return cudaErrorInvalidValue;
+  const int tiles = (M + kBM - 1) / kBM * ((N + kBN - 1) / kBN);
+  const int grid = tiles < sm_count() ? tiles : sm_count();
+  gemm_kernel<In, EPI><<<grid, kThreads, kSmem, s>>>(tmA, tmW, sa, sw, bias, res, out, M, N, K);
+  return cudaGetLastError();
+}
+
+}  // namespace
+}  // namespace ring
+}  // namespace bt

@@ -125,6 +125,16 @@ def stream(device: torch.device) -> int:
     return torch._C._cuda_getCurrentRawStream(device.index)
 
 
+def check_tensor(name, t, dtype, shape, device) -> None:
+    """Raise unless t is a contiguous, 16-byte aligned `dtype` tensor of
+    `shape` on `device`: what a C entry's pointer arguments assume."""
+    if (t.dtype != dtype or tuple(t.shape) != shape or t.device != device
+            or not t.is_contiguous() or t.data_ptr() % 16):
+        raise ValueError(f"{name}: want contiguous 16-byte aligned {dtype} "
+                         f"{shape} on {device}, got {t.dtype} "
+                         f"{tuple(t.shape)} on {t.device}")
+
+
 def check(code: int, name: str) -> None:
     if code != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "

@@ -11,17 +11,21 @@ Swin-L forward, on canvases from [2, 264, 264, 192] (6 heads) to
 [2, 24, 24, 1536] (48 heads), window 12 (N = 144), head dim 32.
 
 A Hopper block cannot hold the TPU kernel's whole strip of windows, so the
-CUDA version runs three hand-written kernels: the LN1 + pad-zero + qkv
-product over all tokens, the window-attention core of
-csrc/window_core.cuh (shared with K6-K8, ops/kernels/flash_window_attn.py)
-with scores and probabilities in registers, and the token-local
-projection with bias and residual. Its bounds on the card and the design
-are in the source notes of csrc/fused_block_attn.cu and
-csrc/window_core.cuh. The softmax stays in f32 per head; the TPU's packed
-head groups, which round exp(s-m) to bf16, are not copied. The core takes
-the f32 rel-pos bias and the SW-MSA mask dense or as the [nW, N] int32
-region ids the model passes (window.sw_msa_region_ids, built once per
-stage geometry), as they are: nothing is converted per call.
+CUDA version (`bt_fused_block_attn_bf16`) runs four hand-written launches:
+the bf16 row pass (LN1 + pad-zero, csrc/row_ln.cu), the bf16 wgmma/TMA
+GEMM for the qkv product (csrc/bf16_gemm.cu, the machinery of
+csrc/wgmma_ring.cuh that the int8 GEMM shares), the window-attention core
+of csrc/window_core.cuh (shared with K6-K8,
+ops/kernels/flash_window_attn.py) with scores and probabilities in
+registers, and the same GEMM for the projection with bias and residual
+(ops/kernels/bf16_gemm.py calls the GEMM and the row pass alone). Its
+bounds on the card and the design are in the source notes of
+csrc/fused_block_attn.cu, csrc/bf16_gemm.cu and csrc/window_core.cuh. The
+softmax stays in f32 per head; the TPU's packed head groups, which round
+exp(s-m) to bf16, are not copied. The core takes the f32 rel-pos bias and
+the SW-MSA mask dense or as the [nW, N] int32 region ids the model passes
+(window.sw_msa_region_ids, built once per stage geometry), as they are:
+nothing is converted per call.
 
 W8A8 (ComputeConfig.int8_attn): blocks whose qkv carries `weight_q8`
 (params.quantize_attn_int8) run `fused_window_block_attention_int8`, the
@@ -39,7 +43,7 @@ raise; each counts its own launches.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -64,6 +68,18 @@ def _pad_token_mask(hp: int, wp: int, shift: int, origin: int, h_real: int,
     vr = (rows >= origin) & (rows < origin + h_real)
     vc = (cols >= origin) & (cols < origin + w_real)
     return vr[:, None] & vc[None, :]
+
+
+# (Hp, Wp, shift, origin, h_real, w_real) of a padded canvas [B, Hp, Wp, C].
+Canvas = Tuple[int, int, int, int, int, int]
+
+
+def pad_token_rows(canvas: Canvas, t: int, device) -> torch.Tensor:
+    """[t] bool, True at the real tokens of t rows that are whole canvases
+    [B, Hp, Wp] in order; canvas = (Hp, Wp, shift, origin, h_real,
+    w_real)."""
+    hp, wp = canvas[:2]
+    return _pad_token_mask(*canvas, device).reshape(-1).repeat(t // (hp * wp))
 
 
 def fused_window_block_attention_plain(

@@ -7,13 +7,16 @@ from models/swin.py for every Swin block: 48 calls per Swin-L forward, on
 [T, C] tokens from [131072, 192] to [512, 1536], and 24 per swin_t forward
 (20 with int8_mlp), from [131072, 96] to [512, 768].
 
-On the card the MLP is 16*C FLOPs per token byte, so the unfused version is
-bound by writing and re-reading the [T, 4C] hidden activation; the kernel
-keeps the hidden on chip (chunks of 128 hidden units in shared memory,
-the fc2 sum in registers) and streams the weights from L2 for every block
-of 16 to 64 rows, which makes L2 weight traffic its bound (see the source
-note in csrc/fused_mlp.cu). The JAX kernel's VMEM residency gate is not ported:
-the weights never need to fit on chip.
+On the card the MLP is 16 C^2 operations per token, which only the bf16
+tensor cores' wgmma reaches. The CUDA version (`bt_fused_mlp_bf16`) is
+three launches on one stream: the bf16 row pass (LN2 rows into the output
+buffer, csrc/row_ln.cu), the bf16 wgmma/TMA GEMM of csrc/bf16_gemm.cu for
+fc1 with the bias and the 3-term erf GELU in its epilogue into a bf16
+[T, 4C] scratch, and the same GEMM for fc2 with the bias and the residual
+(ops/kernels/bf16_gemm.py calls the GEMM and the row pass alone). The
+hidden's round trip through device memory bounds the narrow stages (see
+the source note in csrc/fused_mlp.cu). The JAX kernel's VMEM residency
+gate is not ported: the weights never need to fit on chip.
 
 W8A8 (ComputeConfig.int8_mlp): blocks whose fc1 carries `weight_q8`
 (params.quantize_mlp_int8) run `fused_mlp_residual_int8` instead, the port
@@ -41,31 +44,18 @@ from . import build
 
 def fused_mlp_residual_plain(x: torch.Tensor, norm2_params,
                              mlp_params) -> torch.Tensor:
-    """Plain PyTorch version with the kernel's rounding points: LN in f32,
-    fc1 + b1 and GELU in f32, hidden and fc2 + b2 in x.dtype, then x + y."""
-    fc1 = mlp_params["fc1"]
-    h = L.layer_norm(norm2_params, x)
-    h = F.linear(h, fc1["weight"].to(x.dtype)).float() + fc1["bias"].float()
-    return x + L.linear(mlp_params["fc2"], F.gelu(h).to(x.dtype))
-
-
-def _plan(t: int, c: int, device) -> tuple:
-    """(row_groups, splits) of the kernel launch: 16 * row_groups token rows
-    per block (row_groups * C <= 1536 keeps the fc2 sum in registers), and
-    the fewest hidden splits, a divisor of the ceil(4C/256) hidden chunks
-    (the last one shorter at C = 96), that give at least one block per
-    SM."""
-    row_groups = 4 if c <= 384 else (2 if c <= 768 else 1)
-    blocks = -(-t // (16 * row_groups))
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    chunks = -(-4 * c // 256)
-    splits = 1
-    if t % 16 == 0:
-        while blocks * splits < sms and splits < chunks:
-            splits += 1
-            while chunks % splits:
-                splits += 1
-    return row_groups, splits
+    """Plain PyTorch version with the JAX kernel's rounding points: LN in
+    f32 rounded to x.dtype; fc1 summed in f32, + b1 and GELU in f32, the
+    hidden rounded to x.dtype; fc2 summed in f32, + b2 rounded to x.dtype;
+    then x + y. The GELU is the JAX kernel's: the 3-term erf for bf16
+    (`_erf(fast=True)`), exact erf for f32 (JAX's 7.1.26 form there is
+    within 1.5e-7 of it)."""
+    fc1, fc2 = mlp_params["fc1"], mlp_params["fc2"]
+    h = L.layer_norm(norm2_params, x).float()
+    h = F.linear(h, fc1["weight"].to(x.dtype).float()) + fc1["bias"].float()
+    h = quant.gelu_erf3(h) if x.dtype == torch.bfloat16 else F.gelu(h)
+    y = F.linear(h.to(x.dtype).float(), fc2["weight"].to(x.dtype).float())
+    return x + (y + fc2["bias"].float()).to(x.dtype)
 
 
 def fused_mlp_residual_int8_plain(x: torch.Tensor, norm2_params,
@@ -81,14 +71,14 @@ def fused_mlp_residual_int8_plain(x: torch.Tensor, norm2_params,
     return x + quant.int8_linear(q2, sx2, fc2).to(x.dtype)
 
 
-def _check(x: torch.Tensor, tensors, multiple: int) -> None:
+def _check(x: torch.Tensor, tensors, multiple: int, max_c: int) -> None:
     if x.dtype != torch.bfloat16:
         raise TypeError(f"fused_mlp kernel takes bf16 activations, got "
                         f"{x.dtype} (run f32 with use_flash_attention=False)")
     c = x.shape[-1]
-    if c % multiple or c > 1536:
+    if c % multiple or c > max_c:
         raise ValueError(f"fused_mlp kernel needs C % {multiple} == 0 and "
-                         f"C <= 1536, got C={c}")
+                         f"C <= {max_c}, got C={c}")
     if not x.is_contiguous():
         raise ValueError("fused_mlp needs a contiguous input")
     for name, t, dtype, shape in tensors:
@@ -120,16 +110,14 @@ def fused_mlp_residual(x: torch.Tensor, norm2_params,
             ("fc1 bias", mlp_params["fc1"]["bias"], f32, (4 * c,)),
             ("fc2 weight", mlp_params["fc2"]["weight"], bf, (c, 4 * c)),
             ("fc2 bias", mlp_params["fc2"]["bias"], f32, (c,))]
-    _check(x, args, 16)
+    # The row pass takes rows of up to 16384 bf16 (csrc/rows.cuh).
+    _check(x, args, 8, 16384)
     t = x.numel() // c
-    row_groups, splits = _plan(t, c, x.device)
+    hidden = torch.empty((t, 4 * c), dtype=bf, device=x.device)
     out = torch.empty_like(x)
-    partial = (torch.empty((splits, t, c), dtype=torch.float32, device=x.device)
-               if splits > 1 else None)
-    fn = build.function("bt_fused_mlp_bf16", 9, 4)
-    code = fn(*[a.data_ptr() for _, a, _, _ in args], out.data_ptr(),
-              None if partial is None else partial.data_ptr(), t, c, row_groups,
-              splits, torch.cuda.current_stream(x.device).cuda_stream)
+    fn = build.function("bt_fused_mlp_bf16", 9, 2)
+    code = fn(*[a.data_ptr() for _, a, _, _ in args], hidden.data_ptr(),
+              out.data_ptr(), t, c, build.stream(x.device))
     build.check(code, "fused_mlp")
     fused_mlp_residual.launches += 1
     return out
@@ -158,7 +146,7 @@ def fused_mlp_residual_int8(x: torch.Tensor, norm2_params,
             ("fc2 weight_q8", fc2["weight_q8"], i8, (c, 4 * c)),
             ("fc2 scale_q8", fc2["scale_q8"], f32, (c,)),
             ("fc2 bias", fc2["bias"], f32, (c,))]
-    _check(x, args, 64)
+    _check(x, args, 64, 1536)
     t = x.numel() // c
     codes = torch.empty((t, 4 * c), dtype=i8, device=x.device)
     scales = torch.empty((t,), dtype=f32, device=x.device)

@@ -22,17 +22,15 @@ CUDA tensor or raises; each counts its own launches.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional
 
 import torch
 
 from .. import quant
 from . import build
-from .fused_block_attn import _pad_token_mask
+from .fused_block_attn import Canvas, pad_token_rows
 
 EPILOGUES = {"bf16": 0, "residual": 1, "gelu": 2}
-# (Hp, Wp, shift, origin, h_real, w_real) of a padded canvas [B, Hp, Wp, C].
-Canvas = Tuple[int, int, int, int, int, int]
 
 
 def int8_gemm_plain(q: torch.Tensor, sx: torch.Tensor, params, epilogue: str,
@@ -47,14 +45,6 @@ def int8_gemm_plain(q: torch.Tensor, sx: torch.Tensor, params, epilogue: str,
     if epilogue == "gelu":
         return quant.gelu_erf3(y)
     raise ValueError(f"int8_gemm epilogue {epilogue!r} not in {list(EPILOGUES)}")
-
-
-def _check(name, t, dtype, shape, device):
-    if (t.dtype != dtype or tuple(t.shape) != shape or t.device != device
-            or not t.is_contiguous() or t.data_ptr() % 16):
-        raise ValueError(f"{name}: want contiguous 16-byte aligned {dtype} "
-                         f"{shape} on {device}, got {t.dtype} "
-                         f"{tuple(t.shape)} on {t.device}")
 
 
 def int8_gemm(q: torch.Tensor, sx: torch.Tensor, params, epilogue: str,
@@ -75,13 +65,14 @@ def int8_gemm(q: torch.Tensor, sx: torch.Tensor, params, epilogue: str,
         raise ValueError(f"int8_gemm needs N % 8 == 0 and K % 16 == 0, got "
                          f"N={n}, K={k}")
     f32, dev = torch.float32, q.device
-    _check("int8_gemm q", q, torch.int8, (m, k), dev)
-    _check("int8_gemm sx", sx, f32, (m, 1), dev)
-    _check("int8_gemm weight_q8", params["weight_q8"], torch.int8, (n, k), dev)
-    _check("int8_gemm scale_q8", params["scale_q8"], f32, (n,), dev)
-    _check("int8_gemm bias", params["bias"], f32, (n,), dev)
+    check = build.check_tensor
+    check("int8_gemm q", q, torch.int8, (m, k), dev)
+    check("int8_gemm sx", sx, f32, (m, 1), dev)
+    check("int8_gemm weight_q8", params["weight_q8"], torch.int8, (n, k), dev)
+    check("int8_gemm scale_q8", params["scale_q8"], f32, (n,), dev)
+    check("int8_gemm bias", params["bias"], f32, (n,), dev)
     if epilogue == "residual":
-        _check("int8_gemm res", res, torch.bfloat16, (m, n), dev)
+        check("int8_gemm res", res, torch.bfloat16, (m, n), dev)
     out = torch.empty((m, n), device=dev,
                       dtype=f32 if epilogue == "gelu" else torch.bfloat16)
     fn = build.function("bt_i8_gemm", 7, 4)
@@ -121,9 +112,7 @@ def quantize_rows_plain(x: torch.Tensor, ln=None,
     if ln is not None:
         h = layer_norm_rows_f32(ln, h)
     if canvas is not None:
-        hp, wp = canvas[:2]
-        valid = _pad_token_mask(*canvas, x.device).reshape(-1)
-        valid = valid.repeat(x.shape[0] // (hp * wp))
+        valid = pad_token_rows(canvas, x.shape[0], x.device)
         h = torch.where(valid[:, None], h, torch.zeros((), device=h.device))
         h = h.to(torch.bfloat16).float()
     return quant.quantize_rows(h)
@@ -147,12 +136,12 @@ def quantize_rows(x: torch.Tensor, ln=None, canvas: Optional[Canvas] = None):
     if k * x.element_size() % 16:
         raise ValueError(f"quantize_rows needs rows of a multiple of 16 bytes, "
                          f"got K={k}")
-    _check("quantize_rows x", x, x.dtype, (t, k), x.device)
+    build.check_tensor("quantize_rows x", x, x.dtype, (t, k), x.device)
     mode = 0 if ln is None else 1 if canvas is None else 2
     if ln is not None:
         for name in ("scale", "bias"):
-            _check(f"quantize_rows ln {name}", ln[name], torch.float32, (k,),
-                   x.device)
+            build.check_tensor(f"quantize_rows ln {name}", ln[name],
+                               torch.float32, (k,), x.device)
     if canvas is not None and t % (canvas[0] * canvas[1]):
         raise ValueError(f"quantize_rows: {t} rows are no whole canvases of "
                          f"{canvas[0]} x {canvas[1]}")

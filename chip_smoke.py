@@ -35,10 +35,21 @@ Phases, each printed as it runs; any failure exits non-zero:
    version and timed alone at K1-int8's eight Swin-L shapes (qkv and proj
    of stages 2-3, both passes) and K3's eight, against torch._int_mm (the
    s32 product only, without the dequant epilogue); its sums go under
-   K1-int8's entry as "int8_gemm" (K3's sums under its key "k3"). Last,
-   every int8 GEMM and K1-int8 shape runs REPEATS times back to back, and
-   the last output must be bitwise the expected one (a fault that shows
-   only sometimes, such as a lost barrier phase, fails here);
+   K1-int8's entry as "int8_gemm" (K3's sums under its key "k3"). The
+   bf16 GEMM that K1 and K2 share (csrc/bf16_gemm.cu, the same machinery
+   in csrc/wgmma_ring.cuh) is checked against its plain version (F.linear
+   in f32 of the bf16 operands plus the epilogue; sums in another order,
+   so max and mean bounds, not bitwise) and timed alone at every K1 and K2
+   shape of Swin-L and at swin_t's K2 shapes, against F.linear on the same
+   bf16 operands (the product and bias, no GELU or residual); so is the
+   bf16 row pass (csrc/row_ln.cu: LN1 rows with the pads zeroed on K1's
+   canvases, LN2 rows for K2), against F.layer_norm. Their sums go under
+   K2's entry as "bf16_gemm" and "ln_rows" (K1's under their key "k1",
+   swin_t's under "swin_t"). Last, every int8 GEMM, K1-int8, bf16 GEMM and
+   K6 shape and one K1 call per Swin-L stage runs REPEATS times back to
+   back, and the last output must be bitwise the first (or the bitwise
+   plain one): a fault that shows only sometimes, such as a lost barrier
+   phase, fails here;
 4. drive pipeline.make_infer_fn at 1024^2, batch 2, bf16, kernel tier,
    regular deform mode, random_checkpoint(cfg, 0) (swin_t's rel-pos bias
    tables scaled to std 1, REL_POS_BIAS_SCALE), on uint8 frames, for
@@ -124,7 +135,10 @@ FEATURE_RATIO_T = 2.0
 # bias path itself is held by the K6 checks and the bitwise B-vs-bf16(B)
 # checks of phase 3.
 REL_POS_BIAS_SCALE = 20.0
-# Calls of each int8 GEMM and K1-int8 shape in phase 3's repeat check.
+# The bf16 GEMM and row pass round at their plain versions' points and sum
+# in f32 in another order: mean|kernel - plain| / mean|plain| is bounded.
+MEAN_BOUND_BF16 = 1e-4
+# Calls of each shape in phase 3's repeat check.
 REPEATS = 200
 # Published H100 SXM peaks (dense): memory bytes/s and operations/s by type.
 MEM_RATE = 3.35e12
@@ -303,6 +317,20 @@ def make_gemm_report():
         int8_gemm.int8_gemm, None, None, bitwise=True)
 
 
+def make_bf16_reports():
+    """The bf16 GEMM (csrc/bf16_gemm.cu) and the bf16 row pass
+    (csrc/row_ln.cu) alone at K1's and K2's shapes (models "swin_l k1",
+    "swin_l k2", "swin_t k2"), reported under K2's entry."""
+    from birefnet_tpu_torch.ops.kernels import bf16_gemm
+    csrc, pallas = "birefnet_tpu_torch/csrc/", "birefnet_tpu/ops/pallas/"
+    return (KernelReport("bf16_gemm", "cuda", csrc + "bf16_gemm.cu",
+                         pallas + "fused_mlp.py:166", bf16_gemm.bf16_gemm,
+                         None, MEAN_BOUND_BF16),
+            KernelReport("ln_rows", "cuda", csrc + "row_ln.cu",
+                         pallas + "fused_mlp.py:166", bf16_gemm.ln_rows, None,
+                         MEAN_BOUND_BF16))
+
+
 def int_mm(torch, q, w):
     """torch._int_mm(q, w^T), the library yardstick of the int8 GEMM (the s32
     product only, without the dequant epilogue), or None where this PyTorch
@@ -332,13 +360,13 @@ def repeat_check(torch, calls, reps=REPEATS):
         f"outputs bitwise as expected ({time.perf_counter() - t0:.1f} s)")
 
 
-def check_kernels(torch, dev, reports, core, gemm):
+def check_kernels(torch, dev, reports, core, gemm, gemm16, rows16):
     import torch.nn.functional as F
 
     from birefnet_tpu_torch import params as P
     from birefnet_tpu_torch.models import swin
     from birefnet_tpu_torch.ops import window as W
-    from birefnet_tpu_torch.ops.kernels import (flash_window_attn,
+    from birefnet_tpu_torch.ops.kernels import (bf16_gemm, flash_window_attn,
                                                 fused_block_attn, fused_mlp,
                                                 int8_gemm, row_ln, tap_conv)
 
@@ -402,6 +430,11 @@ def check_kernels(torch, dev, reports, core, gemm):
                     y = W.roll_2d(y, k_shift, k_shift)
                 return y[:, origin:origin + h, origin:origin + h]
 
+            # K1's LN1 row pass on this canvas, pads zeroed.
+            check_ln_rows(f"{model} k1", f"{label} {route}", depth // 2,
+                          canvas.reshape(-1, c), norm1,
+                          (hp, hp, k_shift, origin, h, h))
+
             for rep, p, kernel, plain, weights, ops in (
                     (k1, attn, fused_block_attn.fused_window_block_attention,
                      fused_block_attn.fused_window_block_attention_plain,
@@ -422,9 +455,10 @@ def check_kernels(torch, dev, reports, core, gemm):
                           lambda kernel=kernel, args=args: kernel(*args),
                           lambda plain=plain, args=args: plain(*args),
                           (side + nbytes(*weights), ops), crop)
-                if rep is k1q:
+                if rep is k1q or not shift:  # K1: one call per stage
                     fn = partial(kernel, *args)
-                    repeats.append((f"K1-int8 {label} {route}", fn, fn()))
+                    repeats.append((f"{rep.entry['name']} {label} {route}",
+                                    fn, fn()))
 
     def check_k6(label, depth, h, c, heads, hp):
         """K6 at one swin_t stage: B_ = BATCH * (hp / 7)^2 windows of the
@@ -450,6 +484,9 @@ def check_kernels(torch, dev, reports, core, gemm):
                      (nbytes(qkv, bias, mask) + b_ * 49 * c * 2,
                       {"bf16": 4 * 49 * c * BATCH * h * h}),
                      library_fn=sdpa(q, k, v, bias, W.dense_mask(mask)))
+            fn = partial(flash_window_attn.flash_window_attention_qkv, *args)
+            repeats.append((f"K6 {label} C={c} mask={mask is not None}", fn,
+                            fn()))
 
     def check_core(label, depth, c, heads, hp):
         """The attention core alone at one Swin-L stage, through
@@ -504,6 +541,42 @@ def check_kernels(torch, dev, reports, core, gemm):
                         partial(int8_gemm.int8_gemm, *args),
                         int8_gemm.int8_gemm_plain(*args)))
 
+    def check_bf16_gemm(model, label, calls, m, n, k, epilogue):
+        """The bf16 GEMM alone at one shape against its plain version, timed
+        against F.linear on the same bf16 operands; then kept for the
+        repeat check."""
+        a = randn((m, k), 1.0, bf)
+        lin = {"weight": randn((n, k), k ** -0.5, bf), "bias": randn((n,), 0.5)}
+        res = randn((m, n), 1.0, bf) if epilogue == "residual" else None
+        args = (a, lin, epilogue, res)
+        ops = 2 * m * n * k
+        ms = gemm16.check(torch, model,
+                          f"{label} {epilogue} [{m},{k}]x[{n},{k}]", calls,
+                          partial(bf16_gemm.bf16_gemm, *args),
+                          partial(bf16_gemm.bf16_gemm_plain, *args),
+                          (nbytes(a, lin["weight"], lin["bias"], res)
+                           + m * n * 2, {"bf16": ops}),
+                          library_fn=partial(F.linear, a, lin["weight"],
+                                             lin["bias"].to(bf)))
+        rate = ops / ms * 1e3
+        log(f"{'bf16_gemm':<21} {model} {label} {epilogue}: "
+            f"{rate / 1e12:.1f} TFLOP/s ({rate / PEAK['bf16']:.3f} of peak)")
+        fn = partial(bf16_gemm.bf16_gemm, *args)
+        repeats.append((f"bf16_gemm {model} {label} {epilogue}", fn, fn()))
+
+    def check_ln_rows(model, label, calls, x, ln, canvas=None):
+        """The bf16 row pass alone on rows x [T, C] (a canvas's, with its
+        pads zeroed, or K2's), timed against F.layer_norm (no pads)."""
+        t, cc = x.shape
+        affine = ln if ln_f32_affine else {k: v.to(bf) for k, v in ln.items()}
+        rows16.check(torch, model, f"{label} [{t},{cc}]", calls,
+                     partial(bf16_gemm.ln_rows, x, ln, canvas),
+                     partial(bf16_gemm.ln_rows_plain, x, ln, canvas),
+                     (2 * nbytes(x) + nbytes(ln["scale"], ln["bias"]),
+                      {"f32": 8 * t * cc}),
+                     library_fn=partial(F.layer_norm, x, (cc,), affine["scale"],
+                                        affine["bias"], 1e-5))
+
     def check_k2_k3_k4(model, label, i, depth, h, c):
         x2 = randn((BATCH * h * h, c), 1.0, bf)
         norm2 = ln_params(c)
@@ -512,6 +585,11 @@ def check_kernels(torch, dev, reports, core, gemm):
         mlp_q = P.cast_matmul_weights(
             P.quantize_mlp_int8({"mlp": mlp32}, 0)["mlp"], bf)
         t = x2.shape[0]
+        # K2's parts alone: its LN2 rows, fc1 with the GELU, fc2 with the
+        # residual.
+        check_ln_rows(f"{model} k2", label, depth, x2, norm2)
+        for n, k, epilogue in ((4 * c, c, "gelu"), (c, 4 * c, "residual")):
+            check_bf16_gemm(f"{model} k2", label, depth, t, n, k, epilogue)
         side = 2 * nbytes(x2) + nbytes(norm2["scale"], norm2["bias"])
         k2.check(torch, model, f"{label} T={t} C={c}", depth,
                  lambda: fused_mlp.fused_mlp_residual(x2, norm2, mlp),
@@ -576,6 +654,10 @@ def check_kernels(torch, dev, reports, core, gemm):
                             (t_real, c, 4 * c, "residual", "swin_l k3")):
                         check_gemm(label, depth, m, n, k, epilogue, which)
                 if model == "swin_l":
+                    # K1's qkv and proj on the canvas, one of each per block.
+                    for n, epilogue in ((3 * c, "store"), (c, "residual")):
+                        check_bf16_gemm("swin_l k1", label, depth,
+                                        BATCH * hp * hp, n, c, epilogue)
                     check_k1(model, f"{label} C={c}", depth,
                              randn((BATCH, h, h, c), 1.0, bf), h, c, heads, ws,
                              hp)
@@ -803,8 +885,9 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     reports, core = make_reports(), make_core_report()
     gemm = make_gemm_report()
+    gemm16, rows16 = make_bf16_reports()
     with torch.inference_mode():
-        check_kernels(torch, dev, reports, core, gemm)
+        check_kernels(torch, dev, reports, core, gemm, gemm16, rows16)
     log("phase 3: every kernel within its bound at every slice shape")
     sums = core.by_model()["swin_l"]
     reports["fused_block_attn"].entry["core"] = dict(
@@ -818,6 +901,23 @@ def main() -> int:
         mean_rel_err=gemm.entry["mean_rel_err"],
         library="torch._int_mm: the s32 product only, no dequant epilogue",
         k3=gemm_sums["swin_l k3"])
+    for key, rep, lib in (
+            ("bf16_gemm", gemm16,
+             "F.linear: the bf16 product and bias, no GELU or residual"),
+            ("ln_rows", rows16, "F.layer_norm: no pad zeroing")):
+        rsums = rep.by_model()
+        reports["fused_mlp"].entry[key] = dict(
+            rsums["swin_l k2"], source=rep.entry["source"],
+            max_abs_err=rep.entry["max_abs_err"],
+            mean_rel_err=rep.entry["mean_rel_err"], library=lib,
+            k1=rsums["swin_l k1"], swin_t=rsums["swin_t k2"])
+        for model in ("swin_l k1", "swin_l k2", "swin_t k2"):
+            m = rsums[model]
+            log(f"phase 3: {key} at {model}'s shapes per forward: kernel "
+                f"{m['ms']:.4f} ms, library {m['library_ms']:.4f} ms, plain "
+                f"{m['plain_ms']:.4f} ms, bound {m['bound_ms']:.4f} ms "
+                f"({m['bound_by']}); {m['bound_ms'] / m['ms']:.3f} of the "
+                f"bound ({smi})")
     for name, m in (("Swin-L attention core", sums),
                     ("swin_t K6", reports["flash_window_attn_qkv"].by_model()
                      ["swin_t"])):

@@ -25,9 +25,9 @@ import torch
 from birefnet_tpu_torch import params as pparams
 from birefnet_tpu_torch.models import swin
 from birefnet_tpu_torch.ops import window as W
-from birefnet_tpu_torch.ops.kernels import (flash_window_attn, fused_block_attn,
-                                            fused_mlp, int8_gemm, row_ln,
-                                            tap_conv)
+from birefnet_tpu_torch.ops.kernels import (bf16_gemm, flash_window_attn,
+                                            fused_block_attn, fused_mlp,
+                                            int8_gemm, row_ln, tap_conv)
 
 pytestmark = pytest.mark.cuda
 # The int8 kernels are also held to mean|kernel - plain| / mean|plain|: at
@@ -35,6 +35,10 @@ pytestmark = pytest.mark.cuda
 # the kernels that skipped K1-int8's bf16 rounding of the normed rows or
 # dequantized every 64th channel with its neighbour's scale broke it.
 MEAN_BOUND_I8 = 1e-4
+# The bf16 GEMM and row pass round at their plain versions' points and sum
+# in f32 in another order, so they differ only where a sum lands on a bf16
+# rounding boundary: mean|kernel - plain| / mean|plain| <= MEAN_BOUND_BF16.
+MEAN_BOUND_BF16 = 1e-4
 
 
 @pytest.fixture(scope="module")
@@ -130,6 +134,71 @@ def test_int8_gemm_matches_int8_linear_bitwise(dev, m, n, k, epilogue):
     assert torch.equal(got, want), (f"{int(diff.ne(0).sum())} of "
                                     f"{diff.numel()} differ, max "
                                     f"{float(diff.max())}")
+
+
+# (M, N, K, epilogue): K1's qkv ("store") and proj ("residual") on the
+# window canvas and K2's fc1 ("gelu") and fc2 ("residual") on the tokens, at
+# every stage of the full pass of a batch-2 1024^2 forward of Swin-L (C =
+# 192 ... 1536, canvases 264^2 ... 36^2) and of swin_t's K2 (C = 96 ...
+# 768); then every epilogue at an M tail of 100 rows, at N = K = 96 (a tile
+# and a k step that TMA fills past the matrix) and at K1's stage-0 qkv.
+BF16_GEMM_SHAPES = (
+    [(2 * hp * hp, n, c, e) for hp, c in ((264, 192), (132, 384), (72, 768),
+                                          (36, 1536))
+     for n, e in ((3 * c, "store"), (c, "residual"))]
+    + [(2 * h * h, n, k, e) for h, c in ((256, 192), (128, 384), (64, 768),
+                                         (32, 1536), (256, 96), (128, 192),
+                                         (64, 384), (32, 768))
+       for n, k, e in ((4 * c, c, "gelu"), (c, 4 * c, "residual"))]
+    + [(100, n, k, e) for e in ("store", "residual", "gelu")
+       for n, k in ((96, 96), (576, 192))])
+
+
+@pytest.mark.parametrize("m,n,k,epilogue", BF16_GEMM_SHAPES)
+def test_bf16_gemm_matches_plain(dev, m, n, k, epilogue):
+    """The wgmma bf16 GEMM against F.linear in f32 of the same bf16
+    operands plus the epilogue."""
+    gen = torch.Generator(dev).manual_seed(m + n + k)
+    a = _randn(gen, (m, k), dev, 1.0, torch.bfloat16)
+    lin = {"weight": _randn(gen, (n, k), dev, k ** -0.5, torch.bfloat16),
+           "bias": _randn(gen, (n,), dev, 0.5)}
+    res = (_randn(gen, (m, n), dev, 1.0, torch.bfloat16)
+           if epilogue == "residual" else None)
+    n0 = bf16_gemm.bf16_gemm.launches
+    got = bf16_gemm.bf16_gemm(a, lin, epilogue, res)
+    assert bf16_gemm.bf16_gemm.launches == n0 + 1
+    assert got.dtype == torch.bfloat16
+    _assert_close(got, bf16_gemm.bf16_gemm_plain(a, lin, epilogue, res),
+                  MEAN_BOUND_BF16)
+
+
+# (rows, C, canvas (Hp, Wp, shift, origin, h_real, w_real)): K1's LN1 rows
+# on the Swin-L canvases (rolled, offset, unshifted), K2's LN2 rows, and
+# widths off the 96 * 2^k ladder.
+LN_ROW_CASES = [
+    (2 * 264 * 264, 192, (264, 264, 6, 0, 256, 256)),
+    (2 * 72 * 72, 768, (72, 72, 0, 6, 64, 64)),
+    (2 * 36 * 36, 1536, (36, 36, 0, 0, 32, 32)),
+    (2 * 24 * 24, 64, (24, 24, 6, 0, 20, 17)),
+    (131072, 96, None), (8192, 384, None), (512, 1536, None), (101, 640, None),
+]
+
+
+@pytest.mark.parametrize("t,c,canvas", LN_ROW_CASES)
+def test_ln_rows_matches_plain(dev, t, c, canvas):
+    gen = torch.Generator(dev).manual_seed(t + c)
+    x = _randn(gen, (t, c), dev, 3.0, torch.bfloat16)
+    ln = {"scale": 1 + 0.1 * _randn(gen, (c,), dev),
+          "bias": 0.1 * _randn(gen, (c,), dev)}
+    n0 = bf16_gemm.ln_rows.launches
+    got = bf16_gemm.ln_rows(x, ln, canvas)
+    assert bf16_gemm.ln_rows.launches == n0 + 1
+    want = bf16_gemm.ln_rows_plain(x, ln, canvas)
+    if canvas is not None:
+        pads = ~fused_block_attn.pad_token_rows(canvas, t, dev)
+        assert pads.any() == (canvas[4] < canvas[0] or canvas[5] < canvas[1])
+        assert not got[pads].any()
+    _assert_close(got, want, MEAN_BOUND_BF16)
 
 
 def _exact_ln_rows(gen, t, k, dev):

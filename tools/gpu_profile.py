@@ -20,9 +20,12 @@ back-to-back calls, what a caller waits for) next to the profiler's device
 time per call (the kernel alone), the same two for F.layer_norm on the
 same input, and the call's byte bound: where event time is well above
 device time, the host launch path, not the device, sets the call's time.
-Last, the int8 GEMM of K1-int8 and K3 (csrc/int8_gemm.cu) alone at the
+Then the int8 GEMM of K1-int8 and K3 (csrc/int8_gemm.cu) alone at the
 int8 path's 16 shapes, with the same two times and TOP/s, beside
 torch._int_mm's (the s32 product only, without the dequant epilogue).
+Last, the bf16 GEMM of K1 and K2 (csrc/bf16_gemm.cu) alone at the bf16
+tier's shapes (32 for Swin-L, 16 for swin_t), with the same two times and
+TFLOP/s, beside F.linear's on the same bf16 operands.
 Needs one CUDA device; exits 1 without one.
 """
 
@@ -40,18 +43,25 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # (group, substrings of the kernel name), first match wins. The shared
 # window-attention core (csrc/window_core.cuh) runs as two template
 # instantiations, named by their row layout: CanvasRows for K1 and K1-int8,
-# StridedRows for K6 (and K7/K8).
+# StridedRows for K6 (and K7/K8). The wgmma GEMM of csrc/wgmma_ring.cuh is
+# gemm_kernel<input type, epilogue> (0 store, 1 residual, 2 GELU): signed
+# char for the int8 GEMM, __nv_bfloat16 for the bf16 one. The row kernel
+# of csrc/row_ln.cu is row_ln_kernel<type, caller>: 0 K4, 1 K2's LN2 rows,
+# 2 K1's LN1 rows with the pads zeroed.
 GROUPS = [
     ("K1 attention core (bf16 and int8 routes)", ("CanvasRows",)),
     ("K6 window attention (middle tier)", ("StridedRows",)),
-    ("K1-int8 int8 GEMM, bf16 out (qkv)", ("gemm_kernel<0>(CUtensorMap",)),
+    ("K1-int8 int8 GEMM, bf16 out (qkv)", ("gemm_kernel<signed char, 0>",)),
     ("K1-int8/K3 int8 GEMM + residual (proj, fc2)",
-     ("gemm_kernel<1>(CUtensorMap",)),
-    ("K3 int8 GEMM + GELU (fc1)", ("gemm_kernel<2>(CUtensorMap",)),
+     ("gemm_kernel<signed char, 1>",)),
+    ("K3 int8 GEMM + GELU (fc1)", ("gemm_kernel<signed char, 2>",)),
     ("K1-int8/K3 row quantization", ("quant_rows_kernel",)),
-    ("K1 bf16 LN+qkv GEMM", ("gemm_kernel<true, false>",)),
-    ("K1 bf16 proj GEMM", ("gemm_kernel<false, true>",)),
-    ("K2 fused_mlp", ("fused_mlp_kernel", "mlp_split_epilogue")),
+    ("K1 bf16 GEMM (qkv)", ("gemm_kernel<__nv_bfloat16, 0>",)),
+    ("K1/K2 bf16 GEMM + residual (proj, fc2)",
+     ("gemm_kernel<__nv_bfloat16, 1>",)),
+    ("K2 bf16 GEMM + GELU (fc1)", ("gemm_kernel<__nv_bfloat16, 2>",)),
+    ("K1 bf16 LN1 rows (pads zeroed)", ("row_ln_kernel<__nv_bfloat16, 2>",)),
+    ("K2 bf16 LN2 rows", ("row_ln_kernel<__nv_bfloat16, 1>",)),
     ("K4 row_ln", ("row_ln_kernel",)),
     ("K5 tap_conv", ("tap_conv5_kernel",)),
     ("cuDNN convolutions", ("conv", "cudnn", "xmma_fprop", "dgrad", "wgrad")),
@@ -156,65 +166,83 @@ def row_ln_table(torch, cfg, smi, reps=20):
           flush=True)
 
 
-def int8_gemm_shapes(cfg):
-    """(label, M, N, K, epilogue) of the int8 GEMMs of a 1024^2 batch-2
-    int8 forward, at the stages with C >= 768 of both passes: K3's fc1 and
-    fc2 on the real tokens and, for a window-12 backbone, K1-int8's qkv and
-    proj on the window canvas; each runs once per block."""
+def gemm_shapes(cfg, kind):
+    """(label, M, N, K, epilogue) of the int8 or bf16 GEMMs of a 1024^2
+    batch-2 forward: K3's or K2's fc1 and fc2 on the real tokens and, for a
+    window-12 backbone, K1-int8's or K1's qkv and proj on the window
+    canvas; each runs once per block. The int8 ones run at the stages with
+    C >= 768 on the int8 path; the bf16 ones at every stage on the bf16
+    tier (the int8 path keeps those of C < 768)."""
     from birefnet_tpu_torch.params import INT8_MLP_MIN_CHANNELS
 
     ws = cfg.swin_config().window_size
+    store = "bf16" if kind == "int8" else "store"
     shapes = []
     for pass_name, side in (("full", 256), ("half", 128)):
         for i, c in enumerate(cfg.backbone_channels):
-            if c < INT8_MLP_MIN_CHANNELS:
+            if kind == "int8" and c < INT8_MLP_MIN_CHANNELS:
                 continue
             h = side >> i
             hp = -(-h // ws) * ws
             t, tc = 2 * h * h, 2 * hp * hp
             if ws == 12:
-                shapes += [(f"{pass_name} st{i} qkv", tc, 3 * c, c, "bf16"),
+                shapes += [(f"{pass_name} st{i} qkv", tc, 3 * c, c, store),
                            (f"{pass_name} st{i} proj", tc, c, c, "residual")]
             shapes += [(f"{pass_name} st{i} fc1", t, 4 * c, c, "gelu"),
                        (f"{pass_name} st{i} fc2", t, c, 4 * c, "residual")]
     return shapes
 
 
-def int8_gemm_table(torch, cfg, smi, reps=20):
-    """The int8 GEMM alone per shape: CUDA-event and device time, TOP/s on
-    the device time, and torch._int_mm's two times (its s32 product only,
-    no dequant epilogue)."""
+def gemm_table(torch, cfg, smi, kind, reps=20):
+    """The int8 or bf16 GEMM alone per shape: CUDA-event and device time,
+    the rate on the device time, and the library call's two times on the
+    same operands: torch._int_mm (the s32 product only, no dequant
+    epilogue) or F.linear (the bf16 product and bias, no GELU or
+    residual)."""
+    import torch.nn.functional as F
     from torch.profiler import ProfilerActivity, profile
 
-    from birefnet_tpu_torch.ops.kernels import int8_gemm
+    from birefnet_tpu_torch.ops.kernels import bf16_gemm, int8_gemm
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     gen = torch.Generator("cuda").manual_seed(0)
-    print(f"[profile] int8 GEMM per call, us: kernel event / device (TOP/s), "
-          f"torch._int_mm event / device ({smi})", flush=True)
-    for label, m, n, k, epilogue in int8_gemm_shapes(cfg):
-        q = torch.randint(-127, 128, (m, k), generator=gen, device="cuda",
-                          dtype=torch.int8)
-        w = torch.randint(-127, 128, (n, k), generator=gen, device="cuda",
-                          dtype=torch.int8)
-        lin = {"weight_q8": w,
-               "scale_q8": torch.full((n,), 1e-4, device="cuda"),
-               "bias": torch.zeros(n, device="cuda")}
-        sx = torch.full((m, 1), 1e-2, device="cuda")
-        res = (torch.zeros((m, n), device="cuda", dtype=torch.bfloat16)
+    bf = torch.bfloat16
+    unit, lib_name = ("TOP/s", "_int_mm") if kind == "int8" else ("TFLOP/s",
+                                                                  "F.linear")
+    print(f"[profile] {kind} GEMM per call, us: kernel event / device "
+          f"({unit}), {lib_name} event / device ({unit}) ({smi})", flush=True)
+    for label, m, n, k, epilogue in gemm_shapes(cfg, kind):
+        res = (torch.zeros((m, n), device="cuda", dtype=bf)
                if epilogue == "residual" else None)
-        kern = partial(int8_gemm.int8_gemm, q, sx, lin, epilogue, res)
-        lib = partial(torch._int_mm, q, w.t())
+        if kind == "int8":
+            q = torch.randint(-127, 128, (m, k), generator=gen, device="cuda",
+                              dtype=torch.int8)
+            w = torch.randint(-127, 128, (n, k), generator=gen, device="cuda",
+                              dtype=torch.int8)
+            lin = {"weight_q8": w,
+                   "scale_q8": torch.full((n,), 1e-4, device="cuda"),
+                   "bias": torch.zeros(n, device="cuda")}
+            sx = torch.full((m, 1), 1e-2, device="cuda")
+            kern = partial(int8_gemm.int8_gemm, q, sx, lin, epilogue, res)
+            lib = partial(torch._int_mm, q, w.t())
+        else:
+            a = torch.randn((m, k), generator=gen, device="cuda").to(bf)
+            lin = {"weight": (torch.randn((n, k), generator=gen, device="cuda")
+                              * k ** -0.5).to(bf),
+                   "bias": torch.zeros(n, device="cuda")}
+            kern = partial(bf16_gemm.bf16_gemm, a, lin, epilogue, res)
+            lib = partial(F.linear, a, lin["weight"], lin["bias"].to(bf))
         k_ev = event_ms_per_call(torch, kern, reps) * 1e3
         k_dev = device_ms_per_call(torch, profile, acts, kern, reps,
                                    lambda s: "gemm_kernel" in s) * 1e3
         l_ev = event_ms_per_call(torch, lib, reps) * 1e3
         l_dev = device_ms_per_call(torch, profile, acts, lib, reps,
                                    lambda s: True) * 1e3
-        print(f"[profile] int8 GEMM {label:<14} {epilogue:<8} "
+        ops = 2 * m * n * k
+        print(f"[profile] {kind} GEMM {label:<14} {epilogue:<8} "
               f"[{m},{k}]x[{n},{k}]: {k_ev:.1f} / {k_dev:.1f} "
-              f"({2 * m * n * k / k_dev / 1e6:.0f})   _int_mm {l_ev:.1f} / "
-              f"{l_dev:.1f}", flush=True)
+              f"({ops / k_dev / 1e6:.0f})   {lib_name} {l_ev:.1f} / "
+              f"{l_dev:.1f} ({ops / l_dev / 1e6:.0f})", flush=True)
 
 
 def main() -> int:
@@ -286,7 +314,8 @@ def main() -> int:
             print(f"[profile] {tier}:   top {ms:9.3f} ms  x{n:<4d} {name[:110]}")
         del infer
     row_ln_table(torch, cfg, smi)
-    int8_gemm_table(torch, cfg, smi)
+    gemm_table(torch, cfg, smi, "int8")
+    gemm_table(torch, cfg, smi, "bf16")
     return 0
 
 
