@@ -22,7 +22,7 @@ __host__ __device__ constexpr size_t align128(size_t n) { return (n + 127) & ~si
 enum Epilogue {
   kStore = 0,     // out bf16 = round(y)
   kResidual = 1,  // out bf16 = round(round(y) + res), res bf16 like out
-  kGelu = 2,      // out = gelu_erf3(y): f32 for int8 inputs, rounded to bf16 for bf16
+  kGelu = 2,      // out bf16 = round(gelu_erf3(y)) (bf16 inputs only)
 };
 
 // A Swin block's padded NHWC canvas: Hp x Wp tokens of C channels in

@@ -14,7 +14,7 @@
 //    Writes int8 [T, K] and f32 [T] scales; each row is read once.
 // 2. gemm<EPI>: out[M, N] = epilogue(acc * (sa[m] * sw[n]) + b[n]) with
 //    acc = A[M, K] W[N, K]^T exact in s32, on wgmma s8 tensor cores fed by
-//    TMA; EPI an Epilogue of common.cuh (kGelu writes f32). The dequant
+//    TMA; EPI kStore or kResidual of common.cuh (bf16 out). The dequant
 //    uses round-to-nearest multiplies and adds without contraction, so the
 //    f32 values before each rounding point are those of the plain PyTorch
 //    version (ops/quant.py), bit for bit.
@@ -26,15 +26,15 @@
 namespace bt {
 namespace i8 {
 
-// Instantiated for <bf16, true, true>, <bf16, false, false>,
-// <bf16, true, false> and <float, false, false>. K * sizeof(Tin) % 16 == 0;
-// x, q 16-byte aligned.
+// Instantiated for <bf16, true, true> (K1-int8's LN1), <bf16, false, false>
+// (K1-int8's attention rows) and <bf16, true, false> (K3's LN2).
+// K * sizeof(Tin) % 16 == 0; x, q 16-byte aligned.
 template <typename Tin, bool LN, bool PAD>
 cudaError_t quant_rows(const Tin* x, const float* ln_g, const float* ln_b, int8_t* q,
                        float* scale, int T, int K, Geometry geo, cudaStream_t s);
 
-// M, N, K > 0 with N % 8 == 0 and K % 16 == 0; A, W 16-byte aligned. res
-// (for kResidual) is [M, N] like out.
+// Instantiated for kStore and kResidual. M, N, K > 0 with N % 8 == 0 and
+// K % 16 == 0; A, W 16-byte aligned. res (for kResidual) is [M, N] like out.
 template <int EPI>
 cudaError_t gemm(const int8_t* A, const float* sa, const int8_t* W, const float* sw,
                  const float* bias, const bf16* res, void* out, int M, int N, int K,

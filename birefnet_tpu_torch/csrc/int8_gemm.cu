@@ -1,15 +1,16 @@
 // The W8A8 kernels of int8.cuh for sm_90a: the per-token int8 row pass and
 // the int8 GEMM with its dequant epilogues, shared by K1-int8
 // (bt_fused_block_attn_i8, the int8 branch of
-// birefnet_tpu/ops/pallas/fused_block_attn.py::_fused) and K3
-// (fused_mlp_i8.cu, fused_mlp.py::_fused_i8). The TPU kernels quantize and
-// multiply inside one body; here they are launches on one stream.
+// birefnet_tpu/ops/pallas/fused_block_attn.py::_fused) and, for the row
+// pass only, K3 (fused_mlp_i8.cu, fused_mlp.py::_fused_i8: its LN2 codes).
+// The TPU kernels quantize and multiply inside one body; here they are
+// launches on one stream.
 //
 // What bounds them on the card. The GEMMs are 2 M N K integer operations
 // against the 1,979 TOP/s dense int8 peak, which only wgmma reaches: K1-int8's
-// qkv and proj are 1.24 TOP per Swin-L forward (0.63 ms at peak), K3's fc1 and
-// fc2 1.93. The row pass is bound by bytes: a bf16 row read once (2 bytes an
-// element), int8 codes written once (1 byte).
+// qkv and proj are 1.24 TOP per Swin-L forward (0.63 ms at peak). The row
+// pass is bound by bytes: a bf16 row read once (2 bytes an element), int8
+// codes written once (1 byte).
 //
 // gemm<EPI>: the persistent, warp-specialized wgmma/TMA GEMM of
 // wgmma_ring.cuh (which the bf16 GEMM of bf16_gemm.cu shares), instantiated
@@ -17,8 +18,7 @@
 //
 // quant_rows_kernel: the register-resident row of rows.cuh. Statistics,
 // the LN, pad zeroing and bf16 rounding, the absmax and the codes all come
-// from the one read; the f32 hidden rows of K3 (4C = 3072 and 6144 floats)
-// fit too, at 12 floats a thread in groups of 256 and 512 threads.
+// from the one read.
 
 #include "int8.cuh"
 #include "rows.cuh"
@@ -128,16 +128,11 @@ template cudaError_t quant_rows<bf16, false, false>(const bf16*, const float*, c
 template cudaError_t quant_rows<bf16, true, false>(const bf16*, const float*, const float*,
                                                    int8_t*, float*, int, int, Geometry,
                                                    cudaStream_t);
-template cudaError_t quant_rows<float, false, false>(const float*, const float*, const float*,
-                                                     int8_t*, float*, int, int, Geometry,
-                                                     cudaStream_t);
 template cudaError_t gemm<kStore>(const int8_t*, const float*, const int8_t*, const float*,
                                   const float*, const bf16*, void*, int, int, int, cudaStream_t);
 template cudaError_t gemm<kResidual>(const int8_t*, const float*, const int8_t*, const float*,
                                      const float*, const bf16*, void*, int, int, int,
                                      cudaStream_t);
-template cudaError_t gemm<kGelu>(const int8_t*, const float*, const int8_t*, const float*,
-                                 const float*, const bf16*, void*, int, int, int, cudaStream_t);
 
 }  // namespace i8
 }  // namespace bt
@@ -147,7 +142,7 @@ template cudaError_t gemm<kGelu>(const int8_t*, const float*, const int8_t*, con
 
 // out = epilogue(A W^T dequantized): A [M, K] and W [N, K] int8, sa [M],
 // sw [N], bias [N] f32, res [M, N] bf16 (epi 1 only, else null), out [M, N]
-// bf16 (epi 0, 1) or f32 (epi 2).
+// bf16.
 extern "C" int bt_i8_gemm(const void* A, const void* sa, const void* W, const void* sw,
                           const void* bias, const void* res, void* out, int M, int N, int K,
                           int epi, void* stream) {
@@ -165,20 +160,18 @@ extern "C" int bt_i8_gemm(const void* A, const void* sa, const void* W, const vo
     case bt::kResidual:
       if (r == nullptr) return (int)cudaErrorInvalidValue;
       return (int)i8::gemm<bt::kResidual>(a, fa, w, fw, fb, r, out, M, N, K, s);
-    case bt::kGelu:
-      return (int)i8::gemm<bt::kGelu>(a, fa, w, fw, fb, nullptr, out, M, N, K, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
-// int8 rows of x [T, K]: mode 0 plain (bf16 or f32 == 1), 1 LN (bf16), 2 LN
-// with the canvas's pad tokens zeroed and bf16 rounding (bf16; the canvas
-// is [T / (Hp Wp), Hp, Wp, K] with the geometry's shift, origin and real
-// extent). q [T, K] int8, scale [T] f32.
+// int8 rows of bf16 x [T, K]: mode 0 plain, 1 LN, 2 LN with the canvas's
+// pad tokens zeroed and bf16 rounding (the canvas is [T / (Hp Wp), Hp, Wp,
+// K] with the geometry's shift, origin and real extent). q [T, K] int8,
+// scale [T] f32.
 extern "C" int bt_i8_quant_rows(const void* x, const void* ln_g, const void* ln_b, void* q,
-                                void* scale, int T, int K, int f32, int mode, int Hp, int Wp,
-                                int shift, int origin, int h_real, int w_real, void* stream) {
+                                void* scale, int T, int K, int mode, int Hp, int Wp, int shift,
+                                int origin, int h_real, int w_real, void* stream) {
   namespace i8 = bt::i8;
   auto s = static_cast<cudaStream_t>(stream);
   auto g = static_cast<const float*>(ln_g);
@@ -186,11 +179,8 @@ extern "C" int bt_i8_quant_rows(const void* x, const void* ln_g, const void* ln_
   auto qq = static_cast<int8_t*>(q);
   auto sc = static_cast<float*>(scale);
   const bt::Geometry geo{Hp, Wp, K, 0, 1, shift, origin, h_real, w_real};
-  if (f32 && mode == 0)
-    return (int)i8::quant_rows<float, false, false>(static_cast<const float*>(x), g, b, qq, sc,
-                                                    T, K, geo, s);
   auto xb = static_cast<const bf16*>(x);
-  if (f32 || (mode == 2 && (Hp <= 0 || Wp <= 0))) return (int)cudaErrorInvalidValue;
+  if (mode == 2 && (Hp <= 0 || Wp <= 0)) return (int)cudaErrorInvalidValue;
   switch (mode) {
     case 0:
       return (int)i8::quant_rows<bf16, false, false>(xb, g, b, qq, sc, T, K, geo, s);

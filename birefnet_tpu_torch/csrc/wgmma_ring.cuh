@@ -1,7 +1,9 @@
 // The persistent, warp-specialized wgmma/TMA GEMM for sm_90a, shared by the
-// int8 GEMM (int8_gemm.cu: K1-int8 and K3) and the bf16 GEMM (bf16_gemm.cu:
-// K1 and K2). Each source instantiates gemm_kernel<In, EPI> for its own
-// input type; nothing here is compiled twice for one type.
+// int8 GEMM (int8_gemm.cu: K1-int8) and the bf16 GEMM (bf16_gemm.cu: K1 and
+// K2). Each source instantiates gemm_kernel<In, EPI> for its own input
+// type; nothing here is compiled twice for one type. K3's cluster kernel
+// (fused_mlp_i8.cu) takes the ring's pieces: the mbarrier helpers, TMA
+// loads and descriptors, and the GELU.
 //
 //   out[M, N] = epilogue(A[M, K] W[N, K]^T), A and W row-major (K-major),
 //   int8 with an exact s32 sum dequantized as acc * (sa[m] * sw[n]) + b[n],
@@ -72,10 +74,10 @@ constexpr int kStageBytes = 2 * kABytes;
 constexpr int kStages = 6;  // a 192 KB ring
 // Per consumer warpgroup, the tile's epilogue vectors (sa of its rows, sw
 // and bias of its columns) and the staging of one 64 x 32 chunk of
-// outputs, in rows of 40 words (f32) or 20 (bf16 pairs), padded so that the
+// outputs, in rows of 20 words (16 of bf16 pairs), padded so that the
 // accumulator layout's stores hit distinct banks.
 constexpr int kEpFloats = kBM + 2 * kBN;
-constexpr int kStgWords = 64 * 40;
+constexpr int kStgWords = 64 * 20;
 // The ring (1024-byte aligned for the swizzle), 2 barriers a stage, then
 // the two consumers' epilogue vectors and staging.
 constexpr int kSmem =
@@ -233,8 +235,8 @@ struct Mma<bf16> {
 #undef BT_WG_REGS
 
 // EPI is an Epilogue (common.cuh). The int8 GEMM's y is the dequant
-// acc * (sa * sw) + b and its kGelu writes f32; the bf16 GEMM's y is
-// acc + b (sa, sw unused) and every epilogue writes bf16.
+// acc * (sa * sw) + b; the bf16 GEMM's y is acc + b (sa, sw unused). Every
+// epilogue writes bf16.
 template <typename In, int EPI>
 __global__ void __launch_bounds__(kThreads, 1)
 gemm_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constant__ CUtensorMap tmW,
@@ -306,10 +308,9 @@ gemm_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constant__ CUt
                                        kStages * kStageBytes + 2 * kStages * 8) +
               c * kEpFloats;
   uint32_t* stg = reinterpret_cast<uint32_t*>(ep + (2 - c) * kEpFloats) + c * kStgWords;
-  constexpr bool kF32 = kI8 && EPI == kGelu;  // the int8 GELU writes f32
   constexpr bool kRes = EPI == kResidual;
-  constexpr int kRowWords = kF32 ? 40 : 20;   // staging row stride
-  constexpr int kSegsRow = kF32 ? 8 : 4;      // 16-byte pieces of a chunk row
+  constexpr int kRowWords = 20;               // staging row stride
+  constexpr int kSegsRow = 4;                 // 16-byte pieces of a chunk row
   constexpr int kSegs = 64 * kSegsRow / 128;  // pieces per thread per chunk
   if (c == 1 && n_local > 0) bar_arrive(3, 256);  // consumer 0 goes first
   for (int i = c; i < n_local; i += 2) {
@@ -406,20 +407,15 @@ gemm_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constant__ CUt
               y0 = gelu_erf3(y0);
               y1 = gelu_erf3(y1);
             }
-            if constexpr (kF32) {
-              *reinterpret_cast<float2*>(stg + r * kRowWords + 8 * jj + 2 * (lane & 3)) =
-                  make_float2(y0, y1);
-            } else {
-              *reinterpret_cast<__nv_bfloat162*>(stg + r * kRowWords + 4 * jj + (lane & 3)) =
-                  __floats2bfloat162_rn(y0, y1);
-            }
+            *reinterpret_cast<__nv_bfloat162*>(stg + r * kRowWords + 4 * jj + (lane & 3)) =
+                __floats2bfloat162_rn(y0, y1);
           }
         }
         bar_sync(1 + c, 128);
 #pragma unroll
         for (int u = 0; u < kSegs; ++u) {
           const int sgm = tid + 128 * u, r = sgm / kSegsRow, q = sgm % kSegsRow;
-          const int row = m0 + 64 * h + r, col = n0 + 32 * ch + q * (kF32 ? 4 : 8);
+          const int row = m0 + 64 * h + r, col = n0 + 32 * ch + q * 8;
           if (row >= M || col >= N) continue;
           uint4 v = *reinterpret_cast<const uint4*>(stg + r * kRowWords + 4 * q);
           if (kRes) {
@@ -440,11 +436,7 @@ gemm_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constant__ CUt
             }
             v = o;
           }
-          const size_t o = (size_t)row * N + col;
-          if (kF32)
-            *reinterpret_cast<uint4*>(static_cast<float*>(out) + o) = v;
-          else
-            *reinterpret_cast<uint4*>(static_cast<bf16*>(out) + o) = v;
+          *reinterpret_cast<uint4*>(static_cast<bf16*>(out) + (size_t)row * N + col) = v;
         }
       }
     }

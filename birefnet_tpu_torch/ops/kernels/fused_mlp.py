@@ -22,10 +22,14 @@ W8A8 (ComputeConfig.int8_mlp): blocks whose fc1 carries `weight_q8`
 (params.quantize_mlp_int8) run `fused_mlp_residual_int8` instead, the port
 of birefnet_tpu/ops/pallas/fused_mlp.py::_fused_i8 (body `_kernel_i8`), as
 the JAX function dispatches on `kernel_q8`. Its CUDA route
-(csrc/fused_mlp_i8.cu) is four launches: LN2 + per-token int8 rows, an
-int8 fc1 GEMM whose epilogue dequantizes, adds b1 and applies the 3-term
-erf GELU into an f32 [T, 4C] scratch, per-token int8 of that hidden over
-all 4C units, and an int8 fc2 GEMM with dequant, b2 and the residual.
+(csrc/fused_mlp_i8.cu) is two launches: LN2 + per-token int8 rows (the
+row pass of csrc/int8_gemm.cu, into [T, C] codes and [T] scales), then one
+thread-block-cluster kernel that runs fc1, the dequant, b1 and the 3-term
+erf GELU, the per-token int8 of the whole 4C hidden row and fc2 with the
+dequant, b2 and the residual, the hidden kept in the cluster's shared
+memory (CLUSTER_SLICE hidden units per CTA, `cluster_size(C)` CTAs). There
+is no [T, 4C] scratch. `fused_mlp_residual_int8_codes` runs the cluster
+kernel alone from given LN2 codes (for the tests and chip_smoke.py).
 
 The kernels take bf16 activations only. Both wrappers take their plain
 version for a CPU tensor and launch their kernel for a CUDA tensor or
@@ -69,6 +73,29 @@ def fused_mlp_residual_int8_plain(x: torch.Tensor, norm2_params,
     h = quant.gelu_erf3(quant.int8_linear(q, sx, fc1))
     q2, sx2 = quant.quantize_rows(h)
     return x + quant.int8_linear(q2, sx2, fc2).to(x.dtype)
+
+
+# Hidden units and fc2 output columns per CTA of K3's cluster kernel
+# (csrc/fused_mlp_i8.cu: kSlice, kOut), and its largest cluster.
+CLUSTER_SLICE, CLUSTER_OUT, CLUSTER_MAX = 384, 96, 16
+
+
+def cluster_size(c: int) -> int:
+    """CTAs per cluster of K3's kernel at width C: ceil(C / 96), so that
+    the slices cover the 4C hidden units and the output columns the C."""
+    return -(-c // CLUSTER_OUT)
+
+
+def fused_mlp_residual_int8_codes_plain(x: torch.Tensor, codes: torch.Tensor,
+                                        scales: torch.Tensor,
+                                        mlp_params) -> torch.Tensor:
+    """Plain version of the cluster kernel from given LN2 codes [T, C] int8
+    and scales [T, 1] f32 (x [T, C]): int8_linear -> gelu_erf3 ->
+    quantize_rows -> int8_linear -> + x, as fused_mlp_residual_int8_plain
+    after its LN2 codes."""
+    h = quant.gelu_erf3(quant.int8_linear(codes, scales, mlp_params["fc1"]))
+    q2, sx2 = quant.quantize_rows(h)
+    return x + quant.int8_linear(q2, sx2, mlp_params["fc2"]).to(x.dtype)
 
 
 def _check(x: torch.Tensor, tensors, multiple: int, max_c: int) -> None:
@@ -126,39 +153,75 @@ def fused_mlp_residual(x: torch.Tensor, norm2_params,
 fused_mlp_residual.launches = 0
 
 
-def fused_mlp_residual_int8(x: torch.Tensor, norm2_params,
-                            mlp_params) -> torch.Tensor:
-    """W8A8 x + MLP(LN2(x)) on [..., C]: plain version on the CPU, the CUDA
-    kernels of csrc/fused_mlp_i8.cu on a CUDA tensor (bf16 only)."""
-    if x.device.type == "cpu":
-        return fused_mlp_residual_int8_plain(x, norm2_params, mlp_params)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_mlp_int8 runs on cpu or cuda, got {x.device}")
+def _int8_weights(x: torch.Tensor, mlp_params):
     c = x.shape[-1]
     f32, i8 = torch.float32, torch.int8
     fc1, fc2 = mlp_params["fc1"], mlp_params["fc2"]
-    args = [("x", x, torch.bfloat16, tuple(x.shape)),
-            ("ln scale", norm2_params["scale"], f32, (c,)),
-            ("ln bias", norm2_params["bias"], f32, (c,)),
-            ("fc1 weight_q8", fc1["weight_q8"], i8, (4 * c, c)),
+    return [("fc1 weight_q8", fc1["weight_q8"], i8, (4 * c, c)),
             ("fc1 scale_q8", fc1["scale_q8"], f32, (4 * c,)),
             ("fc1 bias", fc1["bias"], f32, (4 * c,)),
             ("fc2 weight_q8", fc2["weight_q8"], i8, (c, 4 * c)),
             ("fc2 scale_q8", fc2["scale_q8"], f32, (c,)),
             ("fc2 bias", fc2["bias"], f32, (c,))]
-    _check(x, args, 64, 1536)
+
+
+def fused_mlp_residual_int8(x: torch.Tensor, norm2_params,
+                            mlp_params) -> torch.Tensor:
+    """W8A8 x + MLP(LN2(x)) on [..., C]: plain version on the CPU; on a
+    CUDA tensor (bf16 only) the LN2 row pass and the cluster kernel of
+    csrc/fused_mlp_i8.cu, counted as one launch of K3."""
+    if x.device.type == "cpu":
+        return fused_mlp_residual_int8_plain(x, norm2_params, mlp_params)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_mlp_int8 runs on cpu or cuda, got {x.device}")
+    c = x.shape[-1]
+    f32 = torch.float32
+    args = [("x", x, torch.bfloat16, tuple(x.shape)),
+            ("ln scale", norm2_params["scale"], f32, (c,)),
+            ("ln bias", norm2_params["bias"], f32, (c,)),
+            *_int8_weights(x, mlp_params)]
+    _check(x, args, 64, CLUSTER_MAX * CLUSTER_OUT)
     t = x.numel() // c
-    codes = torch.empty((t, 4 * c), dtype=i8, device=x.device)
+    codes = torch.empty((t, c), dtype=torch.int8, device=x.device)
     scales = torch.empty((t,), dtype=f32, device=x.device)
-    hidden = torch.empty((t, 4 * c), dtype=f32, device=x.device)
     out = torch.empty_like(x)
-    fn = build.function("bt_fused_mlp_i8", 13, 2)
+    fn = build.function("bt_fused_mlp_i8", 12, 2)
     code = fn(*[a.data_ptr() for _, a, _, _ in args], codes.data_ptr(),
-              scales.data_ptr(), hidden.data_ptr(), out.data_ptr(), t, c,
-              torch.cuda.current_stream(x.device).cuda_stream)
+              scales.data_ptr(), out.data_ptr(), t, c, build.stream(x.device))
     build.check(code, "fused_mlp_int8")
     fused_mlp_residual_int8.launches += 1
     return out
 
 
 fused_mlp_residual_int8.launches = 0
+
+
+def fused_mlp_residual_int8_codes(x: torch.Tensor, codes: torch.Tensor,
+                                  scales: torch.Tensor,
+                                  mlp_params) -> torch.Tensor:
+    """The cluster kernel alone on x [T, C] bf16 from given LN2 codes [T, C]
+    int8 and scales [T, 1] f32: the plain version on the CPU, the kernel
+    on a CUDA tensor; its launches are counted apart from K3's."""
+    if x.device.type == "cpu":
+        return fused_mlp_residual_int8_codes_plain(x, codes, scales,
+                                                   mlp_params)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_mlp_int8 runs on cpu or cuda, got {x.device}")
+    if x.ndim != 2:
+        raise ValueError(f"fused_mlp_int8_codes takes x [T, C], got "
+                         f"{tuple(x.shape)}")
+    t, c = x.shape
+    args = [("codes", codes, torch.int8, (t, c)),
+            ("scales", scales, torch.float32, (t, 1)),
+            ("x", x, torch.bfloat16, (t, c)), *_int8_weights(x, mlp_params)]
+    _check(x, args, 64, CLUSTER_MAX * CLUSTER_OUT)
+    out = torch.empty_like(x)
+    fn = build.function("bt_fused_mlp_i8_codes", 10, 2)
+    code = fn(*[a.data_ptr() for _, a, _, _ in args], out.data_ptr(), t, c,
+              build.stream(x.device))
+    build.check(code, "fused_mlp_int8_codes")
+    fused_mlp_residual_int8_codes.launches += 1
+    return out
+
+
+fused_mlp_residual_int8_codes.launches = 0

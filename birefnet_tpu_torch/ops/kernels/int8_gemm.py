@@ -1,20 +1,28 @@
 """The int8 GEMM and the int8 row pass of csrc/int8_gemm.cu, called alone.
 
-The model reaches both only inside K1-int8 (`bt_fused_block_attn_i8`) and
-K3 (`bt_fused_mlp_i8`), whose C entries launch them on one stream. These
-two entries run them on their own, for the tests and chip_smoke.py, which
-hold them bit for bit against their plain versions:
+The model reaches the GEMM only inside K1-int8 (`bt_fused_block_attn_i8`)
+and the row pass inside K1-int8 and K3 (`bt_fused_mlp_i8`: its LN2 codes),
+whose C entries launch them on one stream. These two entries run them on
+their own, for the tests and chip_smoke.py, which hold them bit for bit
+against their plain versions:
 
 - `int8_gemm`: epilogue(acc * (sx * sw) + bias) with acc = q w_q8^T exact,
-  the epilogue one of "bf16" (round to bf16, K1-int8's qkv), "residual"
-  (res + bf16(y), K1-int8's proj and K3's fc2) or "gelu" (the 3-term erf
-  GELU in f32, K3's fc1); the plain version is ops/quant.py::int8_linear
-  cast the same way.
-- `quantize_rows`: per-token int8 codes and scales of x, of LayerNorm(x)
-  (K3's LN2) or of bf16(LayerNorm(x) with the canvas's pad tokens zeroed)
-  (K1-int8's LN1); the plain version is ops/quant.py::quantize_rows after
-  the same steps, its LayerNorm with the kernel's f32 statistics (sum / K,
-  then the mean square of x - mean).
+  the epilogue one of "bf16" (round to bf16, K1-int8's qkv) or "residual"
+  (res + bf16(y), K1-int8's proj); the plain version is
+  ops/quant.py::int8_linear cast the same way. Its plain version also
+  takes "gelu" (the 3-term erf GELU in f32, f32 out): the fc1 step of K3's
+  plain chain, which runs on the card only inside K3's cluster kernel
+  (csrc/fused_mlp_i8.cu), so a CUDA tensor with "gelu" is refused.
+- `quantize_rows`: per-token int8 codes and scales of bf16 x, of
+  LayerNorm(x) (K3's LN2) or of bf16(LayerNorm(x) with the canvas's pad
+  tokens zeroed) (K1-int8's LN1); the plain version is
+  ops/quant.py::quantize_rows after the same steps, its LayerNorm with the
+  kernel's f32 statistics (sum / K, then the mean square of x - mean). The
+  plain version also takes f32 rows without LayerNorm (K3's hidden, which
+  the cluster kernel quantizes in shared memory); a CUDA tensor of f32
+  rows is refused.
+- `ln_code_flips`: the row pass's LN codes against the model's plain path
+  (F.layer_norm, then quantize_rows): how many differ, and by how much.
 
 Each takes its plain version for a CPU tensor and launches its kernel for a
 CUDA tensor or raises; each counts its own launches.
@@ -26,11 +34,14 @@ from typing import Optional
 
 import torch
 
+from .. import layers as L
 from .. import quant
 from . import build
 from .fused_block_attn import Canvas, pad_token_rows
 
 EPILOGUES = {"bf16": 0, "residual": 1, "gelu": 2}
+# The epilogues the CUDA GEMM runs (csrc/int8_gemm.cu instantiates these).
+KERNEL_EPILOGUES = ("bf16", "residual")
 
 
 def int8_gemm_plain(q: torch.Tensor, sx: torch.Tensor, params, epilogue: str,
@@ -51,7 +62,8 @@ def int8_gemm(q: torch.Tensor, sx: torch.Tensor, params, epilogue: str,
               res: Optional[torch.Tensor] = None) -> torch.Tensor:
     """epilogue(q W^T dequantized) for q [M, K] int8, sx [M, 1] f32 and a
     linear's `weight_q8` [N, K], `scale_q8` [N], `bias` [N]: bf16 [M, N]
-    ("bf16", "residual" with res bf16 [M, N]) or f32 ("gelu")."""
+    ("bf16", "residual" with res bf16 [M, N]) or, on the CPU only, f32
+    ("gelu")."""
     if epilogue not in EPILOGUES:
         raise ValueError(f"int8_gemm epilogue {epilogue!r} not in "
                          f"{list(EPILOGUES)}")
@@ -59,6 +71,10 @@ def int8_gemm(q: torch.Tensor, sx: torch.Tensor, params, epilogue: str,
         return int8_gemm_plain(q, sx, params, epilogue, res)
     if q.device.type != "cuda":
         raise ValueError(f"int8_gemm runs on cpu or cuda, got {q.device}")
+    if epilogue not in KERNEL_EPILOGUES:
+        raise ValueError(f"int8_gemm kernel epilogue {epilogue!r} not in "
+                         f"{list(KERNEL_EPILOGUES)}: K3's GELU runs inside "
+                         f"its cluster kernel")
     m, k = q.shape
     n = params["weight_q8"].shape[0]
     if n % 8 or k % 16:
@@ -73,8 +89,7 @@ def int8_gemm(q: torch.Tensor, sx: torch.Tensor, params, epilogue: str,
     check("int8_gemm bias", params["bias"], f32, (n,), dev)
     if epilogue == "residual":
         check("int8_gemm res", res, torch.bfloat16, (m, n), dev)
-    out = torch.empty((m, n), device=dev,
-                      dtype=f32 if epilogue == "gelu" else torch.bfloat16)
+    out = torch.empty((m, n), device=dev, dtype=torch.bfloat16)
     fn = build.function("bt_i8_gemm", 7, 4)
     code = fn(q.data_ptr(), sx.data_ptr(), params["weight_q8"].data_ptr(),
               params["scale_q8"].data_ptr(), params["bias"].data_ptr(),
@@ -119,20 +134,19 @@ def quantize_rows_plain(x: torch.Tensor, ln=None,
 
 
 def quantize_rows(x: torch.Tensor, ln=None, canvas: Optional[Canvas] = None):
-    """The row pass of `quantize_rows_plain`: bf16 rows in every form, f32
-    rows without LayerNorm (K3's hidden)."""
+    """The row pass of `quantize_rows_plain`: bf16 rows in every form (and,
+    on the CPU only, f32 rows without LayerNorm)."""
     if canvas is not None and ln is None:
         raise ValueError("quantize_rows: a canvas needs the LayerNorm")
     if x.device.type == "cpu":
         return quantize_rows_plain(x, ln, canvas)
     if x.device.type != "cuda":
         raise ValueError(f"quantize_rows runs on cpu or cuda, got {x.device}")
-    if x.ndim != 2 or x.dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"quantize_rows takes bf16 or f32 [T, K], got "
-                         f"{x.dtype} {tuple(x.shape)}")
+    if x.ndim != 2 or x.dtype != torch.bfloat16:
+        raise ValueError(f"quantize_rows kernel takes bf16 [T, K], got "
+                         f"{x.dtype} {tuple(x.shape)} (K3's f32 hidden rows "
+                         f"are quantized inside its cluster kernel)")
     t, k = x.shape
-    if x.dtype == torch.float32 and ln is not None:
-        raise ValueError("quantize_rows: f32 rows take no LayerNorm")
     if k * x.element_size() % 16:
         raise ValueError(f"quantize_rows needs rows of a multiple of 16 bytes, "
                          f"got K={k}")
@@ -147,14 +161,33 @@ def quantize_rows(x: torch.Tensor, ln=None, canvas: Optional[Canvas] = None):
                          f"{canvas[0]} x {canvas[1]}")
     codes = torch.empty((t, k), dtype=torch.int8, device=x.device)
     scales = torch.empty((t, 1), dtype=torch.float32, device=x.device)
-    fn = build.function("bt_i8_quant_rows", 5, 10)
+    fn = build.function("bt_i8_quant_rows", 5, 9)
     code = fn(x.data_ptr(), None if ln is None else ln["scale"].data_ptr(),
               None if ln is None else ln["bias"].data_ptr(), codes.data_ptr(),
-              scales.data_ptr(), t, k, int(x.dtype == torch.float32), mode,
-              *(canvas or (0, 0, 0, 0, 0, 0)), build.stream(x.device))
+              scales.data_ptr(), t, k, mode, *(canvas or (0, 0, 0, 0, 0, 0)),
+              build.stream(x.device))
     build.check(code, "quantize_rows")
     quantize_rows.launches += 1
     return codes, scales
 
 
 quantize_rows.launches = 0
+
+
+def ln_code_flips(x: torch.Tensor, ln, canvas: Optional[Canvas] = None):
+    """The LN codes of `quantize_rows(x, ln, canvas)` (bf16 rows [T, K])
+    against the plain model's: quant.quantize_rows of F.layer_norm(x) in
+    f32 (K3's LN2 in fused_mlp_residual_int8_plain) or, with a canvas, of
+    bf16(that LayerNorm with the pad tokens zeroed) (K1-int8's LN1). The
+    two sum the statistics in other orders, so a code on a rounding
+    boundary may flip. Returns (codes that differ, largest |difference|,
+    codes compared)."""
+    codes, _ = quantize_rows(x, ln, canvas)
+    h = L.layer_norm(ln, x.float())
+    if canvas is not None:
+        valid = pad_token_rows(canvas, x.shape[0], x.device)
+        h = torch.where(valid[:, None], h, torch.zeros((), device=h.device))
+        h = h.to(torch.bfloat16).float()
+    want, _ = quant.quantize_rows(h)
+    d = (codes.int() - want.int()).abs()
+    return int(d.ne(0).sum()), int(d.max()), d.numel()

@@ -381,9 +381,12 @@ def _quantize_out_channels(w: torch.Tensor):
     """Symmetric per-output-channel int8 of a [out, in] weight from its f32
     values: scale = max(amax, 1e-30) / 127, q = clip(round(w / scale)),
     rounding half to even, divisions as the JAX package computes them.
-    Returns (int8 [out, in], f32 [out])."""
+    Returns (int8 [out, in], f32 [out]). The 127 is a tensor on w's device:
+    PyTorch on CUDA divides by a Python number as a multiply by its rounded
+    reciprocal, which gives other scales than the CPU's division."""
     w = w.float()
-    scale = torch.clamp_min(w.abs().amax(dim=1), 1e-30) / 127.0
+    amax = torch.clamp_min(w.abs().amax(dim=1), 1e-30)
+    scale = amax / torch.full_like(amax, 127.0)
     q = torch.clamp(torch.round(w / scale[:, None]), -127.0, 127.0)
     return q.to(torch.int8).contiguous(), scale
 

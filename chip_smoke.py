@@ -25,17 +25,26 @@ Phases, each printed as it runs; any failure exits non-zero:
    over 3.35 TB/s and the operations its real tokens need over the H100's
    published peak for their type). Check that K1, K1-int8 and K6 take the
    rel-pos bias rounded to bf16: a bias B and bf16(B) give bitwise the
-   same output. The window-attention core that K1 shares with K6-K8
+   same output. K3 (csrc/fused_mlp_i8.cu: the LN2 row pass, then one
+   thread-block-cluster kernel that keeps the [T, 4C] hidden in shared
+   memory) is also run alone from the row pass's LN2 codes at each of its
+   shapes ("cluster" under K3's entry), held bitwise to the plain chain
+   int8_linear -> gelu_erf3 -> quantize_rows -> int8_linear -> + x, and
+   timed beside torch._int_mm for its two products ("int_mm_ms": two
+   calls, the s32 products only, so no library_ms). The int8 row pass's LN
+   codes are counted against the plain model's (F.layer_norm, then
+   quantize_rows) at every K1-int8 LN1 and K3 LN2 shape: how many flip, by
+   at most one step ("ln_code_flips" under both entries). The window-attention core that K1 shares with K6-K8
    (csrc/window_core.cuh) is also timed alone at every Swin-L stage shape
    of both passes (B_ = 2 (Hp/12)^2 windows, 6-48 heads, N = 144, d = 32,
    unmasked and with the offset mask's region ids) through
    flash_window_attention, against its plain version and SDPA; its sums
-   per forward go under K1's entry as "core". The int8 GEMM that K1-int8
-   and K3 share (csrc/int8_gemm.cu) is checked bitwise against its plain
-   version and timed alone at K1-int8's eight Swin-L shapes (qkv and proj
-   of stages 2-3, both passes) and K3's eight, against torch._int_mm (the
-   s32 product only, without the dequant epilogue); its sums go under
-   K1-int8's entry as "int8_gemm" (K3's sums under its key "k3"). The
+   per forward go under K1's entry as "core". The int8 GEMM of K1-int8
+   (csrc/int8_gemm.cu) is checked bitwise against its plain version and
+   timed alone at K1-int8's eight Swin-L shapes (qkv and proj of stages
+   2-3, both passes), against torch._int_mm (the s32 product only, without
+   the dequant epilogue); its sums go under K1-int8's entry as
+   "int8_gemm". The
    bf16 GEMM that K1 and K2 share (csrc/bf16_gemm.cu, the same machinery
    in csrc/wgmma_ring.cuh) is checked against its plain version (F.linear
    in f32 of the bf16 operands plus the epilogue; sums in another order,
@@ -45,11 +54,11 @@ Phases, each printed as it runs; any failure exits non-zero:
    bf16 row pass (csrc/row_ln.cu: LN1 rows with the pads zeroed on K1's
    canvases, LN2 rows for K2), against F.layer_norm. Their sums go under
    K2's entry as "bf16_gemm" and "ln_rows" (K1's under their key "k1",
-   swin_t's under "swin_t"). Last, every int8 GEMM, K1-int8, bf16 GEMM and
-   K6 shape and one K1 call per Swin-L stage runs REPEATS times back to
-   back, and the last output must be bitwise the first (or the bitwise
-   plain one): a fault that shows only sometimes, such as a lost barrier
-   phase, fails here;
+   swin_t's under "swin_t"). Last, every int8 GEMM, K1-int8, K3 (whole and
+   from codes), bf16 GEMM and K6 shape and one K1 call per Swin-L stage
+   runs REPEATS times back to back, and the last output must be bitwise
+   the first (or the bitwise plain one): a fault that shows only
+   sometimes, such as a lost barrier phase or a cluster race, fails here;
 4. drive pipeline.make_infer_fn at 1024^2, batch 2, bf16, kernel tier,
    regular deform mode, random_checkpoint(cfg, 0) (swin_t's rel-pos bias
    tables scaled to std 1, REL_POS_BIAS_SCALE), on uint8 frames, for
@@ -308,13 +317,25 @@ def make_core_report():
 
 def make_gemm_report():
     """The int8 GEMM of csrc/int8_gemm.cu alone at K1-int8's eight Swin-L
-    shapes (and K3's as model "swin_l k3"), reported under K1-int8's entry
-    as "int8_gemm"; held bit for bit to its plain version."""
+    shapes, reported under K1-int8's entry as "int8_gemm"; held bit for bit
+    to its plain version."""
     from birefnet_tpu_torch.ops.kernels import int8_gemm
     return KernelReport(
         "int8_gemm", "cuda", "birefnet_tpu_torch/csrc/int8_gemm.cu",
         "birefnet_tpu/ops/pallas/fused_block_attn.py:208",
         int8_gemm.int8_gemm, None, None, bitwise=True)
+
+
+def make_cluster_report():
+    """K3's cluster kernel alone (csrc/fused_mlp_i8.cu from the row pass's
+    LN2 codes) at K3's shapes, reported under K3's entry as "cluster"; held
+    bit for bit to the plain chain from the same codes."""
+    from birefnet_tpu_torch.ops.kernels import fused_mlp
+    return KernelReport(
+        "fused_mlp_int8_cluster", "cuda",
+        "birefnet_tpu_torch/csrc/fused_mlp_i8.cu",
+        "birefnet_tpu/ops/pallas/fused_mlp.py:186",
+        fused_mlp.fused_mlp_residual_int8_codes, None, None, bitwise=True)
 
 
 def make_bf16_reports():
@@ -360,7 +381,10 @@ def repeat_check(torch, calls, reps=REPEATS):
         f"outputs bitwise as expected ({time.perf_counter() - t0:.1f} s)")
 
 
-def check_kernels(torch, dev, reports, core, gemm, gemm16, rows16):
+def check_kernels(torch, dev, reports, core, gemm, gemm16, rows16, cluster,
+                  extra):
+    """Phase 3. `extra` collects K3's torch._int_mm sums per model and the
+    LN code-flip counts."""
     import torch.nn.functional as F
 
     from birefnet_tpu_torch import params as P
@@ -434,6 +458,11 @@ def check_kernels(torch, dev, reports, core, gemm, gemm16, rows16):
             check_ln_rows(f"{model} k1", f"{label} {route}", depth // 2,
                           canvas.reshape(-1, c), norm1,
                           (hp, hp, k_shift, origin, h, h))
+            if c >= P.INT8_MLP_MIN_CHANNELS:
+                # K1-int8's LN1 codes against the plain model's.
+                count_flips("fused_block_attn_int8", f"{label} {route}",
+                            canvas.reshape(-1, c), norm1,
+                            (hp, hp, k_shift, origin, h, h))
 
             for rep, p, kernel, plain, weights, ops in (
                     (k1, attn, fused_block_attn.fused_window_block_attention,
@@ -527,7 +556,7 @@ def check_kernels(torch, dev, reports, core, gemm, gemm16, rows16):
         lin = {"weight_q8": w, "scale_q8": sw, "bias": randn((n,), 0.5)}
         res = randn((m, n), 1.0, bf) if epilogue == "residual" else None
         args = (q, sx, lin, epilogue, res)
-        out = m * n * (4 if epilogue == "gelu" else 2)
+        out = m * n * 2
         ms = gemm.check(torch, model, f"{label} {epilogue} [{m},{k}]x[{n},{k}]",
                         depth, partial(int8_gemm.int8_gemm, *args),
                         partial(int8_gemm.int8_gemm_plain, *args),
@@ -577,6 +606,59 @@ def check_kernels(torch, dev, reports, core, gemm, gemm16, rows16):
                      library_fn=partial(F.layer_norm, x, (cc,), affine["scale"],
                                         affine["bias"], 1e-5))
 
+    def count_flips(name, label, x, ln, canvas=None):
+        """The int8 row pass's LN codes against the plain model's: codes
+        that differ and the largest step (at most 1)."""
+        flips, worst, n = int8_gemm.ln_code_flips(x, ln, canvas)
+        log(f"{name:<21} {label}: LN codes vs plain model {flips} of {n} "
+            f"differ, by at most {worst}")
+        if worst > 1:
+            fail(f"{name} {label}: an LN code differs by {worst} > 1 step")
+        tally = extra["ln_code_flips"].setdefault(
+            name, {"flipped": 0, "codes": 0, "max_step": 0})
+        tally["flipped"] += flips
+        tally["codes"] += n
+        tally["max_step"] = max(tally["max_step"], worst)
+
+    def check_k3(model, label, depth, x2, norm2, mlp_q, side):
+        """K3 whole against its plain version; its cluster kernel alone from
+        the row pass's codes, bitwise against the plain chain; the two
+        products' torch._int_mm time; the LN2 code flips; the repeats."""
+        t, c = x2.shape
+        weights = nbytes(*(mlp_q[n][k] for n in ("fc1", "fc2")
+                           for k in ("weight_q8", "scale_q8", "bias")))
+        work = (side + weights, {"int8": 16 * c * c * t})
+        whole = partial(fused_mlp.fused_mlp_residual_int8, x2, norm2, mlp_q)
+        k3.check(torch, model, f"{label} T={t} C={c}", depth, whole,
+                 partial(fused_mlp.fused_mlp_residual_int8_plain, x2, norm2,
+                         mlp_q), work)
+        codes, scales = int8_gemm.quantize_rows(x2, norm2)
+        args = (x2, codes, scales, mlp_q)
+        alone = partial(fused_mlp.fused_mlp_residual_int8_codes, *args)
+        cluster.check(torch, model, f"{label} T={t} C={c} from codes", depth,
+                      alone,
+                      partial(fused_mlp.fused_mlp_residual_int8_codes_plain,
+                              *args),
+                      (nbytes(codes, scales) + 2 * nbytes(x2) + weights,
+                       work[1]))
+        q1 = torch.randint(-127, 128, (t, c), generator=gen, device=dev,
+                           dtype=torch.int8)
+        q2 = torch.randint(-127, 128, (t, 4 * c), generator=gen, device=dev,
+                           dtype=torch.int8)
+        mms = [int_mm(torch, q1, mlp_q["fc1"]["weight_q8"]),
+               int_mm(torch, q2, mlp_q["fc2"]["weight_q8"])]
+        if None not in mms:
+            ms = cuda_ms(torch, lambda: [f() for f in mms])
+            sums = extra["int_mm_ms"]
+            sums[model] = sums.get(model, 0.0) + depth * ms
+            log(f"{'fused_mlp_int8':<21} {model} {label}: torch._int_mm of "
+                f"its two products {ms:.4f} ms x{depth}/forward")
+        count_flips("fused_mlp_int8", f"{model} {label} T={t} C={c}", x2,
+                    norm2)
+        repeats.append((f"fused_mlp_int8 {model} {label}", whole, whole()))
+        repeats.append((f"fused_mlp_int8 codes {model} {label}", alone,
+                        fused_mlp.fused_mlp_residual_int8_codes_plain(*args)))
+
     def check_k2_k3_k4(model, label, i, depth, h, c):
         x2 = randn((BATCH * h * h, c), 1.0, bf)
         norm2 = ln_params(c)
@@ -600,14 +682,7 @@ def check_kernels(torch, dev, reports, core, gemm, gemm16, rows16):
         if c >= P.INT8_MLP_MIN_CHANNELS:
             # Every K3 site of both int8 paths: Swin-L's stages 2-3 and
             # swin_t's stage 3 (C = 768, T = 2048 and 512).
-            k3.check(torch, model, f"{label} T={t} C={c}", depth,
-                     lambda: fused_mlp.fused_mlp_residual_int8(x2, norm2, mlp_q),
-                     lambda: fused_mlp.fused_mlp_residual_int8_plain(
-                         x2, norm2, mlp_q),
-                     (side + nbytes(*(mlp_q[n][k] for n in ("fc1", "fc2")
-                                      for k in ("weight_q8", "scale_q8",
-                                                "bias"))),
-                      {"int8": 16 * c * c * t}))
+            check_k3(model, label, depth, x2, norm2, mlp_q, side)
         # Row-LN sites: the stage-output norm, plus the patch-embed norm
         # before stage 0 and the patch-merge norm after stages 0-2.
         sites = [("stage norm", BATCH * h * h, c)]
@@ -644,15 +719,13 @@ def check_kernels(torch, dev, reports, core, gemm, gemm16, rows16):
                 hp = -(-h // ws) * ws
                 label = f"{pass_name} st{i} Hp={hp}"
                 if model == "swin_l" and c >= P.INT8_MLP_MIN_CHANNELS:
-                    # K1-int8's qkv and proj on the canvas, K3's fc1 and
-                    # fc2 on the real tokens; one of each per block.
-                    t_canvas, t_real = BATCH * hp * hp, BATCH * h * h
-                    for m, n, k, epilogue, which in (
-                            (t_canvas, 3 * c, c, "bf16", "swin_l"),
-                            (t_canvas, c, c, "residual", "swin_l"),
-                            (t_real, 4 * c, c, "gelu", "swin_l k3"),
-                            (t_real, c, 4 * c, "residual", "swin_l k3")):
-                        check_gemm(label, depth, m, n, k, epilogue, which)
+                    # K1-int8's qkv and proj on the canvas, one of each per
+                    # block.
+                    t_canvas = BATCH * hp * hp
+                    for m, n, k, epilogue in (
+                            (t_canvas, 3 * c, c, "bf16"),
+                            (t_canvas, c, c, "residual")):
+                        check_gemm(label, depth, m, n, k, epilogue, "swin_l")
                 if model == "swin_l":
                     # K1's qkv and proj on the canvas, one of each per block.
                     for n, epilogue in ((3 * c, "store"), (c, "residual")):
@@ -886,8 +959,11 @@ def main() -> int:
     reports, core = make_reports(), make_core_report()
     gemm = make_gemm_report()
     gemm16, rows16 = make_bf16_reports()
+    cluster = make_cluster_report()
+    extra = {"int_mm_ms": {}, "ln_code_flips": {}}
     with torch.inference_mode():
-        check_kernels(torch, dev, reports, core, gemm, gemm16, rows16)
+        check_kernels(torch, dev, reports, core, gemm, gemm16, rows16, cluster,
+                      extra)
     log("phase 3: every kernel within its bound at every slice shape")
     sums = core.by_model()["swin_l"]
     reports["fused_block_attn"].entry["core"] = dict(
@@ -899,8 +975,36 @@ def main() -> int:
         gemm_sums["swin_l"], source=gemm.entry["source"],
         max_abs_err=gemm.entry["max_abs_err"],
         mean_rel_err=gemm.entry["mean_rel_err"],
-        library="torch._int_mm: the s32 product only, no dequant epilogue",
-        k3=gemm_sums["swin_l k3"])
+        library="torch._int_mm: the s32 product only, no dequant epilogue")
+    # K3: the route, its cluster kernel alone, torch._int_mm of its two
+    # products (two calls, so not a library_ms), the LN code flips.
+    k3 = reports["fused_mlp_int8"]
+    k3_sums = cluster.by_model()
+    k3.entry["design"] = ("the LN2 row pass of csrc/int8_gemm.cu, then one "
+                          "thread-block-cluster kernel (ceil(C/96) CTAs, the "
+                          "hidden in shared memory): 2 device launches a call")
+    k3.entry["cluster"] = dict(
+        k3_sums["swin_l"], source=cluster.entry["source"],
+        max_abs_err=cluster.entry["max_abs_err"], bitwise=True,
+        swin_t=k3_sums["swin_t"])
+    k3.entry["int_mm_ms"] = extra["int_mm_ms"].get("swin_l")
+    k3.entry["int_mm_ms_by_model"] = extra["int_mm_ms"]
+    for name, tally in extra["ln_code_flips"].items():
+        reports[name].entry["ln_code_flips"] = tally
+        log(f"phase 3: {name}: LN codes vs the plain model's: "
+            f"{tally['flipped']} of {tally['codes']} differ, by at most "
+            f"{tally['max_step']}")
+    k3m = k3.by_model()
+    for model in ("swin_l", "swin_t"):
+        m, cm = k3m[model], k3_sums[model]
+        mm = extra["int_mm_ms"].get(model)
+        log(f"phase 3: K3 at {model}'s shapes per forward: kernel "
+            f"{m['ms']:.4f} ms (its cluster kernel alone {cm['ms']:.4f}), "
+            f"torch._int_mm of the two products "
+            f"{'n/a' if mm is None else f'{mm:.4f}'} ms, plain "
+            f"{m['plain_ms']:.4f} ms, bound {m['bound_ms']:.4f} ms "
+            f"({m['bound_by']}); {m['bound_ms'] / m['ms']:.3f} of the bound "
+            f"({smi})")
     for key, rep, lib in (
             ("bf16_gemm", gemm16,
              "F.linear: the bf16 product and bias, no GELU or residual"),
@@ -925,8 +1029,7 @@ def main() -> int:
             f"{m['library_ms']:.4f} ms, plain {m['plain_ms']:.4f} ms, bound "
             f"{m['bound_ms']:.4f} ms ({m['bound_by']}); kernel / SDPA "
             f"{m['ms'] / m['library_ms']:.3f} ({smi})")
-    for name, m in (("K1-int8's int8 GEMMs", gemm_sums["swin_l"]),
-                    ("K3's int8 GEMMs", gemm_sums["swin_l k3"])):
+    for name, m in (("K1-int8's int8 GEMMs", gemm_sums["swin_l"]),):
         lib = ("n/a" if m["library_ms"] is None
                else f"{m['library_ms']:.4f} ms")
         log(f"phase 3: {name} per forward: kernel {m['ms']:.4f} ms, "

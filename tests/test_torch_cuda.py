@@ -86,21 +86,17 @@ def test_row_ln_kernel_matches_plain(dev, shape, dtype):
     _assert_close(got, row_ln.layer_norm_rows_plain(p, x))
 
 
-# (M, N, K, epilogue): K1-int8's qkv ("bf16") and proj ("residual") and
-# K3's fc1 ("gelu") and fc2 ("residual") at every Swin-L int8 site of a
-# batch-2 1024^2 forward (full and half pass, stages 2 and 3), then every
-# epilogue at an M tail of 100 rows, once at K = 64 and N = 192 (tiles and a
-# k step that TMA fills past the matrix) and once at K1-int8's qkv width.
+# (M, N, K, epilogue): K1-int8's qkv ("bf16") and proj ("residual") at
+# every Swin-L int8 site of a batch-2 1024^2 forward (full and half pass,
+# stages 2 and 3), then each epilogue at an M tail of 100 rows, once at K =
+# 64 and N = 192 (tiles and a k step that TMA fills past the matrix) and
+# once at K1-int8's qkv width. (K3 runs its own cluster kernel.)
 INT8_GEMM_SHAPES = (
     [(m, 3 * c, c, "bf16") for m, c in ((10368, 768), (2592, 1536),
                                          (2592, 768), (1152, 1536))]
     + [(m, c, c, "residual") for m, c in ((10368, 768), (2592, 1536),
                                            (2592, 768), (1152, 1536))]
-    + [(m, 4 * c, c, "gelu") for m, c in ((8192, 768), (2048, 1536),
-                                           (2048, 768), (512, 1536))]
-    + [(m, c, 4 * c, "residual") for m, c in ((8192, 768), (2048, 1536),
-                                               (2048, 768), (512, 1536))]
-    + [(100, n, k, e) for e in ("bf16", "residual", "gelu")
+    + [(100, n, k, e) for e in ("bf16", "residual")
        for n, k in ((192, 64), (2304, 768))])
 
 
@@ -216,7 +212,8 @@ def _exact_ln_rows(gen, t, k, dev):
 # (rows, K, dtype, LayerNorm, canvas (Hp, Wp, shift, origin, h_real,
 # w_real)): K1-int8's attention rows (bf16, no LN) and LN1 on the Swin-L
 # int8 canvases (rolled, offset, unshifted), K3's LN2 (bf16, LN, no
-# rounding) and its f32 hidden rows of 4C, and small rows off the ladder.
+# rounding), and small rows off the ladder. (K3's f32 hidden rows are
+# quantized inside its cluster kernel.)
 QUANT_ROW_CASES = [
     (2592, 768, "bf16", False, None), (1152, 1536, "bf16", False, None),
     (100, 64, "bf16", False, None),
@@ -225,8 +222,6 @@ QUANT_ROW_CASES = [
     (2 * 24 * 24, 1536, "bf16", True, (24, 24, 0, 0, 16, 16)),
     (2 * 72 * 72, 768, "bf16", True, (72, 72, 6, 0, 64, 64)),
     (2048, 768, "bf16", True, None), (512, 1536, "bf16", True, None),
-    (8192, 3072, "f32", False, None), (512, 6144, "f32", False, None),
-    (100, 256, "f32", False, None),
 ]
 
 
@@ -242,8 +237,7 @@ def test_quantize_rows_matches_plain_bitwise(dev, t, k, dtype, ln, canvas):
         lnp = {"scale": 1 + 0.1 * _randn(gen, (k,), dev),
                "bias": 0.1 * _randn(gen, (k,), dev)}
     else:
-        x = _randn(gen, (t, k), dev, 2.0,
-                   torch.float32 if dtype == "f32" else torch.bfloat16)
+        x = _randn(gen, (t, k), dev, 2.0, torch.bfloat16)
         lnp = None
     n0 = int8_gemm.quantize_rows.launches
     codes, scales = int8_gemm.quantize_rows(x, lnp, canvas)
@@ -320,8 +314,16 @@ def _quantized(tree, key):
                                        torch.bfloat16)
 
 
-@pytest.mark.parametrize("t,c", [(100, 64), (512, 192), (512, 768),
-                                 (48, 1536)])
+# (T, C) of K3's cluster kernel: every Swin-L site (stage 2: C = 768, 18
+# blocks; stage 3: 1536, 2 blocks; full and half pass; swin_t's stage 3 is
+# (2048, 768) and (512, 768)), swin_b's stage 3 (C = 1024: 11 CTAs a
+# cluster, slices padded past 4C), and tails: M tails of 100 and 48 rows,
+# C = 64 (one CTA, 256 of its 384 hidden units real) and 192.
+K3_SHAPES = [(8192, 768), (2048, 768), (2048, 1536), (512, 1536),
+             (2048, 1024), (100, 64), (512, 192), (512, 768), (48, 1536)]
+
+
+@pytest.mark.parametrize("t,c", K3_SHAPES)
 def test_fused_mlp_int8_kernel_matches_plain(dev, t, c):
     gen = torch.Generator(dev).manual_seed(6)
     x = _randn(gen, (t, c), dev, 1.0, torch.bfloat16)
@@ -334,6 +336,93 @@ def test_fused_mlp_int8_kernel_matches_plain(dev, t, c):
     assert fused_mlp.fused_mlp_residual.launches == n16
     _assert_close(got, fused_mlp.fused_mlp_residual_int8_plain(x, n2, mlp),
                   MEAN_BOUND_I8)
+
+
+@pytest.mark.parametrize("t,c", K3_SHAPES)
+def test_fused_mlp_int8_codes_matches_plain_chain_bitwise(dev, t, c):
+    """K3's cluster kernel from given LN2 codes and scales (the row pass's)
+    equals int8_linear -> gelu_erf3 -> quantize_rows -> int8_linear -> + x
+    on the card, bit for bit: its integer sums are exact in any split and
+    every f32 step rounds where the plain chain does."""
+    gen = torch.Generator(dev).manual_seed(7)
+    x = _randn(gen, (t, c), dev, 1.0, torch.bfloat16)
+    n2, mlp = _mlp_params(gen, c, dev)
+    mlp = _quantized(pparams.tree_map(lambda _, v: v.float(), mlp), "mlp")
+    codes, scales = int8_gemm.quantize_rows(x, n2)
+    n0 = fused_mlp.fused_mlp_residual_int8_codes.launches
+    got = fused_mlp.fused_mlp_residual_int8_codes(x, codes, scales, mlp)
+    assert fused_mlp.fused_mlp_residual_int8_codes.launches == n0 + 1
+    want = fused_mlp.fused_mlp_residual_int8_codes_plain(x, codes, scales, mlp)
+    diff = (got.float() - want.float()).abs()
+    assert torch.equal(got, want), (f"{int(diff.ne(0).sum())} of "
+                                    f"{diff.numel()} differ, max "
+                                    f"{float(diff.max())}")
+
+
+def test_int8_entries_refuse_what_k3_runs_inside(dev):
+    """The int8 GEMM has no GELU kernel and the row pass no f32 rows on the
+    card: K3's cluster kernel runs both in shared memory."""
+    gen = torch.Generator(dev).manual_seed(10)
+    q, sx, lin = _int8_gemm_case(10, 64, 64, 64, dev)
+    with pytest.raises(ValueError, match="epilogue"):
+        int8_gemm.int8_gemm(q, sx, lin, "gelu")
+    with pytest.raises(ValueError, match="bf16"):
+        int8_gemm.quantize_rows(_randn(gen, (64, 256), dev))
+
+
+def test_int8_weights_quantized_on_the_card_equal_the_cpu(dev):
+    """make_infer_fn quantizes the Swin-L tree on the card: K1-int8's and
+    K3's int8 codes and scales equal the CPU quantizer's, bit for bit."""
+    from birefnet_tpu_torch.configs import BiRefNetConfig
+
+    cfg = BiRefNetConfig.swin_l()
+    tree = pparams.build_param_tree(pparams.random_checkpoint(cfg, 0), cfg)
+    bb = {k: v for k, v in tree.items() if k == "bb"}
+    cpu = pparams.quantize_attn_int8(pparams.quantize_mlp_int8(bb))
+    card = pparams.quantize_attn_int8(pparams.quantize_mlp_int8(
+        pparams.to_device(bb, dev)))
+    want = {k: v for k, v in _flat(cpu) if k.endswith(("_q8"))}
+    got = {k: v for k, v in _flat(card) if k.endswith(("_q8"))}
+    assert len(want) == 4 * 20 * 2 and got.keys() == want.keys()
+    bad = {k: int(got[k].cpu().ne(v).sum()) for k, v in want.items()
+           if not torch.equal(got[k].cpu(), v)}
+    assert not bad, f"entries that differ on the card: {bad}"
+
+
+def _flat(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", v
+
+
+# (rows, C, canvas) of the LN row pass: K1-int8's LN1 on the Swin-L int8
+# canvases (stage 2 full and half pass, rolled and offset; stage 3) and K3's
+# LN2 on the real tokens (stages 2 and 3, full and half pass).
+LN_FLIP_CASES = [
+    (2 * 72 * 72, 768, (72, 72, 6, 0, 64, 64)),
+    (2 * 72 * 72, 768, (72, 72, 0, 4, 64, 64)),
+    (2 * 36 * 36, 768, (36, 36, 6, 0, 32, 32)),
+    (2 * 36 * 36, 1536, (36, 36, 0, 0, 32, 32)),
+    (2 * 24 * 24, 1536, (24, 24, 6, 0, 16, 16)),
+    (8192, 768, None), (2048, 768, None), (2048, 1536, None),
+    (512, 1536, None),
+]
+
+
+@pytest.mark.parametrize("t,c,canvas", LN_FLIP_CASES)
+def test_ln_code_flips_are_rare_and_one_step(dev, t, c, canvas):
+    """The row pass's LN codes against the plain model's (F.layer_norm, pad
+    zeroing and bf16 rounding, quantize_rows): statistics summed in other
+    orders may flip a code on a rounding boundary, by one step, rarely."""
+    gen = torch.Generator(dev).manual_seed(t + c)
+    x = _randn(gen, (t, c), dev, 1.0, torch.bfloat16)
+    ln = {"scale": 1 + 0.1 * _randn(gen, (c,), dev),
+          "bias": 0.1 * _randn(gen, (c,), dev)}
+    flips, worst, n = int8_gemm.ln_code_flips(x, ln, canvas)
+    assert worst <= 1, f"{flips} of {n} codes differ, by up to {worst}"
+    assert flips <= 1e-3 * n, f"{flips} of {n} codes differ"
 
 
 @pytest.mark.parametrize("shift", [0, 6])

@@ -1,8 +1,8 @@
 """The port imports torch, never JAX, the JAX package, the tests or Triton.
 
-Every .py file of birefnet_tpu_torch/, chip_smoke.py and
-tools/gpu_profile.py (the scripts that run on the GPU machine, which has no
-JAX) is parsed with `ast`; an import of `jax`, `birefnet_tpu` (not
+Every .py file of birefnet_tpu_torch/, chip_smoke.py, tools/gpu_profile.py
+and tools/k3_phases.py (the scripts that run on the GPU machine, which has
+no JAX) is parsed with `ast`; an import of `jax`, `birefnet_tpu` (not
 `birefnet_tpu_torch`), `tests` or `triton` fails, wherever it stands: at
 the top of a module, inside a function (a lazy import in a launcher
 counts), or as a constant string given to `importlib.import_module` or
@@ -21,7 +21,8 @@ FILES = sorted(
     os.path.relpath(p, ROOT)
     for p in glob.glob(os.path.join(ROOT, "birefnet_tpu_torch", "**", "*.py"),
                        recursive=True)
-) + ["chip_smoke.py", os.path.join("tools", "gpu_profile.py")]
+) + ["chip_smoke.py", os.path.join("tools", "gpu_profile.py"),
+     os.path.join("tools", "k3_phases.py")]
 BANNED = ("jax", "birefnet_tpu", "tests", "triton")
 
 

@@ -20,9 +20,12 @@ back-to-back calls, what a caller waits for) next to the profiler's device
 time per call (the kernel alone), the same two for F.layer_norm on the
 same input, and the call's byte bound: where event time is well above
 device time, the host launch path, not the device, sets the call's time.
-Then the int8 GEMM of K1-int8 and K3 (csrc/int8_gemm.cu) alone at the
-int8 path's 16 shapes, with the same two times and TOP/s, beside
-torch._int_mm's (the s32 product only, without the dequant epilogue).
+Then the int8 GEMM of K1-int8 (csrc/int8_gemm.cu) alone at the int8
+path's 8 shapes, with the same two times and TOP/s, beside torch._int_mm's
+(the s32 product only, without the dequant epilogue). Then K3
+(csrc/fused_mlp_i8.cu) at its int8-path shapes: the call's event time and
+device time (the LN2 row pass and the cluster kernel), the cluster kernel's
+device time and TOP/s, beside torch._int_mm's two products.
 Last, the bf16 GEMM of K1 and K2 (csrc/bf16_gemm.cu) alone at the bf16
 tier's shapes (32 for Swin-L, 16 for swin_t), with the same two times and
 TFLOP/s, beside F.linear's on the same bf16 operands.
@@ -45,17 +48,21 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # instantiations, named by their row layout: CanvasRows for K1 and K1-int8,
 # StridedRows for K6 (and K7/K8). The wgmma GEMM of csrc/wgmma_ring.cuh is
 # gemm_kernel<input type, epilogue> (0 store, 1 residual, 2 GELU): signed
-# char for the int8 GEMM, __nv_bfloat16 for the bf16 one. The row kernel
-# of csrc/row_ln.cu is row_ln_kernel<type, caller>: 0 K4, 1 K2's LN2 rows,
-# 2 K1's LN1 rows with the pads zeroed.
+# char for the int8 GEMM, __nv_bfloat16 for the bf16 one. K3 is the int8
+# row pass quant_rows_kernel<__nv_bfloat16, LN, PAD> with LN and no PAD
+# (K1-int8's rows are the other two forms), then fused_mlp_i8_kernel, its
+# cluster kernel. The row kernel of csrc/row_ln.cu is row_ln_kernel<type,
+# caller>: 0 K4, 1 K2's LN2 rows, 2 K1's LN1 rows with the pads zeroed.
 GROUPS = [
     ("K1 attention core (bf16 and int8 routes)", ("CanvasRows",)),
     ("K6 window attention (middle tier)", ("StridedRows",)),
     ("K1-int8 int8 GEMM, bf16 out (qkv)", ("gemm_kernel<signed char, 0>",)),
-    ("K1-int8/K3 int8 GEMM + residual (proj, fc2)",
-     ("gemm_kernel<signed char, 1>",)),
-    ("K3 int8 GEMM + GELU (fc1)", ("gemm_kernel<signed char, 2>",)),
-    ("K1-int8/K3 row quantization", ("quant_rows_kernel",)),
+    ("K1-int8 int8 GEMM + residual (proj)", ("gemm_kernel<signed char, 1>",)),
+    ("K3 cluster kernel (fc1, GELU, int8 hidden, fc2)",
+     ("fused_mlp_i8_kernel",)),
+    ("K3 LN2 row quantization",
+     ("quant_rows_kernel<__nv_bfloat16, true, false>",)),
+    ("K1-int8 row quantization", ("quant_rows_kernel",)),
     ("K1 bf16 GEMM (qkv)", ("gemm_kernel<__nv_bfloat16, 0>",)),
     ("K1/K2 bf16 GEMM + residual (proj, fc2)",
      ("gemm_kernel<__nv_bfloat16, 1>",)),
@@ -168,11 +175,12 @@ def row_ln_table(torch, cfg, smi, reps=20):
 
 def gemm_shapes(cfg, kind):
     """(label, M, N, K, epilogue) of the int8 or bf16 GEMMs of a 1024^2
-    batch-2 forward: K3's or K2's fc1 and fc2 on the real tokens and, for a
-    window-12 backbone, K1-int8's or K1's qkv and proj on the window
-    canvas; each runs once per block. The int8 ones run at the stages with
-    C >= 768 on the int8 path; the bf16 ones at every stage on the bf16
-    tier (the int8 path keeps those of C < 768)."""
+    batch-2 forward: for a window-12 backbone K1-int8's or K1's qkv and
+    proj on the window canvas, and K2's fc1 and fc2 on the real tokens
+    (bf16 only: K3 runs its cluster kernel); each runs once per block. The
+    int8 ones run at the stages with C >= 768 on the int8 path; the bf16
+    ones at every stage on the bf16 tier (the int8 path keeps those of C <
+    768)."""
     from birefnet_tpu_torch.params import INT8_MLP_MIN_CHANNELS
 
     ws = cfg.swin_config().window_size
@@ -188,9 +196,72 @@ def gemm_shapes(cfg, kind):
             if ws == 12:
                 shapes += [(f"{pass_name} st{i} qkv", tc, 3 * c, c, store),
                            (f"{pass_name} st{i} proj", tc, c, c, "residual")]
-            shapes += [(f"{pass_name} st{i} fc1", t, 4 * c, c, "gelu"),
-                       (f"{pass_name} st{i} fc2", t, c, 4 * c, "residual")]
+            if kind == "bf16":
+                shapes += [(f"{pass_name} st{i} fc1", t, 4 * c, c, "gelu"),
+                           (f"{pass_name} st{i} fc2", t, c, 4 * c,
+                            "residual")]
     return shapes
+
+
+def k3_table(torch, cfg, smi, reps=20):
+    """K3 per call at the int8 path's shapes: the call's CUDA-event and
+    device time (LN2 row pass and cluster kernel), the cluster kernel's
+    device time and its rate, and torch._int_mm's event and device time
+    for the two products (s32 only, no LayerNorm, GELU or quantization)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from birefnet_tpu_torch import params as P
+    from birefnet_tpu_torch.ops.kernels import fused_mlp
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    gen = torch.Generator("cuda").manual_seed(0)
+    print(f"[profile] K3 per call, us: call event / device, cluster kernel "
+          f"device (TOP/s), _int_mm x2 event / device ({smi})", flush=True)
+    total = [0.0] * 5
+    for pass_name, side in (("full", 256), ("half", 128)):
+        for i, c in enumerate(cfg.backbone_channels):
+            if c < P.INT8_MLP_MIN_CHANNELS:
+                continue
+            h = side >> i
+            t, depth = 2 * h * h, cfg.swin_config().depths[i]
+            x = torch.randn((t, c), generator=gen, device="cuda").to(
+                torch.bfloat16)
+            mlp32 = {n: {"weight": torch.randn((o, k), generator=gen,
+                                               device="cuda") * 0.05,
+                         "bias": torch.zeros(o, device="cuda")}
+                     for n, k, o in (("fc1", c, 4 * c), ("fc2", 4 * c, c))}
+            mlp = P.quantize_mlp_int8({"mlp": mlp32}, 0)["mlp"]
+            ln = {"scale": torch.ones(c, device="cuda"),
+                  "bias": torch.zeros(c, device="cuda")}
+            kern = partial(fused_mlp.fused_mlp_residual_int8, x, ln, mlp)
+            q1 = torch.randint(-127, 128, (t, c), generator=gen, device="cuda",
+                               dtype=torch.int8)
+            q2 = torch.randint(-127, 128, (t, 4 * c), generator=gen,
+                               device="cuda", dtype=torch.int8)
+            w1, w2 = mlp["fc1"]["weight_q8"], mlp["fc2"]["weight_q8"]
+
+            def lib(q1=q1, q2=q2, w1=w1, w2=w2):
+                torch._int_mm(q1, w1.t())
+                torch._int_mm(q2, w2.t())
+
+            row = [event_ms_per_call(torch, kern, reps) * 1e3,
+                   device_ms_per_call(torch, profile, acts, kern, reps,
+                                      lambda s: True) * 1e3,
+                   device_ms_per_call(torch, profile, acts, kern, reps,
+                                      lambda s: "fused_mlp_i8_kernel" in s)
+                   * 1e3,
+                   event_ms_per_call(torch, lib, reps) * 1e3,
+                   device_ms_per_call(torch, profile, acts, lib, reps,
+                                      lambda s: True) * 1e3]
+            total = [a + depth * b / 1e3 for a, b in zip(total, row)]
+            ops = 16 * c * c * t
+            print(f"[profile] K3 {pass_name} st{i} [{t},{c}] x{depth}: "
+                  f"{row[0]:.1f} / {row[1]:.1f}   cluster {row[2]:.1f} "
+                  f"({ops / row[2] / 1e6:.0f})   _int_mm x2 {row[3]:.1f} / "
+                  f"{row[4]:.1f}", flush=True)
+    print(f"[profile] K3 per forward, ms: call {total[0]:.4f} / {total[1]:.4f}, "
+          f"cluster kernel {total[2]:.4f}, _int_mm x2 {total[3]:.4f} / "
+          f"{total[4]:.4f} ({smi})", flush=True)
 
 
 def gemm_table(torch, cfg, smi, kind, reps=20):
@@ -314,7 +385,9 @@ def main() -> int:
             print(f"[profile] {tier}:   top {ms:9.3f} ms  x{n:<4d} {name[:110]}")
         del infer
     row_ln_table(torch, cfg, smi)
-    gemm_table(torch, cfg, smi, "int8")
+    if cfg.swin_config().window_size == 12:
+        gemm_table(torch, cfg, smi, "int8")
+    k3_table(torch, cfg, smi)
     gemm_table(torch, cfg, smi, "bf16")
     return 0
 
