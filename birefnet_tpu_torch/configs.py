@@ -148,9 +148,12 @@ class ComputeConfig:
     kernel), the standalone LayerNorms run the row-LN kernel, and the bf16
     decoder head runs the tap-conv kernel (ops/kernels/). The tier follows
     from the window size, as in the JAX package, whose `use_fused_block`
-    knob the port does not copy. On a CPU tensor every kernel wrapper
-    takes its plain PyTorch version; on a CUDA tensor it launches the
-    kernel or raises.
+    knob the port does not copy. The tier runs in either `dtype`, as the
+    JAX kernels do: bf16 on the bf16 kernels, f32 on their f32 branches
+    (FFMA GEMMs and window-attention core, f32 row passes; no TF32), except
+    the tap-conv head, which the JAX decoder runs for bf16 only. On a CPU
+    tensor every kernel wrapper takes its plain PyTorch version; on a CUDA
+    tensor it launches the kernel or raises.
 
     `int8_mlp` / `int8_attn` select the W8A8 path, as in the JAX package
     (birefnet_tpu/configs.py:277-293): `pipeline.make_infer_fn` quantizes
@@ -161,7 +164,10 @@ class ComputeConfig:
     quantized leaves. So int8 engages only on the kernel tier, at C >= 768;
     the unfused path and the ws=7 middle tier's qkv and proj products read
     the `weight` leaves and ignore the quantized ones (int8_attn changes
-    nothing at ws=7, as in the JAX package).
+    nothing at ws=7, as in the JAX package). The int8 kernels take bf16
+    activations only: with f32 on the kernel tier on the card,
+    `pipeline.make_infer_fn` refuses the int8 flags until their f32
+    branches are ported.
 
     Only `deform_mode="regular"` (offsets ignored: the reference's CPU
     semantics, which the mask-MAE gate compares against) is ported; it is

@@ -12,8 +12,14 @@
 // projection and writes the packed [B_, N, C] output the proj product
 // consumes: no transpose is ever materialized, as on the TPU. The core's
 // note says what bounds it and how its design answers that.
+//
+// bt_flash_window_attn_f32 is the f32 branch of the same three kernels
+// (their dots at precision=HIGHEST): the f32 core of window_core_f32.cuh on
+// the same strided layouts, with the scale, bias and mask unrounded and the
+// causal addend -1e9 in f32.
 
 #include "window_core.cuh"
+#include "window_core_f32.cuh"
 
 // q, k, v, out: bf16, head dim contiguous, at element strides
 // (window, head, token) = strides[0..2] (q), [3..5] (k), [6..8] (v),
@@ -46,4 +52,22 @@ extern "C" int bt_flash_window_attn(const void* q, const void* k, const void* v,
   const bool heads_contiguous = sqh == d && skh == d && svh == d && soh == d;
   return (int)bt::core::run(rows, ad, B, heads, n, d, heads_contiguous,
                             static_cast<cudaStream_t>(stream));
+}
+
+// As bt_flash_window_attn with f32 q, k, v and out: every stride a multiple
+// of 4 elements and every pointer 16-byte aligned; the causal addend is
+// -1e9 in f32.
+extern "C" int bt_flash_window_attn_f32(const void* q, const void* k, const void* v, void* out,
+                                        const void* bias, const void* mask, int sqw, int sqh,
+                                        int sqt, int skw, int skh, int skt, int svw, int svh,
+                                        int svt, int sow, int soh, int sot, int B, int heads,
+                                        int n, int d, int nw, int mask_kind, void* stream) {
+  if (mask != nullptr && B % nw != 0) return (int)cudaErrorInvalidValue;
+  const bt::F32StridedRows rows{static_cast<const float*>(q), static_cast<const float*>(k),
+                                static_cast<const float*>(v), static_cast<float*>(out),
+                                {sqw, sqh, sqt}, {skw, skh, skt}, {svw, svh, svt},
+                                {sow, soh, sot}};
+  const bt::Addends ad{static_cast<const float*>(bias), mask, mask_kind, nw};
+  return (int)bt::core_f32::run<bt::F32StridedRows, false>(rows, ad, B, heads, n, d,
+                                                            static_cast<cudaStream_t>(stream));
 }

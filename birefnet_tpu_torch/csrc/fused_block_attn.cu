@@ -54,10 +54,22 @@
 // 5. i8 gemm<kResidual>: out = x + bf16(acc * (sa * sw) + b).
 // The int8 round trips add 2 C bytes per token each way; the qkv and proj
 // products (8 C^2 integer ops per token) are bound by the int8 peak.
+//
+// f32 entry, bt_fused_block_attn_f32: the f32 branch of the same TPU kernel
+// (its dots at precision=HIGHEST, the q scale, bias and mask unrounded), as
+// the same four launches on f32 tensors (f32.cuh): the f32 row pass (LN1 +
+// pad-zero -> the attention scratch), the f32 FFMA GEMM for qkv -> an f32
+// [T, 3C] scratch, the f32 core of window_core_f32.cuh (F32CanvasRows),
+// and the same GEMM for the projection with the bias and the residual. The
+// JAX kernel runs f32 per head (its packed head groups are bf16 only), and
+// so does the core. Every product is an FFMA, so the GEMMs' 8 C^2 flops
+// per token bound it at the f32 peak of 67 TFLOP/s (f32_gemm.cu).
 
 #include "bf16.cuh"
+#include "f32.cuh"
 #include "int8.cuh"
 #include "window_core.cuh"
+#include "window_core_f32.cuh"
 
 namespace {
 
@@ -83,6 +95,31 @@ cudaError_t attention_core(const bf16* qkv, const void* bias, const void* mask,
                                                                  g.heads, n, kD, false, s);
 }
 
+// The f32 core on the f32 qkv scratch (window_core_f32.cuh, F32CanvasRows),
+// with the mask forms of the bf16 core's canvas layout.
+cudaError_t attention_core_f32(const float* qkv, const void* bias, const void* mask,
+                               int mask_kind, float* attn, int B, const Geometry& g,
+                               cudaStream_t s) {
+  const int nwin = (g.Hp / g.ws) * (g.Wp / g.ws);
+  const bt::F32CanvasRows rows{qkv, attn, g.Hp, g.Wp, g.C, g.ws};
+  const bt::Addends ad{static_cast<const float*>(bias), mask, mask_kind, nwin};
+  return bt::core_f32::run<bt::F32CanvasRows, true>(rows, ad, B * nwin, g.heads, g.ws * g.ws,
+                                                    kD, s);
+}
+
+// The checks both routes of K1 share: head dim 32, N = ws*ws a multiple of
+// 16 and at most 144, C a multiple of 64, Hp and Wp multiples of ws, a
+// bias, and no mask, a dense f32 mask or region ids.
+bool bad_block(int B, int Hp, int Wp, int C, int heads, int ws, const void* bias,
+               const void* mask, int mask_kind) {
+  const int n = ws * ws;
+  return C != heads * kD || C % 64 != 0 || n % 16 != 0 || n > 144 || Hp % ws != 0 ||
+         Wp % ws != 0 || B <= 0 || bias == nullptr ||
+         (mask_kind != bt::kNoMask && mask_kind != bt::kMaskF32 &&
+          mask_kind != bt::kRegionIds) ||
+         ((mask_kind == bt::kNoMask) != (mask == nullptr));
+}
+
 }  // namespace
 
 // x, out [B, Hp, Wp, C] bf16; ln_g, ln_b [C] f32; wqkv [3C, C] bf16;
@@ -99,11 +136,7 @@ extern "C" int bt_fused_block_attn_bf16(
     const void* mask, void* qkv_scratch, void* attn_scratch, void* out, int B,
     int Hp, int Wp, int C, int heads, int ws, int shift, int origin, int h_real,
     int w_real, int mask_kind, void* stream) {
-  const int n = ws * ws;
-  if (C != heads * kD || C % 64 != 0 || n % 16 != 0 || n > 144 || Hp % ws != 0 ||
-      Wp % ws != 0 || B <= 0 || bias == nullptr ||
-      (mask_kind != bt::kNoMask && mask_kind != bt::kMaskF32 && mask_kind != bt::kRegionIds) ||
-      ((mask_kind == bt::kNoMask) != (mask == nullptr)))
+  if (bad_block(B, Hp, Wp, C, heads, ws, bias, mask, mask_kind))
     return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   const Geometry g{Hp, Wp, C, heads, ws, shift, origin, h_real, w_real};
@@ -139,11 +172,7 @@ extern "C" int bt_fused_block_attn_i8(
     int Wp, int C, int heads, int ws, int shift, int origin, int h_real,
     int w_real, int mask_kind, void* stream) {
   namespace i8 = bt::i8;
-  const int n = ws * ws;
-  if (C != heads * kD || C % 64 != 0 || n % 16 != 0 || n > 144 || Hp % ws != 0 ||
-      Wp % ws != 0 || B <= 0 || bias == nullptr ||
-      (mask_kind != bt::kNoMask && mask_kind != bt::kMaskF32 && mask_kind != bt::kRegionIds) ||
-      ((mask_kind == bt::kNoMask) != (mask == nullptr)))
+  if (bad_block(B, Hp, Wp, C, heads, ws, bias, mask, mask_kind))
     return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   const Geometry g{Hp, Wp, C, heads, ws, shift, origin, h_real, w_real};
@@ -172,4 +201,37 @@ extern "C" int bt_fused_block_attn_i8(
   return (int)i8::gemm<bt::kResidual>(
       q, sc, static_cast<const int8_t*>(wproj), static_cast<const float*>(sproj),
       static_cast<const float*>(bproj), xb, out, T, C, C, s);
+}
+
+// As bt_fused_block_attn_bf16 with every tensor f32: x, out [B, Hp, Wp, C];
+// wqkv [3C, C], wproj [C, C]; qkv_scratch [B*Hp*Wp, 3C] and attn_scratch
+// [B, Hp, Wp, C] f32; every pointer 16-byte aligned.
+extern "C" int bt_fused_block_attn_f32(
+    const void* x, const void* ln_g, const void* ln_b, const void* wqkv,
+    const void* bqkv, const void* wproj, const void* bproj, const void* bias,
+    const void* mask, void* qkv_scratch, void* attn_scratch, void* out, int B,
+    int Hp, int Wp, int C, int heads, int ws, int shift, int origin, int h_real,
+    int w_real, int mask_kind, void* stream) {
+  if (bad_block(B, Hp, Wp, C, heads, ws, bias, mask, mask_kind))
+    return (int)cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  const Geometry g{Hp, Wp, C, heads, ws, shift, origin, h_real, w_real};
+  const int T = B * Hp * Wp;
+  auto* xf = static_cast<const float*>(x);
+  auto* qkv = static_cast<float*>(qkv_scratch);
+  auto* attn = static_cast<float*>(attn_scratch);
+
+  cudaError_t err = bt::ln_rows_f32(xf, static_cast<const float*>(ln_g),
+                                    static_cast<const float*>(ln_b), attn, T, C, &g, s);
+  if (err != cudaSuccess) return (int)err;
+  err = bt::gemm_f32<bt::kStore>(attn, static_cast<const float*>(wqkv),
+                                 static_cast<const float*>(bqkv), nullptr, qkv, T, 3 * C, C, s);
+  if (err != cudaSuccess) return (int)err;
+
+  err = attention_core_f32(qkv, bias, mask, mask_kind, attn, B, g, s);
+  if (err != cudaSuccess) return (int)err;
+
+  return (int)bt::gemm_f32<bt::kResidual>(attn, static_cast<const float*>(wproj),
+                                          static_cast<const float*>(bproj), xf,
+                                          static_cast<float*>(out), T, C, C, s);
 }

@@ -28,8 +28,18 @@
 // `_erf(fast=True)`, with an exact reciprocal), the hidden rounded to bf16;
 // fc2 + b2 rounded to bf16, then the residual add rounded to bf16: the
 // rounding points of the JAX kernel.
+//
+// f32 entry, bt_fused_mlp_f32: the f32 branch of the same TPU kernel (its
+// dots at precision=HIGHEST, the 5-coefficient erf), as the same three
+// launches on f32 rows (f32.cuh): the f32 row pass (LN2 -> the output
+// buffer), the f32 FFMA GEMM with the bias and the exact GELU into an f32
+// [T, 4C] scratch, and the same GEMM with the bias and the residual. It is
+// bound by the FMA units' 67 TFLOP/s (f32_gemm.cu), not by the hidden's
+// bytes. The JAX kernel's VMEM gate, which sends the f32 C = 1536 stage to
+// the unfused XLA MLP on the TPU, is not ported: this runs at every site.
 
 #include "bf16.cuh"
+#include "f32.cuh"
 
 // x, out [T, C] bf16; ln_g, ln_b [C] f32; w1 [4C, C] bf16; b1 [4C] f32;
 // w2 [C, 4C] bf16; b2 [C] f32; hidden [T, 4C] bf16 scratch. C % 8 == 0;
@@ -52,4 +62,25 @@ extern "C" int bt_fused_mlp_bf16(const void* x, const void* ln_g, const void* ln
   return (int)bt::gemm_bf16<bt::kResidual>(h, static_cast<const bf16*>(w2),
                                            static_cast<const float*>(b2), xb, o, T, C, 4 * C,
                                            s);
+}
+
+// As bt_fused_mlp_bf16 with every tensor f32: x, out [T, C]; w1 [4C, C],
+// w2 [C, 4C]; hidden [T, 4C] f32 scratch. C % 8 == 0 and C <= 8192 (the
+// row pass's widest f32 row); every pointer 16-byte aligned.
+extern "C" int bt_fused_mlp_f32(const void* x, const void* ln_g, const void* ln_b,
+                                const void* w1, const void* b1, const void* w2, const void* b2,
+                                void* hidden, void* out, int T, int C, void* stream) {
+  if (C % 8 != 0 || C <= 0 || C > 8192 || T <= 0) return (int)cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  auto* xf = static_cast<const float*>(x);
+  auto* h = static_cast<float*>(hidden);
+  auto* o = static_cast<float*>(out);
+  cudaError_t err = bt::ln_rows_f32(xf, static_cast<const float*>(ln_g),
+                                    static_cast<const float*>(ln_b), o, T, C, nullptr, s);
+  if (err != cudaSuccess) return (int)err;
+  err = bt::gemm_f32<bt::kGelu>(o, static_cast<const float*>(w1), static_cast<const float*>(b1),
+                                nullptr, h, T, 4 * C, C, s);
+  if (err != cudaSuccess) return (int)err;
+  return (int)bt::gemm_f32<bt::kResidual>(h, static_cast<const float*>(w2),
+                                          static_cast<const float*>(b2), xf, o, T, C, 4 * C, s);
 }

@@ -17,9 +17,11 @@
 //
 // The same kernel, with the canvas's pad tokens zeroed for K1, is the bf16
 // row pass of K1 and K2 (bf16.cuh: ln_rows_bf16): LN1 or LN2 rounded to
-// bf16 into a [T, C] scratch that their GEMMs read.
+// bf16 into a [T, C] scratch that their GEMMs read; and, on f32 rows, the
+// row pass of the f32 K1 and K2 (f32.cuh: ln_rows_f32), LN1 or LN2 in f32.
 
 #include "bf16.cuh"
+#include "f32.cuh"
 #include "rows.cuh"
 
 namespace {
@@ -92,6 +94,14 @@ cudaError_t bt::ln_rows_bf16(const bf16* x, const float* g, const float* b, bf16
                            : launch<bf16, kRows>(x, g, b, y, T, C, 1e-5f, Geometry{}, s);
 }
 
+cudaError_t bt::ln_rows_f32(const float* x, const float* g, const float* b, float* y, int T,
+                            int C, const Geometry* canvas, cudaStream_t s) {
+  if (bad_shape(T, C, 4) || (canvas != nullptr && (canvas->Hp <= 0 || canvas->Wp <= 0)))
+    return cudaErrorInvalidValue;
+  return canvas != nullptr ? launch<float, kCanvasRows>(x, g, b, y, T, C, 1e-5f, *canvas, s)
+                           : launch<float, kRows>(x, g, b, y, T, C, 1e-5f, Geometry{}, s);
+}
+
 // x, y [n, C] contiguous, bf16 (f32 == 0) or f32 (f32 == 1); g, b [C] f32.
 // x, y, g, b 16-byte aligned; C * itemsize % 16 == 0 and at most
 // rows::kRowMaxVecs 16-byte vectors (C <= 16384 bf16).
@@ -115,4 +125,16 @@ extern "C" int bt_bf16_ln_rows(const void* x, const void* g, const void* b, void
   return (int)bt::ln_rows_bf16(static_cast<const bf16*>(x), static_cast<const float*>(g),
                                static_cast<const float*>(b), static_cast<bf16*>(y), T, C,
                                Hp > 0 ? &geo : nullptr, static_cast<cudaStream_t>(stream));
+}
+
+// Entry for the tests and chip_smoke.py only (the model reaches the row
+// pass through bt_fused_block_attn_f32 and bt_fused_mlp_f32): y [T, C] f32
+// = LN(x) of x [T, C] f32 (eps 1e-5), pads zeroed as in bt_bf16_ln_rows.
+extern "C" int bt_f32_ln_rows(const void* x, const void* g, const void* b, void* y, int T,
+                              int C, int Hp, int Wp, int shift, int origin, int h_real,
+                              int w_real, void* stream) {
+  const Geometry geo{Hp, Wp, C, 0, 1, shift, origin, h_real, w_real};
+  return (int)bt::ln_rows_f32(static_cast<const float*>(x), static_cast<const float*>(g),
+                              static_cast<const float*>(b), static_cast<float*>(y), T, C,
+                              Hp > 0 ? &geo : nullptr, static_cast<cudaStream_t>(stream));
 }

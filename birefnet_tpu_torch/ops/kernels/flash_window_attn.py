@@ -2,9 +2,10 @@
 
     out = softmax(q * d^-0.5 @ k^T + bias [+ mask[w % nW]]) @ v
 
-per window w and head, with the bf16 rounding points of the JAX kernels:
-the scale, the q product, the bias and mask addends and the probabilities
-are rounded to bf16; scores, softmax and the P v sum are f32.
+per window w and head, with the rounding points of the JAX kernels: in
+bf16 the scale, the q product, the bias and mask addends and the
+probabilities are rounded to bf16, and scores, softmax and the P v sum are
+f32; in f32 everything is f32.
 
 Replaces the three Pallas kernels of
 birefnet_tpu/ops/pallas/flash_window_attn.py with one CUDA kernel, the
@@ -19,7 +20,8 @@ the JAX names and contracts (minus `interpret`):
   `_flash_plain` without) on [B_, heads, N, d];
 - `flash_attention` (K8) with the JAX package's zero or causal -1e9 bias in
   q.dtype; the kernel takes a causal flag in place of the bias and adds
-  CAUSAL_NEG, that bias rounded to bf16, where a key lies after its query.
+  that bias where a key lies after its query: CAUSAL_NEG (-1e9 rounded to
+  bf16) in bf16, -1e9 in f32.
 
 The kernel reads q, k and v at element strides, so K6 takes its heads'
 columns straight out of the packed projection. It reads the addends as
@@ -28,8 +30,15 @@ the rel-pos bias in f32 (rounded to bf16 as it is staged), the mask as a
 dense [nW, N, N] f32 tensor or as the [nW, N] int32 region ids of an
 SW-MSA mask (window.sw_msa_region_ids, built once per geometry: -100
 where two tokens' ids differ). It is bound by device-memory bytes (see
-the source note). It takes bf16 only, N <= 256 and d a multiple of 8 up
-to 64, and raises outside them.
+the source note). It takes N <= 256 and d a multiple of 8 up to 64, and
+raises outside them.
+
+f32 q, k and v (ComputeConfig(dtype=float32) on the kernel tier) run the
+f32 branch of the same Pallas kernels, whose dots run at
+precision=HIGHEST: the f32 core of csrc/window_core_f32.cuh
+(`bt_flash_window_attn_f32`), FFMA throughout, with the scale, the bias
+and the mask unrounded and the causal addend -1e9 in f32; no tensor core,
+so no TF32.
 
 Each entry point has a plain PyTorch version beside it, built on
 ops/attention.py::window_attention with the bias and mask rounded as the
@@ -86,18 +95,22 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return flash_window_attention_plain(q, k, v, causal_bias(q, causal))
 
 
-# flash_attention's causal addend as the kernel applies it for its causal
-# flag: causal_bias's -1e9 rounded to bf16, the dtype the kernel takes.
+# flash_attention's causal addend as the bf16 kernel applies it for its
+# causal flag: causal_bias's -1e9 rounded to bf16. The f32 kernel adds -1e9
+# unrounded, as causal_bias gives it in f32.
 CAUSAL_NEG = float(torch.tensor(-1e9, dtype=torch.bfloat16))
 
 
-def _strides(t: torch.Tensor, name: str):
-    """(window, head, token) element strides of a [B_, heads, N, d] view."""
-    if t.dtype != torch.bfloat16:
-        raise TypeError(f"flash_window_attn kernel takes bf16, got {name} "
-                        f"{t.dtype} (run f32 with use_flash_attention=False)")
+def _strides(t: torch.Tensor, name: str, dtype: torch.dtype):
+    """(window, head, token) element strides of a [B_, heads, N, d] view of
+    `dtype` (bf16 or f32)."""
+    if t.dtype not in (torch.bfloat16, torch.float32) or t.dtype != dtype:
+        raise TypeError(f"flash_window_attn kernel takes bf16 or f32 q, k, v "
+                        f"and out of one dtype, got {name} {t.dtype} beside "
+                        f"{dtype}")
     s = t.stride()
-    if s[3] != 1 or (s[0] | s[1] | s[2]) % 8 or t.data_ptr() % 16:
+    per16 = 16 // t.element_size()  # elements in 16 bytes
+    if s[3] != 1 or (s[0] | s[1] | s[2]) % per16 or t.data_ptr() % 16:
         raise ValueError(f"flash_window_attn {name}: want a contiguous head "
                          f"dim and 16-byte aligned rows, got strides {s}")
     return s[:3]
@@ -122,9 +135,11 @@ def _launch(q, k, v, out, bias, mask, num_heads, causal=False) -> None:
     if b_ % nw:
         raise ValueError(f"flash_window_attn: B_={b_} is not a multiple of "
                          f"the mask's {nw} windows")
-    strides = (*_strides(q, "q"), *_strides(k, "k"), *_strides(v, "v"),
-               *_strides(out, "out"))
-    fn = build.function("bt_flash_window_attn", 6, 18)
+    dt = q.dtype
+    strides = (*_strides(q, "q", dt), *_strides(k, "k", dt),
+               *_strides(v, "v", dt), *_strides(out, "out", dt))
+    fn = build.function("bt_flash_window_attn_f32" if dt == torch.float32
+                        else "bt_flash_window_attn", 6, 18)
     code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
               None if bias is None else bias.data_ptr(),
               None if mask is None else mask.data_ptr(),

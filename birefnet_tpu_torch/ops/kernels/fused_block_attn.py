@@ -5,9 +5,9 @@ On a padded (and, for cyclic shifted blocks, rolled) NHWC canvas:
     x + proj(per head softmax(q k^T * d^-0.5 + bias [+ SW-MSA mask]) v),
     with q, k, v = qkv(LN1(x) with pad tokens zeroed)
 
-Replaces birefnet_tpu/ops/pallas/fused_block_attn.py::_fused (bf16, not the
-int8 branch), called from models/swin.py for every Swin block: 48 calls per
-Swin-L forward, on canvases from [2, 264, 264, 192] (6 heads) to
+Replaces birefnet_tpu/ops/pallas/fused_block_attn.py::_fused (bf16 and f32,
+not the int8 branch), called from models/swin.py for every Swin block: 48
+calls per Swin-L forward, on canvases from [2, 264, 264, 192] (6 heads) to
 [2, 24, 24, 1536] (48 heads), window 12 (N = 144), head dim 32.
 
 A Hopper block cannot hold the TPU kernel's whole strip of windows, so the
@@ -36,9 +36,18 @@ rounding + per-token int8 rows, an int8 qkv GEMM with dequant and bias,
 the same bf16 attention core, per-token int8 of the attention rows,
 and an int8 proj GEMM with dequant, bias and the residual.
 
-The kernels take bf16 activations only. Both wrappers take their plain
-version for a CPU tensor and launch their kernels for a CUDA tensor or
-raise; each counts its own launches.
+f32 (ComputeConfig(dtype=float32) on the kernel tier): an f32 canvas runs
+`bt_fused_block_attn_f32`, the f32 branch of the same TPU kernel (dots at
+precision=HIGHEST; the q scale, bias and mask unrounded), as the same four
+launches on f32 tensors: the f32 row pass, the FFMA f32 GEMM of
+csrc/f32_gemm.cu for qkv, the f32 core of csrc/window_core_f32.cuh, and the
+same GEMM for the projection with the residual. No tensor core and no
+TF32. The TPU kernel's f32 body already computes per head; its bf16 packed
+head groups (`_PACKED_G`, a TPU matrix-unit workaround) are not copied by
+either route. The W8A8 route takes bf16 activations only
+(fused_mlp.INT8_F32_MISSING). Both wrappers take their plain version for a
+CPU tensor and launch their kernels for a CUDA tensor or raise; each
+counts its own launches.
 """
 
 from __future__ import annotations
@@ -54,6 +63,7 @@ from ..attention import (qkv_window_attention, round_addends,
                          window_attention_forward)
 from . import build
 from . import window_core as core
+from .fused_mlp import INT8_F32_MISSING
 
 
 def _pad_token_mask(hp: int, wp: int, shift: int, origin: int, h_real: int,
@@ -128,10 +138,11 @@ def fused_window_block_attention_int8_plain(
     return x + quant.int8_linear(qa, sa, attn_params["proj"]).to(x.dtype)
 
 
-def _check(x, ws, heads, tensors):
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"fused_block_attn kernel takes bf16 activations, got "
-                        f"{x.dtype} (run f32 with use_flash_attention=False)")
+def _check(x, ws, heads, tensors, int8=False):
+    if x.dtype != torch.bfloat16 and (int8 or x.dtype != torch.float32):
+        raise TypeError(INT8_F32_MISSING if int8 and x.dtype == torch.float32
+                        else f"fused_block_attn kernel takes bf16 or f32 "
+                        f"activations, got {x.dtype}")
     if x.ndim != 4 or not x.is_contiguous():
         raise ValueError("fused_block_attn needs a contiguous [B, Hp, Wp, C] "
                          "input")
@@ -142,12 +153,14 @@ def _check(x, ws, heads, tensors):
             f"fused_block_attn kernel needs head dim 32, C % 64 == 0, "
             f"ws*ws % 16 == 0 and <= 144, Hp and Wp multiples of ws; got "
             f"x {tuple(x.shape)}, heads {heads}, ws {ws}")
+    # bf16 and int8 operands 32-byte aligned, f32 ones 16-byte aligned.
+    align = 16 if x.dtype == torch.float32 else 32
     for name, t, dtype, shape in tensors:
         if (t.dtype != dtype or tuple(t.shape) != shape or t.device != x.device
-                or not t.is_contiguous() or t.data_ptr() % 32):
+                or not t.is_contiguous() or t.data_ptr() % align):
             raise ValueError(
-                f"fused_block_attn {name}: want contiguous 32-byte aligned "
-                f"{dtype} {shape} on {x.device}, got {t.dtype} "
+                f"fused_block_attn {name}: want contiguous {align}-byte "
+                f"aligned {dtype} {shape} on {x.device}, got {t.dtype} "
                 f"{tuple(t.shape)} on {t.device}")
 
 
@@ -197,20 +210,21 @@ def fused_window_block_attention(
         raise ValueError(f"fused_block_attn runs on cpu or cuda, got {x.device}")
     b, hp, wp, c = x.shape
     ws = window_size
-    f32, bf = torch.float32, torch.bfloat16
+    f32, wt = torch.float32, x.dtype
     args = [("ln scale", norm1_params["scale"], f32, (c,)),
             ("ln bias", norm1_params["bias"], f32, (c,)),
-            ("qkv weight", attn_params["qkv"]["weight"], bf, (3 * c, c)),
+            ("qkv weight", attn_params["qkv"]["weight"], wt, (3 * c, c)),
             ("qkv bias", attn_params["qkv"]["bias"], f32, (3 * c,)),
-            ("proj weight", attn_params["proj"]["weight"], bf, (c, c)),
+            ("proj weight", attn_params["proj"]["weight"], wt, (c, c)),
             ("proj bias", attn_params["proj"]["bias"], f32, (c,))]
-    _check(x, ws, num_heads, [("x", x, bf, tuple(x.shape))] + args)
+    _check(x, ws, num_heads, [("x", x, wt, tuple(x.shape))] + args)
     bias, mask_ptr, kind = _addends(x, attn_params, attn_mask, ws, num_heads)
     qkv = torch.empty((b, hp, wp, 3 * c), dtype=x.dtype, device=x.device)
     attn = torch.empty_like(x)
     out = torch.empty_like(x)
     ptrs = [t.data_ptr() for _, t, _, _ in args]
-    fn = build.function("bt_fused_block_attn_bf16", 12, 11)
+    fn = build.function("bt_fused_block_attn_f32" if wt == f32
+                        else "bt_fused_block_attn_bf16", 12, 11)
     code = fn(x.data_ptr(), *ptrs, bias, mask_ptr, qkv.data_ptr(),
               attn.data_ptr(), out.data_ptr(), b, hp, wp, c, num_heads, ws,
               shift_size, origin, h_real, w_real, kind, build.stream(x.device))
@@ -228,7 +242,7 @@ def fused_window_block_attention_int8(
         h_real: int, w_real: int, origin: int = 0) -> torch.Tensor:
     """W8A8 x + proj(window attention(LN1(x))), the contract of
     fused_window_block_attention: plain version on the CPU, the CUDA
-    kernels on a CUDA tensor (bf16 only)."""
+    kernels on a CUDA tensor (bf16 activations only)."""
     if x.device.type == "cpu":
         return fused_window_block_attention_int8_plain(
             x, norm1_params, attn_params, window_size, shift_size, num_heads,
@@ -248,7 +262,8 @@ def fused_window_block_attention_int8(
             ("proj weight_q8", proj_p["weight_q8"], i8, (c, c)),
             ("proj scale_q8", proj_p["scale_q8"], f32, (c,)),
             ("proj bias", proj_p["bias"], f32, (c,))]
-    _check(x, ws, num_heads, [("x", x, torch.bfloat16, tuple(x.shape))] + args)
+    _check(x, ws, num_heads, [("x", x, torch.bfloat16, tuple(x.shape))] + args,
+           int8=True)
     bias, mask_ptr, kind = _addends(x, attn_params, attn_mask, ws, num_heads)
     t = b * hp * wp
     codes = torch.empty((t, c), dtype=i8, device=x.device)

@@ -2,10 +2,10 @@
 
     out = x + fc2(GELU_erf(LN2(x) @ W1^T + b1)) @ W2^T + b2
 
-Replaces birefnet_tpu/ops/pallas/fused_mlp.py::_fused (bf16 branch), called
-from models/swin.py for every Swin block: 48 calls per Swin-L forward, on
-[T, C] tokens from [131072, 192] to [512, 1536], and 24 per swin_t forward
-(20 with int8_mlp), from [131072, 96] to [512, 768].
+Replaces birefnet_tpu/ops/pallas/fused_mlp.py::_fused (bf16 and f32
+branches), called from models/swin.py for every Swin block: 48 calls per
+Swin-L forward, on [T, C] tokens from [131072, 192] to [512, 1536], and 24
+per swin_t forward (20 with int8_mlp), from [131072, 96] to [512, 768].
 
 On the card the MLP is 16 C^2 operations per token, which only the bf16
 tensor cores' wgmma reaches. The CUDA version (`bt_fused_mlp_bf16`) is
@@ -31,9 +31,15 @@ memory (CLUSTER_SLICE hidden units per CTA, `cluster_size(C)` CTAs). There
 is no [T, 4C] scratch. `fused_mlp_residual_int8_codes` runs the cluster
 kernel alone from given LN2 codes (for the tests and chip_smoke.py).
 
-The kernels take bf16 activations only. Both wrappers take their plain
-version for a CPU tensor and launch their kernel for a CUDA tensor or
-raise; each counts its own launches.
+f32 (ComputeConfig(dtype=float32) on the kernel tier): an f32 x runs
+`bt_fused_mlp_f32`, the f32 branch of the same TPU kernel (its dots at
+precision=HIGHEST, the 5-coefficient erf), as the same three launches on
+f32 tensors: the f32 row pass, the FFMA f32 GEMM of csrc/f32_gemm.cu with
+the exact GELU into an f32 [T, 4C] scratch, and the same GEMM with the
+residual (ops/kernels/f32_gemm.py calls both alone). No tensor core and no
+TF32. The W8A8 kernels take bf16 activations only (INT8_F32_MISSING).
+Every wrapper takes its plain version for a CPU tensor and launches its
+kernel for a CUDA tensor or raises; each counts its own launches.
 """
 
 from __future__ import annotations
@@ -98,30 +104,48 @@ def fused_mlp_residual_int8_codes_plain(x: torch.Tensor, codes: torch.Tensor,
     return x + quant.int8_linear(q2, sx2, mlp_params["fc2"]).to(x.dtype)
 
 
-def _check(x: torch.Tensor, tensors, multiple: int, max_c: int) -> None:
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"fused_mlp kernel takes bf16 activations, got "
-                        f"{x.dtype} (run f32 with use_flash_attention=False)")
+# The C entries' widest rows: the row pass takes rows of up to 16384 bf16
+# or 8192 f32 values (csrc/rows.cuh).
+MAX_C = {torch.bfloat16: 16384, torch.float32: 8192}
+# The slice that ports K1-int8 and K3 with f32 activations (ROADMAP.md,
+# queue 2): until it lands their kernels take bf16 activations only.
+INT8_F32_MISSING = ("the W8A8 kernels with f32 activations (K1-int8 and K3 "
+                    "on --dtype float32, the JAX `_kernel_i8` branches) are "
+                    "not ported yet (ROADMAP.md, queue 2): run the int8 "
+                    "flags with bf16, or f32 without them")
+
+
+def _check(x: torch.Tensor, tensors, multiple: int, max_c: int,
+           int8: bool = False) -> None:
+    """Raise unless the kernel takes x and its tensors: bf16 (any entry) or
+    f32 (the non-int8 entry) activations, 32-byte aligned bf16 or int8
+    operands, 16-byte aligned f32 ones, C a multiple of `multiple` up to
+    max_c."""
+    if x.dtype != torch.bfloat16 and (int8 or x.dtype != torch.float32):
+        raise TypeError(INT8_F32_MISSING if int8 and x.dtype == torch.float32
+                        else f"fused_mlp kernel takes bf16 or f32 activations, "
+                        f"got {x.dtype}")
     c = x.shape[-1]
     if c % multiple or c > max_c:
         raise ValueError(f"fused_mlp kernel needs C % {multiple} == 0 and "
                          f"C <= {max_c}, got C={c}")
     if not x.is_contiguous():
         raise ValueError("fused_mlp needs a contiguous input")
+    align = 16 if x.dtype == torch.float32 else 32
     for name, t, dtype, shape in tensors:
         if (t.dtype != dtype or tuple(t.shape) != shape or t.device != x.device
-                or not t.is_contiguous() or t.data_ptr() % 32):
+                or not t.is_contiguous() or t.data_ptr() % align):
             raise ValueError(
-                f"fused_mlp {name}: want contiguous 32-byte aligned {dtype} "
-                f"{shape} on {x.device}, got {t.dtype} {tuple(t.shape)} on "
-                f"{t.device}")
+                f"fused_mlp {name}: want contiguous {align}-byte aligned "
+                f"{dtype} {shape} on {x.device}, got {t.dtype} "
+                f"{tuple(t.shape)} on {t.device}")
 
 
 def fused_mlp_residual(x: torch.Tensor, norm2_params,
                        mlp_params) -> torch.Tensor:
     """x + MLP(LN2(x)) on [..., C]: plain version on the CPU, the CUDA
-    kernel on a CUDA tensor (bf16 only). W8A8 blocks (fc1 carries
-    `weight_q8`) go to fused_mlp_residual_int8."""
+    kernels on a CUDA tensor (bf16 or f32, with weights of x's dtype). W8A8
+    blocks (fc1 carries `weight_q8`) go to fused_mlp_residual_int8."""
     if "weight_q8" in mlp_params["fc1"]:
         return fused_mlp_residual_int8(x, norm2_params, mlp_params)
     if x.device.type == "cpu":
@@ -129,22 +153,22 @@ def fused_mlp_residual(x: torch.Tensor, norm2_params,
     if x.device.type != "cuda":
         raise ValueError(f"fused_mlp runs on cpu or cuda, got {x.device}")
     c = x.shape[-1]
-    f32, bf = torch.float32, torch.bfloat16
-    args = [("x", x, bf, tuple(x.shape)),
+    f32, wt = torch.float32, x.dtype
+    args = [("x", x, wt, tuple(x.shape)),
             ("ln scale", norm2_params["scale"], f32, (c,)),
             ("ln bias", norm2_params["bias"], f32, (c,)),
-            ("fc1 weight", mlp_params["fc1"]["weight"], bf, (4 * c, c)),
+            ("fc1 weight", mlp_params["fc1"]["weight"], wt, (4 * c, c)),
             ("fc1 bias", mlp_params["fc1"]["bias"], f32, (4 * c,)),
-            ("fc2 weight", mlp_params["fc2"]["weight"], bf, (c, 4 * c)),
+            ("fc2 weight", mlp_params["fc2"]["weight"], wt, (c, 4 * c)),
             ("fc2 bias", mlp_params["fc2"]["bias"], f32, (c,))]
-    # The row pass takes rows of up to 16384 bf16 (csrc/rows.cuh).
-    _check(x, args, 8, 16384)
+    _check(x, args, 8, MAX_C.get(wt, 0))
     t = x.numel() // c
-    hidden = torch.empty((t, 4 * c), dtype=bf, device=x.device)
+    hidden = torch.empty((t, 4 * c), dtype=wt, device=x.device)
     out = torch.empty_like(x)
-    fn = build.function("bt_fused_mlp_bf16", 9, 2)
-    code = fn(*[a.data_ptr() for _, a, _, _ in args], hidden.data_ptr(),
-              out.data_ptr(), t, c, build.stream(x.device))
+    name = "bt_fused_mlp_f32" if wt == f32 else "bt_fused_mlp_bf16"
+    code = build.function(name, 9, 2)(
+        *[a.data_ptr() for _, a, _, _ in args], hidden.data_ptr(),
+        out.data_ptr(), t, c, build.stream(x.device))
     build.check(code, "fused_mlp")
     fused_mlp_residual.launches += 1
     return out
@@ -180,7 +204,7 @@ def fused_mlp_residual_int8(x: torch.Tensor, norm2_params,
             ("ln scale", norm2_params["scale"], f32, (c,)),
             ("ln bias", norm2_params["bias"], f32, (c,)),
             *_int8_weights(x, mlp_params)]
-    _check(x, args, 64, CLUSTER_MAX * CLUSTER_OUT)
+    _check(x, args, 64, CLUSTER_MAX * CLUSTER_OUT, int8=True)
     t = x.numel() // c
     codes = torch.empty((t, c), dtype=torch.int8, device=x.device)
     scales = torch.empty((t,), dtype=f32, device=x.device)
@@ -214,7 +238,7 @@ def fused_mlp_residual_int8_codes(x: torch.Tensor, codes: torch.Tensor,
     args = [("codes", codes, torch.int8, (t, c)),
             ("scales", scales, torch.float32, (t, 1)),
             ("x", x, torch.bfloat16, (t, c)), *_int8_weights(x, mlp_params)]
-    _check(x, args, 64, CLUSTER_MAX * CLUSTER_OUT)
+    _check(x, args, 64, CLUSTER_MAX * CLUSTER_OUT, int8=True)
     out = torch.empty_like(x)
     fn = build.function("bt_fused_mlp_i8_codes", 10, 2)
     code = fn(*[a.data_ptr() for _, a, _, _ in args], out.data_ptr(), t, c,

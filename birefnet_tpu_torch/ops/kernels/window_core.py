@@ -1,10 +1,12 @@
-"""Host side of the window-attention core (csrc/window_core.cuh).
+"""Host side of the window-attention cores (csrc/window_core.cuh, and its
+f32 counterpart csrc/window_core_f32.cuh).
 
-The core serves two callers, ops/kernels/flash_window_attn.py (K6, K7,
-K8) and ops/kernels/fused_block_attn.py (K1 and K1-int8). Both pass it the
-score addends as they are, with nothing converted per call: the rel-pos
-bias as [heads, N, N] f32, and the mask as one of the core's MaskKinds.
-This module holds those kinds and the checks of the addends.
+The cores serve two callers, ops/kernels/flash_window_attn.py (K6, K7,
+K8) and ops/kernels/fused_block_attn.py (K1 and K1-int8). Both pass them
+the score addends as they are, with nothing converted per call and in the
+same form for bf16 and f32 activations: the rel-pos bias as [heads, N, N]
+f32, and the mask as one of the cores' MaskKinds. This module holds those
+kinds and the checks of the addends.
 """
 
 from __future__ import annotations

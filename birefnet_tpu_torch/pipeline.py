@@ -10,6 +10,7 @@ workaround and are not ported).
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Tuple
 
 import numpy as np
@@ -17,6 +18,7 @@ import torch
 
 from .configs import IMAGENET_MEAN, IMAGENET_STD, BiRefNetConfig, ComputeConfig
 from .models import birefnet
+from .ops.kernels.fused_mlp import INT8_F32_MISSING
 from .ops.resize import resize_bilinear_half_pixel, resize_lanczos3
 from .params import (cast_matmul_weights, quantize_attn_int8,
                      quantize_mlp_int8, to_device)
@@ -44,6 +46,35 @@ def postprocess(mask: torch.Tensor, out_h: int, out_w: int,
     return m
 
 
+def unsupported(compute: ComputeConfig, device) -> Optional[str]:
+    """Why `compute` cannot run on `device`, or None. The W8A8 kernels take
+    bf16 activations only, so on the card the kernel tier's int8 flags need
+    bf16 until their f32 branches are ported (on the CPU their plain
+    versions take f32)."""
+    if (torch.device(device).type == "cuda" and compute.dtype == torch.float32
+            and compute.use_flash_attention
+            and (compute.int8_mlp or compute.int8_attn)):
+        return INT8_F32_MISSING
+    return None
+
+
+@contextlib.contextmanager
+def full_f32():
+    """Both of PyTorch's TF32 flags off inside, the caller's values back
+    after. cuDNN's flag defaults to True, which runs every f32 convolution
+    in TF32 (about three decimal digits); the JAX package's f32 contract
+    is precision=HIGHEST at every conv and dot."""
+    flags = (torch.backends.cuda.matmul, torch.backends.cudnn)
+    saved = [f.allow_tf32 for f in flags]
+    for f in flags:
+        f.allow_tf32 = False
+    try:
+        yield
+    finally:
+        for f, v in zip(flags, saved):
+            f.allow_tf32 = v
+
+
 def make_infer_fn(params, cfg: BiRefNetConfig,
                   compute: ComputeConfig = ComputeConfig(), device=None,
                   out_size: Optional[Tuple[int, int]] = None,
@@ -57,13 +88,22 @@ def make_infer_fn(params, cfg: BiRefNetConfig,
     matmul and conv weights are cast to `compute.dtype`, as the JAX
     package does. The returned function takes [B, H, W, 3] uint8 frames
     (numpy or tensor) and returns [B, out_h, out_w] masks on the device,
-    out_size defaulting to the frame size.
+    out_size defaulting to the frame size. With an f32 `compute` it runs
+    with PyTorch's TF32 flags off (`full_f32`); the int8 flags on the f32
+    kernel tier on the card raise NotImplementedError (`unsupported`).
     """
     device = torch.device(device if device is not None else "cuda")
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("make_infer_fn runs on the CUDA device unless "
                            "device='cpu' is given, and no CUDA device is "
                            "available")
+    reason = unsupported(compute, device)
+    if reason is not None:
+        raise NotImplementedError(reason)
+    # f32 runs every convolution and product in full f32, whatever TF32
+    # flags the caller has set; bf16 leaves them alone.
+    precision = (full_f32 if compute.dtype == torch.float32
+                 else contextlib.nullcontext)
     params = to_device(params, device)
     if compute.int8_mlp:
         params = quantize_mlp_int8(params)
@@ -78,13 +118,14 @@ def make_infer_fn(params, cfg: BiRefNetConfig,
         frames_u8 = frames_u8.to(device)
         _, h, w, _ = frames_u8.shape
         oh, ow = out_size if out_size is not None else (h, w)
-        x = preprocess(frames_u8, cfg.size, dtype=compute.dtype)
-        # Sigmoid in f32 on the logits: a bf16 mask would round every value
-        # near 0.5 by up to 2e-3 (measured on the card: mask MAE 8.5e-4
-        # against the f32 pipeline with bf16 masks, with logits off by
-        # only 5e-4).
-        logits = birefnet.forward_logits(params, cfg, x, compute)
-        return postprocess(torch.sigmoid(logits.float()), oh, ow,
-                           as_uint8=as_uint8)
+        with precision():
+            x = preprocess(frames_u8, cfg.size, dtype=compute.dtype)
+            # Sigmoid in f32 on the logits: a bf16 mask would round every
+            # value near 0.5 by up to 2e-3 (measured on the card: mask MAE
+            # 8.5e-4 against the f32 pipeline with bf16 masks, with logits
+            # off by only 5e-4).
+            logits = birefnet.forward_logits(params, cfg, x, compute)
+            return postprocess(torch.sigmoid(logits.float()), oh, ow,
+                               as_uint8=as_uint8)
 
     return infer

@@ -12,9 +12,12 @@ Usage:
       --checkpoint model.safetensors --batch 2 --dtype bfloat16 \
       --int8-mlp --int8-attn
 
-It runs on the CUDA device, and on the CPU only under --cpu. Single device
-only: the JAX package's --dp/--spatial meshes, --aot-dir executables and
-the deformable modes are not ported and are refused.
+It runs on the CUDA device, on the kernel tier for either --dtype (as the
+JAX serve does on its TPU), and on the CPU only under --cpu. The int8
+flags with --dtype float32 on the card exit 1: the W8A8 kernels with f32
+activations are not ported yet. Single device only: the JAX package's
+--dp/--spatial meshes, --aot-dir executables and the deformable modes are
+not ported and are refused.
 """
 
 from __future__ import annotations
@@ -49,6 +52,20 @@ def segment(infer: Callable, images: Sequence[np.ndarray], size: int,
             oh, ow = img.shape[:2]
             masks.append(native.resize_lanczos3_u8(m[..., None], oh, ow)[..., 0])
     return masks
+
+
+def compute_config(dtype: str, cuda: bool, int8_mlp: bool = False,
+                   int8_attn: bool = False):
+    """serve's compute policy, as the JAX serve sets it
+    (birefnet_tpu/serve.py:109-111): the kernel tier on the card for either
+    --dtype unless DISABLE_FLASH_ATTN is set, the plain versions on the
+    CPU."""
+    from .configs import ComputeConfig
+
+    return ComputeConfig(
+        dtype=torch.bfloat16 if dtype == "bfloat16" else torch.float32,
+        use_flash_attention=cuda and "DISABLE_FLASH_ATTN" not in os.environ,
+        int8_mlp=int8_mlp, int8_attn=int8_attn)
 
 
 def _paths(inputs: Sequence[str]) -> List[str]:
@@ -104,6 +121,15 @@ def main(argv=None) -> int:
     if not args.cpu and not torch.cuda.is_available():
         parser.error("no CUDA device is available; pass --cpu to run on "
                      "the CPU")
+    from .pipeline import make_infer_fn, unsupported
+
+    device = torch.device("cpu" if args.cpu else "cuda")
+    compute = compute_config(args.dtype, device.type == "cuda",
+                             args.int8_mlp, args.int8_attn)
+    reason = unsupported(compute, device)
+    if reason is not None:
+        print(f"error: {reason}", file=sys.stderr)
+        return 1
 
     paths = _paths(args.inputs)
     if not paths:
@@ -113,19 +139,11 @@ def main(argv=None) -> int:
     import dataclasses
     from PIL import Image
 
-    from .configs import BiRefNetConfig, ComputeConfig
+    from .configs import BiRefNetConfig
     from .params import load_checkpoint
-    from .pipeline import make_infer_fn
 
     cfg = dataclasses.replace(BiRefNetConfig.for_backbone(args.backbone),
                               size=(args.size, args.size))
-    device = torch.device("cpu" if args.cpu else "cuda")
-    dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
-    compute = ComputeConfig(
-        dtype=dtype,
-        use_flash_attention=(device.type == "cuda" and dtype == torch.bfloat16
-                             and "DISABLE_FLASH_ATTN" not in os.environ),
-        int8_mlp=args.int8_mlp, int8_attn=args.int8_attn)
     print(f"Loading {args.checkpoint} ...")
     params = load_checkpoint(args.checkpoint, cfg)
     infer = make_infer_fn(params, cfg, compute, device,

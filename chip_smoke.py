@@ -58,7 +58,19 @@ Phases, each printed as it runs; any failure exits non-zero:
    from codes), bf16 GEMM and K6 shape and one K1 call per Swin-L stage
    runs REPEATS times back to back, and the last output must be bitwise
    the first (or the bitwise plain one): a fault that shows only
-   sometimes, such as a lost barrier phase or a cluster race, fails here;
+   sometimes, such as a lost barrier phase or a cluster race, fails here.
+   The f32 tier: K1, K2 and K4 on f32 activations at every Swin-L shape,
+   the f32 core at K1's 16 shapes (through flash_window_attention), the
+   FFMA f32 GEMM and the f32 row pass alone at every K1 and K2 shape of
+   Swin-L and swin_t, K6 and K2 at every swin_t shape (C = 96 included),
+   K7 and K8 at the JAX test shapes, each against its plain version with
+   TF32 off (max <= BOUND_F32 x max|plain|, mean ratio <= MEAN_BOUND_F32)
+   and timed against F.linear / F.layer_norm / SDPA in f32; at every GEMM
+   and core shape the plain version in TF32 (operands rounded to TF32,
+   flags on) must break the mean bound. The f32 GEMM, core and one K1 call per stage join the repeat
+   check (REPEATS_F32 calls). Phase 3 runs with PyTorch's TF32 flags off;
+   the later phases find them as a user does (make_infer_fn turns them off
+   for an f32 forward itself);
 4. drive pipeline.make_infer_fn at 1024^2, batch 2, bf16, kernel tier,
    regular deform mode, random_checkpoint(cfg, 0) (swin_t's rel-pos bias
    tables scaled to std 1, REL_POS_BIAS_SCALE), on uint8 frames, for
@@ -75,23 +87,31 @@ Phases, each printed as it runs; any failure exits non-zero:
    plain bf16 pipeline's at every stage (and a tree whose rel-pos bias is
    rolled by one head must break that), swin_t's int8 path's at most
    FEATURE_RATIO times its bf16 tier's; the masks of a random checkpoint
-   barely see the backbone. Also the f32 plain forward at 64^2 against the
-   JAX package's committed golden logits;
+   barely see the backbone. Two more paths run the f32 kernel tier
+   (ComputeConfig(use_flash_attention=True)): Swin-L (48/0/48/0/16/0/0/0/0)
+   and swin_t (0/0/24/0/16/0/24/0/0), each held to its f32 plain pipeline
+   (mask MAE < MASK_MAE_F32, every stage's feature error <= FEATURE_F32);
+   Swin-L's f32 plain pipeline with cuDNN's TF32 forced on inside the
+   forward must break that feature gate. Also the f32 plain forward and
+   the f32 kernel tier at 64^2 against the JAX package's committed golden
+   logits;
 5. serve 4 in-memory requests of different sizes through serve.segment on
    every path;
 6. time the pipeline's images/s with CUDA events (median of 5 calls after
-   warm-up) in turns: Swin-L int8 path, bf16 kernel tier, plain bf16;
-   swin_t int8 path, bf16 kernel tier, plain bf16.
+   warm-up) in turns: Swin-L int8 path, bf16 kernel tier, plain bf16, f32
+   kernel tier, plain f32; swin_t int8 path, bf16 kernel tier, plain bf16.
 
 The line before the last is the nvidia-smi name/power line, the one
 before it the JSON kernel report: per kernel `launches` from its main path
-(Swin-L int8 for K1-K5, swin_t bf16 for K6-K8), `launches_by_path` from
-all four, and the times and bound of its main model's forward (one call at
-each checked shape for K7 and K8), with each model's under `by_model`. The
+(Swin-L int8 for K1-K5, swin_t bf16 for K6-K8, the f32 paths for the
+"_f32" entries), `launches_by_path` from all six, and the times and bound
+of its main model's forward (one call at each checked shape for K7 and
+K8), with each model's under `by_model`. The
 last line is `{"ok": true, "device": {...}}`. Without a CUDA device, or
 without the package beside this file, it exits 1 and prints no result.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -147,8 +167,20 @@ REL_POS_BIAS_SCALE = 20.0
 # The bf16 GEMM and row pass round at their plain versions' points and sum
 # in f32 in another order: mean|kernel - plain| / mean|plain| is bounded.
 MEAN_BOUND_BF16 = 1e-4
-# Calls of each shape in phase 3's repeat check.
-REPEATS = 200
+# The f32 tier (K1, K2, K4 and K6-K8 on f32 activations, the FFMA f32 GEMM
+# and window-attention core) is held to its plain versions, run with TF32
+# off: max|kernel - plain| <= BOUND_F32 * max|plain| and mean|kernel -
+# plain| / mean|plain| <= MEAN_BOUND_F32, the f32 bar of ROADMAP.md. The
+# same plain versions in TF32 (their operands rounded to TF32 and the flags
+# on: cuBLAS keeps the small batched products of K6-K8 in f32 even with
+# TF32 allowed) must break the mean bound at every GEMM and core shape, or
+# the bound could not tell f32 from TF32.
+BOUND_F32, MEAN_BOUND_F32 = 1e-4, 1e-5
+# The f32 kernel tier's pipeline against the f32 plain pipeline: mask MAE
+# and the backbone features' mean|f - f32| / mean|f32| per stage tensor.
+MASK_MAE_F32, FEATURE_F32 = 1e-5, 1e-5
+# Calls of each shape in phase 3's repeat check (the f32 shapes: fewer).
+REPEATS, REPEATS_F32 = 200, 100
 # Published H100 SXM peaks (dense): memory bytes/s and operations/s by type.
 MEM_RATE = 3.35e12
 PEAK = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
@@ -181,17 +213,39 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
+def tf32(torch, t):
+    """f32 t rounded to TF32 (10 mantissa bits, to nearest even), as the
+    tensor cores take f32 operands under TF32."""
+    i = t.contiguous().view(torch.int32)
+    return ((i + 0x0FFF + ((i >> 13) & 1)) & -8192).view(torch.float32)
+
+
+@contextlib.contextmanager
+def tf32_on(torch):
+    """Both of PyTorch's TF32 flags on inside, their values back after."""
+    flags = (torch.backends.cuda.matmul, torch.backends.cudnn)
+    saved = [f.allow_tf32 for f in flags]
+    for f in flags:
+        f.allow_tf32 = True
+    try:
+        yield
+    finally:
+        for f, v in zip(flags, saved):
+            f.allow_tf32 = v
+
+
 class KernelReport:
     """Per-kernel max and mean error, and per model's forward (sum over
     shapes of the calls per forward times the per-call value): kernel,
     plain and library time, and the bound."""
 
     def __init__(self, name, route, source, replaces, wrapper, main_path,
-                 mean_bound=None, bitwise=False):
+                 mean_bound=None, bitwise=False, max_bound=BOUND):
         self.wrapper = wrapper
         self.main_path = main_path
         self.mean_bound = mean_bound
         self.bitwise = bitwise
+        self.max_bound = max_bound
         self.entry = {"name": name, "route": route, "source": source,
                       "replaces": replaces, "launches": None,
                       "launches_by_path": {}, "max_abs_err": 0.0,
@@ -201,9 +255,10 @@ class KernelReport:
         self.sums = {}
 
     def check(self, torch, model, label, calls, kernel_fn, plain_fn, work,
-              crop=None, library_fn=None):
-        """work = (bytes moved, {type: operations}) of one call. Returns
-        the kernel's time in ms."""
+              crop=None, library_fn=None, control_fn=None):
+        """work = (bytes moved, {type: operations}) of one call. control_fn,
+        the plain version on operands rounded to TF32, run with TF32 on,
+        must break the mean bound. Returns the kernel's time in ms."""
         got, want = kernel_fn(), plain_fn()
         torch.cuda.synchronize()
         if crop is not None:
@@ -216,9 +271,27 @@ class KernelReport:
             fail(f"{self.entry['name']} {label}: shape {tuple(got.shape)} vs "
                  f"{tuple(want.shape)} or non-finite output")
         err = float((got - want).abs().max())
-        bound = BOUND * float(want.abs().max())
+        bound = self.max_bound * float(want.abs().max())
         mean_rel = float((got - want).abs().mean() / want.abs().mean())
-        del got, want
+        del want
+        if control_fn is not None:
+            with tf32_on(torch):
+                ctl = control_fn()
+            if crop is not None:
+                ctl = crop(ctl)
+            ctl = ctl.float()
+            ctl_rel = float((got - ctl).abs().mean() / ctl.abs().mean())
+            del ctl
+            log(f"{self.entry['name']:<21} {model} {label:<34} control: plain "
+                f"in TF32, mean|k-p|/mean|p| {ctl_rel:.3e} (must exceed "
+                f"{self.mean_bound})")
+            if not ctl_rel > self.mean_bound:
+                fail(f"{self.entry['name']} {label}: the plain version in "
+                     f"TF32 is within the mean bound ({ctl_rel})")
+            e = self.entry
+            e["tf32_control_min"] = min(e.get("tf32_control_min", ctl_rel),
+                                        ctl_rel)
+        del got
         ms, plain_ms = cuda_ms(torch, kernel_fn), cuda_ms(torch, plain_fn)
         byte_ms = work[0] / MEM_RATE * 1e3
         op_ms = sum(n / PEAK[kind] for kind, n in work[1].items()) * 1e3
@@ -305,6 +378,44 @@ def make_reports():
     return {r[0]: KernelReport(*r) for r in rows}
 
 
+def make_f32_reports():
+    """The f32 tier's entries: K1, K2, K4 and K6-K8 on f32 activations
+    (main paths "swin_l f32" and "swin_t f32"; K7/K8 at the JAX test
+    shapes), and the FFMA f32 GEMM, f32 row pass and f32 core alone, whose
+    sums go under the f32 K1's and K2's entries."""
+    from birefnet_tpu_torch.ops.kernels import (f32_gemm, flash_window_attn,
+                                                fused_block_attn, fused_mlp,
+                                                row_ln)
+    csrc, pallas = "birefnet_tpu_torch/csrc/", "birefnet_tpu/ops/pallas/"
+    fwa = csrc + "flash_window_attn.cu"
+    rows = [
+        ("fused_block_attn_f32", csrc + "fused_block_attn.cu",
+         pallas + "fused_block_attn.py:250",
+         fused_block_attn.fused_window_block_attention, "swin_l f32"),
+        ("fused_mlp_f32", csrc + "fused_mlp.cu", pallas + "fused_mlp.py:166",
+         fused_mlp.fused_mlp_residual, "swin_l f32"),
+        ("row_ln_f32", csrc + "row_ln.cu", pallas + "row_ln.py:43",
+         row_ln.layer_norm_rows, "swin_l f32"),
+        ("flash_window_attn_qkv_f32", fwa, pallas + "flash_window_attn.py:163",
+         flash_window_attn.flash_window_attention_qkv, "swin_t f32"),
+        ("flash_window_attn_masked_f32", fwa, pallas + "flash_window_attn.py:91",
+         flash_window_attn.flash_window_attention, "swin_t f32"),
+        ("flash_window_attn_plain_f32", fwa,
+         pallas + "flash_window_attn.py:119", flash_window_attn.flash_attention,
+         "swin_t f32"),
+        ("f32_gemm", csrc + "f32_gemm.cu", pallas + "fused_mlp.py:166",
+         f32_gemm.f32_gemm, None),
+        ("ln_rows_f32", csrc + "row_ln.cu", pallas + "fused_mlp.py:166",
+         f32_gemm.ln_rows_f32, None),
+        ("window_core_f32", csrc + "window_core_f32.cuh",
+         pallas + "fused_block_attn.py:250",
+         flash_window_attn.flash_window_attention, None),
+    ]
+    return {name: KernelReport(name, "cuda", src, rep, fn, path,
+                               MEAN_BOUND_F32, max_bound=BOUND_F32)
+            for name, src, rep, fn, path in rows}
+
+
 def make_core_report():
     """The window-attention core alone (csrc/window_core.cuh) at the Swin-L
     stage shapes, reported under K1's entry as "core"."""
@@ -382,20 +493,24 @@ def repeat_check(torch, calls, reps=REPEATS):
 
 
 def check_kernels(torch, dev, reports, core, gemm, gemm16, rows16, cluster,
-                  extra):
+                  extra, f32r):
     """Phase 3. `extra` collects K3's torch._int_mm sums per model and the
-    LN code-flip counts."""
+    LN code-flip counts; `f32r` holds the f32 tier's reports. Runs with
+    PyTorch's TF32 flags off (the plain versions' f32 products in full f32),
+    except the TF32 controls."""
     import torch.nn.functional as F
 
     from birefnet_tpu_torch import params as P
     from birefnet_tpu_torch.models import swin
     from birefnet_tpu_torch.ops import window as W
-    from birefnet_tpu_torch.ops.kernels import (bf16_gemm, flash_window_attn,
+    from birefnet_tpu_torch.ops.kernels import (bf16_gemm, f32_gemm,
+                                                flash_window_attn,
                                                 fused_block_attn, fused_mlp,
                                                 int8_gemm, row_ln, tap_conv)
 
     gen = torch.Generator(dev).manual_seed(0)
     repeats = []  # (label, fn, expected output) for the repeat check
+    repeats_f32 = []  # the same for the f32 GEMM, core and K1 shapes
     bf = torch.bfloat16
 
     def randn(shape, scale=1.0, dtype=torch.float32):
@@ -409,30 +524,68 @@ def check_kernels(torch, dev, reports, core, gemm, gemm16, rows16, cluster,
 
     def sdpa(q, k, v, bias, mask):
         """The library yardstick of K6-K8: one SDPA call on q, k, v
-        [B_, heads, N, d], with the bias (rounded as the kernel takes it)
-        and mask[w % nW] prebuilt here as one additive bf16 [B_, heads, N,
-        N] tensor, outside the timed calls."""
+        [B_, heads, N, d], with the bias (rounded as the kernel takes it:
+        to bf16 for bf16 q) and mask[w % nW] prebuilt here as one additive
+        [B_, heads, N, N] tensor of q's dtype, outside the timed calls."""
         b_, heads, n, _ = q.shape
-        addend = bias.to(bf).float()[None]
+        addend = (bias.to(bf) if q.dtype == bf else bias).float()[None]
         if mask is not None:
             addend = addend + mask.repeat(b_ // mask.shape[0], 1, 1)[:, None]
         return partial(F.scaled_dot_product_attention, q, k, v,
-                       attn_mask=addend.expand(b_, heads, n, n).to(bf)
+                       attn_mask=addend.expand(b_, heads, n, n).to(q.dtype)
                        .contiguous())
 
-    k1, k1q = reports["fused_block_attn"], reports["fused_block_attn_int8"]
-    k2, k3 = reports["fused_mlp"], reports["fused_mlp_int8"]
-    k4, k5 = reports["row_ln"], reports["tap_conv"]
-    k6, k7 = reports["flash_window_attn_qkv"], reports["flash_window_attn_masked"]
-    k8 = reports["flash_window_attn_plain"]
+    f32 = torch.float32
+    k1q, k3 = reports["fused_block_attn_int8"], reports["fused_mlp_int8"]
+    k5 = reports["tap_conv"]
+    # Each dtype's reports, repeat list, operation type and kernel entries:
+    # the bf16 kernels, and the f32 tier's f32 branches of the same ones.
+    by_dtype = {
+        bf: dict(k1=reports["fused_block_attn"], k2=reports["fused_mlp"],
+                 k4=reports["row_ln"], k6=reports["flash_window_attn_qkv"],
+                 k7=reports["flash_window_attn_masked"],
+                 k8=reports["flash_window_attn_plain"], core=core,
+                 gemm=gemm16, rows=rows16, repeats=repeats, kind="bf16",
+                 gemm_fns=(bf16_gemm.bf16_gemm, bf16_gemm.bf16_gemm_plain),
+                 rows_fns=(bf16_gemm.ln_rows, bf16_gemm.ln_rows_plain)),
+        f32: dict(k1=f32r["fused_block_attn_f32"], k2=f32r["fused_mlp_f32"],
+                  k4=f32r["row_ln_f32"], k6=f32r["flash_window_attn_qkv_f32"],
+                  k7=f32r["flash_window_attn_masked_f32"],
+                  k8=f32r["flash_window_attn_plain_f32"],
+                  core=f32r["window_core_f32"], gemm=f32r["f32_gemm"],
+                  rows=f32r["ln_rows_f32"], repeats=repeats_f32, kind="f32",
+                  gemm_fns=(f32_gemm.f32_gemm, f32_gemm.f32_gemm_plain),
+                  rows_fns=(f32_gemm.ln_rows_f32, f32_gemm.ln_rows_f32_plain)),
+    }
+
+    def tf32_control(plain, dtype, operands, *rest):
+        """For f32, the plain version in TF32: its `operands` rounded to
+        TF32 (the check runs it with the TF32 flags on too); None for
+        bf16."""
+        if dtype == bf:
+            return None
+        return partial(plain, *(tf32(torch, t) for t in operands), *rest)
+
+    def affine_of(x, ln):
+        """F.layer_norm's affine beside x: the kernel's f32 one, unless x is
+        bf16 and PyTorch takes only a bf16 affine beside it."""
+        if x.dtype == bf and not ln_f32_affine:
+            return {k: v.to(bf) for k, v in ln.items()}
+        return ln
 
     def check_k1(model, label, depth, x, h, c, heads, ws, hp):
+        """K1 in x's dtype at one Swin-L stage, unshifted and shifted, with
+        its LN1 row pass alone on each canvas; in bf16 at C >= 768 also
+        K1-int8 and its LN1 code flips."""
+        r = by_dtype[x.dtype]
         norm1 = ln_params(c)
         attn32 = {"qkv": lin(c, 3 * c), "proj": lin(c, c),
                   "cached_bias": randn((heads, ws * ws, ws * ws))}
-        attn = P.cast_matmul_weights(attn32, bf)
-        attn_q = P.cast_matmul_weights(
-            P.quantize_attn_int8({"attn": attn32}, 0)["attn"], bf)
+        attn = P.cast_matmul_weights(attn32, x.dtype)
+        int8 = x.dtype == bf and c >= P.INT8_MLP_MIN_CHANNELS
+        if int8:
+            attn_q = P.cast_matmul_weights(
+                P.quantize_attn_int8({"attn": attn32}, 0)["attn"], bf)
         # The mask as the model passes it: region ids, cached per geometry.
         cyclic_mask = W.sw_msa_region_ids(hp, hp, ws, ws // 2, dev)
         for shift in (0, ws // 2):
@@ -445,9 +598,9 @@ def check_kernels(torch, dev, reports, core, gemm, gemm16, rows16, cluster,
             # k and v are the qkv bias and need no product, and its
             # output is cropped. Bytes stay those of the whole canvas.
             t = BATCH * h * h
-            core = 4 * ws * ws * c * t
+            core_ops = 4 * ws * ws * c * t
             side = nbytes(canvas, norm1["scale"], norm1["bias"],
-                          attn["cached_bias"], mask) + canvas.numel() * 2
+                          attn["cached_bias"], mask) + nbytes(canvas)
 
             def crop(y, k_shift=k_shift, origin=origin):
                 if k_shift:
@@ -458,88 +611,90 @@ def check_kernels(torch, dev, reports, core, gemm, gemm16, rows16, cluster,
             check_ln_rows(f"{model} k1", f"{label} {route}", depth // 2,
                           canvas.reshape(-1, c), norm1,
                           (hp, hp, k_shift, origin, h, h))
-            if c >= P.INT8_MLP_MIN_CHANNELS:
+            runs = [(r["k1"], attn,
+                     fused_block_attn.fused_window_block_attention,
+                     fused_block_attn.fused_window_block_attention_plain,
+                     (attn["qkv"]["weight"], attn["qkv"]["bias"],
+                      attn["proj"]["weight"], attn["proj"]["bias"]),
+                     {r["kind"]: 8 * c * c * t + core_ops})]
+            if int8:
                 # K1-int8's LN1 codes against the plain model's.
                 count_flips("fused_block_attn_int8", f"{label} {route}",
                             canvas.reshape(-1, c), norm1,
                             (hp, hp, k_shift, origin, h, h))
-
-            for rep, p, kernel, plain, weights, ops in (
-                    (k1, attn, fused_block_attn.fused_window_block_attention,
-                     fused_block_attn.fused_window_block_attention_plain,
-                     (attn["qkv"]["weight"], attn["qkv"]["bias"],
-                      attn["proj"]["weight"], attn["proj"]["bias"]),
-                     {"bf16": 8 * c * c * t + core}),
+                runs.append(
                     (k1q, attn_q,
                      fused_block_attn.fused_window_block_attention_int8,
                      fused_block_attn.fused_window_block_attention_int8_plain,
                      tuple(attn_q[n][k] for n in ("qkv", "proj")
                            for k in ("weight_q8", "scale_q8", "bias")),
-                     {"int8": 8 * c * c * t, "bf16": core})):
-                if rep is k1q and c < P.INT8_MLP_MIN_CHANNELS:
-                    continue
+                     {"int8": 8 * c * c * t, "bf16": core_ops}))
+            for rep, p, kernel, plain, weights, ops in runs:
                 args = (canvas, norm1, p, ws, k_shift, heads, mask, h, h,
                         origin)
-                rep.check(torch, model, f"{label} {route}", depth // 2,
-                          lambda kernel=kernel, args=args: kernel(*args),
-                          lambda plain=plain, args=args: plain(*args),
+                fn = partial(kernel, *args)
+                rep.check(torch, model, f"{label} {route}", depth // 2, fn,
+                          partial(plain, *args),
                           (side + nbytes(*weights), ops), crop)
                 if rep is k1q or not shift:  # K1: one call per stage
-                    fn = partial(kernel, *args)
-                    repeats.append((f"{rep.entry['name']} {label} {route}",
-                                    fn, fn()))
+                    r["repeats"].append(
+                        (f"{rep.entry['name']} {label} {route}", fn, fn()))
 
-    def check_k6(label, depth, h, c, heads, hp):
-        """K6 at one swin_t stage: B_ = BATCH * (hp / 7)^2 windows of the
-        packed projection, unmasked and masked blocks."""
+    def check_k6(label, depth, h, c, heads, hp, dtype):
+        """K6 in `dtype` at one swin_t stage: B_ = BATCH * (hp / 7)^2
+        windows of the packed projection, unmasked and masked blocks."""
+        r = by_dtype[dtype]
         b_, d = BATCH * (hp // 7) ** 2, c // heads
-        qkv = randn((b_, 49, 3 * c), 1.0, bf)
+        qkv = randn((b_, 49, 3 * c), 1.0, dtype)
         bias = randn((heads, 49, 49))
         # The library call's operands, prebuilt outside its time: q, k, v
         # as contiguous [B_, heads, N, d] and the additive bias + mask.
         q, k, v = qkv.view(b_, 49, 3, heads, d).permute(
             2, 0, 3, 1, 4).contiguous()
+        plain = flash_window_attn.flash_window_attention_qkv_plain
         for mask in (None, W.sw_msa_region_ids(hp, hp, 7, 3, dev)):
             args = (qkv, bias, mask, heads)
+            fn = partial(flash_window_attn.flash_window_attention_qkv, *args)
             # Queries of real tokens only (2 h^2 of them); every window
             # token counts as a key and value, and in the bytes.
-            k6.check(torch, "swin_t",
-                     f"{label} B_={b_} C={c}{'' if mask is None else ' masked'}",
-                     depth // 2,
-                     partial(flash_window_attn.flash_window_attention_qkv,
-                             *args),
-                     partial(flash_window_attn.flash_window_attention_qkv_plain,
-                             *args),
-                     (nbytes(qkv, bias, mask) + b_ * 49 * c * 2,
-                      {"bf16": 4 * 49 * c * BATCH * h * h}),
-                     library_fn=sdpa(q, k, v, bias, W.dense_mask(mask)))
-            fn = partial(flash_window_attn.flash_window_attention_qkv, *args)
-            repeats.append((f"K6 {label} C={c} mask={mask is not None}", fn,
-                            fn()))
+            r["k6"].check(
+                torch, "swin_t",
+                f"{label} B_={b_} C={c}{'' if mask is None else ' masked'}",
+                depth // 2, fn, partial(plain, *args),
+                (nbytes(qkv, bias, mask) + b_ * 49 * c * qkv.element_size(),
+                 {r["kind"]: 4 * 49 * c * BATCH * h * h}),
+                library_fn=sdpa(q, k, v, bias, W.dense_mask(mask)),
+                control_fn=tf32_control(plain, dtype, (qkv,), bias, mask,
+                                        heads))
+            r["repeats"].append((f"K6 {r['kind']} {label} C={c} "
+                                 f"mask={mask is not None}", fn, fn()))
 
-    def check_core(label, depth, c, heads, hp):
-        """The attention core alone at one Swin-L stage, through
+    def check_core(label, depth, c, heads, hp, dtype):
+        """The attention core alone in `dtype` at one Swin-L stage, through
         flash_window_attention on [B_, heads, 144, 32] views of a packed
         [B_, 144, 3C] projection (the rows K1 reads): unmasked and with the
         offset mask's region ids, depth / 2 calls of each per forward."""
+        r = by_dtype[dtype]
         b_ = BATCH * (hp // 12) ** 2
-        qkv = randn((b_, 144, 3 * c), 1.0, bf)
+        qkv = randn((b_, 144, 3 * c), 1.0, dtype)
         q, k, v = qkv.view(b_, 144, 3, heads, 32).permute(2, 0, 3, 1, 4)
         qc, kc, vc = (t.contiguous() for t in (q, k, v))
         bias = randn((heads, 144, 144))
+        plain = flash_window_attn.flash_window_attention_plain
         for mask in (None, W.sw_msa_region_ids(hp, hp, 12, 6, dev,
                                                offset=True)):
             args = (q, k, v, bias, mask)
-            core.check(torch, "swin_l",
-                       f"{label} B_={b_} heads={heads}"
-                       f"{'' if mask is None else ' offset mask'}",
-                       depth // 2,
-                       partial(flash_window_attn.flash_window_attention, *args),
-                       partial(flash_window_attn.flash_window_attention_plain,
-                               *args),
-                       (nbytes(qkv, bias, mask) + b_ * 144 * c * 2,
-                        {"bf16": 4 * 144 * 144 * c * b_}),
-                       library_fn=sdpa(qc, kc, vc, bias, W.dense_mask(mask)))
+            fn = partial(flash_window_attn.flash_window_attention, *args)
+            r["core"].check(
+                torch, "swin_l", f"{label} B_={b_} heads={heads}"
+                f"{'' if mask is None else ' offset mask'}", depth // 2, fn,
+                partial(plain, *args),
+                (nbytes(qkv, bias, mask) + b_ * 144 * c * qkv.element_size(),
+                 {r["kind"]: 4 * 144 * 144 * c * b_}),
+                library_fn=sdpa(qc, kc, vc, bias, W.dense_mask(mask)),
+                control_fn=tf32_control(plain, dtype, (q, k, v), bias, mask))
+            r["repeats"].append((f"core {r['kind']} {label} "
+                                 f"mask={mask is not None}", fn, fn()))
 
     def check_gemm(label, depth, m, n, k, epilogue, model):
         """The int8 GEMM alone at one shape, bitwise against its plain
@@ -570,42 +725,49 @@ def check_kernels(torch, dev, reports, core, gemm, gemm16, rows16, cluster,
                         partial(int8_gemm.int8_gemm, *args),
                         int8_gemm.int8_gemm_plain(*args)))
 
-    def check_bf16_gemm(model, label, calls, m, n, k, epilogue):
-        """The bf16 GEMM alone at one shape against its plain version, timed
-        against F.linear on the same bf16 operands; then kept for the
-        repeat check."""
-        a = randn((m, k), 1.0, bf)
-        lin = {"weight": randn((n, k), k ** -0.5, bf), "bias": randn((n,), 0.5)}
-        res = randn((m, n), 1.0, bf) if epilogue == "residual" else None
+    def check_float_gemm(model, label, calls, m, n, k, epilogue, dtype):
+        """The bf16 or f32 GEMM alone at one shape against its plain
+        version, timed against F.linear on the same operands; then kept for
+        the repeat check."""
+        r = by_dtype[dtype]
+        kernel, plain = r["gemm_fns"]
+        a = randn((m, k), 1.0, dtype)
+        lin = {"weight": randn((n, k), k ** -0.5, dtype),
+               "bias": randn((n,), 0.5)}
+        res = randn((m, n), 1.0, dtype) if epilogue == "residual" else None
         args = (a, lin, epilogue, res)
         ops = 2 * m * n * k
-        ms = gemm16.check(torch, model,
-                          f"{label} {epilogue} [{m},{k}]x[{n},{k}]", calls,
-                          partial(bf16_gemm.bf16_gemm, *args),
-                          partial(bf16_gemm.bf16_gemm_plain, *args),
-                          (nbytes(a, lin["weight"], lin["bias"], res)
-                           + m * n * 2, {"bf16": ops}),
-                          library_fn=partial(F.linear, a, lin["weight"],
-                                             lin["bias"].to(bf)))
+        ms = r["gemm"].check(
+            torch, model, f"{label} {epilogue} [{m},{k}]x[{n},{k}]", calls,
+            partial(kernel, *args), partial(plain, *args),
+            (nbytes(a, lin["weight"], lin["bias"], res) + m * n * a.element_size(),
+             {r["kind"]: ops}),
+            library_fn=partial(F.linear, a, lin["weight"],
+                               lin["bias"].to(dtype)),
+            control_fn=tf32_control(plain, dtype, (a,), dict(
+                lin, weight=tf32(torch, lin["weight"])), epilogue, res))
         rate = ops / ms * 1e3
-        log(f"{'bf16_gemm':<21} {model} {label} {epilogue}: "
-            f"{rate / 1e12:.1f} TFLOP/s ({rate / PEAK['bf16']:.3f} of peak)")
-        fn = partial(bf16_gemm.bf16_gemm, *args)
-        repeats.append((f"bf16_gemm {model} {label} {epilogue}", fn, fn()))
+        name = r["gemm"].entry["name"]
+        log(f"{name:<21} {model} {label} {epilogue}: "
+            f"{rate / 1e12:.1f} TFLOP/s ({rate / PEAK[r['kind']]:.3f} of peak)")
+        fn = partial(kernel, *args)
+        r["repeats"].append((f"{name} {model} {label} {epilogue}", fn, fn()))
 
     def check_ln_rows(model, label, calls, x, ln, canvas=None):
-        """The bf16 row pass alone on rows x [T, C] (a canvas's, with its
-        pads zeroed, or K2's), timed against F.layer_norm (no pads)."""
+        """The bf16 or f32 row pass alone on rows x [T, C] (a canvas's, with
+        its pads zeroed, or K2's), timed against F.layer_norm (no pads)."""
+        r = by_dtype[x.dtype]
+        kernel, plain = r["rows_fns"]
         t, cc = x.shape
-        affine = ln if ln_f32_affine else {k: v.to(bf) for k, v in ln.items()}
-        rows16.check(torch, model, f"{label} [{t},{cc}]", calls,
-                     partial(bf16_gemm.ln_rows, x, ln, canvas),
-                     partial(bf16_gemm.ln_rows_plain, x, ln, canvas),
-                     (2 * nbytes(x) + nbytes(ln["scale"], ln["bias"]),
-                      {"f32": 8 * t * cc}),
-                     library_fn=partial(F.layer_norm, x, (cc,), affine["scale"],
-                                        affine["bias"], 1e-5))
-
+        affine = affine_of(x, ln)
+        r["rows"].check(torch, model, f"{label} [{t},{cc}]", calls,
+                        partial(kernel, x, ln, canvas),
+                        partial(plain, x, ln, canvas),
+                        (2 * nbytes(x) + nbytes(ln["scale"], ln["bias"]),
+                         {"f32": 8 * t * cc}),
+                        library_fn=partial(F.layer_norm, x, (cc,),
+                                           affine["scale"], affine["bias"],
+                                           1e-5))
     def count_flips(name, label, x, ln, canvas=None):
         """The int8 row pass's LN codes against the plain model's: codes
         that differ and the largest step (at most 1)."""
@@ -659,29 +821,35 @@ def check_kernels(torch, dev, reports, core, gemm, gemm16, rows16, cluster,
         repeats.append((f"fused_mlp_int8 codes {model} {label}", alone,
                         fused_mlp.fused_mlp_residual_int8_codes_plain(*args)))
 
-    def check_k2_k3_k4(model, label, i, depth, h, c):
-        x2 = randn((BATCH * h * h, c), 1.0, bf)
+    def check_k2_k3_k4(model, label, i, depth, h, c, dtype):
+        """K2 in `dtype` at one stage with its parts alone (LN2 rows, fc1
+        with the GELU, fc2 with the residual), in bf16 at C >= 768 also K3,
+        and K4 on `dtype` rows at the stage's row-LN sites."""
+        r = by_dtype[dtype]
+        x2 = randn((BATCH * h * h, c), 1.0, dtype)
         norm2 = ln_params(c)
         mlp32 = {"fc1": lin(c, 4 * c), "fc2": lin(4 * c, c)}
-        mlp = P.cast_matmul_weights(mlp32, bf)
-        mlp_q = P.cast_matmul_weights(
-            P.quantize_mlp_int8({"mlp": mlp32}, 0)["mlp"], bf)
+        mlp = P.cast_matmul_weights(mlp32, dtype)
         t = x2.shape[0]
         # K2's parts alone: its LN2 rows, fc1 with the GELU, fc2 with the
         # residual.
         check_ln_rows(f"{model} k2", label, depth, x2, norm2)
         for n, k, epilogue in ((4 * c, c, "gelu"), (c, 4 * c, "residual")):
-            check_bf16_gemm(f"{model} k2", label, depth, t, n, k, epilogue)
+            check_float_gemm(f"{model} k2", label, depth, t, n, k, epilogue,
+                             dtype)
         side = 2 * nbytes(x2) + nbytes(norm2["scale"], norm2["bias"])
-        k2.check(torch, model, f"{label} T={t} C={c}", depth,
-                 lambda: fused_mlp.fused_mlp_residual(x2, norm2, mlp),
-                 lambda: fused_mlp.fused_mlp_residual_plain(x2, norm2, mlp),
-                 (side + nbytes(*(mlp[n][k] for n in ("fc1", "fc2")
-                                  for k in ("weight", "bias"))),
-                  {"bf16": 16 * c * c * t}))
-        if c >= P.INT8_MLP_MIN_CHANNELS:
+        r["k2"].check(torch, model, f"{label} T={t} C={c}", depth,
+                      partial(fused_mlp.fused_mlp_residual, x2, norm2, mlp),
+                      partial(fused_mlp.fused_mlp_residual_plain, x2, norm2,
+                              mlp),
+                      (side + nbytes(*(mlp[n][k] for n in ("fc1", "fc2")
+                                       for k in ("weight", "bias"))),
+                       {r["kind"]: 16 * c * c * t}))
+        if dtype == bf and c >= P.INT8_MLP_MIN_CHANNELS:
             # Every K3 site of both int8 paths: Swin-L's stages 2-3 and
             # swin_t's stage 3 (C = 768, T = 2048 and 512).
+            mlp_q = P.cast_matmul_weights(
+                P.quantize_mlp_int8({"mlp": mlp32}, 0)["mlp"], bf)
             check_k3(model, label, depth, x2, norm2, mlp_q, side)
         # Row-LN sites: the stage-output norm, plus the patch-embed norm
         # before stage 0 and the patch-merge norm after stages 0-2.
@@ -691,18 +859,17 @@ def check_kernels(torch, dev, reports, core, gemm, gemm16, rows16, cluster,
         if i < 3:
             sites.append(("patch-merge norm", BATCH * h * h // 4, 4 * c))
         for site, n, cc in sites:
-            xr = randn((n, cc), 3.0, bf)
+            xr = randn((n, cc), 3.0, dtype)
             p = ln_params(cc)
-            # F.layer_norm with the kernel's f32 affine where PyTorch takes
-            # it beside a bf16 input, else with the affine cast to bf16.
-            affine = p if ln_f32_affine else {k: v.to(bf) for k, v in p.items()}
-            k4.check(torch, model, f"{label} {site} [{n},{cc}]", 1,
-                     lambda: row_ln.layer_norm_rows(p, xr),
-                     lambda: row_ln.layer_norm_rows_plain(p, xr),
-                     (2 * nbytes(xr) + nbytes(p["scale"], p["bias"]),
-                      {"f32": 8 * n * cc}),
-                     library_fn=lambda: F.layer_norm(
-                         xr, (cc,), affine["scale"], affine["bias"], 1e-5))
+            affine = affine_of(xr, p)
+            r["k4"].check(torch, model, f"{label} {site} [{n},{cc}]", 1,
+                          partial(row_ln.layer_norm_rows, p, xr),
+                          partial(row_ln.layer_norm_rows_plain, p, xr),
+                          (2 * nbytes(xr) + nbytes(p["scale"], p["bias"]),
+                           {"f32": 8 * n * cc}),
+                          library_fn=partial(F.layer_norm, xr, (cc,),
+                                             affine["scale"], affine["bias"],
+                                             1e-5))
 
     try:
         F.layer_norm(randn((4, 64), 1.0, bf), (64,), randn((64,)),
@@ -726,50 +893,62 @@ def check_kernels(torch, dev, reports, core, gemm, gemm16, rows16, cluster,
                             (t_canvas, 3 * c, c, "bf16"),
                             (t_canvas, c, c, "residual")):
                         check_gemm(label, depth, m, n, k, epilogue, "swin_l")
-                if model == "swin_l":
-                    # K1's qkv and proj on the canvas, one of each per block.
-                    for n, epilogue in ((3 * c, "store"), (c, "residual")):
-                        check_bf16_gemm("swin_l k1", label, depth,
-                                        BATCH * hp * hp, n, c, epilogue)
-                    check_k1(model, f"{label} C={c}", depth,
-                             randn((BATCH, h, h, c), 1.0, bf), h, c, heads, ws,
-                             hp)
-                    check_core(label, depth, c, heads, hp)
-                else:
-                    check_k6(label, depth, h, c, heads, hp)
-                check_k2_k3_k4(model, f"{pass_name} st{i}", i, depth, h, c)
+                for dtype in (bf, f32):
+                    if model == "swin_l":
+                        # K1's qkv and proj on the canvas, one of each per
+                        # block.
+                        for n, epilogue in ((3 * c, "store"), (c, "residual")):
+                            check_float_gemm("swin_l k1", label, depth,
+                                             BATCH * hp * hp, n, c, epilogue,
+                                             dtype)
+                        check_k1(model, f"{label} C={c}", depth,
+                                 randn((BATCH, h, h, c), 1.0, dtype), h, c,
+                                 heads, ws, hp)
+                        check_core(label, depth, c, heads, hp, dtype)
+                    else:
+                        check_k6(label, depth, h, c, heads, hp, dtype)
+                    check_k2_k3_k4(model, f"{pass_name} st{i}", i, depth, h,
+                                   c, dtype)
 
-    # K7 and K8 at the JAX package's test shapes (no forward calls them):
-    # (B_, heads, N, d, nW or None); one call at each shape.
-    for rep, label, b_, heads, n, d, nw, causal in (
-            (k7, "shifted mask", 36, 4, 144, 32, 9, None),
-            (k7, "mask period", 8, 2, 16, 8, 4, None),
-            (k8, "simple bias", 4, 2, 16, 8, None, None),
-            (k8, "flash_attention", 4, 2, 16, 8, None, False),
-            (k8, "flash_attention causal", 4, 2, 16, 8, None, True)):
-        q, k, v = (randn((b_, heads, n, d), 1.0, bf) for _ in range(3))
+    def check_api(key, label, b_, heads, n, d, nw, causal, dtype):
+        """K7 or K8 at one JAX test shape in `dtype`."""
+        r = by_dtype[dtype]
+        q, k, v = (randn((b_, heads, n, d), 1.0, dtype) for _ in range(3))
         if causal is None:
             bias = randn((heads, n, n))
             mask = None if nw is None else torch.where(
                 torch.rand((nw, n, n), generator=gen, device=dev) < 0.3,
                 -100.0, 0.0)
-            kernel = partial(flash_window_attn.flash_window_attention,
-                             q, k, v, bias, mask)
-            plain = partial(flash_window_attn.flash_window_attention_plain,
-                            q, k, v, bias, mask)
+            kernel = flash_window_attn.flash_window_attention
+            plain = flash_window_attn.flash_window_attention_plain
+            tail = (bias, mask)
         else:
             bias = flash_window_attn.causal_bias(q, causal)
             mask = None
-            kernel = partial(flash_window_attn.flash_attention, q, k, v,
-                             causal)
-            plain = partial(flash_window_attn.flash_attention_plain, q, k, v,
-                            causal)
+            kernel = flash_window_attn.flash_attention
+            plain = flash_window_attn.flash_attention_plain
+            tail = (causal,)
         # flash_attention's kernel reads no bias (a causal flag or none).
-        rep.check(torch, "api", f"{label} ({b_},{heads},{n},{d})", 1, kernel,
-                  plain, (nbytes(q, k, v, None if causal is not None else bias,
-                                 mask) + nbytes(q),
-                          {"bf16": 4 * n * n * d * b_ * heads}),
-                  library_fn=sdpa(q, k, v, bias, mask))
+        r[key].check(torch, "api", f"{label} ({b_},{heads},{n},{d})", 1,
+                     partial(kernel, q, k, v, *tail),
+                     partial(plain, q, k, v, *tail),
+                     (nbytes(q, k, v, None if causal is not None else bias,
+                             mask) + nbytes(q),
+                      {r["kind"]: 4 * n * n * d * b_ * heads}),
+                     library_fn=sdpa(q, k, v, bias, mask),
+                     control_fn=tf32_control(plain, dtype, (q, k, v), *tail))
+
+    # K7 and K8 at the JAX package's test shapes (no forward calls them):
+    # (B_, heads, N, d, nW or None); one call at each shape, in bf16 and in
+    # f32 (the f32 causal addend is -1e9 unrounded).
+    for key, label, b_, heads, n, d, nw, causal in (
+            ("k7", "shifted mask", 36, 4, 144, 32, 9, None),
+            ("k7", "mask period", 8, 2, 16, 8, 4, None),
+            ("k8", "simple bias", 4, 2, 16, 8, None, None),
+            ("k8", "flash_attention", 4, 2, 16, 8, None, False),
+            ("k8", "flash_attention causal", 4, 2, 16, 8, None, True)):
+        for dtype in (bf, f32):
+            check_api(key, label, b_, heads, n, d, nw, causal, dtype)
 
     xi = randn((BATCH, SIZE, SIZE, 3), 1.0, bf)
     kk, kb = randn((5, 5, 3, 1), 0.2), randn((1,))
@@ -816,6 +995,7 @@ def check_kernels(torch, dev, reports, core, gemm, gemm16, rows16, cluster,
             fail(f"{name} does not take the rel-pos bias rounded to bf16")
 
     repeat_check(torch, repeats)
+    repeat_check(torch, repeats_f32, REPEATS_F32)
 
 
 def with_features(bmodel, infer, frames):
@@ -870,15 +1050,51 @@ def drive(torch, bmodel, reports, infer, frames, want, path):
     return mask, feats
 
 
+@contextlib.contextmanager
+def cudnn_tf32_forced(torch, bmodel):
+    """models/birefnet.forward_logits run with cudnn.allow_tf32 set True
+    inside it, past make_infer_fn's own setting: the TF32 fault that
+    make_infer_fn repairs, as a control."""
+    forward = bmodel.forward_logits
+
+    def forced(*args, **kw):
+        saved = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            return forward(*args, **kw)
+        finally:
+            torch.backends.cudnn.allow_tf32 = saved
+
+    bmodel.forward_logits = forced
+    try:
+        yield
+    finally:
+        bmodel.forward_logits = forward
+
+
 def drive_model(torch, bmodel, pipeline, reports, cfg, params, frames, tiers,
-                plain_bf16):
-    """Phase 4 for one model: its f32 plain reference, then each path.
+                plain_bf16, tf32_control=False):
+    """Phase 4 for one model: its f32 plain reference, then each path (an
+    f32 path held to MASK_MAE_F32 and FEATURE_F32; with tf32_control, the
+    f32 plain pipeline with cuDNN's TF32 forced on must break FEATURE_F32).
     Returns {path: max feature error} and the reference features."""
     from birefnet_tpu_torch.configs import ComputeConfig
 
     dev = frames.device
     ref, ref_feats = with_features(bmodel, pipeline.make_infer_fn(
         params, cfg, ComputeConfig(), dev, as_uint8=False), frames)
+    if tf32_control:
+        with cudnn_tf32_forced(torch, bmodel):
+            _, feats = with_features(bmodel, pipeline.make_infer_fn(
+                params, cfg, ComputeConfig(), dev, as_uint8=False), frames)
+        worst = max(feature_errors(f"{cfg.backbone} f32 plain, cuDNN TF32 "
+                                   f"forced on", feats, ref_feats))
+        log(f"phase 4: {cfg.backbone} f32 plain pipeline with cuDNN TF32 "
+            f"forced on: worst feature error {worst:.3e} (must exceed "
+            f"{FEATURE_F32})")
+        if not worst > FEATURE_F32:
+            fail("the f32 feature gate does not see cuDNN's TF32")
+        del feats
     errs, masks = {}, {}
     if plain_bf16:
         _, feats = with_features(bmodel, pipeline.make_infer_fn(
@@ -893,13 +1109,21 @@ def drive_model(torch, bmodel, pipeline, reports, cfg, params, frames, tiers,
         masks[path], feats = drive(torch, bmodel, reports, infer, frames, want,
                                    path)
         del infer
+        f32 = compute.dtype == torch.float32
+        gate = MASK_MAE_F32 if f32 else 1e-3
         mae = float((masks[path] - ref).abs().mean())
         log(f"phase 4: {path}: mask MAE vs f32 plain pipeline = {mae:.3e} "
-            f"(gate < 1e-3)")
-        if not mae < 1e-3:
-            fail(f"{path} mask MAE {mae} >= 1e-3")
+            f"(gate < {gate})")
+        if not mae < gate:
+            fail(f"{path} mask MAE {mae} >= {gate}")
         errs[path] = feature_errors(path, feats, ref_feats)
         del feats
+        if f32:
+            log(f"phase 4: {path}: worst feature error {max(errs[path]):.3e} "
+                f"(gate <= {FEATURE_F32})")
+            if not max(errs[path]) <= FEATURE_F32:
+                fail(f"{path} backbone features off by {max(errs[path])} > "
+                     f"{FEATURE_F32}")
     paths = list(tiers)
     d = (masks[paths[1]] - masks[paths[0]]).abs()
     log(f"phase 4: {paths[1]} vs {paths[0]} masks: mean |diff| "
@@ -954,17 +1178,52 @@ def main() -> int:
     build.build(verbose=True)
     log(f"phase 2: kernels built in {time.perf_counter() - t0:.1f} s")
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    # PyTorch's TF32 flags stay as a user finds them (cuDNN's on): phase 3
+    # sets them off for its plain versions, and phase 4 runs make_infer_fn,
+    # which sets them for an f32 forward itself.
+    log(f"phase 3: TF32 flags as found: matmul "
+        f"{torch.backends.cuda.matmul.allow_tf32}, cudnn "
+        f"{torch.backends.cudnn.allow_tf32}")
     reports, core = make_reports(), make_core_report()
     gemm = make_gemm_report()
     gemm16, rows16 = make_bf16_reports()
     cluster = make_cluster_report()
+    f32r = make_f32_reports()
     extra = {"int_mm_ms": {}, "ln_code_flips": {}}
-    with torch.inference_mode():
+    with torch.inference_mode(), pipeline.full_f32():
         check_kernels(torch, dev, reports, core, gemm, gemm16, rows16, cluster,
-                      extra)
+                      extra, f32r)
     log("phase 3: every kernel within its bound at every slice shape")
+    # The f32 tier's building blocks under its K1 and K2 entries.
+    f32_sums = {n: f32r[n].by_model()
+                for n in ("f32_gemm", "ln_rows_f32", "window_core_f32")}
+    for key, name, k1_model, k2_model, lib in (
+            ("f32_gemm", "f32_gemm", "swin_l k1", "swin_l k2",
+             "F.linear in f32, TF32 off: the product and bias"),
+            ("ln_rows", "ln_rows_f32", "swin_l k1", "swin_l k2",
+             "F.layer_norm in f32: no pad zeroing"),
+            ("core", "window_core_f32", "swin_l", None,
+             "SDPA in f32, bias and mask as one prebuilt f32 addend")):
+        src = f32r[name].entry
+        common = dict(source=src["source"], max_abs_err=src["max_abs_err"],
+                      mean_rel_err=src["mean_rel_err"], library=lib)
+        if "tf32_control_min" in src:
+            common["tf32_control_min"] = src["tf32_control_min"]
+        f32r["fused_block_attn_f32"].entry[key] = dict(
+            f32_sums[name][k1_model], **common)
+        if k2_model is not None:
+            f32r["fused_mlp_f32"].entry[key] = dict(
+                f32_sums[name][k2_model], swin_t=f32_sums[name]["swin_t k2"],
+                **common)
+    for name in (*f32_sums, "fused_block_attn_f32", "fused_mlp_f32",
+                 "row_ln_f32", "flash_window_attn_qkv_f32"):
+        for model, m in f32r[name].by_model().items():
+            lib = ("n/a" if m["library_ms"] is None
+                   else f"{m['library_ms']:.4f} ms")
+            log(f"phase 3: {name} at {model}'s shapes per forward: kernel "
+                f"{m['ms']:.4f} ms, library {lib}, plain {m['plain_ms']:.4f} "
+                f"ms, bound {m['bound_ms']:.4f} ms ({m['bound_by']}); "
+                f"{m['bound_ms'] / m['ms']:.3f} of the bound ({smi})")
     sums = core.by_model()["swin_l"]
     reports["fused_block_attn"].entry["core"] = dict(
         sums, source=core.entry["source"],
@@ -1042,13 +1301,18 @@ def main() -> int:
     frames_dev = torch.from_numpy(frames).to(dev)
     bf16 = ComputeConfig(dtype=torch.bfloat16, use_flash_attention=True)
     int8 = bf16.with_overrides(int8_mlp=True, int8_attn=True)
+    f32_tier = ComputeConfig(use_flash_attention=True)
     names = list(reports)
-    # Launches per make_infer_fn call, in the order of `reports`.
+    # Launches per make_infer_fn call, in the order of `reports`. The f32
+    # tier runs the f32 kernels behind the same wrappers (no tap_conv: the
+    # decoder runs it for bf16 only).
     paths = {
         "swin_l": {"swin_l bf16": (bf16, (48, 0, 48, 0, 16, 1, 0, 0, 0)),
-                   "swin_l int8": (int8, (8, 40, 8, 40, 16, 1, 0, 0, 0))},
+                   "swin_l int8": (int8, (8, 40, 8, 40, 16, 1, 0, 0, 0)),
+                   "swin_l f32": (f32_tier, (48, 0, 48, 0, 16, 0, 0, 0, 0))},
         "swin_t": {"swin_t bf16": (bf16, (0, 0, 24, 0, 16, 1, 24, 0, 0)),
-                   "swin_t int8": (int8, (0, 0, 20, 4, 16, 1, 24, 0, 0))},
+                   "swin_t int8": (int8, (0, 0, 20, 4, 16, 1, 24, 0, 0)),
+                   "swin_t f32": (f32_tier, (0, 0, 24, 0, 16, 0, 24, 0, 0))},
     }
     cfgs = {"swin_l": BiRefNetConfig.swin_l(),
             "swin_t": BiRefNetConfig.for_backbone("swin_v1_t")}
@@ -1064,7 +1328,8 @@ def main() -> int:
     # negative control.
     errs, ref_feats = drive_model(torch, bmodel, pipeline, reports,
                                   cfgs["swin_l"], params["swin_l"], frames_dev,
-                                  tiers["swin_l"], plain_bf16=False)
+                                  tiers["swin_l"], plain_bf16=False,
+                                  tf32_control=True)
     limit = int8_gate("swin_l int8", errs, "swin_l bf16")
     # Negative control: int8 scales rolled by one channel (every channel
     # dequantized with its neighbour's scale) must break the feature gate.
@@ -1105,6 +1370,15 @@ def main() -> int:
         r.finish("api" if r in (reports["flash_window_attn_masked"],
                                 reports["flash_window_attn_plain"])
                  else r.main_path.split()[0])
+    # The f32 entries count the launches of the wrapper they share with
+    # their bf16 entry, on every path (their own: "swin_l f32", "swin_t f32").
+    for name, r in f32r.items():
+        if r.main_path is None:
+            continue
+        base = reports[name[:-len("_f32")]]
+        r.entry["launches_by_path"] = dict(base.entry["launches_by_path"])
+        r.finish("api" if "masked" in name or "plain" in name
+                 else r.main_path.split()[0])
 
     golden = os.path.join(ROOT, "tests", "goldens", "logits_jax.npy")
     golden_cfg = BiRefNetConfig.swin_l()
@@ -1112,14 +1386,17 @@ def main() -> int:
                                                golden_cfg), dev)
     xg = (np.random.default_rng(0).normal(size=(1, 64, 64, 3)) * 0.5).astype(
         np.float32)
-    with torch.inference_mode():
-        logits = bmodel.forward_logits(params_golden, golden_cfg,
-                                       torch.from_numpy(xg).to(dev))
-    diff = np.abs(logits.cpu().numpy() - np.load(golden))
-    log(f"phase 4: f32 plain 64^2 logits vs JAX golden: max|diff| "
-        f"{diff.max():.3e} (bound 5e-4)")
-    if not diff.max() < 5e-4:
-        fail(f"golden logits differ by {diff.max()}")
+    for name, compute in (("plain", ComputeConfig()),
+                          ("kernel tier", f32_tier)):
+        with torch.inference_mode(), pipeline.full_f32():
+            logits = bmodel.forward_logits(params_golden, golden_cfg,
+                                           torch.from_numpy(xg).to(dev),
+                                           compute)
+        diff = np.abs(logits.cpu().numpy() - np.load(golden))
+        log(f"phase 4: f32 {name} 64^2 logits vs JAX golden: max|diff| "
+            f"{diff.max():.3e} (bound 5e-4)")
+        if not diff.max() < 5e-4:
+            fail(f"f32 {name} golden logits differ by {diff.max()}")
     del params_golden
 
     rng = np.random.default_rng(7)
@@ -1146,6 +1423,11 @@ def main() -> int:
                f"{model} plain bf16": pipeline.make_infer_fn(
                    params[model], cfgs[model],
                    ComputeConfig(dtype=torch.bfloat16), dev)}
+        if model == "swin_l":
+            fns[f"{model} f32 kernel tier"] = pipeline.make_infer_fn(
+                params[model], cfgs[model], f32_tier, dev)
+            fns[f"{model} plain f32"] = pipeline.make_infer_fn(
+                params[model], cfgs[model], ComputeConfig(), dev)
         order = list(fns) + list(fns)[::-1]
         for name in order:
             fn = fns[name]
@@ -1164,7 +1446,9 @@ def main() -> int:
                 f"-> {BATCH / (med / 1e3):.2f} img/s ({smi})")
         del fns
 
-    print(json.dumps({"kernels": [r.entry for r in reports.values()]}))
+    f32_entries = [r.entry for r in f32r.values() if r.main_path is not None]
+    print(json.dumps({"kernels": [r.entry for r in reports.values()]
+                      + f32_entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -1,5 +1,6 @@
 """birefnet_tpu_torch kernels on the card: each hand-written kernel against
-its plain PyTorch version on the same bf16 inputs.
+its plain PyTorch version on the same bf16 (or, for the f32 tier at the
+end, f32) inputs.
 
 These tests need an NVIDIA GPU and skip without one. Run them on the card
 with
@@ -13,7 +14,10 @@ plain version rounds its matmul outputs to bf16 before adding the f32
 biases where the kernels add them in f32 first. The int8 kernels' integer
 products are exact like their plain versions'; a LayerNorm or softmax sum
 in another order can flip one int8 code by a step, so they also hold a
-bound on the mean difference (MEAN_BOUND_I8).
+bound on the mean difference (MEAN_BOUND_I8). The f32 kernels are held to
+max|kernel - plain| <= 1e-4 * max|plain| and mean|kernel - plain| /
+mean|plain| <= MEAN_BOUND_F32 = 1e-5, their plain versions run with TF32
+off; the same plain versions with TF32 on must break the mean bound.
 """
 
 import os
@@ -25,7 +29,8 @@ import torch
 from birefnet_tpu_torch import params as pparams
 from birefnet_tpu_torch.models import swin
 from birefnet_tpu_torch.ops import window as W
-from birefnet_tpu_torch.ops.kernels import (bf16_gemm, flash_window_attn,
+from birefnet_tpu_torch.ops.kernels import (bf16_gemm, f32_gemm,
+                                            flash_window_attn,
                                             fused_block_attn, fused_mlp,
                                             int8_gemm, row_ln, tap_conv)
 
@@ -470,10 +475,8 @@ def test_tap_conv_kernel_matches_plain(dev, shape):
 
 
 def test_kernels_refuse_f32(dev):
-    x = torch.zeros((16, 64), device=dev)
-    n2, mlp = _mlp_params(torch.Generator(dev).manual_seed(4), 64, dev)
-    with pytest.raises(TypeError):
-        fused_mlp.fused_mlp_residual(x, n2, mlp)
+    """tap_conv runs bf16 only (the JAX decoder calls its kernel for bf16
+    only); the other kernels take f32 (the f32 tier below)."""
     with pytest.raises(TypeError):
         tap_conv.tap_conv_same(torch.zeros((1, 8, 8, 3), device=dev),
                                torch.zeros((5, 5, 3), device=dev))
@@ -654,12 +657,15 @@ def test_fused_block_attn_takes_region_ids(dev, hw):
 
 
 def test_flash_window_attn_refuses_f32_and_wide_heads(dev):
+    """Wide heads are refused in either dtype, and so are q, k, v of mixed
+    dtypes; f32 alone runs (the f32 tier below)."""
     q = torch.zeros((2, 1, 16, 8), device=dev)
     with pytest.raises(TypeError):
-        flash_window_attn.flash_attention(q, q, q)
-    wide = torch.zeros((2, 1, 16, 72), device=dev, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="multiple of 8 up to 64"):
-        flash_window_attn.flash_attention(wide, wide, wide)
+        flash_window_attn.flash_attention(q, q.bfloat16(), q)
+    for dtype in (torch.bfloat16, torch.float32):
+        wide = torch.zeros((2, 1, 16, 72), device=dev, dtype=dtype)
+        with pytest.raises(ValueError, match="multiple of 8 up to 64"):
+            flash_window_attn.flash_attention(wide, wide, wide)
 
 
 @pytest.mark.parametrize("kernel", ["fused_block_attn", "flash_window_attn"])
@@ -737,3 +743,305 @@ def test_swin_middle_tier_matches_f32_plain(dev):
     for g, r in zip(got, ref):
         err = (g.float() - r).abs().mean().item()
         assert err < 5e-2, f"mean |bf16 kernels - f32 plain| = {err}"
+
+
+# The f32 tier: full f32 products summed in f32 on both sides, in other
+# orders, so the kernels and their plain versions (TF32 off, as the dev
+# fixture sets) differ by f32 rounding only.
+MEAN_BOUND_F32 = 1e-5
+
+
+def _f32_error(got, want):
+    """(max|got - want| / max|want|, mean|got - want| / mean|want|)."""
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert torch.isfinite(got).all()
+    d = (got - want).abs()
+    return ((d.max() / want.abs().max()).item(),
+            (d.mean() / want.abs().mean()).item())
+
+
+def _assert_close_f32(got, want):
+    top, mean = _f32_error(got, want)
+    assert top <= 1e-4, f"max|kernel - plain| / max|plain| = {top}"
+    assert mean <= MEAN_BOUND_F32, f"mean|kernel - plain| / mean|plain| = {mean}"
+
+
+@pytest.fixture
+def tf32_on():
+    """PyTorch's TF32 flags on for the test, then off again as the dev
+    fixture leaves them."""
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+# (M, N, K, epilogue): K1's qkv and proj at Swin-L's stage-2 canvas, K2's
+# fc1 and fc2 at Swin-L's stage 2 and swin_t's stage 0 (C = 96), and every
+# epilogue at M and N tails (N = 192: one and a half tiles) and at a tiny
+# shape.
+F32_GEMM_SHAPES = (
+    [(10368, 2304, 768, "store"), (10368, 768, 768, "residual"),
+     (8192, 3072, 768, "gelu"), (8192, 768, 3072, "residual"),
+     (131072, 384, 96, "gelu"), (131072, 96, 384, "residual")]
+    + [(100, n, k, e) for e in ("store", "residual", "gelu")
+       for n, k in ((96, 96), (192, 64))]
+    + [(3, 4, 8, "residual")])
+
+
+def _f32_gemm_case(m, n, k, epilogue, dev):
+    gen = torch.Generator(dev).manual_seed(m + n + k)
+    a = _randn(gen, (m, k), dev)
+    lin = {"weight": _randn(gen, (n, k), dev, k ** -0.5),
+           "bias": _randn(gen, (n,), dev, 0.5)}
+    res = _randn(gen, (m, n), dev) if epilogue == "residual" else None
+    return a, lin, res
+
+
+@pytest.mark.parametrize("m,n,k,epilogue", F32_GEMM_SHAPES)
+def test_f32_gemm_matches_plain(dev, m, n, k, epilogue):
+    a, lin, res = _f32_gemm_case(m, n, k, epilogue, dev)
+    n0 = f32_gemm.f32_gemm.launches
+    got = f32_gemm.f32_gemm(a, lin, epilogue, res)
+    assert f32_gemm.f32_gemm.launches == n0 + 1
+    _assert_close_f32(got, f32_gemm.f32_gemm_plain(a, lin, epilogue, res))
+
+
+@pytest.mark.parametrize("m,n,k,epilogue", [(10368, 768, 768, "residual"),
+                                            (8192, 3072, 768, "gelu"),
+                                            (100, 96, 96, "store")])
+def test_tf32_plain_breaks_the_f32_bound(dev, m, n, k, epilogue, tf32_on):
+    """Control: the plain version with TF32 on is no f32 product; the mean
+    bound must tell it from the kernel."""
+    a, lin, res = _f32_gemm_case(m, n, k, epilogue, dev)
+    got = f32_gemm.f32_gemm(a, lin, epilogue, res)
+    _, mean = _f32_error(got, f32_gemm.f32_gemm_plain(a, lin, epilogue, res))
+    assert mean > MEAN_BOUND_F32, mean
+
+
+@pytest.mark.parametrize("t,c,canvas", LN_ROW_CASES)
+def test_ln_rows_f32_matches_plain(dev, t, c, canvas):
+    gen = torch.Generator(dev).manual_seed(t + c)
+    x = _randn(gen, (t, c), dev, 3.0)
+    ln = {"scale": 1 + 0.1 * _randn(gen, (c,), dev),
+          "bias": 0.1 * _randn(gen, (c,), dev)}
+    n0 = f32_gemm.ln_rows_f32.launches
+    got = f32_gemm.ln_rows_f32(x, ln, canvas)
+    assert f32_gemm.ln_rows_f32.launches == n0 + 1
+    if canvas is not None:
+        assert not got[~fused_block_attn.pad_token_rows(canvas, t, dev)].any()
+    _assert_close_f32(got, f32_gemm.ln_rows_f32_plain(x, ln, canvas))
+
+
+def _f32_mask(kind, b_, n, ws, dev, gen):
+    """None, the region ids or the dense mask of a shifted window grid
+    whose B_ windows are two images' (ws only), or a random dense mask of
+    0 / -100 over B_ / 2 windows."""
+    if kind is None:
+        return None
+    if kind == "random":
+        return torch.where(torch.rand((b_ // 2, n, n), generator=gen,
+                                      device=dev) < 0.3, -100.0, 0.0)
+    hp = int((b_ // 2) ** 0.5) * ws
+    if kind == "ids":
+        return W.sw_msa_region_ids(hp, hp, ws, ws // 2, dev)
+    return W.sw_msa_mask(hp, hp, ws, ws // 2, dev)
+
+
+# (B_, heads, N, d, mask): the Swin-L core (N = 144) and swin_t's (N = 49)
+# with each mask form, and K7/K8's API shapes: N = 16 at d = 8, N = 100
+# and 256 at d = 64.
+F32_CORE_CASES = [(8, 2, 144, 32, None), (8, 2, 144, 32, "ids"),
+                  (18, 3, 144, 32, "dense"), (50, 3, 49, 32, "ids"),
+                  (50, 3, 49, 32, "dense"), (4, 2, 16, 8, None),
+                  (4, 2, 16, 8, "random"), (4, 2, 100, 64, "random"),
+                  (4, 2, 256, 64, "random"), (2, 3, 256, 64, None)]
+
+
+@pytest.mark.parametrize("b_,heads,n,d,kind", F32_CORE_CASES)
+def test_window_core_f32_matches_plain(dev, b_, heads, n, d, kind):
+    gen = torch.Generator(dev).manual_seed(b_ + n + d)
+    q, k, v = (_randn(gen, (b_, heads, n, d), dev) for _ in range(3))
+    bias = _randn(gen, (heads, n, n), dev, 3.0)
+    mask = _f32_mask(kind, b_, n, int(n ** 0.5), dev, gen)
+    n0 = flash_window_attn.flash_window_attention.launches
+    got = flash_window_attn.flash_window_attention(q, k, v, bias, mask)
+    assert flash_window_attn.flash_window_attention.launches == n0 + 1
+    want = flash_window_attn.flash_window_attention_plain(q, k, v, bias, mask)
+    _assert_close_f32(got, want)
+
+
+def test_window_core_tf32_plain_breaks_the_f32_bound(dev, tf32_on):
+    gen = torch.Generator(dev).manual_seed(3)
+    q, k, v = (_randn(gen, (8, 2, 144, 32), dev) for _ in range(3))
+    bias = _randn(gen, (2, 144, 144), dev, 3.0)
+    got = flash_window_attn.flash_window_attention(q, k, v, bias)
+    _, mean = _f32_error(
+        got, flash_window_attn.flash_window_attention_plain(q, k, v, bias))
+    assert mean > MEAN_BOUND_F32, mean
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape", [(4, 2, 16, 8), (2, 2, 256, 64)])
+def test_flash_attention_f32_matches_plain(dev, causal, shape):
+    """flash_attention in f32: the causal addend is -1e9 unrounded."""
+    gen = torch.Generator(dev).manual_seed(11)
+    q, k, v = (_randn(gen, shape, dev) for _ in range(3))
+    n0 = flash_window_attn.flash_attention.launches
+    got = flash_window_attn.flash_attention(q, k, v, causal)
+    assert flash_window_attn.flash_attention.launches == n0 + 1
+    _assert_close_f32(got, flash_window_attn.flash_attention_plain(q, k, v,
+                                                                   causal))
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("b_,heads,hp", [(50, 3, 35), (18, 24, 21)])
+def test_flash_qkv_f32_matches_plain(dev, b_, heads, hp, masked):
+    gen = torch.Generator(dev).manual_seed(12)
+    c = heads * 32
+    qkv = _randn(gen, (b_, 49, 3 * c), dev)
+    bias = _randn(gen, (heads, 49, 49), dev, 3.0)
+    mask = W.sw_msa_region_ids(hp, hp, 7, 3, dev) if masked else None
+    n0 = flash_window_attn.flash_window_attention_qkv.launches
+    got = flash_window_attn.flash_window_attention_qkv(qkv, bias, mask, heads)
+    assert flash_window_attn.flash_window_attention_qkv.launches == n0 + 1
+    _assert_close_f32(got, flash_window_attn.flash_window_attention_qkv_plain(
+        qkv, bias, mask, heads))
+
+
+def _f32(tree):
+    return pparams.tree_map(lambda _, v: v.float(), tree)
+
+
+@pytest.mark.parametrize("t,c", [(100, 64), (512, 192), (48, 1536), (100, 96),
+                                 (4096, 96)])
+def test_fused_mlp_f32_matches_plain(dev, t, c):
+    gen = torch.Generator(dev).manual_seed(1)
+    x = _randn(gen, (t, c), dev)
+    n2, mlp = _mlp_params(gen, c, dev)
+    mlp = _f32(mlp)
+    n0 = fused_mlp.fused_mlp_residual.launches
+    got = fused_mlp.fused_mlp_residual(x, n2, mlp)
+    assert fused_mlp.fused_mlp_residual.launches == n0 + 1
+    _assert_close_f32(got, fused_mlp.fused_mlp_residual_plain(x, n2, mlp))
+
+
+@pytest.mark.parametrize("mask_form", ["dense", "ids"])
+@pytest.mark.parametrize("shift", [0, 6])
+@pytest.mark.parametrize("hw", [(24, 24), (20, 17), (16, 16)])
+@pytest.mark.parametrize("heads,c", [(2, 64), (6, 192)])
+def test_fused_block_attn_f32_matches_plain(dev, shift, hw, heads, c,
+                                            mask_form):
+    gen = torch.Generator(dev).manual_seed(2)
+    h, w = hw
+    x = _randn(gen, (2, h, w, c), dev)
+    norm1, attn = _block_params(gen, c, heads, dev)
+    attn = _f32(attn)
+    hp, wp = -(-h // 12) * 12, -(-w // 12) * 12
+    mask = (W.sw_msa_mask(hp, wp, 12, 6, dev) if mask_form == "dense"
+            else W.sw_msa_region_ids(hp, wp, 12, 6, dev))
+    canvas, k_shift, k_mask, origin = swin.fused_block_canvas(x, 12, shift,
+                                                              mask)
+    args = (canvas, norm1, attn, 12, k_shift, heads, k_mask, h, w, origin)
+    n0 = fused_block_attn.fused_window_block_attention.launches
+    got = fused_block_attn.fused_window_block_attention(*args)
+    assert fused_block_attn.fused_window_block_attention.launches == n0 + 1
+    want = fused_block_attn.fused_window_block_attention_plain(*args)
+    crop = (slice(None), slice(origin, origin + h), slice(origin, origin + w))
+    if k_shift:
+        got = W.roll_2d(got, k_shift, k_shift)
+        want = W.roll_2d(want, k_shift, k_shift)
+    _assert_close_f32(got[crop].contiguous(), want[crop].contiguous())
+
+
+def test_int8_path_refuses_f32_on_the_card(dev):
+    """make_infer_fn refuses the int8 flags on the f32 kernel tier (their
+    f32 branches are the next slice) instead of running bf16 or dropping
+    them; the int8 wrappers refuse f32 activations with the same reason."""
+    from birefnet_tpu_torch import pipeline
+    from birefnet_tpu_torch.configs import BiRefNetConfig, ComputeConfig
+
+    cfg = BiRefNetConfig(size=(64, 64))
+    for flags in ({"int8_mlp": True}, {"int8_attn": True}):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            pipeline.make_infer_fn({}, cfg, ComputeConfig(
+                use_flash_attention=True, **flags), dev)
+    gen = torch.Generator(dev).manual_seed(8)
+    norm1, attn = _block_params(gen, 64, 2, dev)
+    attn = _quantized(_f32(attn), "attn")
+    with pytest.raises(TypeError, match="not ported"):
+        fused_block_attn.fused_window_block_attention(
+            torch.zeros((2, 24, 24, 64), device=dev), norm1, attn, 12, 0, 2,
+            None, 24, 24)
+
+
+def _narrow_swin(cfg, seed, hw, dev):
+    from birefnet_tpu_torch.params import _Source, _swin, _swin_entries
+
+    rng = np.random.default_rng(seed)
+    flat = {k: rng.normal(0, 0.05, s).astype(np.float32)
+            for k, s in _swin_entries("bb", cfg)}
+    params = pparams.tree_map(lambda _, v: v.to(dev),
+                              _swin(_Source(flat), "bb", cfg))
+    x = rng.normal(size=(2, hw, hw, 3)).astype(np.float32)
+    return params, torch.from_numpy(x).to(dev)
+
+
+@pytest.mark.parametrize("ws", [12, 7])
+def test_swin_f32_kernel_tier_matches_f32_plain(dev, ws):
+    """A narrow Swin on the f32 kernel tier against the plain f32 forward:
+    ws = 12 launches K1, K2 and row_ln, ws = 7 K6, K2 and row_ln; every
+    stage's features within the f32 bounds."""
+    from birefnet_tpu_torch.configs import ComputeConfig, SwinConfig
+
+    cfg = (SwinConfig(embed_dim=64, depths=(2, 2, 2, 2), num_heads=(2, 4, 8, 16))
+           if ws == 12 else
+           SwinConfig(embed_dim=96, depths=(2, 2, 2, 2), num_heads=(3, 6, 12, 24),
+                      window_size=7))
+    params, x = _narrow_swin(cfg, 15, 128, dev)
+    ref = swin.swin_forward(params, cfg, x, ComputeConfig())
+    counters = (fused_block_attn.fused_window_block_attention,
+                flash_window_attn.flash_window_attention_qkv,
+                fused_mlp.fused_mlp_residual, row_ln.layer_norm_rows)
+    before = [f.launches for f in counters]
+    got = swin.swin_forward(params, cfg, x,
+                            ComputeConfig(use_flash_attention=True))
+    want = [8, 0, 8, 8] if ws == 12 else [0, 8, 8, 8]
+    assert [f.launches - b for f, b in zip(counters, before)] == want
+    for g, r in zip(got, ref):
+        _assert_close_f32(g, r)
+
+
+def test_make_infer_fn_f32_ignores_tf32_flags(dev, monkeypatch):
+    """With PyTorch's default flags (cuDNN TF32 on) the f32 pipeline gives
+    the masks and logits of a call made with both flags off, bit for bit:
+    make_infer_fn turns TF32 off for an f32 forward."""
+    from birefnet_tpu_torch import pipeline
+    from birefnet_tpu_torch.configs import BiRefNetConfig, ComputeConfig
+    from birefnet_tpu_torch.models import birefnet
+    from birefnet_tpu_torch.params import build_param_tree, random_checkpoint
+
+    cfg = BiRefNetConfig(size=(128, 128))
+    params = build_param_tree(random_checkpoint(cfg, 7), cfg)
+    logits = []
+    forward = birefnet.forward_logits
+
+    def caught(*args, **kw):
+        logits.append(forward(*args, **kw))
+        return logits[-1]
+
+    monkeypatch.setattr(birefnet, "forward_logits", caught)
+    infer = pipeline.make_infer_fn(params, cfg, ComputeConfig(), dev,
+                                   as_uint8=False)
+    frames = np.random.default_rng(3).integers(0, 256, (2, 128, 128, 3),
+                                               dtype=np.uint8)
+    off = infer(frames)
+    try:
+        torch.backends.cudnn.allow_tf32 = True  # PyTorch's default
+        on = infer(frames)
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    assert torch.equal(logits[0], logits[1])
+    assert torch.equal(off, on)

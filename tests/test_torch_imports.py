@@ -1,8 +1,8 @@
 """The port imports torch, never JAX, the JAX package, the tests or Triton.
 
-Every .py file of birefnet_tpu_torch/, chip_smoke.py, tools/gpu_profile.py
-and tools/k3_phases.py (the scripts that run on the GPU machine, which has
-no JAX) is parsed with `ast`; an import of `jax`, `birefnet_tpu` (not
+Every .py file of birefnet_tpu_torch/, chip_smoke.py and the tools that
+run on the GPU machine (gpu_profile.py, k3_phases.py, core_f32_time.py and
+tf32_check.py; that machine has no JAX) is parsed with `ast`; an import of `jax`, `birefnet_tpu` (not
 `birefnet_tpu_torch`), `tests` or `triton` fails, wherever it stands: at
 the top of a module, inside a function (a lazy import in a launcher
 counts), or as a constant string given to `importlib.import_module` or
@@ -22,7 +22,9 @@ FILES = sorted(
     for p in glob.glob(os.path.join(ROOT, "birefnet_tpu_torch", "**", "*.py"),
                        recursive=True)
 ) + ["chip_smoke.py", os.path.join("tools", "gpu_profile.py"),
-     os.path.join("tools", "k3_phases.py")]
+     os.path.join("tools", "k3_phases.py"),
+     os.path.join("tools", "core_f32_time.py"),
+     os.path.join("tools", "tf32_check.py")]
 BANNED = ("jax", "birefnet_tpu", "tests", "triton")
 
 

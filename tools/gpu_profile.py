@@ -5,10 +5,11 @@
                                  [--top 20]
 
 For each tier, builds pipeline.make_infer_fn for the backbone (Swin-L by
-default; swin_v1_t runs the ws=7 middle tier) at 1024^2, batch 2, bf16,
+default; swin_v1_t runs the ws=7 middle tier) at 1024^2, batch 2,
 regular deform mode, random_checkpoint(cfg, 0) (the chip_smoke.py paths:
-"int8" = kernel tier with int8_mlp and int8_attn, "bf16" = kernel tier,
-"plain" = no kernels), warms it up with two calls, then
+"int8" = bf16 kernel tier with int8_mlp and int8_attn, "bf16" = bf16
+kernel tier, "plain" = bf16 without kernels, "f32" = the f32 kernel tier,
+"plain_f32" = f32 without kernels), warms it up with two calls, then
 records one call under torch.profiler (CPU and CUDA activities). Prints,
 per tier: the call's wall time (host clock around the call and a
 synchronize), the summed device kernel time, the device idle share
@@ -53,7 +54,17 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # (K1-int8's rows are the other two forms), then fused_mlp_i8_kernel, its
 # cluster kernel. The row kernel of csrc/row_ln.cu is row_ln_kernel<type,
 # caller>: 0 K4, 1 K2's LN2 rows, 2 K1's LN1 rows with the pads zeroed.
+# The f32 tier runs f32_gemm_kernel<epilogue> (csrc/f32_gemm.cu), the f32
+# core window_core_f32_kernel<F32CanvasRows | F32StridedRows, ...>
+# (csrc/window_core_f32.cuh) and row_ln_kernel<float, caller>.
 GROUPS = [
+    ("K1 f32 attention core", ("F32CanvasRows",)),
+    ("K6 f32 window attention", ("F32StridedRows",)),
+    ("K1 f32 GEMM (qkv)", ("f32_gemm_kernel<0>",)),
+    ("K1/K2 f32 GEMM + residual (proj, fc2)", ("f32_gemm_kernel<1>",)),
+    ("K2 f32 GEMM + GELU (fc1)", ("f32_gemm_kernel<2>",)),
+    ("K1 f32 LN1 rows (pads zeroed)", ("row_ln_kernel<float, 2>",)),
+    ("K2 f32 LN2 rows", ("row_ln_kernel<float, 1>",)),
     ("K1 attention core (bf16 and int8 routes)", ("CanvasRows",)),
     ("K6 window attention (middle tier)", ("StridedRows",)),
     ("K1-int8 int8 GEMM, bf16 out (qkv)", ("gemm_kernel<signed char, 0>",)),
@@ -352,7 +363,9 @@ def main() -> int:
     kernel_tier = ComputeConfig(dtype=torch.bfloat16, use_flash_attention=True)
     tiers = {"int8": kernel_tier.with_overrides(int8_mlp=True, int8_attn=True),
              "bf16": kernel_tier,
-             "plain": ComputeConfig(dtype=torch.bfloat16)}
+             "plain": ComputeConfig(dtype=torch.bfloat16),
+             "f32": ComputeConfig(use_flash_attention=True),
+             "plain_f32": ComputeConfig()}
     for tier in args.tiers.split(","):
         infer = pipeline.make_infer_fn(params, cfg, tiers[tier], dev)
         for _ in range(2):
