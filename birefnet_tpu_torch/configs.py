@@ -164,10 +164,9 @@ class ComputeConfig:
     quantized leaves. So int8 engages only on the kernel tier, at C >= 768;
     the unfused path and the ws=7 middle tier's qkv and proj products read
     the `weight` leaves and ignore the quantized ones (int8_attn changes
-    nothing at ws=7, as in the JAX package). The int8 kernels take bf16
-    activations only: with f32 on the kernel tier on the card,
-    `pipeline.make_infer_fn` refuses the int8 flags until their f32
-    branches are ported.
+    nothing at ws=7, as in the JAX package). The int8 kernels take either
+    dtype, as the JAX `_kernel_i8` bodies do: f32 activations stay
+    unrounded around the int8 products.
 
     Only `deform_mode="regular"` (offsets ignored: the reference's CPU
     semantics, which the mask-MAE gate compares against) is ported; it is

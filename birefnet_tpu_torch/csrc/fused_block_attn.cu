@@ -55,6 +55,17 @@
 // The int8 round trips add 2 C bytes per token each way; the qkv and proj
 // products (8 C^2 integer ops per token) are bound by the int8 peak.
 //
+// W8A8 on f32 activations, bt_fused_block_attn_i8_f32: the same TPU
+// branch at tokens.dtype == float32, the same five launches with the f32
+// pieces. LN1 rows are not rounded (the TPU kernel's h.astype(f32) is a
+// no-op) before their codes (quant_rows<float, true, true>); the int8
+// GEMM's kStore writes the dequantized qkv + bias unrounded into an f32
+// [T, 3C] scratch; the core is the f32 one (F32CanvasRows, per head, the
+// q scale, bias and mask unrounded); the f32 attention rows get their
+// codes (quant_rows<float, false, false>); the proj GEMM's kResidual adds
+// x in f32, out = y + x. The int8 products are as in the bf16 entry; the
+// f32 qkv round trip is 24 C bytes per token where bf16's is 12 C.
+//
 // f32 entry, bt_fused_block_attn_f32: the f32 branch of the same TPU kernel
 // (its dots at precision=HIGHEST, the q scale, bias and mask unrounded), as
 // the same four launches on f32 tensors (f32.cuh): the f32 row pass (LN1 +
@@ -187,10 +198,10 @@ extern "C" int bt_fused_block_attn_i8(
       xb, static_cast<const float*>(ln_g), static_cast<const float*>(ln_b), q, sc, T, C,
       g, s);
   if (err != cudaSuccess) return (int)err;
-  err = i8::gemm<bt::kStore>(q, sc, static_cast<const int8_t*>(wqkv),
-                                 static_cast<const float*>(sqkv),
-                                 static_cast<const float*>(bqkv), nullptr, qkv, T,
-                                 3 * C, C, s);
+  err = i8::gemm<bt::kStore, bf16>(q, sc, static_cast<const int8_t*>(wqkv),
+                                   static_cast<const float*>(sqkv),
+                                   static_cast<const float*>(bqkv), nullptr, qkv, T, 3 * C, C,
+                                   s);
   if (err != cudaSuccess) return (int)err;
 
   err = attention_core(qkv, bias, mask, mask_kind, attn, B, g, s);
@@ -198,9 +209,51 @@ extern "C" int bt_fused_block_attn_i8(
 
   err = i8::quant_rows<bf16, false, false>(attn, nullptr, nullptr, q, sc, T, C, g, s);
   if (err != cudaSuccess) return (int)err;
-  return (int)i8::gemm<bt::kResidual>(
+  return (int)i8::gemm<bt::kResidual, bf16>(
       q, sc, static_cast<const int8_t*>(wproj), static_cast<const float*>(sproj),
-      static_cast<const float*>(bproj), xb, out, T, C, C, s);
+      static_cast<const float*>(bproj), xb, static_cast<bf16*>(out), T, C, C, s);
+}
+
+// As bt_fused_block_attn_i8 on f32 activations: x, out [B, Hp, Wp, C],
+// qkv_scratch [B*Hp*Wp, 3C] and attn_scratch [B, Hp, Wp, C] f32; the
+// weights, scales and codes as there; every pointer 16-byte aligned.
+extern "C" int bt_fused_block_attn_i8_f32(
+    const void* x, const void* ln_g, const void* ln_b, const void* wqkv,
+    const void* sqkv, const void* bqkv, const void* wproj, const void* sproj,
+    const void* bproj, const void* bias, const void* mask, void* codes,
+    void* scales, void* qkv_scratch, void* attn_scratch, void* out, int B, int Hp,
+    int Wp, int C, int heads, int ws, int shift, int origin, int h_real,
+    int w_real, int mask_kind, void* stream) {
+  namespace i8 = bt::i8;
+  if (bad_block(B, Hp, Wp, C, heads, ws, bias, mask, mask_kind))
+    return (int)cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  const Geometry g{Hp, Wp, C, heads, ws, shift, origin, h_real, w_real};
+  const int T = B * Hp * Wp;
+  auto* xf = static_cast<const float*>(x);
+  auto* q = static_cast<int8_t*>(codes);
+  auto* sc = static_cast<float*>(scales);
+  auto* qkv = static_cast<float*>(qkv_scratch);
+  auto* attn = static_cast<float*>(attn_scratch);
+
+  cudaError_t err = i8::quant_rows<float, true, true>(
+      xf, static_cast<const float*>(ln_g), static_cast<const float*>(ln_b), q, sc, T, C, g,
+      s);
+  if (err != cudaSuccess) return (int)err;
+  err = i8::gemm<bt::kStore, float>(q, sc, static_cast<const int8_t*>(wqkv),
+                                    static_cast<const float*>(sqkv),
+                                    static_cast<const float*>(bqkv), nullptr, qkv, T, 3 * C,
+                                    C, s);
+  if (err != cudaSuccess) return (int)err;
+
+  err = attention_core_f32(qkv, bias, mask, mask_kind, attn, B, g, s);
+  if (err != cudaSuccess) return (int)err;
+
+  err = i8::quant_rows<float, false, false>(attn, nullptr, nullptr, q, sc, T, C, g, s);
+  if (err != cudaSuccess) return (int)err;
+  return (int)i8::gemm<bt::kResidual, float>(
+      q, sc, static_cast<const int8_t*>(wproj), static_cast<const float*>(sproj),
+      static_cast<const float*>(bproj), xf, static_cast<float*>(out), T, C, C, s);
 }
 
 // As bt_fused_block_attn_bf16 with every tensor f32: x, out [B, Hp, Wp, C];

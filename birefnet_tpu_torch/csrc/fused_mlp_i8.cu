@@ -8,9 +8,10 @@
 //
 // What bounds it on the card: the two int8 products, 16 C^2 operations per
 // token against the 1,979 TOP/s dense int8 peak (1.93 TOP, 0.98 ms per
-// Swin-L forward); its inputs and output are 4 C bytes a token. The TPU
-// kernel kept the [tt, 4C] hidden of a token tile in VMEM. The fc2 input is
-// quantized per token over all 4C hidden units, so a row's scale exists
+// Swin-L forward); its inputs and output are 4 C bytes a token (8 C with
+// f32 activations). The TPU kernel kept the [tt, 4C] hidden of a token
+// tile in VMEM. The fc2 input is quantized per token over all 4C hidden
+// units, so a row's scale exists
 // only once its whole f32 hidden row does: at C = 768 that is 786 KB for
 // the 64 rows of one wgmma, and one SM holds 227 KB. Written to device
 // memory, the hidden costs 40 C bytes a token (the f32 row out and back,
@@ -48,7 +49,8 @@
 //    time; the two s32 partial sums meet in shared memory (exact in any
 //    split and order);
 // 5. acc * (sx2 * s2) + b2 rounded to bf16, plus x in bf16 (kResidual's
-//    order, common.cuh).
+//    order, common.cuh); on f32 activations (the TPU kernel's f32 branch,
+//    whose .astype(x.dtype) is then a no-op) y + x in f32, unrounded.
 // Padding: when S * 384 > 4C or S * 96 > C, TMA reads zeros past the
 // weights' rows and columns and the epilogues zero or mask those columns.
 // The slice and the row maxima are rewritten only after every CTA has
@@ -61,6 +63,15 @@
 // over half the cycles, at 8 warps an SM; DSMEM reads cost a quarter of
 // fc2; overlapping the GELU with the previous row block's fc2 spilled
 // registers and ran slower.
+//
+// Activations: the kernel and its entries are templates on the type of x
+// and out, bf16 (bt_fused_mlp_i8, bt_fused_mlp_i8_codes) or f32
+// (bt_fused_mlp_i8_f32, bt_fused_mlp_i8_codes_f32, after the f32 LN2 row
+// pass quant_rows<float, true, false>). Only step 5 differs: the residual
+// is 24 floats a thread where bf16's is 12 words of pairs, loaded after
+// the half sums' barrier, not before it as bf16's are, so that they are
+// not live across the barrier beside acc2 in a kernel at its register
+// ceiling (ptxas: 239 registers, no spills; bf16 247).
 //
 // Numerics: the arithmetic of the four-launch chain it replaces, step for
 // step (the dequant products and sums rounded without contraction, the
@@ -259,15 +270,17 @@ __device__ __forceinline__ void mma_n96(int (&d)[48], const uint4& a, uint64_t d
 #undef BT_L96
 
 // tmA: the LN2 codes [T, C]; tmW1: w1q [4C, C]; tmW2: w2q [C, 4C]; sx [T]
-// the LN2 row scales; s1, b1 [4C], s2, b2 [C]; x, out [T, C] bf16.
-// Cluster of S CTAs along x; two warpgroups (256 threads).
+// the LN2 row scales; s1, b1 [4C], s2, b2 [C]; x, out [T, C] of Tx (bf16
+// or float). Cluster of S CTAs along x; two warpgroups (256 threads).
+template <typename Tx>
 __global__ void __launch_bounds__(kThreads, 1)
 fused_mlp_i8_kernel(const __grid_constant__ CUtensorMap tmA,
                     const __grid_constant__ CUtensorMap tmW1,
                     const __grid_constant__ CUtensorMap tmW2, const float* __restrict__ sx,
                     const float* __restrict__ s1, const float* __restrict__ b1,
                     const float* __restrict__ s2, const float* __restrict__ b2,
-                    const bf16* __restrict__ x, bf16* __restrict__ out, int T, int C, int S) {
+                    const Tx* __restrict__ x, Tx* __restrict__ out, int T, int C, int S) {
+  constexpr bool kF32 = std::is_same<Tx, float>::value;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t ring = (raw + 1023) & ~1023u;
@@ -526,23 +539,29 @@ fused_mlp_i8_kernel(const __grid_constant__ CUtensorMap tmA,
       fence_frag(fa1);
       if (lane == 0) release(it - 1);
 
-      // ---- the two half sums meet; dequant + b2, bf16, + x. Warpgroup c
-      // finishes n8 blocks [6 c, 6 c + 6) of the 96 columns; the index of
-      // acc2 is a constant in each branch (a runtime one would put acc2 in
-      // local memory).
+      // ---- the two half sums meet; dequant + b2, bf16, + x (f32: y + x).
+      // Warpgroup c finishes n8 blocks [6 c, 6 c + 6) of the 96 columns;
+      // the index of acc2 is a constant in each branch (a runtime one would
+      // put acc2 in local memory).
       auto finish = [&](auto half) {
         constexpr int kC = decltype(half)::value;
-        // The residual loads go out before the barrier.
-        uint32_t xres[12];
+        // The bf16 residual loads go out before the barrier (pairs in one
+        // word each), the f32 ones after it.
+        uint32_t xres[kF32 ? 1 : 12];
+        if constexpr (!kF32) {
 #pragma unroll
-        for (int jj = 0; jj < 6; ++jj)
+          for (int jj = 0; jj < 6; ++jj)
 #pragma unroll
-          for (int i2 = 0; i2 < 2; ++i2) {
-            const int row = m0 + r0 + 8 * i2, col = oc0 + 8 * (6 * kC + jj) + 2 * q;
-            xres[2 * jj + i2] =
-                row < T && col < C ? *reinterpret_cast<const uint32_t*>(x + (size_t)row * C + col)
-                                   : 0u;
-          }
+            for (int i2 = 0; i2 < 2; ++i2) {
+              const int row = m0 + r0 + 8 * i2, col = oc0 + 8 * (6 * kC + jj) + 2 * q;
+              xres[2 * jj + i2] =
+                  row < T && col < C
+                      ? *reinterpret_cast<const uint32_t*>(x + (size_t)row * C + col)
+                      : 0u;
+            }
+        } else {
+          (void)xres;
+        }
 #pragma unroll
         for (int jj = 0; jj < 6; ++jj)
 #pragma unroll
@@ -566,11 +585,18 @@ fused_mlp_i8_kernel(const __grid_constant__ CUtensorMap tmA,
             const int y1 = acc2[4 * j + 2 * i2 + 1] + other[1];
             const float f0 = __fadd_rn(__fmul_rn((float)y0, __fmul_rn(rs[i2], sv.x)), bv.x);
             const float f1 = __fadd_rn(__fmul_rn((float)y1, __fmul_rn(rs[i2], sv.y)), bv.y);
-            const float2 yr = __bfloat1622float2(__floats2bfloat162_rn(f0, f1));
-            const uint32_t xw = xres[2 * jj + i2];
-            const float2 xr = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xw));
-            *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * C + oc0 + col) =
-                __floats2bfloat162_rn(yr.x + xr.x, yr.y + xr.y);
+            if constexpr (kF32) {
+              const float2 xr = *reinterpret_cast<const float2*>(x + (size_t)row * C + oc0 + col);
+              *reinterpret_cast<float2*>(out + (size_t)row * C + oc0 + col) =
+                  make_float2(__fadd_rn(f0, xr.x), __fadd_rn(f1, xr.y));
+            } else {
+              const float2 yr = __bfloat1622float2(__floats2bfloat162_rn(f0, f1));
+              const uint32_t xw = xres[2 * jj + i2];
+              const float2 xr =
+                  __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xw));
+              *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * C + oc0 + col) =
+                  __floats2bfloat162_rn(yr.x + xr.x, yr.y + xr.y);
+            }
           }
         }
       };
@@ -584,21 +610,21 @@ fused_mlp_i8_kernel(const __grid_constant__ CUtensorMap tmA,
   cluster_sync();
 }
 
-int max_clusters[kMaxCluster + 1];
-
 // One launch on clusters of S = ceil(C / 96) CTAs, as many as the card
 // holds at once (cudaOccupancyMaxActiveClusters) up to one per row block.
+template <typename Tx>
 cudaError_t launch(const int8_t* codes, const float* sx, const int8_t* w1q, const float* s1,
                    const float* b1, const int8_t* w2q, const float* s2, const float* b2,
-                   const bf16* x, bf16* out, int T, int C, cudaStream_t s) {
+                   const Tx* x, Tx* out, int T, int C, cudaStream_t s) {
   if (T <= 0 || C <= 0 || C % 64 != 0 || C > kMaxCluster * kOut) return cudaErrorInvalidValue;
   const int S = (C + kOut - 1) / kOut;
+  static int max_clusters[kMaxCluster + 1];
   static bool attr = false;
   if (!attr) {
     cudaError_t err = cudaFuncSetAttribute(
-        fused_mlp_i8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+        fused_mlp_i8_kernel<Tx>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
     if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(fused_mlp_i8_kernel,
+      err = cudaFuncSetAttribute(fused_mlp_i8_kernel<Tx>,
                                  cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return err;
     attr = true;
@@ -621,7 +647,7 @@ cudaError_t launch(const int8_t* codes, const float* sx, const int8_t* w1q, cons
   if (max_clusters[S] == 0) {
     cfg.gridDim = dim3(S);
     int n = 0;
-    const cudaError_t err = cudaOccupancyMaxActiveClusters(&n, fused_mlp_i8_kernel, &cfg);
+    const cudaError_t err = cudaOccupancyMaxActiveClusters(&n, fused_mlp_i8_kernel<Tx>, &cfg);
     if (err != cudaSuccess) return err;
     if (n <= 0) return cudaErrorLaunchOutOfResources;  // no cluster of S fits
     max_clusters[S] = n;
@@ -629,9 +655,43 @@ cudaError_t launch(const int8_t* codes, const float* sx, const int8_t* w1q, cons
   const int row_blocks = (T + kRows - 1) / kRows;
   const int clusters = row_blocks < max_clusters[S] ? row_blocks : max_clusters[S];
   cfg.gridDim = dim3(clusters * S);
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, fused_mlp_i8_kernel, tmA, tmW1, tmW2, sx, s1,
-                                             b1, s2, b2, x, out, T, C, S);
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, fused_mlp_i8_kernel<Tx>, tmA, tmW1, tmW2, sx,
+                                             s1, b1, s2, b2, x, out, T, C, S);
   return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// The two launches of a call: the LN2 row pass of x into codes and
+// scales, then the cluster kernel.
+template <typename Tx>
+int run(const void* x, const void* ln_g, const void* ln_b, const void* w1q, const void* s1,
+        const void* b1, const void* w2q, const void* s2, const void* b2, void* codes,
+        void* scales, void* out, int T, int C, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  auto* xt = static_cast<const Tx*>(x);
+  auto* q = static_cast<int8_t*>(codes);
+  auto* sc = static_cast<float*>(scales);
+  if (C % 64 != 0 || T <= 0) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = i8::quant_rows<Tx, true, false>(
+      xt, static_cast<const float*>(ln_g), static_cast<const float*>(ln_b), q, sc, T, C,
+      Geometry{}, s);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch<Tx>(q, sc, static_cast<const int8_t*>(w1q), static_cast<const float*>(s1),
+                         static_cast<const float*>(b1), static_cast<const int8_t*>(w2q),
+                         static_cast<const float*>(s2), static_cast<const float*>(b2), xt,
+                         static_cast<Tx*>(out), T, C, s);
+}
+
+// The cluster kernel alone, from given LN2 codes and scales.
+template <typename Tx>
+int run_codes(const void* codes, const void* scales, const void* x, const void* w1q,
+              const void* s1, const void* b1, const void* w2q, const void* s2, const void* b2,
+              void* out, int T, int C, void* stream) {
+  return (int)launch<Tx>(
+      static_cast<const int8_t*>(codes), static_cast<const float*>(scales),
+      static_cast<const int8_t*>(w1q), static_cast<const float*>(s1),
+      static_cast<const float*>(b1), static_cast<const int8_t*>(w2q),
+      static_cast<const float*>(s2), static_cast<const float*>(b2), static_cast<const Tx*>(x),
+      static_cast<Tx*>(out), T, C, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -646,32 +706,34 @@ extern "C" int bt_fused_mlp_i8(const void* x, const void* ln_g, const void* ln_b
                                const void* w1q, const void* s1, const void* b1,
                                const void* w2q, const void* s2, const void* b2, void* codes,
                                void* scales, void* out, int T, int C, void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-  auto* xb = static_cast<const bf16*>(x);
-  auto* q = static_cast<int8_t*>(codes);
-  auto* sc = static_cast<float*>(scales);
-  if (C % 64 != 0 || T <= 0) return (int)cudaErrorInvalidValue;
-  const cudaError_t err = bt::i8::quant_rows<bf16, true, false>(
-      xb, static_cast<const float*>(ln_g), static_cast<const float*>(ln_b), q, sc, T, C,
-      bt::Geometry{}, s);
-  if (err != cudaSuccess) return (int)err;
-  return (int)bt::mlp8::launch(q, sc, static_cast<const int8_t*>(w1q),
-                               static_cast<const float*>(s1), static_cast<const float*>(b1),
-                               static_cast<const int8_t*>(w2q), static_cast<const float*>(s2),
-                               static_cast<const float*>(b2), xb, static_cast<bf16*>(out), T, C,
-                               s);
+  return bt::mlp8::run<bf16>(x, ln_g, ln_b, w1q, s1, b1, w2q, s2, b2, codes, scales, out, T, C,
+                             stream);
+}
+
+// As bt_fused_mlp_i8 with x, out [T, C] f32.
+extern "C" int bt_fused_mlp_i8_f32(const void* x, const void* ln_g, const void* ln_b,
+                                   const void* w1q, const void* s1, const void* b1,
+                                   const void* w2q, const void* s2, const void* b2, void* codes,
+                                   void* scales, void* out, int T, int C, void* stream) {
+  return bt::mlp8::run<float>(x, ln_g, ln_b, w1q, s1, b1, w2q, s2, b2, codes, scales, out, T,
+                              C, stream);
 }
 
 // The cluster kernel alone, from given LN2 codes [T, C] int8 and scales
-// [T] f32 (for the tests and chip_smoke.py).
+// [T] f32 (for the tests and chip_smoke.py); x, out bf16 (or f32, the
+// _f32 entry).
 extern "C" int bt_fused_mlp_i8_codes(const void* codes, const void* scales, const void* x,
                                      const void* w1q, const void* s1, const void* b1,
                                      const void* w2q, const void* s2, const void* b2, void* out,
                                      int T, int C, void* stream) {
-  return (int)bt::mlp8::launch(
-      static_cast<const int8_t*>(codes), static_cast<const float*>(scales),
-      static_cast<const int8_t*>(w1q), static_cast<const float*>(s1),
-      static_cast<const float*>(b1), static_cast<const int8_t*>(w2q),
-      static_cast<const float*>(s2), static_cast<const float*>(b2), static_cast<const bf16*>(x),
-      static_cast<bf16*>(out), T, C, static_cast<cudaStream_t>(stream));
+  return bt::mlp8::run_codes<bf16>(codes, scales, x, w1q, s1, b1, w2q, s2, b2, out, T, C,
+                                   stream);
+}
+
+extern "C" int bt_fused_mlp_i8_codes_f32(const void* codes, const void* scales, const void* x,
+                                         const void* w1q, const void* s1, const void* b1,
+                                         const void* w2q, const void* s2, const void* b2,
+                                         void* out, int T, int C, void* stream) {
+  return bt::mlp8::run_codes<float>(codes, scales, x, w1q, s1, b1, w2q, s2, b2, out, T, C,
+                                    stream);
 }

@@ -1,7 +1,9 @@
 // The persistent, warp-specialized wgmma/TMA GEMM for sm_90a, shared by the
 // int8 GEMM (int8_gemm.cu: K1-int8) and the bf16 GEMM (bf16_gemm.cu: K1 and
-// K2). Each source instantiates gemm_kernel<In, EPI> for its own input
-// type; nothing here is compiled twice for one type. K3's cluster kernel
+// K2). Each source instantiates gemm_kernel<In, EPI, Out> for its own input
+// type; nothing here is compiled twice for one type. Out is bf16, or f32
+// for the int8 GEMM's store and residual epilogues (K1-int8 on f32
+// activations). K3's cluster kernel
 // (fused_mlp_i8.cu) takes the ring's pieces: the mbarrier helpers, TMA
 // loads and descriptors, and the GELU.
 //
@@ -26,7 +28,8 @@
 //   from the producer to them). Their k loops take turns, so one
 //   consumer's epilogue runs while the other's wgmma keep the tensor cores
 //   busy. The epilogue goes through shared memory and stores 16-byte
-//   pieces; a residual is loaded when the tile starts, during the k loop.
+//   pieces; a bf16 residual is loaded when the tile starts, during the k
+//   loop, an f32 one when its 64 x 32 chunk starts.
 // Why ping-pong: with both consumers on one tile (64 rows each) the tensor
 // cores idle during every epilogue. In an A/B on the H100 (int8, profiler
 // device time, both designs with the staged epilogue) ping-pong was faster
@@ -74,14 +77,21 @@ constexpr int kStageBytes = 2 * kABytes;
 constexpr int kStages = 6;  // a 192 KB ring
 // Per consumer warpgroup, the tile's epilogue vectors (sa of its rows, sw
 // and bias of its columns) and the staging of one 64 x 32 chunk of
-// outputs, in rows of 20 words (16 of bf16 pairs), padded so that the
-// accumulator layout's stores hit distinct banks.
+// outputs, in rows of 20 words (16 of bf16 pairs) or, for f32 outputs, 40
+// words (32 floats), padded so that the accumulator layout's stores hit
+// distinct banks.
 constexpr int kEpFloats = kBM + 2 * kBN;
-constexpr int kStgWords = 64 * 20;
+template <typename Out>
+constexpr int kStgRow = std::is_same<Out, float>::value ? 40 : 20;
+template <typename Out>
+constexpr int kStgWords = 64 * kStgRow<Out>;
 // The ring (1024-byte aligned for the swizzle), 2 barriers a stage, then
-// the two consumers' epilogue vectors and staging.
+// the two consumers' epilogue vectors and staging: 211,040 bytes for bf16
+// outputs, 221,280 for f32, of the 232,448 a block may have.
+template <typename Out>
 constexpr int kSmem =
-    1024 + kStages * kStageBytes + 2 * kStages * 8 + 2 * (kEpFloats + kStgWords) * 4;
+    1024 + kStages * kStageBytes + 2 * kStages * 8 + 2 * (kEpFloats + kStgWords<Out>) * 4;
+static_assert(kSmem<float> <= 232448, "more shared memory than a block may have");
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -235,16 +245,20 @@ struct Mma<bf16> {
 #undef BT_WG_REGS
 
 // EPI is an Epilogue (common.cuh). The int8 GEMM's y is the dequant
-// acc * (sa * sw) + b; the bf16 GEMM's y is acc + b (sa, sw unused). Every
-// epilogue writes bf16.
-template <typename In, int EPI>
+// acc * (sa * sw) + b; the bf16 GEMM's y is acc + b (sa, sw unused). Out
+// bf16: the epilogues as common.cuh states them. Out float (kStore and
+// kResidual only): out = y, or out = y + res with res f32, nothing rounded
+// to bf16.
+template <typename In, int EPI, typename Out>
 __global__ void __launch_bounds__(kThreads, 1)
 gemm_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constant__ CUtensorMap tmW,
             const float* __restrict__ sa, const float* __restrict__ sw,
-            const float* __restrict__ bias, const bf16* __restrict__ res,
+            const float* __restrict__ bias, const Out* __restrict__ res,
             void* __restrict__ out, int M, int N, int K) {
   using Acc = typename Mma<In>::Acc;
   constexpr bool kI8 = std::is_same<In, int8_t>::value;
+  constexpr bool kF32 = std::is_same<Out, float>::value;
+  static_assert(!kF32 || EPI != kGelu, "the f32 outputs take no GELU");
   constexpr int kElems = kBK / (int)sizeof(In);  // k values per step
   extern __shared__ uint8_t smem_raw[];
   const uint32_t ring = (smem_u32(smem_raw) + 1023) & ~1023u;
@@ -301,16 +315,19 @@ gemm_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constant__ CUt
   // each thread writes its values into a shared-memory staging chunk, then
   // the warpgroup writes the chunk out in 16-byte pieces, a row's 64 or 128
   // bytes contiguous (the accumulator layout alone would store 4 bytes a
-  // thread, 16 bytes a row).
+  // thread, 16 bytes a row). An f32 residual (twice the bytes of a bf16
+  // one) is loaded when its chunk starts instead: prefetched for the whole
+  // tile it would take 128 registers a thread beside the 128 accumulators.
   asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
   const int c = wg - 1, tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
   float* ep = reinterpret_cast<float*>(smem_raw + (ring - smem_u32(smem_raw)) +
                                        kStages * kStageBytes + 2 * kStages * 8) +
               c * kEpFloats;
-  uint32_t* stg = reinterpret_cast<uint32_t*>(ep + (2 - c) * kEpFloats) + c * kStgWords;
+  uint32_t* stg = reinterpret_cast<uint32_t*>(ep + (2 - c) * kEpFloats) + c * kStgWords<Out>;
   constexpr bool kRes = EPI == kResidual;
-  constexpr int kRowWords = 20;               // staging row stride
-  constexpr int kSegsRow = 4;                 // 16-byte pieces of a chunk row
+  constexpr bool kResPre = kRes && !kF32;      // the residual prefetched per tile
+  constexpr int kRowWords = kStgRow<Out>;  // staging row stride
+  constexpr int kSegsRow = kF32 ? 8 : 4;      // 16-byte pieces of a chunk row
   constexpr int kSegs = 64 * kSegsRow / 128;  // pieces per thread per chunk
   if (c == 1 && n_local > 0) bar_arrive(3, 256);  // consumer 0 goes first
   for (int i = c; i < n_local; i += 2) {
@@ -321,8 +338,8 @@ gemm_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constant__ CUt
     const float r_b = n0 + tid < N ? bias[n0 + tid] : 0.f;
     // The residual at this thread's 16-byte pieces of every chunk
     // (row half h, 32 columns ch).
-    uint4 rv[kRes ? 2 : 1][kRes ? 4 : 1][kRes ? kSegs : 1];
-    if (kRes) {
+    uint4 rv[kResPre ? 2 : 1][kResPre ? 4 : 1][kResPre ? kSegs : 1];
+    if (kResPre) {
 #pragma unroll
       for (int h = 0; h < 2; ++h)
 #pragma unroll
@@ -331,7 +348,7 @@ gemm_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constant__ CUt
           for (int u = 0; u < kSegs; ++u) {
             const int sgm = tid + 128 * u, row = m0 + 64 * h + sgm / kSegsRow;
             const int col = n0 + 32 * ch + 8 * (sgm % kSegsRow);
-            rv[kRes ? h : 0][kRes ? ch : 0][kRes ? u : 0] =
+            rv[kResPre ? h : 0][kResPre ? ch : 0][kResPre ? u : 0] =
                 row < M && col < N
                     ? *reinterpret_cast<const uint4*>(res + (size_t)row * N + col)
                     : make_uint4(0, 0, 0, 0);
@@ -384,6 +401,18 @@ gemm_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constant__ CUt
     for (int h = 0; h < 2; ++h) {
 #pragma unroll
       for (int ch = 0; ch < 4; ++ch) {
+        // The f32 residual of this chunk's pieces, loaded under the staging.
+        float4 rf[kF32 && kRes ? kSegs : 1];
+        if constexpr (kF32 && kRes) {
+#pragma unroll
+          for (int u = 0; u < kSegs; ++u) {
+            const int sgm = tid + 128 * u, row = m0 + 64 * h + sgm / kSegsRow;
+            const int col = n0 + 32 * ch + 4 * (sgm % kSegsRow);
+            rf[u] = row < M && col < N
+                        ? *reinterpret_cast<const float4*>(res + (size_t)row * N + col)
+                        : make_float4(0.f, 0.f, 0.f, 0.f);
+          }
+        }
         bar_sync(1 + c, 128);  // ep written; the last chunk's pieces read
 #pragma unroll
         for (int i2 = 0; i2 < 2; ++i2) {
@@ -407,36 +436,50 @@ gemm_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constant__ CUt
               y0 = gelu_erf3(y0);
               y1 = gelu_erf3(y1);
             }
-            *reinterpret_cast<__nv_bfloat162*>(stg + r * kRowWords + 4 * jj + (lane & 3)) =
-                __floats2bfloat162_rn(y0, y1);
+            if constexpr (kF32)
+              *reinterpret_cast<float2*>(stg + r * kRowWords + 8 * jj + 2 * (lane & 3)) =
+                  make_float2(y0, y1);
+            else
+              *reinterpret_cast<__nv_bfloat162*>(stg + r * kRowWords + 4 * jj + (lane & 3)) =
+                  __floats2bfloat162_rn(y0, y1);
           }
         }
         bar_sync(1 + c, 128);
 #pragma unroll
         for (int u = 0; u < kSegs; ++u) {
           const int sgm = tid + 128 * u, r = sgm / kSegsRow, q = sgm % kSegsRow;
-          const int row = m0 + 64 * h + r, col = n0 + 32 * ch + q * 8;
+          const int row = m0 + 64 * h + r, col = n0 + 32 * ch + q * (kF32 ? 4 : 8);
           if (row >= M || col >= N) continue;
           uint4 v = *reinterpret_cast<const uint4*>(stg + r * kRowWords + 4 * q);
-          if (kRes) {
-            // round(y) was staged; out = round(round(y) + res).
-            const uint4 rr = rv[kRes ? h : 0][kRes ? ch : 0][kRes ? u : 0];
-            const uint32_t* yw = &v.x;
-            const uint32_t* rw = &rr.x;
-            uint4 o;
-            uint32_t* ow = &o.x;
-#pragma unroll
-            for (int w = 0; w < 4; ++w) {
-              const float2 y =
-                  __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(yw + w));
-              const float2 x =
-                  __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(rw + w));
-              const __nv_bfloat162 sum = __floats2bfloat162_rn(y.x + x.x, y.y + x.y);
-              ow[w] = *reinterpret_cast<const uint32_t*>(&sum);
+          if constexpr (kF32) {
+            float4 y = *reinterpret_cast<const float4*>(&v);
+            if constexpr (kRes) {
+              // y was staged unrounded; out = y + res in f32.
+              y = make_float4(__fadd_rn(y.x, rf[u].x), __fadd_rn(y.y, rf[u].y),
+                              __fadd_rn(y.z, rf[u].z), __fadd_rn(y.w, rf[u].w));
             }
-            v = o;
+            *reinterpret_cast<float4*>(static_cast<float*>(out) + (size_t)row * N + col) = y;
+          } else {
+            if (kRes) {
+              // round(y) was staged; out = round(round(y) + res).
+              const uint4 rr = rv[kResPre ? h : 0][kResPre ? ch : 0][kResPre ? u : 0];
+              const uint32_t* yw = &v.x;
+              const uint32_t* rw = &rr.x;
+              uint4 o;
+              uint32_t* ow = &o.x;
+#pragma unroll
+              for (int w = 0; w < 4; ++w) {
+                const float2 y =
+                    __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(yw + w));
+                const float2 x =
+                    __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(rw + w));
+                const __nv_bfloat162 sum = __floats2bfloat162_rn(y.x + x.x, y.y + x.y);
+                ow[w] = *reinterpret_cast<const uint32_t*>(&sum);
+              }
+              v = o;
+            }
+            *reinterpret_cast<uint4*>(static_cast<bf16*>(out) + (size_t)row * N + col) = v;
           }
-          *reinterpret_cast<uint4*>(static_cast<bf16*>(out) + (size_t)row * N + col) = v;
         }
       }
     }
@@ -491,19 +534,19 @@ int sm_count() {
   return n;
 }
 
-// One launch of gemm_kernel<In, EPI> on a grid of min(tiles, SMs) blocks.
-// M, N, K > 0 with N % 8 == 0 and K * sizeof(In) % 16 == 0; A, W, res and
-// out 16-byte aligned.
-template <typename In, int EPI>
+// One launch of gemm_kernel<In, EPI, Out> on a grid of min(tiles, SMs)
+// blocks. M, N, K > 0 with N % 8 == 0 and K * sizeof(In) % 16 == 0; A, W,
+// res and out 16-byte aligned.
+template <typename In, int EPI, typename Out = bf16>
 cudaError_t launch(const In* A, const In* W, const float* sa, const float* sw,
-                   const float* bias, const bf16* res, void* out, int M, int N, int K,
+                   const float* bias, const Out* res, void* out, int M, int N, int K,
                    cudaStream_t s) {
   if (M <= 0 || N <= 0 || K <= 0 || N % 8 != 0 || K * (int)sizeof(In) % 16 != 0)
     return cudaErrorInvalidValue;
   static bool attr = false;
   if (!attr) {
     const cudaError_t err = cudaFuncSetAttribute(
-        gemm_kernel<In, EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+        gemm_kernel<In, EPI, Out>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem<Out>);
     if (err != cudaSuccess) return err;
     attr = true;
   }
@@ -511,7 +554,8 @@ cudaError_t launch(const In* A, const In* W, const float* sa, const float* sw,
   if (!encode(&tmA, A, M, K, kBM) || !encode(&tmW, W, N, K, kBN)) return cudaErrorInvalidValue;
   const int tiles = (M + kBM - 1) / kBM * ((N + kBN - 1) / kBN);
   const int grid = tiles < sm_count() ? tiles : sm_count();
-  gemm_kernel<In, EPI><<<grid, kThreads, kSmem, s>>>(tmA, tmW, sa, sw, bias, res, out, M, N, K);
+  gemm_kernel<In, EPI, Out>
+      <<<grid, kThreads, kSmem<Out>, s>>>(tmA, tmW, sa, sw, bias, res, out, M, N, K);
   return cudaGetLastError();
 }
 

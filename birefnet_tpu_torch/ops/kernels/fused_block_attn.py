@@ -5,8 +5,8 @@ On a padded (and, for cyclic shifted blocks, rolled) NHWC canvas:
     x + proj(per head softmax(q k^T * d^-0.5 + bias [+ SW-MSA mask]) v),
     with q, k, v = qkv(LN1(x) with pad tokens zeroed)
 
-Replaces birefnet_tpu/ops/pallas/fused_block_attn.py::_fused (bf16 and f32,
-not the int8 branch), called from models/swin.py for every Swin block: 48
+Replaces birefnet_tpu/ops/pallas/fused_block_attn.py::_fused (bf16 and f32;
+the int8 branch below), called from models/swin.py for every Swin block: 48
 calls per Swin-L forward, on canvases from [2, 264, 264, 192] (6 heads) to
 [2, 24, 24, 1536] (48 heads), window 12 (N = 144), head dim 32.
 
@@ -34,7 +34,11 @@ path, fused_block_attn.py:100-112, 208-215). Its CUDA route
 (`bt_fused_block_attn_i8`) is five launches: LN1 + pad-zero + bf16
 rounding + per-token int8 rows, an int8 qkv GEMM with dequant and bias,
 the same bf16 attention core, per-token int8 of the attention rows,
-and an int8 proj GEMM with dequant, bias and the residual.
+and an int8 proj GEMM with dequant, bias and the residual. An f32 canvas
+(the same branch at tokens.dtype == float32) runs
+`bt_fused_block_attn_i8_f32`: the same five launches with nothing rounded
+to bf16, the qkv dequantized into an f32 scratch, the f32 core, and the
+proj's residual added in f32.
 
 f32 (ComputeConfig(dtype=float32) on the kernel tier): an f32 canvas runs
 `bt_fused_block_attn_f32`, the f32 branch of the same TPU kernel (dots at
@@ -44,10 +48,9 @@ csrc/f32_gemm.cu for qkv, the f32 core of csrc/window_core_f32.cuh, and the
 same GEMM for the projection with the residual. No tensor core and no
 TF32. The TPU kernel's f32 body already computes per head; its bf16 packed
 head groups (`_PACKED_G`, a TPU matrix-unit workaround) are not copied by
-either route. The W8A8 route takes bf16 activations only
-(fused_mlp.INT8_F32_MISSING). Both wrappers take their plain version for a
-CPU tensor and launch their kernels for a CUDA tensor or raise; each
-counts its own launches.
+either route. Both wrappers take their plain version for a CPU tensor
+and launch their kernels for a CUDA tensor or raise; each counts its own
+launches.
 """
 
 from __future__ import annotations
@@ -63,7 +66,6 @@ from ..attention import (qkv_window_attention, round_addends,
                          window_attention_forward)
 from . import build
 from . import window_core as core
-from .fused_mlp import INT8_F32_MISSING
 
 
 def _pad_token_mask(hp: int, wp: int, shift: int, origin: int, h_real: int,
@@ -138,10 +140,9 @@ def fused_window_block_attention_int8_plain(
     return x + quant.int8_linear(qa, sa, attn_params["proj"]).to(x.dtype)
 
 
-def _check(x, ws, heads, tensors, int8=False):
-    if x.dtype != torch.bfloat16 and (int8 or x.dtype != torch.float32):
-        raise TypeError(INT8_F32_MISSING if int8 and x.dtype == torch.float32
-                        else f"fused_block_attn kernel takes bf16 or f32 "
+def _check(x, ws, heads, tensors):
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"fused_block_attn kernel takes bf16 or f32 "
                         f"activations, got {x.dtype}")
     if x.ndim != 4 or not x.is_contiguous():
         raise ValueError("fused_block_attn needs a contiguous [B, Hp, Wp, C] "
@@ -242,7 +243,7 @@ def fused_window_block_attention_int8(
         h_real: int, w_real: int, origin: int = 0) -> torch.Tensor:
     """W8A8 x + proj(window attention(LN1(x))), the contract of
     fused_window_block_attention: plain version on the CPU, the CUDA
-    kernels on a CUDA tensor (bf16 activations only)."""
+    kernels on a CUDA tensor (bf16 or f32 activations)."""
     if x.device.type == "cpu":
         return fused_window_block_attention_int8_plain(
             x, norm1_params, attn_params, window_size, shift_size, num_heads,
@@ -262,8 +263,7 @@ def fused_window_block_attention_int8(
             ("proj weight_q8", proj_p["weight_q8"], i8, (c, c)),
             ("proj scale_q8", proj_p["scale_q8"], f32, (c,)),
             ("proj bias", proj_p["bias"], f32, (c,))]
-    _check(x, ws, num_heads, [("x", x, torch.bfloat16, tuple(x.shape))] + args,
-           int8=True)
+    _check(x, ws, num_heads, [("x", x, x.dtype, tuple(x.shape))] + args)
     bias, mask_ptr, kind = _addends(x, attn_params, attn_mask, ws, num_heads)
     t = b * hp * wp
     codes = torch.empty((t, c), dtype=i8, device=x.device)
@@ -272,7 +272,8 @@ def fused_window_block_attention_int8(
     attn = torch.empty_like(x)
     out = torch.empty_like(x)
     ptrs = [a.data_ptr() for _, a, _, _ in args]
-    fn = build.function("bt_fused_block_attn_i8", 16, 11)
+    fn = build.function("bt_fused_block_attn_i8_f32" if x.dtype == f32
+                        else "bt_fused_block_attn_i8", 16, 11)
     code = fn(x.data_ptr(), *ptrs, bias, mask_ptr, codes.data_ptr(),
               scales.data_ptr(), qkv.data_ptr(), attn.data_ptr(),
               out.data_ptr(), b, hp, wp, c, num_heads, ws, shift_size, origin,

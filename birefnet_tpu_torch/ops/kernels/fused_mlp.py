@@ -29,7 +29,11 @@ erf GELU, the per-token int8 of the whole 4C hidden row and fc2 with the
 dequant, b2 and the residual, the hidden kept in the cluster's shared
 memory (CLUSTER_SLICE hidden units per CTA, `cluster_size(C)` CTAs). There
 is no [T, 4C] scratch. `fused_mlp_residual_int8_codes` runs the cluster
-kernel alone from given LN2 codes (for the tests and chip_smoke.py).
+kernel alone from given LN2 codes (for the tests and chip_smoke.py). An
+f32 x (the TPU kernel's `_kernel_i8` at f32) runs the same two launches
+through `bt_fused_mlp_i8_f32`: the f32 LN2 row pass, then the cluster
+kernel built for f32 x and out, whose last step adds y + x in f32 where
+the bf16 one rounds y and the sum to bf16; the GELU stays the 3-term erf.
 
 f32 (ComputeConfig(dtype=float32) on the kernel tier): an f32 x runs
 `bt_fused_mlp_f32`, the f32 branch of the same TPU kernel (its dots at
@@ -37,9 +41,8 @@ precision=HIGHEST, the 5-coefficient erf), as the same three launches on
 f32 tensors: the f32 row pass, the FFMA f32 GEMM of csrc/f32_gemm.cu with
 the exact GELU into an f32 [T, 4C] scratch, and the same GEMM with the
 residual (ops/kernels/f32_gemm.py calls both alone). No tensor core and no
-TF32. The W8A8 kernels take bf16 activations only (INT8_F32_MISSING).
-Every wrapper takes its plain version for a CPU tensor and launches its
-kernel for a CUDA tensor or raises; each counts its own launches.
+TF32. Every wrapper takes its plain version for a CPU tensor and launches
+its kernel for a CUDA tensor or raises; each counts its own launches.
 """
 
 from __future__ import annotations
@@ -107,23 +110,15 @@ def fused_mlp_residual_int8_codes_plain(x: torch.Tensor, codes: torch.Tensor,
 # The C entries' widest rows: the row pass takes rows of up to 16384 bf16
 # or 8192 f32 values (csrc/rows.cuh).
 MAX_C = {torch.bfloat16: 16384, torch.float32: 8192}
-# The slice that ports K1-int8 and K3 with f32 activations (ROADMAP.md,
-# queue 2): until it lands their kernels take bf16 activations only.
-INT8_F32_MISSING = ("the W8A8 kernels with f32 activations (K1-int8 and K3 "
-                    "on --dtype float32, the JAX `_kernel_i8` branches) are "
-                    "not ported yet (ROADMAP.md, queue 2): run the int8 "
-                    "flags with bf16, or f32 without them")
 
 
-def _check(x: torch.Tensor, tensors, multiple: int, max_c: int,
-           int8: bool = False) -> None:
-    """Raise unless the kernel takes x and its tensors: bf16 (any entry) or
-    f32 (the non-int8 entry) activations, 32-byte aligned bf16 or int8
-    operands, 16-byte aligned f32 ones, C a multiple of `multiple` up to
-    max_c."""
-    if x.dtype != torch.bfloat16 and (int8 or x.dtype != torch.float32):
-        raise TypeError(INT8_F32_MISSING if int8 and x.dtype == torch.float32
-                        else f"fused_mlp kernel takes bf16 or f32 activations, "
+def _check(x: torch.Tensor, tensors, multiple: int, max_c: int) -> None:
+    """Raise unless the kernel takes x and its tensors: bf16 or f32
+    activations, 32-byte aligned bf16 or int8 operands (16-byte aligned
+    with f32 activations), 16-byte aligned f32 ones, C a multiple of
+    `multiple` up to max_c."""
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"fused_mlp kernel takes bf16 or f32 activations, "
                         f"got {x.dtype}")
     c = x.shape[-1]
     if c % multiple or c > max_c:
@@ -192,7 +187,7 @@ def _int8_weights(x: torch.Tensor, mlp_params):
 def fused_mlp_residual_int8(x: torch.Tensor, norm2_params,
                             mlp_params) -> torch.Tensor:
     """W8A8 x + MLP(LN2(x)) on [..., C]: plain version on the CPU; on a
-    CUDA tensor (bf16 only) the LN2 row pass and the cluster kernel of
+    CUDA tensor (bf16 or f32) the LN2 row pass and the cluster kernel of
     csrc/fused_mlp_i8.cu, counted as one launch of K3."""
     if x.device.type == "cpu":
         return fused_mlp_residual_int8_plain(x, norm2_params, mlp_params)
@@ -200,16 +195,17 @@ def fused_mlp_residual_int8(x: torch.Tensor, norm2_params,
         raise ValueError(f"fused_mlp_int8 runs on cpu or cuda, got {x.device}")
     c = x.shape[-1]
     f32 = torch.float32
-    args = [("x", x, torch.bfloat16, tuple(x.shape)),
+    args = [("x", x, x.dtype, tuple(x.shape)),
             ("ln scale", norm2_params["scale"], f32, (c,)),
             ("ln bias", norm2_params["bias"], f32, (c,)),
             *_int8_weights(x, mlp_params)]
-    _check(x, args, 64, CLUSTER_MAX * CLUSTER_OUT, int8=True)
+    _check(x, args, 64, CLUSTER_MAX * CLUSTER_OUT)
     t = x.numel() // c
     codes = torch.empty((t, c), dtype=torch.int8, device=x.device)
     scales = torch.empty((t,), dtype=f32, device=x.device)
     out = torch.empty_like(x)
-    fn = build.function("bt_fused_mlp_i8", 12, 2)
+    fn = build.function("bt_fused_mlp_i8_f32" if x.dtype == f32
+                        else "bt_fused_mlp_i8", 12, 2)
     code = fn(*[a.data_ptr() for _, a, _, _ in args], codes.data_ptr(),
               scales.data_ptr(), out.data_ptr(), t, c, build.stream(x.device))
     build.check(code, "fused_mlp_int8")
@@ -223,9 +219,10 @@ fused_mlp_residual_int8.launches = 0
 def fused_mlp_residual_int8_codes(x: torch.Tensor, codes: torch.Tensor,
                                   scales: torch.Tensor,
                                   mlp_params) -> torch.Tensor:
-    """The cluster kernel alone on x [T, C] bf16 from given LN2 codes [T, C]
-    int8 and scales [T, 1] f32: the plain version on the CPU, the kernel
-    on a CUDA tensor; its launches are counted apart from K3's."""
+    """The cluster kernel alone on x [T, C] bf16 or f32 from given LN2
+    codes [T, C] int8 and scales [T, 1] f32: the plain version on the CPU,
+    the kernel on a CUDA tensor; its launches are counted apart from
+    K3's."""
     if x.device.type == "cpu":
         return fused_mlp_residual_int8_codes_plain(x, codes, scales,
                                                    mlp_params)
@@ -237,10 +234,11 @@ def fused_mlp_residual_int8_codes(x: torch.Tensor, codes: torch.Tensor,
     t, c = x.shape
     args = [("codes", codes, torch.int8, (t, c)),
             ("scales", scales, torch.float32, (t, 1)),
-            ("x", x, torch.bfloat16, (t, c)), *_int8_weights(x, mlp_params)]
-    _check(x, args, 64, CLUSTER_MAX * CLUSTER_OUT, int8=True)
+            ("x", x, x.dtype, (t, c)), *_int8_weights(x, mlp_params)]
+    _check(x, args, 64, CLUSTER_MAX * CLUSTER_OUT)
     out = torch.empty_like(x)
-    fn = build.function("bt_fused_mlp_i8_codes", 10, 2)
+    fn = build.function("bt_fused_mlp_i8_codes_f32" if x.dtype == torch.float32
+                        else "bt_fused_mlp_i8_codes", 10, 2)
     code = fn(*[a.data_ptr() for _, a, _, _ in args], out.data_ptr(), t, c,
               build.stream(x.device))
     build.check(code, "fused_mlp_int8_codes")

@@ -18,7 +18,6 @@ import torch
 
 from .configs import IMAGENET_MEAN, IMAGENET_STD, BiRefNetConfig, ComputeConfig
 from .models import birefnet
-from .ops.kernels.fused_mlp import INT8_F32_MISSING
 from .ops.resize import resize_bilinear_half_pixel, resize_lanczos3
 from .params import (cast_matmul_weights, quantize_attn_int8,
                      quantize_mlp_int8, to_device)
@@ -44,18 +43,6 @@ def postprocess(mask: torch.Tensor, out_h: int, out_w: int,
     if as_uint8:
         m = torch.clamp(torch.round(m * 255.0), 0.0, 255.0).to(torch.uint8)
     return m
-
-
-def unsupported(compute: ComputeConfig, device) -> Optional[str]:
-    """Why `compute` cannot run on `device`, or None. The W8A8 kernels take
-    bf16 activations only, so on the card the kernel tier's int8 flags need
-    bf16 until their f32 branches are ported (on the CPU their plain
-    versions take f32)."""
-    if (torch.device(device).type == "cuda" and compute.dtype == torch.float32
-            and compute.use_flash_attention
-            and (compute.int8_mlp or compute.int8_attn)):
-        return INT8_F32_MISSING
-    return None
 
 
 @contextlib.contextmanager
@@ -89,17 +76,13 @@ def make_infer_fn(params, cfg: BiRefNetConfig,
     package does. The returned function takes [B, H, W, 3] uint8 frames
     (numpy or tensor) and returns [B, out_h, out_w] masks on the device,
     out_size defaulting to the frame size. With an f32 `compute` it runs
-    with PyTorch's TF32 flags off (`full_f32`); the int8 flags on the f32
-    kernel tier on the card raise NotImplementedError (`unsupported`).
+    with PyTorch's TF32 flags off (`full_f32`), the int8 flags included.
     """
     device = torch.device(device if device is not None else "cuda")
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("make_infer_fn runs on the CUDA device unless "
                            "device='cpu' is given, and no CUDA device is "
                            "available")
-    reason = unsupported(compute, device)
-    if reason is not None:
-        raise NotImplementedError(reason)
     # f32 runs every convolution and product in full f32, whatever TF32
     # flags the caller has set; bf16 leaves them alone.
     precision = (full_f32 if compute.dtype == torch.float32

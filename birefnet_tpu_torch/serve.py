@@ -13,9 +13,8 @@ Usage:
       --int8-mlp --int8-attn
 
 It runs on the CUDA device, on the kernel tier for either --dtype (as the
-JAX serve does on its TPU), and on the CPU only under --cpu. The int8
-flags with --dtype float32 on the card exit 1: the W8A8 kernels with f32
-activations are not ported yet. Single device only: the JAX package's
+JAX serve does on its TPU), the int8 flags with either, and on the CPU
+only under --cpu. Single device only: the JAX package's
 --dp/--spatial meshes, --aot-dir executables and the deformable modes are
 not ported and are refused.
 """
@@ -121,15 +120,11 @@ def main(argv=None) -> int:
     if not args.cpu and not torch.cuda.is_available():
         parser.error("no CUDA device is available; pass --cpu to run on "
                      "the CPU")
-    from .pipeline import make_infer_fn, unsupported
+    from .pipeline import make_infer_fn
 
     device = torch.device("cpu" if args.cpu else "cuda")
     compute = compute_config(args.dtype, device.type == "cuda",
                              args.int8_mlp, args.int8_attn)
-    reason = unsupported(compute, device)
-    if reason is not None:
-        print(f"error: {reason}", file=sys.stderr)
-        return 1
 
     paths = _paths(args.inputs)
     if not paths:

@@ -67,8 +67,18 @@ Phases, each printed as it runs; any failure exits non-zero:
    TF32 off (max <= BOUND_F32 x max|plain|, mean ratio <= MEAN_BOUND_F32)
    and timed against F.linear / F.layer_norm / SDPA in f32; at every GEMM
    and core shape the plain version in TF32 (operands rounded to TF32,
-   flags on) must break the mean bound. The f32 GEMM, core and one K1 call per stage join the repeat
-   check (REPEATS_F32 calls). Phase 3 runs with PyTorch's TF32 flags off;
+   flags on) must break the mean bound. The W8A8 kernels' f32 branches
+   (K1-int8 and K3 on f32 activations, entries "*_int8_f32") at every
+   Swin-L shape (and K3 at swin_t's stage 3), held to the int8 bounds
+   (BOUND, MEAN_BOUND_K1_I8, MEAN_BOUND_K3: the LN sums' order can flip a
+   code), K3 f32 also from given codes and the int8 GEMM's f32 epilogues
+   (the f32 store and the f32 residual) at K1-int8's eight shapes, both
+   bitwise and timed against torch._int_mm; their LN1 and LN2 code flips,
+   and on each f32 canvas a control whose plain LN1 rows are rounded to
+   bf16 must flip more than FLIP_CONTROL of the codes. The f32 GEMM, core
+   and one K1 call per stage, and every K1-int8 f32, K3 f32 (whole and
+   from codes) and f32-epilogue int8 GEMM shape, join the repeat check
+   (REPEATS_F32 calls). Phase 3 runs with PyTorch's TF32 flags off;
    the later phases find them as a user does (make_infer_fn turns them off
    for an f32 forward itself);
 4. drive pipeline.make_infer_fn at 1024^2, batch 2, bf16, kernel tier,
@@ -92,19 +102,27 @@ Phases, each printed as it runs; any failure exits non-zero:
    and swin_t (0/0/24/0/16/0/24/0/0), each held to its f32 plain pipeline
    (mask MAE < MASK_MAE_F32, every stage's feature error <= FEATURE_F32);
    Swin-L's f32 plain pipeline with cuDNN's TF32 forced on inside the
-   forward must break that feature gate. Also the f32 plain forward and
+   forward must break that feature gate. Two more run the f32 kernel tier
+   with both int8 flags (what `serve --dtype float32 --int8-mlp
+   --int8-attn` runs): Swin-L (8/40/8/40/16/0/0/0/0) and swin_t
+   (0/0/20/4/16/0/24/0/0), each held to mask MAE < 1e-3 against its f32
+   plain pipeline and its worst stage feature error to at most its bf16
+   int8 path's; Swin-L's int8 scales rolled by one channel, on f32
+   activations, must break that gate. Also the f32 plain forward and
    the f32 kernel tier at 64^2 against the JAX package's committed golden
    logits;
 5. serve 4 in-memory requests of different sizes through serve.segment on
    every path;
 6. time the pipeline's images/s with CUDA events (median of 5 calls after
    warm-up) in turns: Swin-L int8 path, bf16 kernel tier, plain bf16, f32
-   kernel tier, plain f32; swin_t int8 path, bf16 kernel tier, plain bf16.
+   kernel tier, plain f32, f32 int8 path; swin_t int8 path, bf16 kernel
+   tier, plain bf16.
 
 The line before the last is the nvidia-smi name/power line, the one
 before it the JSON kernel report: per kernel `launches` from its main path
 (Swin-L int8 for K1-K5, swin_t bf16 for K6-K8, the f32 paths for the
-"_f32" entries), `launches_by_path` from all six, and the times and bound
+"_f32" entries, Swin-L f32 int8 for the "_int8_f32" ones),
+`launches_by_path` from all eight, and the times and bound
 of its main model's forward (one call at each checked shape for K7 and
 K8), with each model's under `by_model`. The
 last line is `{"ok": true, "device": {...}}`. Without a CUDA device, or
@@ -144,6 +162,11 @@ BOUND = 2e-2
 # the normed rows broke its bound at every shape, and copies of both that
 # dequantized every 64th channel with its neighbour's scale broke theirs.
 MEAN_BOUND_K1_I8, MEAN_BOUND_K3 = 1e-3, 1e-4
+# The int8 row pass's LN1 codes on an f32 canvas against the plain model's:
+# a plain model that rounds the normed rows to bf16 (the rounding the f32
+# branch must skip) must differ in more than this share of the codes, and
+# the real flips must not.
+FLIP_CONTROL = 1e-3
 # The window-attention kernel (K6-K8) rounds at the plain version's points,
 # so only f32 sums in another order differ: mean|k - p| / mean|p| read at
 # most 3.6e-7 on the H100 over every K6-K8 shape, and is bounded at 1e-5.
@@ -382,10 +405,13 @@ def make_f32_reports():
     """The f32 tier's entries: K1, K2, K4 and K6-K8 on f32 activations
     (main paths "swin_l f32" and "swin_t f32"; K7/K8 at the JAX test
     shapes), and the FFMA f32 GEMM, f32 row pass and f32 core alone, whose
-    sums go under the f32 K1's and K2's entries."""
+    sums go under the f32 K1's and K2's entries; then the W8A8 kernels' f32
+    branches, K1-int8 and K3 on f32 activations (main path "swin_l f32
+    int8", the int8 bounds), with the int8 GEMM's f32 epilogues and K3's
+    cluster kernel alone from codes (bitwise), whose sums go under them."""
     from birefnet_tpu_torch.ops.kernels import (f32_gemm, flash_window_attn,
                                                 fused_block_attn, fused_mlp,
-                                                row_ln)
+                                                int8_gemm, row_ln)
     csrc, pallas = "birefnet_tpu_torch/csrc/", "birefnet_tpu/ops/pallas/"
     fwa = csrc + "flash_window_attn.cu"
     rows = [
@@ -411,9 +437,26 @@ def make_f32_reports():
          pallas + "fused_block_attn.py:250",
          flash_window_attn.flash_window_attention, None),
     ]
-    return {name: KernelReport(name, "cuda", src, rep, fn, path,
-                               MEAN_BOUND_F32, max_bound=BOUND_F32)
-            for name, src, rep, fn, path in rows}
+    reports = {name: KernelReport(name, "cuda", src, rep, fn, path,
+                                  MEAN_BOUND_F32, max_bound=BOUND_F32)
+               for name, src, rep, fn, path in rows}
+    for name, src, rep, fn, path, mean_bound, bitwise in (
+            ("fused_block_attn_int8_f32", csrc + "fused_block_attn.cu",
+             pallas + "fused_block_attn.py:100",
+             fused_block_attn.fused_window_block_attention_int8,
+             "swin_l f32 int8", MEAN_BOUND_K1_I8, False),
+            ("fused_mlp_int8_f32", csrc + "fused_mlp_i8.cu",
+             pallas + "fused_mlp.py:186", fused_mlp.fused_mlp_residual_int8,
+             "swin_l f32 int8", MEAN_BOUND_K3, False),
+            ("int8_gemm_f32", csrc + "int8_gemm.cu",
+             pallas + "fused_block_attn.py:208", int8_gemm.int8_gemm, None,
+             None, True),
+            ("fused_mlp_int8_cluster_f32", csrc + "fused_mlp_i8.cu",
+             pallas + "fused_mlp.py:186",
+             fused_mlp.fused_mlp_residual_int8_codes, None, None, True)):
+        reports[name] = KernelReport(name, "cuda", src, rep, fn, path,
+                                     mean_bound, bitwise)
+    return reports
 
 
 def make_core_report():
@@ -536,7 +579,6 @@ def check_kernels(torch, dev, reports, core, gemm, gemm16, rows16, cluster,
                        .contiguous())
 
     f32 = torch.float32
-    k1q, k3 = reports["fused_block_attn_int8"], reports["fused_mlp_int8"]
     k5 = reports["tap_conv"]
     # Each dtype's reports, repeat list, operation type and kernel entries:
     # the bf16 kernels, and the f32 tier's f32 branches of the same ones.
@@ -547,7 +589,10 @@ def check_kernels(torch, dev, reports, core, gemm, gemm16, rows16, cluster,
                  k8=reports["flash_window_attn_plain"], core=core,
                  gemm=gemm16, rows=rows16, repeats=repeats, kind="bf16",
                  gemm_fns=(bf16_gemm.bf16_gemm, bf16_gemm.bf16_gemm_plain),
-                 rows_fns=(bf16_gemm.ln_rows, bf16_gemm.ln_rows_plain)),
+                 rows_fns=(bf16_gemm.ln_rows, bf16_gemm.ln_rows_plain),
+                 k1q=reports["fused_block_attn_int8"],
+                 k3=reports["fused_mlp_int8"], gemm8=gemm, cluster=cluster,
+                 store="bf16", int_mm=extra["int_mm_ms"]),
         f32: dict(k1=f32r["fused_block_attn_f32"], k2=f32r["fused_mlp_f32"],
                   k4=f32r["row_ln_f32"], k6=f32r["flash_window_attn_qkv_f32"],
                   k7=f32r["flash_window_attn_masked_f32"],
@@ -555,7 +600,11 @@ def check_kernels(torch, dev, reports, core, gemm, gemm16, rows16, cluster,
                   core=f32r["window_core_f32"], gemm=f32r["f32_gemm"],
                   rows=f32r["ln_rows_f32"], repeats=repeats_f32, kind="f32",
                   gemm_fns=(f32_gemm.f32_gemm, f32_gemm.f32_gemm_plain),
-                  rows_fns=(f32_gemm.ln_rows_f32, f32_gemm.ln_rows_f32_plain)),
+                  rows_fns=(f32_gemm.ln_rows_f32, f32_gemm.ln_rows_f32_plain),
+                  k1q=f32r["fused_block_attn_int8_f32"],
+                  k3=f32r["fused_mlp_int8_f32"], gemm8=f32r["int8_gemm_f32"],
+                  cluster=f32r["fused_mlp_int8_cluster_f32"], store="f32",
+                  int_mm=extra["int_mm_ms_f32"]),
     }
 
     def tf32_control(plain, dtype, operands, *rest):
@@ -575,17 +624,18 @@ def check_kernels(torch, dev, reports, core, gemm, gemm16, rows16, cluster,
 
     def check_k1(model, label, depth, x, h, c, heads, ws, hp):
         """K1 in x's dtype at one Swin-L stage, unshifted and shifted, with
-        its LN1 row pass alone on each canvas; in bf16 at C >= 768 also
-        K1-int8 and its LN1 code flips."""
+        its LN1 row pass alone on each canvas; at C >= 768 also K1-int8 in
+        x's dtype and its LN1 code flips (in f32 with the bf16-rounding
+        control)."""
         r = by_dtype[x.dtype]
         norm1 = ln_params(c)
         attn32 = {"qkv": lin(c, 3 * c), "proj": lin(c, c),
                   "cached_bias": randn((heads, ws * ws, ws * ws))}
         attn = P.cast_matmul_weights(attn32, x.dtype)
-        int8 = x.dtype == bf and c >= P.INT8_MLP_MIN_CHANNELS
+        int8 = c >= P.INT8_MLP_MIN_CHANNELS
         if int8:
             attn_q = P.cast_matmul_weights(
-                P.quantize_attn_int8({"attn": attn32}, 0)["attn"], bf)
+                P.quantize_attn_int8({"attn": attn32}, 0)["attn"], x.dtype)
         # The mask as the model passes it: region ids, cached per geometry.
         cyclic_mask = W.sw_msa_region_ids(hp, hp, ws, ws // 2, dev)
         for shift in (0, ws // 2):
@@ -619,16 +669,16 @@ def check_kernels(torch, dev, reports, core, gemm, gemm16, rows16, cluster,
                      {r["kind"]: 8 * c * c * t + core_ops})]
             if int8:
                 # K1-int8's LN1 codes against the plain model's.
-                count_flips("fused_block_attn_int8", f"{label} {route}",
+                count_flips(r["k1q"].entry["name"], f"{label} {route}",
                             canvas.reshape(-1, c), norm1,
                             (hp, hp, k_shift, origin, h, h))
                 runs.append(
-                    (k1q, attn_q,
+                    (r["k1q"], attn_q,
                      fused_block_attn.fused_window_block_attention_int8,
                      fused_block_attn.fused_window_block_attention_int8_plain,
                      tuple(attn_q[n][k] for n in ("qkv", "proj")
                            for k in ("weight_q8", "scale_q8", "bias")),
-                     {"int8": 8 * c * c * t, "bf16": core_ops}))
+                     {"int8": 8 * c * c * t, r["kind"]: core_ops}))
             for rep, p, kernel, plain, weights, ops in runs:
                 args = (canvas, norm1, p, ws, k_shift, heads, mask, h, h,
                         origin)
@@ -636,7 +686,7 @@ def check_kernels(torch, dev, reports, core, gemm, gemm16, rows16, cluster,
                 rep.check(torch, model, f"{label} {route}", depth // 2, fn,
                           partial(plain, *args),
                           (side + nbytes(*weights), ops), crop)
-                if rep is k1q or not shift:  # K1: one call per stage
+                if rep is r["k1q"] or not shift:  # K1: one call per stage
                     r["repeats"].append(
                         (f"{rep.entry['name']} {label} {route}", fn, fn()))
 
@@ -696,10 +746,12 @@ def check_kernels(torch, dev, reports, core, gemm, gemm16, rows16, cluster,
             r["repeats"].append((f"core {r['kind']} {label} "
                                  f"mask={mask is not None}", fn, fn()))
 
-    def check_gemm(label, depth, m, n, k, epilogue, model):
-        """The int8 GEMM alone at one shape, bitwise against its plain
-        version and timed against torch._int_mm; then kept for the repeat
-        check."""
+    def check_gemm(label, depth, m, n, k, epilogue, model, dtype):
+        """The int8 GEMM alone at one shape with the epilogues of `dtype`'s
+        K1-int8 ("bf16" or "f32" stores, "residual" with a res of the
+        dtype), bitwise against its plain version and timed against
+        torch._int_mm; then kept for the repeat check."""
+        r = by_dtype[dtype]
         gen_q = torch.Generator(dev).manual_seed(m + n + k)
         q = torch.randint(-127, 128, (m, k), generator=gen_q, device=dev,
                           dtype=torch.int8)
@@ -709,21 +761,23 @@ def check_kernels(torch, dev, reports, core, gemm, gemm16, rows16, cluster,
         sw = (0.5 + torch.rand((n,), generator=gen_q, device=dev)) / (
             127 * k ** 0.5)
         lin = {"weight_q8": w, "scale_q8": sw, "bias": randn((n,), 0.5)}
-        res = randn((m, n), 1.0, bf) if epilogue == "residual" else None
+        res = randn((m, n), 1.0, dtype) if epilogue == "residual" else None
         args = (q, sx, lin, epilogue, res)
-        out = m * n * 2
-        ms = gemm.check(torch, model, f"{label} {epilogue} [{m},{k}]x[{n},{k}]",
-                        depth, partial(int8_gemm.int8_gemm, *args),
-                        partial(int8_gemm.int8_gemm_plain, *args),
-                        (nbytes(q, sx, w, sw, lin["bias"], res) + out,
-                         {"int8": 2 * m * n * k}),
-                        library_fn=int_mm(torch, q, w))
-        log(f"{'int8_gemm':<21} {model} {label} {epilogue}: "
+        out = m * n * torch.empty((), dtype=dtype).element_size()
+        name = r["gemm8"].entry["name"]
+        ms = r["gemm8"].check(
+            torch, model, f"{label} {epilogue} [{m},{k}]x[{n},{k}]", depth,
+            partial(int8_gemm.int8_gemm, *args),
+            partial(int8_gemm.int8_gemm_plain, *args),
+            (nbytes(q, sx, w, sw, lin["bias"], res) + out,
+             {"int8": 2 * m * n * k}),
+            library_fn=int_mm(torch, q, w))
+        log(f"{name:<21} {model} {label} {epilogue}: "
             f"{2 * m * n * k / ms / 1e9:.1f} TOP/s "
             f"({2 * m * n * k / ms / 1e9 / PEAK['int8'] * 1e12:.3f} of peak)")
-        repeats.append((f"int8_gemm {label} {epilogue}",
-                        partial(int8_gemm.int8_gemm, *args),
-                        int8_gemm.int8_gemm_plain(*args)))
+        r["repeats"].append((f"{name} {label} {epilogue}",
+                             partial(int8_gemm.int8_gemm, *args),
+                             int8_gemm.int8_gemm_plain(*args)))
 
     def check_float_gemm(model, label, calls, m, n, k, epilogue, dtype):
         """The bf16 or f32 GEMM alone at one shape against its plain
@@ -770,7 +824,11 @@ def check_kernels(torch, dev, reports, core, gemm, gemm16, rows16, cluster,
                                            1e-5))
     def count_flips(name, label, x, ln, canvas=None):
         """The int8 row pass's LN codes against the plain model's: codes
-        that differ and the largest step (at most 1)."""
+        that differ and the largest step (at most 1). On an f32 canvas
+        also the control: the same codes against a plain model that rounds
+        the LN1 rows to bf16 (what the f32 row pass must not do) must
+        differ in more than FLIP_CONTROL of them, and the real flips stay
+        below that."""
         flips, worst, n = int8_gemm.ln_code_flips(x, ln, canvas)
         log(f"{name:<21} {label}: LN codes vs plain model {flips} of {n} "
             f"differ, by at most {worst}")
@@ -781,11 +839,25 @@ def check_kernels(torch, dev, reports, core, gemm, gemm16, rows16, cluster,
         tally["flipped"] += flips
         tally["codes"] += n
         tally["max_step"] = max(tally["max_step"], worst)
+        if x.dtype == f32 and canvas is not None:
+            ctl, _, _ = int8_gemm.ln_code_flips(x, ln, canvas, bf)
+            log(f"{name:<21} {label}: control, plain LN1 rows rounded to "
+                f"bf16: {ctl} of {n} codes differ (must exceed "
+                f"{FLIP_CONTROL} of them; the real flips {flips} must not)")
+            if not (ctl > FLIP_CONTROL * n >= flips):
+                fail(f"{name} {label}: LN code flips {flips}, bf16-rounded "
+                     f"control {ctl}, of {n}: the control does not stand "
+                     f"apart")
+            tally["bf16_control_flipped"] = (
+                tally.get("bf16_control_flipped", 0) + ctl)
 
     def check_k3(model, label, depth, x2, norm2, mlp_q, side):
-        """K3 whole against its plain version; its cluster kernel alone from
-        the row pass's codes, bitwise against the plain chain; the two
-        products' torch._int_mm time; the LN2 code flips; the repeats."""
+        """K3 in x2's dtype whole against its plain version; its cluster
+        kernel alone from the row pass's codes, bitwise against the plain
+        chain; the two products' torch._int_mm time; the LN2 code flips;
+        the repeats."""
+        r = by_dtype[x2.dtype]
+        k3, cluster = r["k3"], r["cluster"]
         t, c = x2.shape
         weights = nbytes(*(mlp_q[n][k] for n in ("fc1", "fc2")
                            for k in ("weight_q8", "scale_q8", "bias")))
@@ -809,22 +881,23 @@ def check_kernels(torch, dev, reports, core, gemm, gemm16, rows16, cluster,
                            dtype=torch.int8)
         mms = [int_mm(torch, q1, mlp_q["fc1"]["weight_q8"]),
                int_mm(torch, q2, mlp_q["fc2"]["weight_q8"])]
+        name = k3.entry["name"]
         if None not in mms:
             ms = cuda_ms(torch, lambda: [f() for f in mms])
-            sums = extra["int_mm_ms"]
+            sums = r["int_mm"]
             sums[model] = sums.get(model, 0.0) + depth * ms
-            log(f"{'fused_mlp_int8':<21} {model} {label}: torch._int_mm of "
-                f"its two products {ms:.4f} ms x{depth}/forward")
-        count_flips("fused_mlp_int8", f"{model} {label} T={t} C={c}", x2,
-                    norm2)
-        repeats.append((f"fused_mlp_int8 {model} {label}", whole, whole()))
-        repeats.append((f"fused_mlp_int8 codes {model} {label}", alone,
-                        fused_mlp.fused_mlp_residual_int8_codes_plain(*args)))
+            log(f"{name:<21} {model} {label}: torch._int_mm of its two "
+                f"products {ms:.4f} ms x{depth}/forward")
+        count_flips(name, f"{model} {label} T={t} C={c}", x2, norm2)
+        r["repeats"].append((f"{name} {model} {label}", whole, whole()))
+        r["repeats"].append((f"{name} codes {model} {label}", alone,
+                             fused_mlp.fused_mlp_residual_int8_codes_plain(
+                                 *args)))
 
     def check_k2_k3_k4(model, label, i, depth, h, c, dtype):
         """K2 in `dtype` at one stage with its parts alone (LN2 rows, fc1
-        with the GELU, fc2 with the residual), in bf16 at C >= 768 also K3,
-        and K4 on `dtype` rows at the stage's row-LN sites."""
+        with the GELU, fc2 with the residual), at C >= 768 also K3 in
+        `dtype`, and K4 on `dtype` rows at the stage's row-LN sites."""
         r = by_dtype[dtype]
         x2 = randn((BATCH * h * h, c), 1.0, dtype)
         norm2 = ln_params(c)
@@ -845,11 +918,11 @@ def check_kernels(torch, dev, reports, core, gemm, gemm16, rows16, cluster,
                       (side + nbytes(*(mlp[n][k] for n in ("fc1", "fc2")
                                        for k in ("weight", "bias"))),
                        {r["kind"]: 16 * c * c * t}))
-        if dtype == bf and c >= P.INT8_MLP_MIN_CHANNELS:
-            # Every K3 site of both int8 paths: Swin-L's stages 2-3 and
+        if c >= P.INT8_MLP_MIN_CHANNELS:
+            # Every K3 site of the int8 paths: Swin-L's stages 2-3 and
             # swin_t's stage 3 (C = 768, T = 2048 and 512).
             mlp_q = P.cast_matmul_weights(
-                P.quantize_mlp_int8({"mlp": mlp32}, 0)["mlp"], bf)
+                P.quantize_mlp_int8({"mlp": mlp32}, 0)["mlp"], dtype)
             check_k3(model, label, depth, x2, norm2, mlp_q, side)
         # Row-LN sites: the stage-output norm, plus the patch-embed norm
         # before stage 0 and the patch-merge norm after stages 0-2.
@@ -885,15 +958,16 @@ def check_kernels(torch, dev, reports, core, gemm, gemm16, rows16, cluster,
             for i, (h, c, heads, depth) in enumerate(geometry):
                 hp = -(-h // ws) * ws
                 label = f"{pass_name} st{i} Hp={hp}"
-                if model == "swin_l" and c >= P.INT8_MLP_MIN_CHANNELS:
-                    # K1-int8's qkv and proj on the canvas, one of each per
-                    # block.
-                    t_canvas = BATCH * hp * hp
-                    for m, n, k, epilogue in (
-                            (t_canvas, 3 * c, c, "bf16"),
-                            (t_canvas, c, c, "residual")):
-                        check_gemm(label, depth, m, n, k, epilogue, "swin_l")
                 for dtype in (bf, f32):
+                    if model == "swin_l" and c >= P.INT8_MLP_MIN_CHANNELS:
+                        # K1-int8's qkv and proj on the canvas, one of each
+                        # per block, with the dtype's epilogues.
+                        t_canvas = BATCH * hp * hp
+                        for m, n, k, epilogue in (
+                                (t_canvas, 3 * c, c, by_dtype[dtype]["store"]),
+                                (t_canvas, c, c, "residual")):
+                            check_gemm(label, depth, m, n, k, epilogue,
+                                       "swin_l", dtype)
                     if model == "swin_l":
                         # K1's qkv and proj on the canvas, one of each per
                         # block.
@@ -1109,7 +1183,10 @@ def drive_model(torch, bmodel, pipeline, reports, cfg, params, frames, tiers,
         masks[path], feats = drive(torch, bmodel, reports, infer, frames, want,
                                    path)
         del infer
-        f32 = compute.dtype == torch.float32
+        # The f32 kernel tier is held to the f32 bar; the int8 paths, f32
+        # or bf16, to the int8 one.
+        f32 = compute.dtype == torch.float32 and not (compute.int8_mlp or
+                                                      compute.int8_attn)
         gate = MASK_MAE_F32 if f32 else 1e-3
         mae = float((masks[path] - ref).abs().mean())
         log(f"phase 4: {path}: mask MAE vs f32 plain pipeline = {mae:.3e} "
@@ -1136,6 +1213,17 @@ def int8_gate(path, errs, bf16_path):
     log(f"phase 4: {path} features' largest relative error "
         f"{max(errs[path]):.3e} (gate <= {FEATURE_RATIO} x {bf16_path}'s "
         f"{max(errs[bf16_path]):.3e} = {limit:.3e})")
+    if not max(errs[path]) <= limit:
+        fail(f"{path} backbone features off by {max(errs[path])} > {limit}")
+    return limit
+
+
+def f32_int8_gate(path, errs, int8_path):
+    """An f32 int8 path drops every bf16 rounding of its model's bf16 int8
+    path: its worst stage feature error is at most that path's."""
+    limit = max(errs[int8_path])
+    log(f"phase 4: {path} features' largest relative error "
+        f"{max(errs[path]):.3e} (gate <= {int8_path}'s {limit:.3e})")
     if not max(errs[path]) <= limit:
         fail(f"{path} backbone features off by {max(errs[path])} > {limit}")
     return limit
@@ -1189,7 +1277,7 @@ def main() -> int:
     gemm16, rows16 = make_bf16_reports()
     cluster = make_cluster_report()
     f32r = make_f32_reports()
-    extra = {"int_mm_ms": {}, "ln_code_flips": {}}
+    extra = {"int_mm_ms": {}, "int_mm_ms_f32": {}, "ln_code_flips": {}}
     with torch.inference_mode(), pipeline.full_f32():
         check_kernels(torch, dev, reports, core, gemm, gemm16, rows16, cluster,
                       extra, f32r)
@@ -1249,7 +1337,7 @@ def main() -> int:
     k3.entry["int_mm_ms"] = extra["int_mm_ms"].get("swin_l")
     k3.entry["int_mm_ms_by_model"] = extra["int_mm_ms"]
     for name, tally in extra["ln_code_flips"].items():
-        reports[name].entry["ln_code_flips"] = tally
+        (reports.get(name) or f32r[name]).entry["ln_code_flips"] = tally
         log(f"phase 3: {name}: LN codes vs the plain model's: "
             f"{tally['flipped']} of {tally['codes']} differ, by at most "
             f"{tally['max_step']}")
@@ -1260,6 +1348,41 @@ def main() -> int:
         log(f"phase 3: K3 at {model}'s shapes per forward: kernel "
             f"{m['ms']:.4f} ms (its cluster kernel alone {cm['ms']:.4f}), "
             f"torch._int_mm of the two products "
+            f"{'n/a' if mm is None else f'{mm:.4f}'} ms, plain "
+            f"{m['plain_ms']:.4f} ms, bound {m['bound_ms']:.4f} ms "
+            f"({m['bound_by']}); {m['bound_ms'] / m['ms']:.3f} of the bound "
+            f"({smi})")
+    # The W8A8 kernels' f32 branches: the int8 GEMM's f32 epilogues under
+    # K1-int8 f32, the cluster kernel from codes and torch._int_mm under K3
+    # f32.
+    k1q32, k332 = f32r["fused_block_attn_int8_f32"], f32r["fused_mlp_int8_f32"]
+    g32 = f32r["int8_gemm_f32"]
+    k1q32.entry["int8_gemm"] = dict(
+        g32.by_model()["swin_l"], source=g32.entry["source"],
+        max_abs_err=g32.entry["max_abs_err"],
+        mean_rel_err=g32.entry["mean_rel_err"], bitwise=True,
+        library="torch._int_mm: the s32 product only, no dequant epilogue")
+    cl32 = f32r["fused_mlp_int8_cluster_f32"]
+    cl32_sums = cl32.by_model()
+    k332.entry["cluster"] = dict(
+        cl32_sums["swin_l"], source=cl32.entry["source"],
+        max_abs_err=cl32.entry["max_abs_err"], bitwise=True,
+        swin_t=cl32_sums["swin_t"])
+    k332.entry["int_mm_ms"] = extra["int_mm_ms_f32"].get("swin_l")
+    k332.entry["int_mm_ms_by_model"] = extra["int_mm_ms_f32"]
+    for name, model, m, mm in (
+            ("K1-int8 f32", "Swin-L", k1q32.by_model()["swin_l"],
+             g32.by_model()["swin_l"]["library_ms"]),
+            ("K1-int8 f32's int8 GEMMs", "Swin-L", g32.by_model()["swin_l"],
+             g32.by_model()["swin_l"]["library_ms"]),
+            ("K3 f32", "Swin-L", k332.by_model()["swin_l"],
+             extra["int_mm_ms_f32"].get("swin_l")),
+            ("K3 f32's cluster kernel", "Swin-L", cl32_sums["swin_l"],
+             extra["int_mm_ms_f32"].get("swin_l")),
+            ("K3 f32", "swin_t", k332.by_model()["swin_t"],
+             extra["int_mm_ms_f32"].get("swin_t"))):
+        log(f"phase 3: {name} per {model} forward: kernel {m['ms']:.4f} ms, "
+            f"torch._int_mm of its products "
             f"{'n/a' if mm is None else f'{mm:.4f}'} ms, plain "
             f"{m['plain_ms']:.4f} ms, bound {m['bound_ms']:.4f} ms "
             f"({m['bound_by']}); {m['bound_ms'] / m['ms']:.3f} of the bound "
@@ -1302,6 +1425,7 @@ def main() -> int:
     bf16 = ComputeConfig(dtype=torch.bfloat16, use_flash_attention=True)
     int8 = bf16.with_overrides(int8_mlp=True, int8_attn=True)
     f32_tier = ComputeConfig(use_flash_attention=True)
+    f32_int8 = f32_tier.with_overrides(int8_mlp=True, int8_attn=True)
     names = list(reports)
     # Launches per make_infer_fn call, in the order of `reports`. The f32
     # tier runs the f32 kernels behind the same wrappers (no tap_conv: the
@@ -1309,10 +1433,14 @@ def main() -> int:
     paths = {
         "swin_l": {"swin_l bf16": (bf16, (48, 0, 48, 0, 16, 1, 0, 0, 0)),
                    "swin_l int8": (int8, (8, 40, 8, 40, 16, 1, 0, 0, 0)),
-                   "swin_l f32": (f32_tier, (48, 0, 48, 0, 16, 0, 0, 0, 0))},
+                   "swin_l f32": (f32_tier, (48, 0, 48, 0, 16, 0, 0, 0, 0)),
+                   "swin_l f32 int8": (f32_int8,
+                                       (8, 40, 8, 40, 16, 0, 0, 0, 0))},
         "swin_t": {"swin_t bf16": (bf16, (0, 0, 24, 0, 16, 1, 24, 0, 0)),
                    "swin_t int8": (int8, (0, 0, 20, 4, 16, 1, 24, 0, 0)),
-                   "swin_t f32": (f32_tier, (0, 0, 24, 0, 16, 0, 24, 0, 0))},
+                   "swin_t f32": (f32_tier, (0, 0, 24, 0, 16, 0, 24, 0, 0)),
+                   "swin_t f32 int8": (f32_int8,
+                                       (0, 0, 20, 4, 16, 0, 24, 0, 0))},
     }
     cfgs = {"swin_l": BiRefNetConfig.swin_l(),
             "swin_t": BiRefNetConfig.for_backbone("swin_v1_t")}
@@ -1340,6 +1468,18 @@ def main() -> int:
     if not max(feature_errors("swin_l rolled int8 scales", feats,
                               ref_feats)) > limit:
         fail("the feature gate does not see int8 scales rolled by one channel")
+    # The f32 int8 path against the bf16 one, and the same rolled scales
+    # on f32 activations as its control.
+    limit = f32_int8_gate("swin_l f32 int8", errs, "swin_l int8")
+    _, feats = with_features(bmodel, pipeline.make_infer_fn(
+        rolled, cfgs["swin_l"], f32_tier, dev, as_uint8=False), frames_dev)
+    worst = max(feature_errors("swin_l f32 rolled int8 scales", feats,
+                               ref_feats))
+    log(f"phase 4: swin_l f32 int8 with rolled int8 scales: worst feature "
+        f"error {worst:.3e} (must break the gate {limit:.3e})")
+    if not worst > limit:
+        fail("the f32 int8 feature gate does not see int8 scales rolled by "
+             "one channel")
     del rolled, feats, ref_feats
 
     # swin_t: the bf16 kernel tier against the plain bf16 pipeline stage by
@@ -1355,6 +1495,7 @@ def main() -> int:
     if not ratio <= FEATURE_RATIO_T:
         fail(f"swin_t kernel-tier features {ratio} x the plain bf16 error")
     int8_gate("swin_t int8", errs, "swin_t bf16")
+    f32_int8_gate("swin_t f32 int8", errs, "swin_t int8")
     rolled = tree_map(lambda k, v: torch.roll(v, 1, 0) if k == "cached_bias"
                       else v, params["swin_t"])
     _, feats = with_features(bmodel, pipeline.make_infer_fn(
@@ -1428,6 +1569,8 @@ def main() -> int:
                 params[model], cfgs[model], f32_tier, dev)
             fns[f"{model} plain f32"] = pipeline.make_infer_fn(
                 params[model], cfgs[model], ComputeConfig(), dev)
+            fns[f"{model} f32 int8 path"] = pipeline.make_infer_fn(
+                params[model], cfgs[model], f32_int8, dev)
         order = list(fns) + list(fns)[::-1]
         for name in order:
             fn = fns[name]

@@ -1,6 +1,6 @@
 """birefnet_tpu_torch kernels on the card: each hand-written kernel against
 its plain PyTorch version on the same bf16 (or, for the f32 tier at the
-end, f32) inputs.
+end and the W8A8 kernels' f32 branches, f32) inputs.
 
 These tests need an NVIDIA GPU and skip without one. Run them on the card
 with
@@ -40,6 +40,12 @@ pytestmark = pytest.mark.cuda
 # the kernels that skipped K1-int8's bf16 rounding of the normed rows or
 # dequantized every 64th channel with its neighbour's scale broke it.
 MEAN_BOUND_I8 = 1e-4
+# K3 whole on f32 activations: an LN2 code flipped by the sums' order
+# moves its whole output row, unrounded, so at a tail of few rows one flip
+# shows in the mean (the H100 read 1.016e-4 at T = 48, C = 1536); the
+# bound is the one chip_smoke.py holds K1-int8 to. The cluster kernel's
+# arithmetic is held bitwise from given codes below.
+MEAN_BOUND_I8_F32 = 1e-3
 # The bf16 GEMM and row pass round at their plain versions' points and sum
 # in f32 in another order, so they differ only where a sum lands on a bf16
 # rounding boundary: mean|kernel - plain| / mean|plain| <= MEAN_BOUND_BF16.
@@ -91,17 +97,20 @@ def test_row_ln_kernel_matches_plain(dev, shape, dtype):
     _assert_close(got, row_ln.layer_norm_rows_plain(p, x))
 
 
-# (M, N, K, epilogue): K1-int8's qkv ("bf16") and proj ("residual") at
+# (M, N, K, epilogue): K1-int8's qkv ("bf16"; "f32" on f32 activations) and
+# proj ("residual" with a bf16 res; "residual f32" with an f32 one) at
 # every Swin-L int8 site of a batch-2 1024^2 forward (full and half pass,
 # stages 2 and 3), then each epilogue at an M tail of 100 rows, once at K =
 # 64 and N = 192 (tiles and a k step that TMA fills past the matrix) and
 # once at K1-int8's qkv width. (K3 runs its own cluster kernel.)
 INT8_GEMM_SHAPES = (
-    [(m, 3 * c, c, "bf16") for m, c in ((10368, 768), (2592, 1536),
-                                         (2592, 768), (1152, 1536))]
-    + [(m, c, c, "residual") for m, c in ((10368, 768), (2592, 1536),
-                                           (2592, 768), (1152, 1536))]
-    + [(100, n, k, e) for e in ("bf16", "residual")
+    [(m, 3 * c, c, e) for m, c in ((10368, 768), (2592, 1536),
+                                    (2592, 768), (1152, 1536))
+     for e in ("bf16", "f32")]
+    + [(m, c, c, e) for m, c in ((10368, 768), (2592, 1536),
+                                  (2592, 768), (1152, 1536))
+       for e in ("residual", "residual f32")]
+    + [(100, n, k, e) for e in ("bf16", "residual", "f32", "residual f32")
        for n, k in ((192, 64), (2304, 768))])
 
 
@@ -124,8 +133,12 @@ def test_int8_gemm_matches_int8_linear_bitwise(dev, m, n, k, epilogue):
     casts, bit for bit: the s32 sum is exact and the dequant rounds at the
     plain version's points."""
     q, sx, lin = _int8_gemm_case(m + n + k, m, n, k, dev)
-    res = (_randn(torch.Generator(dev).manual_seed(k), (m, n), dev, 1.0,
-                  torch.bfloat16) if epilogue == "residual" else None)
+    res = None
+    if epilogue.startswith("residual"):
+        res = _randn(torch.Generator(dev).manual_seed(k), (m, n), dev, 1.0,
+                     torch.float32 if epilogue.endswith("f32")
+                     else torch.bfloat16)
+        epilogue = "residual"
     n0 = int8_gemm.int8_gemm.launches
     got = int8_gemm.int8_gemm(q, sx, lin, epilogue, res)
     assert int8_gemm.int8_gemm.launches == n0 + 1
@@ -215,10 +228,11 @@ def _exact_ln_rows(gen, t, k, dev):
 
 
 # (rows, K, dtype, LayerNorm, canvas (Hp, Wp, shift, origin, h_real,
-# w_real)): K1-int8's attention rows (bf16, no LN) and LN1 on the Swin-L
-# int8 canvases (rolled, offset, unshifted), K3's LN2 (bf16, LN, no
-# rounding), and small rows off the ladder. (K3's f32 hidden rows are
-# quantized inside its cluster kernel.)
+# w_real)): K1-int8's attention rows (no LN) and LN1 on the Swin-L int8
+# canvases (rolled, offset, unshifted), K3's LN2 (LN, no rounding), and
+# small rows off the ladder, in bf16 and, for the f32 branches, in f32 (no
+# rounding on the canvas). (K3's f32 hidden rows are quantized inside its
+# cluster kernel.)
 QUANT_ROW_CASES = [
     (2592, 768, "bf16", False, None), (1152, 1536, "bf16", False, None),
     (100, 64, "bf16", False, None),
@@ -227,6 +241,12 @@ QUANT_ROW_CASES = [
     (2 * 24 * 24, 1536, "bf16", True, (24, 24, 0, 0, 16, 16)),
     (2 * 72 * 72, 768, "bf16", True, (72, 72, 6, 0, 64, 64)),
     (2048, 768, "bf16", True, None), (512, 1536, "bf16", True, None),
+    (2592, 768, "f32", False, None), (1152, 1536, "f32", False, None),
+    (100, 64, "f32", False, None),
+    (2 * 36 * 36, 768, "f32", True, (36, 36, 6, 0, 32, 32)),
+    (2 * 24 * 24, 1536, "f32", True, (24, 24, 0, 0, 16, 16)),
+    (2 * 72 * 72, 768, "f32", True, (72, 72, 0, 4, 64, 64)),
+    (8192, 768, "f32", True, None), (512, 1536, "f32", True, None),
 ]
 
 
@@ -237,12 +257,13 @@ def test_quantize_rows_matches_plain_bitwise(dev, t, k, dtype, ln, canvas):
     LayerNorm cases take rows whose sums are exact in any order, so the
     statistics cannot differ by summation order."""
     gen = torch.Generator(dev).manual_seed(t + k)
+    dt = {"bf16": torch.bfloat16, "f32": torch.float32}[dtype]
     if ln:
-        x = _exact_ln_rows(gen, t, k, dev)
+        x = _exact_ln_rows(gen, t, k, dev).to(dt)
         lnp = {"scale": 1 + 0.1 * _randn(gen, (k,), dev),
                "bias": 0.1 * _randn(gen, (k,), dev)}
     else:
-        x = _randn(gen, (t, k), dev, 2.0, torch.bfloat16)
+        x = _randn(gen, (t, k), dev, 2.0, dt)
         lnp = None
     n0 = int8_gemm.quantize_rows.launches
     codes, scales = int8_gemm.quantize_rows(x, lnp, canvas)
@@ -311,12 +332,11 @@ def test_fused_block_attn_kernel_matches_plain(dev, shift, hw, heads, c):
     _assert_close(got[crop], want[crop])
 
 
-def _quantized(tree, key):
-    """The tree's `key` linears quantized from f32, then cast to bf16."""
+def _quantized(tree, key, dtype=torch.bfloat16):
+    """The tree's `key` linears quantized from f32, then cast to `dtype`."""
     fn = (pparams.quantize_mlp_int8 if key == "mlp"
           else pparams.quantize_attn_int8)
-    return pparams.cast_matmul_weights(fn({key: tree}, 0)[key],
-                                       torch.bfloat16)
+    return pparams.cast_matmul_weights(fn({key: tree}, 0)[key], dtype)
 
 
 # (T, C) of K3's cluster kernel: every Swin-L site (stage 2: C = 768, 18
@@ -328,31 +348,37 @@ K3_SHAPES = [(8192, 768), (2048, 768), (2048, 1536), (512, 1536),
              (2048, 1024), (100, 64), (512, 192), (512, 768), (48, 1536)]
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("t,c", K3_SHAPES)
-def test_fused_mlp_int8_kernel_matches_plain(dev, t, c):
+def test_fused_mlp_int8_kernel_matches_plain(dev, t, c, dtype):
     gen = torch.Generator(dev).manual_seed(6)
-    x = _randn(gen, (t, c), dev, 1.0, torch.bfloat16)
+    x = _randn(gen, (t, c), dev, 1.0, dtype)
     n2, mlp = _mlp_params(gen, c, dev)
-    mlp = _quantized(pparams.tree_map(lambda _, v: v.float(), mlp), "mlp")
+    mlp = _quantized(pparams.tree_map(lambda _, v: v.float(), mlp), "mlp",
+                     dtype)
     n0, n16 = (fused_mlp.fused_mlp_residual_int8.launches,
                fused_mlp.fused_mlp_residual.launches)
     got = fused_mlp.fused_mlp_residual(x, n2, mlp)
     assert fused_mlp.fused_mlp_residual_int8.launches == n0 + 1
     assert fused_mlp.fused_mlp_residual.launches == n16
     _assert_close(got, fused_mlp.fused_mlp_residual_int8_plain(x, n2, mlp),
-                  MEAN_BOUND_I8)
+                  MEAN_BOUND_I8 if dtype == torch.bfloat16
+                  else MEAN_BOUND_I8_F32)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("t,c", K3_SHAPES)
-def test_fused_mlp_int8_codes_matches_plain_chain_bitwise(dev, t, c):
+def test_fused_mlp_int8_codes_matches_plain_chain_bitwise(dev, t, c, dtype):
     """K3's cluster kernel from given LN2 codes and scales (the row pass's)
     equals int8_linear -> gelu_erf3 -> quantize_rows -> int8_linear -> + x
-    on the card, bit for bit: its integer sums are exact in any split and
-    every f32 step rounds where the plain chain does."""
+    on the card, bit for bit, on bf16 and on f32 activations: its integer
+    sums are exact in any split and every f32 step rounds where the plain
+    chain does."""
     gen = torch.Generator(dev).manual_seed(7)
-    x = _randn(gen, (t, c), dev, 1.0, torch.bfloat16)
+    x = _randn(gen, (t, c), dev, 1.0, dtype)
     n2, mlp = _mlp_params(gen, c, dev)
-    mlp = _quantized(pparams.tree_map(lambda _, v: v.float(), mlp), "mlp")
+    mlp = _quantized(pparams.tree_map(lambda _, v: v.float(), mlp), "mlp",
+                     dtype)
     codes, scales = int8_gemm.quantize_rows(x, n2)
     n0 = fused_mlp.fused_mlp_residual_int8_codes.launches
     got = fused_mlp.fused_mlp_residual_int8_codes(x, codes, scales, mlp)
@@ -365,14 +391,17 @@ def test_fused_mlp_int8_codes_matches_plain_chain_bitwise(dev, t, c):
 
 
 def test_int8_entries_refuse_what_k3_runs_inside(dev):
-    """The int8 GEMM has no GELU kernel and the row pass no f32 rows on the
-    card: K3's cluster kernel runs both in shared memory."""
+    """The int8 GEMM has no GELU kernel on the card: K3's cluster kernel
+    runs it (and quantizes its f32 hidden rows) in shared memory. The row
+    pass takes bf16 and f32 rows (K1-int8's attention rows in either
+    dtype) and refuses others."""
     gen = torch.Generator(dev).manual_seed(10)
     q, sx, lin = _int8_gemm_case(10, 64, 64, 64, dev)
     with pytest.raises(ValueError, match="epilogue"):
         int8_gemm.int8_gemm(q, sx, lin, "gelu")
-    with pytest.raises(ValueError, match="bf16"):
-        int8_gemm.quantize_rows(_randn(gen, (64, 256), dev))
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        int8_gemm.quantize_rows(_randn(gen, (64, 256), dev, 1.0,
+                                       torch.float16))
 
 
 def test_int8_weights_quantized_on_the_card_equal_the_cpu(dev):
@@ -416,29 +445,38 @@ LN_FLIP_CASES = [
 ]
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("t,c,canvas", LN_FLIP_CASES)
-def test_ln_code_flips_are_rare_and_one_step(dev, t, c, canvas):
+def test_ln_code_flips_are_rare_and_one_step(dev, t, c, canvas, dtype):
     """The row pass's LN codes against the plain model's (F.layer_norm, pad
-    zeroing and bf16 rounding, quantize_rows): statistics summed in other
-    orders may flip a code on a rounding boundary, by one step, rarely."""
+    zeroing and the rounding to x's dtype, quantize_rows): statistics
+    summed in other orders may flip a code on a rounding boundary, by one
+    step, rarely. For f32 canvases a plain model that rounds the rows to
+    bf16 (what the kernel must not do) flips far more."""
     gen = torch.Generator(dev).manual_seed(t + c)
-    x = _randn(gen, (t, c), dev, 1.0, torch.bfloat16)
+    x = _randn(gen, (t, c), dev, 1.0, dtype)
     ln = {"scale": 1 + 0.1 * _randn(gen, (c,), dev),
           "bias": 0.1 * _randn(gen, (c,), dev)}
     flips, worst, n = int8_gemm.ln_code_flips(x, ln, canvas)
     assert worst <= 1, f"{flips} of {n} codes differ, by up to {worst}"
     assert flips <= 1e-3 * n, f"{flips} of {n} codes differ"
+    if dtype == torch.float32 and canvas is not None:
+        control, _, _ = int8_gemm.ln_code_flips(x, ln, canvas, torch.bfloat16)
+        assert control > 1e-3 * n, f"bf16-rounded control: {control} of {n}"
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("shift", [0, 6])
 @pytest.mark.parametrize("hw", [(24, 24), (20, 17), (16, 16)])
 @pytest.mark.parametrize("heads,c", [(2, 64), (6, 192)])
-def test_fused_block_attn_int8_kernel_matches_plain(dev, shift, hw, heads, c):
+def test_fused_block_attn_int8_kernel_matches_plain(dev, shift, hw, heads, c,
+                                                    dtype):
     gen = torch.Generator(dev).manual_seed(7)
     h, w = hw
-    x = _randn(gen, (2, h, w, c), dev, 1.0, torch.bfloat16)
+    x = _randn(gen, (2, h, w, c), dev, 1.0, dtype)
     norm1, attn = _block_params(gen, c, heads, dev)
-    attn = _quantized(pparams.tree_map(lambda _, v: v.float(), attn), "attn")
+    attn = _quantized(pparams.tree_map(lambda _, v: v.float(), attn), "attn",
+                      dtype)
     hp, wp = -(-h // 12) * 12, -(-w // 12) * 12
     canvas, k_shift, k_mask, origin = swin.fused_block_canvas(
         x, 12, shift, W.sw_msa_mask(hp, wp, 12, 6, dev))
@@ -455,11 +493,33 @@ def test_fused_block_attn_int8_kernel_matches_plain(dev, shift, hw, heads, c):
 
 
 def test_int8_kernels_refuse_f32(dev):
+    """No longer refused: the W8A8 wrappers take f32 activations on the
+    card, launch their f32 kernels and return their plain versions'
+    results (K3 within the int8 bounds, K1-int8 too); other dtypes are
+    refused."""
     gen = torch.Generator(dev).manual_seed(8)
     n2, mlp = _mlp_params(gen, 64, dev)
-    mlp = _quantized(pparams.tree_map(lambda _, v: v.float(), mlp), "mlp")
+    mlp = _quantized(pparams.tree_map(lambda _, v: v.float(), mlp), "mlp",
+                     torch.float32)
+    x = _randn(gen, (16, 64), dev)
+    n0 = fused_mlp.fused_mlp_residual_int8.launches
+    got = fused_mlp.fused_mlp_residual(x, n2, mlp)
+    assert fused_mlp.fused_mlp_residual_int8.launches == n0 + 1
+    assert got.dtype == torch.float32
+    _assert_close(got, fused_mlp.fused_mlp_residual_int8_plain(x, n2, mlp),
+                  MEAN_BOUND_I8)
     with pytest.raises(TypeError):
-        fused_mlp.fused_mlp_residual(torch.zeros((16, 64), device=dev), n2, mlp)
+        fused_mlp.fused_mlp_residual(x.half(), n2, mlp)
+    norm1, attn = _block_params(gen, 64, 2, dev)
+    attn = _quantized(_f32(attn), "attn", torch.float32)
+    xa = _randn(gen, (2, 24, 24, 64), dev)
+    args = (xa, norm1, attn, 12, 0, 2, None, 24, 24)
+    n0 = fused_block_attn.fused_window_block_attention_int8.launches
+    got = fused_block_attn.fused_window_block_attention(*args)
+    assert fused_block_attn.fused_window_block_attention_int8.launches == n0 + 1
+    assert got.dtype == torch.float32
+    _assert_close(got, fused_block_attn.fused_window_block_attention_int8_plain(
+        *args), MEAN_BOUND_I8)
 
 
 @pytest.mark.parametrize("shape", [(2, 32, 40, 3), (1, 70, 130, 3)])
@@ -956,24 +1016,30 @@ def test_fused_block_attn_f32_matches_plain(dev, shift, hw, heads, c,
 
 
 def test_int8_path_refuses_f32_on_the_card(dev):
-    """make_infer_fn refuses the int8 flags on the f32 kernel tier (their
-    f32 branches are the next slice) instead of running bf16 or dropping
-    them; the int8 wrappers refuse f32 activations with the same reason."""
+    """No longer refused: make_infer_fn runs the int8 flags on the f32
+    kernel tier, Swin-L's stages 2 and 3 through the f32 K1-int8 and K3
+    kernels (one launch of each per block), and its masks stay within the
+    int8 path's mask gate (MAE < 1e-3) of the f32 plain pipeline's."""
     from birefnet_tpu_torch import pipeline
     from birefnet_tpu_torch.configs import BiRefNetConfig, ComputeConfig
+    from birefnet_tpu_torch.params import build_param_tree, random_checkpoint
 
-    cfg = BiRefNetConfig(size=(64, 64))
-    for flags in ({"int8_mlp": True}, {"int8_attn": True}):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            pipeline.make_infer_fn({}, cfg, ComputeConfig(
-                use_flash_attention=True, **flags), dev)
-    gen = torch.Generator(dev).manual_seed(8)
-    norm1, attn = _block_params(gen, 64, 2, dev)
-    attn = _quantized(_f32(attn), "attn")
-    with pytest.raises(TypeError, match="not ported"):
-        fused_block_attn.fused_window_block_attention(
-            torch.zeros((2, 24, 24, 64), device=dev), norm1, attn, 12, 0, 2,
-            None, 24, 24)
+    cfg = BiRefNetConfig(size=(128, 128))
+    params = build_param_tree(random_checkpoint(cfg, 7), cfg)
+    frames = np.random.default_rng(4).integers(0, 256, (2, 128, 128, 3),
+                                               dtype=np.uint8)
+    want = pipeline.make_infer_fn(params, cfg, ComputeConfig(), dev,
+                                  as_uint8=False)(frames)
+    counters = (fused_block_attn.fused_window_block_attention_int8,
+                fused_mlp.fused_mlp_residual_int8)
+    before = [f.launches for f in counters]
+    got = pipeline.make_infer_fn(params, cfg, ComputeConfig(
+        use_flash_attention=True, int8_mlp=True, int8_attn=True), dev,
+        as_uint8=False)(frames)
+    assert [f.launches - b for f, b in zip(counters, before)] == [40, 40]
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    mae = (got - want).abs().mean().item()
+    assert mae < 1e-3, f"mask MAE {mae}"
 
 
 def _narrow_swin(cfg, seed, hw, dev):

@@ -306,26 +306,46 @@ def test_serve_compute_config_runs_the_tier_for_either_dtype(monkeypatch):
     assert not serve.compute_config("float32", cuda=True).use_flash_attention
 
 
-def test_int8_flags_on_the_f32_card_tier_are_refused(tmp_path, monkeypatch,
-                                                     capsys):
-    """f32 with an int8 flag on the card: make_infer_fn raises and
-    serve.main exits 1 with the reason, before any device work; bf16 with
-    the flags, f32 without them and f32 on the CPU stay allowed."""
+def test_int8_flags_on_the_f32_card_tier_are_refused(tmp_path, monkeypatch):
+    """No longer refused (the W8A8 kernels take f32 activations): on the
+    card make_infer_fn builds an f32 kernel-tier function with either int8
+    flag, and serve.main runs --dtype float32 --int8-mlp --int8-attn
+    through make_infer_fn with that policy and writes the masks. The
+    refusal's helpers are gone."""
+    from PIL import Image
+
+    from birefnet_tpu_torch import params as P
+
+    assert not hasattr(pipeline, "unsupported")
+    assert not hasattr(fused_mlp, "INT8_F32_MISSING")
     monkeypatch.delenv("DISABLE_FLASH_ATTN", raising=False)
-    for flags in ({"int8_mlp": True}, {"int8_attn": True}):
-        compute = serve.compute_config("float32", True, **flags)
-        assert "not ported" in pipeline.unsupported(compute, "cuda")
-        assert pipeline.unsupported(compute, "cpu") is None
-        assert pipeline.unsupported(
-            compute.with_overrides(dtype=torch.bfloat16), "cuda") is None
-    assert pipeline.unsupported(serve.compute_config("float32", True),
-                                "cuda") is None
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        pipeline.make_infer_fn({}, BiRefNetConfig(size=(64, 64)),
-                               serve.compute_config("float32", True,
-                                                    int8_mlp=True))
-    rc = serve.main([str(tmp_path), "--checkpoint", "unused", "--dtype",
-                     "float32", "--int8-mlp"])
-    assert rc == 1
-    assert "not ported" in capsys.readouterr().err
+    for flags in ({"int8_mlp": True}, {"int8_attn": True},
+                  {"int8_mlp": True, "int8_attn": True}):
+        compute = serve.compute_config("float32", True, **flags)
+        assert compute.dtype == torch.float32 and compute.use_flash_attention
+        assert callable(pipeline.make_infer_fn({}, BiRefNetConfig(
+            size=(64, 64)), compute))
+    seen = []
+
+    def fake_make_infer_fn(params, cfg, compute, device, out_size):
+        seen.append((compute, torch.device(device).type, out_size))
+        return lambda frames: torch.full(tuple(frames.shape[:3]), 7,
+                                         dtype=torch.uint8)
+
+    monkeypatch.setattr(pipeline, "make_infer_fn", fake_make_infer_fn)
+    monkeypatch.setattr(P, "load_checkpoint", lambda path, cfg: {})
+    img_dir = tmp_path / "imgs"
+    img_dir.mkdir()
+    Image.fromarray(np.zeros((64, 64, 3), np.uint8), "RGB").save(
+        img_dir / "a.png")
+    rc = serve.main([str(img_dir), "--out", str(tmp_path / "m"),
+                     "--checkpoint", "unused", "--size", "64", "--dtype",
+                     "float32", "--int8-mlp", "--int8-attn"])
+    assert rc == 0
+    (compute, device, out_size), = seen
+    assert (compute.dtype, compute.use_flash_attention, compute.int8_mlp,
+            compute.int8_attn) == (torch.float32, True, True, True)
+    assert (device, out_size) == ("cuda", (64, 64))
+    m = np.asarray(Image.open(tmp_path / "m" / "a_mask.png"))
+    assert m.shape == (64, 64) and int(m.max()) == 7

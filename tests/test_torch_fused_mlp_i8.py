@@ -11,7 +11,9 @@ slice with that row scale; fc2's output columns of a CTA are the sum over
 the S slices of partial integer products, its two warpgroups taking
 alternate pairs of 128-k steps, CTA r starting at its own slice (the k
 order rotated by r). The emulation does the same in float64 (exact for
-these integer sums) on weights from numpy seeds.
+these integer sums) on weights from numpy seeds, for bf16 and f32
+activations (the kernel's two instantiations: at f32 the last step adds
+y + x unrounded, as the JAX kernel's f32 branch does).
 
 Tolerances, and why: max and integer sums are exact in any order, so the
 emulation equals `fused_mlp_residual_int8_plain` bit for bit. Against the
@@ -58,9 +60,9 @@ def interpret_reciprocal(monkeypatch):
     monkeypatch.setattr(quant, "erf3", erf3)
 
 
-def _case(c):
-    """bf16 x [T, C], the LN2 params and a W8A8 MLP quantized by the JAX
-    package, as (torch x, torch tree, JAX x, JAX tree)."""
+def _case(c, dtype="bf16"):
+    """x [T, C] of `dtype`, the LN2 params and a W8A8 MLP quantized by the
+    JAX package, as (torch x, torch tree, JAX x, JAX tree)."""
     rng = np.random.default_rng(c + 7)
     x = rng.normal(size=(T, c)).astype(np.float32)
     norm2 = {"scale": (1 + 0.1 * rng.normal(size=c)).astype(np.float32),
@@ -70,9 +72,10 @@ def _case(c):
            for n, i, o in (("fc1", c, 4 * c), ("fc2", 4 * c, c))}
     jtree = {"norm2": _jnp(norm2), "mlp": jparams.quantize_mlp_int8(
         {"b": {"mlp": _jnp(lin)}}, c)["b"]["mlp"]}
-    jx = jnp.asarray(x).astype(jnp.bfloat16)
-    return (torch.from_numpy(x).to(torch.bfloat16),
-            pt.from_jax_params(jtree), jx, jtree)
+    jdt, tdt = {"bf16": (jnp.bfloat16, torch.bfloat16),
+                "f32": (jnp.float32, torch.float32)}[dtype]
+    return (torch.from_numpy(x).to(tdt), pt.from_jax_params(jtree),
+            jnp.asarray(x).astype(jdt), jtree)
 
 
 def split_mlp(x, norm2, mlp, clusters, width, out_width, k_step=128):
@@ -122,10 +125,11 @@ def split_mlp(x, norm2, mlp, clusters, width, out_width, k_step=128):
     return x + y.to(x.dtype)
 
 
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
 @pytest.mark.parametrize("clusters", [1, 2, 4, 8])
 @pytest.mark.parametrize("c", [64, 128])
-def test_cluster_split_equals_plain_bitwise(c, clusters):
-    x, tree, _, _ = _case(c)
+def test_cluster_split_equals_plain_bitwise(c, clusters, dtype):
+    x, tree, _, _ = _case(c, dtype)
     got = split_mlp(x, tree["norm2"], tree["mlp"], clusters, 4 * c // clusters,
                     c // clusters)
     want = fused_mlp.fused_mlp_residual_int8_plain(x, tree["norm2"],
@@ -133,11 +137,13 @@ def test_cluster_split_equals_plain_bitwise(c, clusters):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
 @pytest.mark.parametrize("c", [64, 128])
-def test_kernel_split_near_pallas(c, interpret_reciprocal):
+def test_kernel_split_near_pallas(c, dtype, interpret_reciprocal):
     """The card's own split (cluster_size(C) CTAs of 384 hidden units and
-    96 output columns, padded past 4C and C) against JAX `_fused_i8`."""
-    x, tree, jx, jtree = _case(c)
+    96 output columns, padded past 4C and C) against JAX `_fused_i8`, on
+    bf16 and on f32 activations."""
+    x, tree, jx, jtree = _case(c, dtype)
     got = split_mlp(x, tree["norm2"], tree["mlp"], fused_mlp.cluster_size(c),
                     fused_mlp.CLUSTER_SLICE, fused_mlp.CLUSTER_OUT)
     assert torch.equal(got, fused_mlp.fused_mlp_residual_int8_plain(

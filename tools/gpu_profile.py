@@ -9,7 +9,8 @@ default; swin_v1_t runs the ws=7 middle tier) at 1024^2, batch 2,
 regular deform mode, random_checkpoint(cfg, 0) (the chip_smoke.py paths:
 "int8" = bf16 kernel tier with int8_mlp and int8_attn, "bf16" = bf16
 kernel tier, "plain" = bf16 without kernels, "f32" = the f32 kernel tier,
-"plain_f32" = f32 without kernels), warms it up with two calls, then
+"f32_int8" = the f32 kernel tier with both int8 flags, "plain_f32" = f32
+without kernels), warms it up with two calls, then
 records one call under torch.profiler (CPU and CUDA activities). Prints,
 per tier: the call's wall time (host clock around the call and a
 synchronize), the summed device kernel time, the device idle share
@@ -48,10 +49,11 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # window-attention core (csrc/window_core.cuh) runs as two template
 # instantiations, named by their row layout: CanvasRows for K1 and K1-int8,
 # StridedRows for K6 (and K7/K8). The wgmma GEMM of csrc/wgmma_ring.cuh is
-# gemm_kernel<input type, epilogue> (0 store, 1 residual, 2 GELU): signed
-# char for the int8 GEMM, __nv_bfloat16 for the bf16 one. K3 is the int8
-# row pass quant_rows_kernel<__nv_bfloat16, LN, PAD> with LN and no PAD
-# (K1-int8's rows are the other two forms), then fused_mlp_i8_kernel, its
+# gemm_kernel<input type, epilogue, output type> (0 store, 1 residual, 2
+# GELU): signed char for the int8 GEMM, __nv_bfloat16 for the bf16 one;
+# float output for K1-int8 on f32 activations. K3 is the int8 row pass
+# quant_rows_kernel<row type, LN, PAD> with LN and no PAD (K1-int8's rows
+# are the other two forms), then fused_mlp_i8_kernel<activation type>, its
 # cluster kernel. The row kernel of csrc/row_ln.cu is row_ln_kernel<type,
 # caller>: 0 K4, 1 K2's LN2 rows, 2 K1's LN1 rows with the pads zeroed.
 # The f32 tier runs f32_gemm_kernel<epilogue> (csrc/f32_gemm.cu), the f32
@@ -67,17 +69,25 @@ GROUPS = [
     ("K2 f32 LN2 rows", ("row_ln_kernel<float, 1>",)),
     ("K1 attention core (bf16 and int8 routes)", ("CanvasRows",)),
     ("K6 window attention (middle tier)", ("StridedRows",)),
-    ("K1-int8 int8 GEMM, bf16 out (qkv)", ("gemm_kernel<signed char, 0>",)),
-    ("K1-int8 int8 GEMM + residual (proj)", ("gemm_kernel<signed char, 1>",)),
+    ("K1-int8 int8 GEMM, bf16 out (qkv)",
+     ("gemm_kernel<signed char, 0, __nv_bfloat16>",)),
+    ("K1-int8 int8 GEMM + residual (proj)",
+     ("gemm_kernel<signed char, 1, __nv_bfloat16>",)),
+    ("K1-int8 f32 int8 GEMM, f32 out (qkv)",
+     ("gemm_kernel<signed char, 0, float>",)),
+    ("K1-int8 f32 int8 GEMM + f32 residual (proj)",
+     ("gemm_kernel<signed char, 1, float>",)),
+    ("K3 f32 cluster kernel", ("fused_mlp_i8_kernel<float>",)),
     ("K3 cluster kernel (fc1, GELU, int8 hidden, fc2)",
      ("fused_mlp_i8_kernel",)),
     ("K3 LN2 row quantization",
-     ("quant_rows_kernel<__nv_bfloat16, true, false>",)),
+     ("quant_rows_kernel<__nv_bfloat16, true, false>",
+      "quant_rows_kernel<float, true, false>")),
     ("K1-int8 row quantization", ("quant_rows_kernel",)),
-    ("K1 bf16 GEMM (qkv)", ("gemm_kernel<__nv_bfloat16, 0>",)),
+    ("K1 bf16 GEMM (qkv)", ("gemm_kernel<__nv_bfloat16, 0,",)),
     ("K1/K2 bf16 GEMM + residual (proj, fc2)",
-     ("gemm_kernel<__nv_bfloat16, 1>",)),
-    ("K2 bf16 GEMM + GELU (fc1)", ("gemm_kernel<__nv_bfloat16, 2>",)),
+     ("gemm_kernel<__nv_bfloat16, 1,",)),
+    ("K2 bf16 GEMM + GELU (fc1)", ("gemm_kernel<__nv_bfloat16, 2,",)),
     ("K1 bf16 LN1 rows (pads zeroed)", ("row_ln_kernel<__nv_bfloat16, 2>",)),
     ("K2 bf16 LN2 rows", ("row_ln_kernel<__nv_bfloat16, 1>",)),
     ("K4 row_ln", ("row_ln_kernel",)),
@@ -365,6 +375,8 @@ def main() -> int:
              "bf16": kernel_tier,
              "plain": ComputeConfig(dtype=torch.bfloat16),
              "f32": ComputeConfig(use_flash_attention=True),
+             "f32_int8": ComputeConfig(use_flash_attention=True,
+                                       int8_mlp=True, int8_attn=True),
              "plain_f32": ComputeConfig()}
     for tier in args.tiers.split(","):
         infer = pipeline.make_infer_fn(params, cfg, tiers[tier], dev)

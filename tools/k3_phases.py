@@ -81,7 +81,7 @@ extern "C" int k3_phases_buffer(void* buf) {
   return (int)cudaMemcpyToSymbol(g_phases, &buf, sizeof(void*));
 }
 extern "C" int k3_max_clusters(int C) {
-  const auto kernel = bt::mlp8::fused_mlp_i8_kernel;
+  const auto kernel = bt::mlp8::fused_mlp_i8_kernel<bf16>;
   const int S = (C + bt::mlp8::kOut - 1) / bt::mlp8::kOut;
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bt::mlp8::kSmem);
   cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
