@@ -150,7 +150,8 @@ class ComputeConfig:
     from the window size, as in the JAX package, whose `use_fused_block`
     knob the port does not copy. The tier runs in either `dtype`, as the
     JAX kernels do: bf16 on the bf16 kernels, f32 on their f32 branches
-    (FFMA GEMMs and window-attention core, f32 row passes; no TF32), except
+    (GEMMs and window-attention core as three TF32 products each, within
+    about 1e-6 of f32 products and summed in f32; f32 row passes), except
     the tap-conv head, which the JAX decoder runs for bf16 only. On a CPU
     tensor every kernel wrapper takes its plain PyTorch version; on a CUDA
     tensor it launches the kernel or raises.

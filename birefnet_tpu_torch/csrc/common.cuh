@@ -13,6 +13,28 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16(v));
 }
 
+// x as the TF32 hi and lo parts of a three-product TF32 MMA (f32_gemm.cu,
+// window_core_f32.cuh): hi = x rounded to TF32, to nearest with ties away
+// from zero (what cvt.rna.tf32.f32 gives for finite x, in two integer
+// instructions where ptxas emulates the cvt in four), and lo = x - hi,
+// exact in f32, whose low 13 bits the tensor cores ignore (they read lo
+// truncated to TF32).
+__device__ __forceinline__ void tf32_split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(__fsub_rn(x, __uint_as_float(hi)));
+}
+
+// The current device's SM count, read once (host).
+inline int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return n;
+}
+
 // Bytes of dynamic shared memory, rounded up so the next region starts on
 // a 128-byte boundary.
 __host__ __device__ constexpr size_t align128(size_t n) { return (n + 127) & ~size_t(127); }

@@ -69,12 +69,14 @@
 // f32 entry, bt_fused_block_attn_f32: the f32 branch of the same TPU kernel
 // (its dots at precision=HIGHEST, the q scale, bias and mask unrounded), as
 // the same four launches on f32 tensors (f32.cuh): the f32 row pass (LN1 +
-// pad-zero -> the attention scratch), the f32 FFMA GEMM for qkv -> an f32
+// pad-zero -> the attention scratch), the f32 GEMM for qkv -> an f32
 // [T, 3C] scratch, the f32 core of window_core_f32.cuh (F32CanvasRows),
 // and the same GEMM for the projection with the bias and the residual. The
 // JAX kernel runs f32 per head (its packed head groups are bf16 only), and
-// so does the core. Every product is an FFMA, so the GEMMs' 8 C^2 flops
-// per token bound it at the f32 peak of 67 TFLOP/s (f32_gemm.cu).
+// so does the core. The GEMM and the core take their products on the
+// tensor cores as three TF32 products (f32_gemm.cu), so the GEMMs' 8 C^2
+// flops per token, three TF32 ones each, bound it at the TF32 peak of
+// 494.7 TFLOP/s.
 
 #include "bf16.cuh"
 #include "f32.cuh"
@@ -257,7 +259,8 @@ extern "C" int bt_fused_block_attn_i8_f32(
 }
 
 // As bt_fused_block_attn_bf16 with every tensor f32: x, out [B, Hp, Wp, C];
-// wqkv [3C, C], wproj [C, C]; qkv_scratch [B*Hp*Wp, 3C] and attn_scratch
+// wqkv [2, 3C, C], wproj [2, C, C] (each weight's TF32 hi then lo parts,
+// ops/kernels/tf32.py::split_weight); qkv_scratch [B*Hp*Wp, 3C] and attn_scratch
 // [B, Hp, Wp, C] f32; every pointer 16-byte aligned.
 extern "C" int bt_fused_block_attn_f32(
     const void* x, const void* ln_g, const void* ln_b, const void* wqkv,

@@ -32,10 +32,13 @@
 // f32 entry, bt_fused_mlp_f32: the f32 branch of the same TPU kernel (its
 // dots at precision=HIGHEST, the 5-coefficient erf), as the same three
 // launches on f32 rows (f32.cuh): the f32 row pass (LN2 -> the output
-// buffer), the f32 FFMA GEMM with the bias and the exact GELU into an f32
-// [T, 4C] scratch, and the same GEMM with the bias and the residual. It is
-// bound by the FMA units' 67 TFLOP/s (f32_gemm.cu), not by the hidden's
-// bytes. The JAX kernel's VMEM gate, which sends the f32 C = 1536 stage to
+// buffer), the f32 GEMM with the bias and the exact GELU into an f32
+// [T, 4C] scratch, and the same GEMM with the bias and the residual. The
+// GEMM takes each product on the tensor cores as three TF32 products
+// (3xTF32, within about 1e-6 of the f32 product, summed in f32; PyTorch's
+// TF32 flags do not govern it), so it is bound by the TF32 peak of 494.7
+// TFLOP/s over three times the 16 C^2 operations a token (f32_gemm.cu),
+// not by the hidden's bytes. The JAX kernel's VMEM gate, which sends the f32 C = 1536 stage to
 // the unfused XLA MLP on the TPU, is not ported: this runs at every site.
 
 #include "bf16.cuh"
@@ -64,8 +67,9 @@ extern "C" int bt_fused_mlp_bf16(const void* x, const void* ln_g, const void* ln
                                            s);
 }
 
-// As bt_fused_mlp_bf16 with every tensor f32: x, out [T, C]; w1 [4C, C],
-// w2 [C, 4C]; hidden [T, 4C] f32 scratch. C % 8 == 0 and C <= 8192 (the
+// As bt_fused_mlp_bf16 with every tensor f32: x, out [T, C]; w1 [2, 4C, C],
+// w2 [2, C, 4C] (each weight's TF32 hi then lo parts,
+// ops/kernels/tf32.py::split_weight); hidden [T, 4C] f32 scratch. C % 8 == 0 and C <= 8192 (the
 // row pass's widest f32 row); every pointer 16-byte aligned.
 extern "C" int bt_fused_mlp_f32(const void* x, const void* ln_g, const void* ln_b,
                                 const void* w1, const void* b1, const void* w2, const void* b2,

@@ -1,6 +1,8 @@
 // The persistent, warp-specialized wgmma/TMA GEMM for sm_90a, shared by the
 // int8 GEMM (int8_gemm.cu: K1-int8) and the bf16 GEMM (bf16_gemm.cu: K1 and
-// K2). Each source instantiates gemm_kernel<In, EPI, Out> for its own input
+// K2); the f32 GEMM (f32_gemm.cu) runs its own kernel on the ring's
+// pieces with the third input kind, Mma<float> (TF32, A from registers).
+// Each source instantiates gemm_kernel<In, EPI, Out> for its own input
 // type; nothing here is compiled twice for one type. Out is bf16, or f32
 // for the int8 GEMM's store and residual epilogues (K1-int8 on f32
 // activations). K3's cluster kernel
@@ -238,6 +240,27 @@ struct Mma<bf16> {
                  ", %64, %65, p, 1, 1, 0, 0;\n}\n"
                  : BT_WG_ACC("f")
                  : "l"(da), "l"(db), "r"(acc));
+  }
+};
+
+// The f32 GEMM's input kind (f32_gemm.cu): D[64, 128] (+)= A[64, 8]
+// B[128, 8]^T in TF32 with f32 accumulators, B K-major from a descriptor
+// and A from registers, the m64nNk8 tf32 A fragment of a warp's 16 rows:
+// a[0] row g col t, a[1] row g + 8 col t, a[2] row g col t + 4, a[3] row
+// g + 8 col t + 4 (g = lane / 4, t = lane % 4). Its kernel is its own
+// (the operands are split into TF32 parts in registers); it shares the
+// ring's TMA maps, barriers and descriptors.
+template <>
+struct Mma<float> {
+  using Acc = float;
+  static constexpr CUtensorMapDataType kMapType = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  __device__ __forceinline__ static void run(float (&d)[64], const uint32_t (&a)[4], uint64_t db,
+                                             int acc) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 " BT_WG_REGS
+                 ", {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+                 : BT_WG_ACC("f")
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
   }
 };
 
@@ -522,16 +545,6 @@ bool encode(CUtensorMap* map, const In* base, int rows, int K, int box_rows) {
   return fn(map, Mma<In>::kMapType, 2, const_cast<In*>(base), dims, strides, box, elem,
             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-int sm_count() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-  }
-  return n;
 }
 
 // One launch of gemm_kernel<In, EPI, Out> on a grid of min(tiles, SMs)

@@ -1,6 +1,8 @@
 // The f32 window-attention core, shared by the f32 window-attention entry
 // (K6, K7, K8: bt_flash_window_attn_f32 in flash_window_attn.cu) and the
-// f32 fused Swin block (K1: bt_fused_block_attn_f32 in fused_block_attn.cu):
+// f32 fused Swin block (K1 and K1-int8 on f32 activations:
+// bt_fused_block_attn_f32 and bt_fused_block_attn_i8_f32 in
+// fused_block_attn.cu):
 //
 //   out[w, h] = softmax(q s k^T + (bias[h] + mask[w % nW])) v
 //
@@ -14,33 +16,60 @@
 // unrounded (the mask as -100 where two region ids differ, or a dense f32
 // mask, or -1e9 where a key lies after its query for flash_attention's
 // causal bias, which JAX casts to q.dtype, f32 here), the softmax is
-// exp(x - max) / sum in f32, and P v sums f32 products. No tensor core is
-// used: every product is an FFMA.
+// exp(x - max) / sum in f32 (expf and an IEEE division, as PyTorch computes
+// it), and P v sums f32 products.
 //
-// What bounds it on the card: per (window, head) 4 N^2 d operations against
-// 16 N d bytes (q, k, v read, the output written): at N = 144, d = 32 that is
-// 36 operations a byte, above the f32 ridge of 20 (67 TFLOP/s over 3.35
-// TB/s), so the FMA units bound it, about 2 ms per Swin-L forward at peak.
+// Arithmetic: both products run on the tensor cores as three TF32
+// products (mma.sync m16n8k8 tf32, f32 accumulators): each f32 operand is
+// split in registers into hi = x rounded to TF32 and lo = x - hi (which the
+// tensor cores read truncated to TF32; common.cuh tf32_split), and a b is
+// taken as lo_a hi_b + hi_a lo_b + hi_a hi_b, the small products first;
+// what is dropped (lo_a lo_b and the truncation of the lo parts) is about
+// 2^-21 |a b| per product at most, with random sign. PyTorch's TF32 flags do not govern this kernel. The scores' k sum
+// is 3 d / 8 tensor-core additions (12 at d = 32); P v goes into a fresh
+// accumulator every 64 keys, added to the output with an f32 add, so that
+// no accumulator takes more than 24 of the tensor cores' truncating
+// additions (see f32_gemm.cu).
 //
-// Design, one block per (window, head), FFMA throughout:
-// - the block stages q (times s) and k transposed ([d][N], k-major) and v
-//   ([N][d]) in shared memory, zero past N;
-// - each warp takes groups of 8 query rows: lane l holds the scores of
-//   keys l, l + 32, ... (TN blocks of 32 keys) for the 8 rows, so a k step
-//   reads two float4 broadcasts of q and TN conflict-free words of k for
-//   8 TN FFMAs;
-// - the addends, row max, exp and sum run on those registers (the row's
-//   max and sum by warp shuffles), and the probabilities go to the warp's
-//   own [N][8] buffer in shared memory;
-// - P v: lane l sums output column l (and l + 32 for d = 64) of the 8 rows
-//   over the keys, reading each key's 8 probabilities as two float4
-//   broadcasts and one word of v.
+// What bounds it on the card: per (window, head) 16 N d bytes (q, k, v
+// read, the output written) against 4 N^2 d f32 operations, three TF32
+// ones each: at N = 144, d = 32 that is 108 TF32 operations a byte, below
+// the TF32 ridge of 148 (494.7 TFLOP/s over 3.35 TB/s), so the bytes bound
+// it, about 1.45 ms per Swin-L forward (1.02 by operations).
+//
+// Design, after window_core.cuh:
+// - Two warps share each 16-row query strip (18 at N = 144), each taking
+//   half the key tiles: q k^T of its half lands in N/16 accumulator tiles
+//   in registers (36 floats a thread at N = 144). The row max and sum take
+//   two quad shuffles and one exchange with the other warp through shared
+//   memory (a named barrier per pair); the two halves' P v sums are added
+//   in f32 over the strip's q rows before the store. One warp per strip
+//   (72 score registers, 9 warps an SM) ran 1.3x slower on the H100.
+// - The probabilities go from the score tiles straight into P v's A
+//   fragments: an m16n8 accumulator holds columns (2t, 2t + 1) where the
+//   m16n8k8 A fragment wants columns (t, t + 4) (t = lane % 4), so A column
+//   t is key 2t and column t + 4 key 2t + 1, and v's B fragment rows are
+//   read in the same order (b0 = v[2t][g], b1 = v[2t + 1][g]); the sum over
+//   keys does not depend on their order. No score or probability is
+//   stored.
+// - q, k and v are staged with 16-byte cp.async into tiles whose 16-byte
+//   chunks are XOR-swizzled by row, so that every fragment load (q and k
+//   by rows, v by keys) is free of bank conflicts. q s, k, v and P are
+//   split as their fragments are loaded (splitting k and v once per window
+//   into shared memory measured no faster).
+// - A block takes one head over a run of R windows, sized so that the grid
+//   is one round on the card's SMs, and copies the next window's rows
+//   while the current one computes (two buffers where shared memory
+//   allows). The head's bias is staged in shared memory once per block
+//   (read from L2 in place where it does not fit: N > 144 at d = 64); a
+//   dense mask is read from L2; region ids are staged per window.
+// - The loops over key tiles, k slices and output tiles run to their
+//   compile-time ends (tiles hold 8 NT rows, zero past N), with no branch
+//   around an MMA: with a runtime guard per tile, ptxas issues each tile's
+//   loads and three dependent MMAs alone behind a warp sync, and the core
+//   ran 1.25x slower.
 // Rows and columns at or past N never reach an output: pad keys get -inf,
-// so probability 0, and pad query rows are not written. Eight rows a warp
-// ran fastest on the H100 at Swin-L's shapes: 16 rows a warp took twice as
-// long, 4 rows a warp (12 warps a block) and 9 warps of 8 rows 5-26%
-// longer; the block runs at about a tenth of its FMA bound, for reasons
-// not measured yet.
+// so probability 0, and pad query rows are not written.
 //
 // Two layouts find a window's rows, as in window_core.cuh: F32StridedRows
 // (element strides per window, head, token; K6's packed [B_, N, 3C] rows
@@ -98,254 +127,376 @@ struct F32CanvasRows {
 
 namespace core_f32 {
 
-constexpr int kRows = 8;       // query rows a warp takes at a time
-constexpr int kMaxWarps = 8;
-constexpr int kStageLoads = 4;  // loads a thread has in flight when staging
+// Per class of N (NT = n8 key tiles at most: 8 up to N = 64, 18 up to 144,
+// 32 up to 256): warps per block at most (one per 16-row strip; N = 256
+// runs 8 warps of two strips) and blocks per SM for the register budget.
+__host__ __device__ constexpr int max_pairs(int nt) { return nt <= 8 ? 4 : (nt <= 18 ? 9 : 8); }
+__host__ __device__ constexpr int min_blocks(int nt) { return nt <= 8 ? 2 : 1; }
+// Row width of a staged tile in floats: d padded to 8, 16, 32 or 64.
+__host__ __device__ constexpr int tile_width(int d) {
+  return d <= 8 ? 8 : (d <= 16 ? 16 : (d <= 32 ? 32 : 64));
+}
 
-// Shared-memory layout in floats: qt [d][qs] (q times s, transposed), kt
-// [d][ks] (k transposed; ks odd, so a transposing store of one k column
-// hits distinct banks), v [32 TN][d], then one [32 TN][8] probability
-// buffer per warp; every region starts on 16 bytes.
+// Physical 16-byte chunk of logical chunk c in tile row r: the eight rows
+// (or keys 2t, 2t + 1) a fragment load reads at one column land in
+// distinct bank groups.
+template <int DS>
+__device__ __forceinline__ int swz(int r, int c) {
+  constexpr int cpr = DS / 4;
+  constexpr int sh = cpr == 2 ? 2 : (cpr == 4 ? 1 : 0);
+  return c ^ ((r >> sh) & (cpr - 1));
+}
+
+__device__ __forceinline__ void mma1688(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                        uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Named barrier `id` over `n` threads (the two warps of a strip).
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// c += a b in three TF32 products, the small ones first.
+__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], const uint32_t (&bh)[2],
+                                     const uint32_t (&bl)[2]) {
+  mma1688(c, al, bh[0], bh[1]);
+  mma1688(c, ah, bl[0], bl[1]);
+  mma1688(c, ah, bh[0], bh[1]);
+}
+
 struct Plan {
-  int warps, qs, ks;
-  unsigned kt_off, v_off, p_off;
-  size_t smem;
+  int R, runs, warps, nbuf, bld;
+  size_t tile_floats, bias_off, ids_off, red_off, smem;
 };
 
-inline unsigned align4(size_t v) { return (unsigned)((v + 3) & ~size_t(3)); }
-
-inline Plan plan(int tn, int n, int d) {
+// Launch plan for N = n, head dim d, on `windows` x `heads` items: one
+// head per block over a run of R windows, the runs sized so that the grid
+// fits one round of the SMs' blocks; two copy buffers where R > 1 and
+// shared memory allows. Tiles hold 8 NT rows (every key tile the kernel's
+// unrolled loops touch), zero past N.
+inline Plan plan(int nt, int n, int d, int windows, int heads, bool ids, bool bias) {
   Plan p{};
-  const int rows = (n + kRows - 1) / kRows * kRows, groups = rows / kRows;
-  // As many warps as balance the row groups, at most kMaxWarps; fewer where
-  // shared memory runs short (N = 256, d = 64 takes 4).
-  const int per_warp = (groups + kMaxWarps - 1) / kMaxWarps;
-  p.warps = (groups + per_warp - 1) / per_warp;
-  p.qs = rows + 4;
-  p.ks = 32 * tn + 1;
-  p.kt_off = align4((size_t)d * p.qs);
-  p.v_off = align4(p.kt_off + (size_t)d * p.ks);
-  p.p_off = align4(p.v_off + (size_t)32 * tn * d);
-  for (;; --p.warps) {
-    p.smem = ((size_t)p.p_off + (size_t)p.warps * 32 * tn * kRows) * 4;
-    if (p.smem <= (size_t)core::kSmemLimit || p.warps == 1) break;
+  const int nr = 8 * nt, strips = core::pad16(n) / 16;
+  p.warps = 2 * (strips < max_pairs(nt) ? strips : max_pairs(nt));
+  p.tile_floats = (size_t)nr * tile_width(d);
+  const int slots = sm_count() * min_blocks(nt);
+  int runs = slots / heads > 1 ? slots / heads : 1;
+  runs = runs < windows ? runs : windows;
+  p.R = (windows + runs - 1) / runs;
+  p.runs = (windows + p.R - 1) / p.R;
+  // The head's bias in rows of 8 NT + 8 floats (the rows of an accumulator
+  // quad-row fall in distinct banks), where it fits beside the tiles;
+  // else (N > 144 at d = 64) it is read from L2 in place (bld = 0).
+  for (p.nbuf = p.R > 1 ? 2 : 1;; --p.nbuf) {
+    for (p.bld = bias ? nr + 8 : 0;; p.bld = 0) {
+      p.bias_off = align128((size_t)p.nbuf * 3 * p.tile_floats * 4);
+      p.ids_off = align128(p.bias_off + (size_t)nr * p.bld * 4);
+      p.red_off = align128(p.ids_off + (ids ? (size_t)p.nbuf * nr * 4 : 0));
+      p.smem = p.red_off + (size_t)p.warps / 2 * 64 * 4;
+      if (p.smem <= (size_t)core::kSmemLimit || p.bld == 0) break;
+    }
+    if (p.smem <= (size_t)core::kSmemLimit || p.nbuf == 1) break;
   }
   return p;
 }
 
-// One block: window blockIdx.x, head blockIdx.y. TN: blocks of 32 keys (2
-// up to N = 64, 5 up to 160, 8 up to 256); DC: output columns a lane sums
-// (1 for d <= 32, 2 up to 64).
-template <class Rows, int TN, int DC>
-__global__ void __launch_bounds__(kMaxWarps * 32)
-window_core_f32_kernel(Rows rows, Addends ad, int n, int d, float scale, int qs, int ks,
-                       unsigned kt_off, unsigned v_off, unsigned p_off) {
-  extern __shared__ __align__(16) float sm[];
-  constexpr int NK = 32 * TN;
-  float* qt = sm;
-  float* kt = sm + kt_off;
-  float* vs = sm + v_off;
+// One block: head blockIdx.y, windows [blockIdx.x R, +R). NT: n8 key tiles
+// (8, 18 or 32); DS: tile width in floats. The loops over key tiles, k
+// slices and output tiles run to their compile-time ends with no branch
+// around the MMAs (tiles past N are zero and their scores -inf), so the
+// tiles' loads, splits and MMAs interleave.
+template <class Rows, int NT, int DS>
+__global__ void __launch_bounds__(max_pairs(NT) * 64, min_blocks(NT))
+window_core_f32_kernel(Rows rows, Addends ad, int windows, int n, int d, int R, int nbuf,
+                       int bld, float scale, size_t tile_floats, size_t bias_off,
+                       size_t ids_off, size_t red_off) {
+  constexpr int KD = DS / 8;   // k8 slices of the head dim, n8 tiles of the output
+  constexpr int cpr = DS / 4;  // 16-byte chunks of a tile row
+  constexpr int NR = 8 * NT;   // tile rows
+  constexpr int NH = NT / 2;   // key tiles of a warp: half of them
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* tiles = reinterpret_cast<float*>(smem);
+  float* bias_s = reinterpret_cast<float*>(smem + bias_off);
+  int* ids_s = reinterpret_cast<int*>(smem + ids_off);
+
+  const int mt = core::pad16(n) / 16;
   const int tid = threadIdx.x, nthreads = blockDim.x;
-  const int warp = tid >> 5, lane = tid & 31, nwarps = nthreads >> 5;
-  const int w = blockIdx.x, h = blockIdx.y;
-  const long long item = rows.item(w);
-  const int nr = (n + kRows - 1) / kRows * kRows, d4 = d >> 2;
-
-  // Stage q * s and k transposed, and v; zeros past N. A thread has
-  // kStageLoads 16-byte loads in flight before it stores them.
-  const int items = 3 * NK * d4;
-  for (int e0 = tid; e0 < items; e0 += kStageLoads * nthreads) {
-    float4 x[kStageLoads];
-    int part[kStageLoads], row[kStageLoads], col[kStageLoads];
-#pragma unroll
-    for (int u = 0; u < kStageLoads; ++u) {
-      const int e = e0 + u * nthreads;
-      part[u] = e / (NK * d4);
-      const int rem = e - part[u] * NK * d4;
-      row[u] = rem / d4;
-      col[u] = (rem - row[u] * d4) * 4;
-      x[u] = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (e < items && row[u] < n)
-        x[u] = __ldg(reinterpret_cast<const float4*>(rows.in(part[u], item, h, row[u]) +
-                                                     col[u]));
-    }
-#pragma unroll
-    for (int u = 0; u < kStageLoads; ++u) {
-      const int i = row[u], c = col[u];
-      if (e0 + u * nthreads >= items || (part[u] == 0 && i >= nr)) continue;
-      if (part[u] == 0) {
-        qt[(c + 0) * qs + i] = x[u].x * scale;
-        qt[(c + 1) * qs + i] = x[u].y * scale;
-        qt[(c + 2) * qs + i] = x[u].z * scale;
-        qt[(c + 3) * qs + i] = x[u].w * scale;
-      } else if (part[u] == 1) {
-        kt[(c + 0) * ks + i] = x[u].x;
-        kt[(c + 1) * ks + i] = x[u].y;
-        kt[(c + 2) * ks + i] = x[u].z;
-        kt[(c + 3) * ks + i] = x[u].w;
-      } else {
-        *reinterpret_cast<float4*>(vs + i * d + c) = x[u];
-      }
-    }
-  }
-  __syncthreads();
-
-  float* ps = sm + p_off + (size_t)warp * NK * kRows;
-  const int wm = w % ad.nw;
-  const float* bias = ad.bias != nullptr ? ad.bias + (size_t)h * n * n : nullptr;
-  const int* ids = ad.mask_kind == kRegionIds ? static_cast<const int*>(ad.mask) + (size_t)wm * n
-                                              : nullptr;
-  const float* dense = ad.mask_kind == kMaskF32
-                           ? static_cast<const float*>(ad.mask) + (size_t)wm * n * n
-                           : nullptr;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  // Warps 2p and 2p + 1 share a strip: keys of tiles [0, NH) and [NH, NT).
+  const int pair = warp >> 1, hf = warp & 1, npairs = nthreads >> 6, j0 = hf * NH;
+  float* rx = reinterpret_cast<float*>(smem + red_off) + 64 * pair;
+  const int h = blockIdx.y;
+  const int w0 = blockIdx.x * R;
+  const int cnt = min(R, windows - w0);
+  const bool ids = ad.mask_kind == kRegionIds;
   const bool causal = ad.mask_kind == kCausal;
-  int id_key[TN];
-#pragma unroll
-  for (int t = 0; t < TN; ++t) {
-    const int j = 32 * t + lane;
-    id_key[t] = ids != nullptr && j < n ? __ldg(ids + j) : 0;
+  const float* bias = ad.bias != nullptr ? ad.bias + (size_t)h * n * n : nullptr;
+  const bool staged = bld > 0;
+
+  auto tile = [&](int buf, int part) -> float* {
+    return tiles + (size_t)(buf * 3 + part) * tile_floats;
+  };
+
+  // Copy window w's q/k/v rows of head h into buffer buf (zero pad rows and
+  // columns), and its region ids.
+  auto prefetch = [&](int w, int buf) {
+    const long long item = rows.item(w);
+    for (int e = tid; e < NR * 3 * cpr; e += nthreads) {
+      const int i = e / (3 * cpr), rem = e - i * (3 * cpr);
+      const int part = rem / cpr, c = rem - part * cpr;
+      const bool valid = i < n && c * 4 < d;
+      const float* src = valid ? rows.in(part, item, h, i) + c * 4 : rows.in(0, item, h, 0);
+      core::cp_async16(tile(buf, part) + i * DS + swz<DS>(i, c) * 4, src, valid);
+    }
+    if (ids) {  // pad tokens' ids are zero-filled: their columns get -inf anyway
+      const int* src = static_cast<const int*>(ad.mask) + (size_t)(w % ad.nw) * n;
+      for (int r = tid; r < NR; r += nthreads)
+        core::cp_async4(ids_s + buf * NR + r, src + (r < n ? r : 0), r < n);
+    }
+  };
+
+  // Window it + nbuf - 1 is requested while window it computes; every step
+  // commits one group (empty past the end), so waiting for all but nbuf - 1
+  // groups leaves window it's copies done. The head's bias is copied once
+  // per block, in the first group.
+  const int ahead = nbuf > 1 ? nbuf - 1 : 1;
+  if (staged) {
+    if (n % 4 == 0 && (reinterpret_cast<uintptr_t>(bias) & 15) == 0) {
+      for (int e = tid; e < n * n / 4; e += nthreads) {
+        const int r = e / (n / 4), c = e - r * (n / 4);
+        core::cp_async16(bias_s + r * bld + 4 * c, bias + (size_t)r * n + 4 * c, true);
+      }
+    } else {
+      for (int e = tid; e < n * n; e += nthreads) {
+        const int r = e / n, c = e - r * n;
+        core::cp_async4(bias_s + r * bld + c, bias + e, true);
+      }
+    }
+  }
+  for (int k = 0; k < ahead; ++k) {
+    if (k < cnt) prefetch(w0 + k, k);
+    asm volatile("cp.async.commit_group;\n");
   }
 
-  for (int grp = warp; grp < nr / kRows; grp += nwarps) {
-    const int r0 = grp * kRows;
-    float acc[kRows][TN];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r)
-#pragma unroll
-      for (int t = 0; t < TN; ++t) acc[r][t] = 0.f;
-    // Scores: (q s) k^T, one k step at a time (d is a multiple of 8).
-#pragma unroll 4
-    for (int k = 0; k < d; ++k) {
-      float q[kRows];
-#pragma unroll
-      for (int r = 0; r < kRows; r += 4)
-        *reinterpret_cast<float4*>(q + r) = *reinterpret_cast<const float4*>(qt + k * qs + r0 + r);
-      float kv[TN];
-#pragma unroll
-      for (int t = 0; t < TN; ++t) kv[t] = kt[k * ks + 32 * t + lane];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r)
-#pragma unroll
-        for (int t = 0; t < TN; ++t) acc[r][t] = fmaf(q[r], kv[t], acc[r][t]);
-    }
+  for (int it = 0; it < cnt; ++it) {
+    const int buf = it % nbuf, w = w0 + it, nxt = it + nbuf - 1;
+    if (nxt >= ahead && nxt < cnt) prefetch(w0 + nxt, nxt % nbuf);
+    asm volatile("cp.async.commit_group;\n");
+    if (nbuf == 2)
+      asm volatile("cp.async.wait_group 1;\n");
+    else
+      asm volatile("cp.async.wait_group 0;\n");
+    __syncthreads();
+    const long long item = rows.item(w);
+    const int* idw = ids_s + buf * NR;
+    const float* dense = ad.mask_kind == kMaskF32
+                             ? static_cast<const float*>(ad.mask) + (size_t)(w % ad.nw) * n * n
+                             : nullptr;
 
-    // Addends (bias + mask, summed first, as the JAX kernels sum them),
-    // then the softmax of each row in f32, normalized by division. The
-    // eight rows' maxima and sums reduce side by side, one shuffle of each
-    // row per step.
-    float mx[kRows], sum[kRows];
+    for (int s = pair; s < mt; s += npairs) {
+      // mma.sync needs every lane of the warp converged; the copies above
+      // and the last strip's stores branch by lane.
+      __syncwarp();
+      float* qs = tile(buf, 0);
+      const float* ks = tile(buf, 1);
+      const float* vs = tile(buf, 2);
+      const int r0 = 16 * s + g, r1 = r0 + 8;
+
+      // Scores of this warp's half of the keys: tile j holds rows r0 / r1,
+      // keys 8 (j0 + j) + 2t and + 1.
+      float sc[NH][4];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int i = r0 + r;
-      const bool real = i < n;
-      const int id_q = ids != nullptr && real ? __ldg(ids + i) : 0;
-      mx[r] = -INFINITY;
+      for (int j = 0; j < NH; ++j)
 #pragma unroll
-      for (int t = 0; t < TN; ++t) {
-        const int j = 32 * t + lane;
-        float s = -INFINITY;
-        if (j < n) {
-          float a = bias != nullptr && real ? __ldg(bias + (size_t)i * n + j) : 0.f;
-          if (ids != nullptr)
-            a += real && id_key[t] != id_q ? -100.f : 0.f;
-          else if (dense != nullptr)
-            a += real ? __ldg(dense + (size_t)i * n + j) : 0.f;
-          else if (causal)
-            a += j > i ? -1e9f : 0.f;
-          s = acc[r][t] + a;
+        for (int u = 0; u < 4; ++u) sc[j][u] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        // q s of the strip at columns 8kk + t (chunk 2kk) and 8kk + t + 4
+        // (chunk 2kk + 1), split.
+        const float x[4] = {qs[r0 * DS + swz<DS>(r0, 2 * kk) * 4 + t],
+                            qs[r1 * DS + swz<DS>(r1, 2 * kk) * 4 + t],
+                            qs[r0 * DS + swz<DS>(r0, 2 * kk + 1) * 4 + t],
+                            qs[r1 * DS + swz<DS>(r1, 2 * kk + 1) * 4 + t]};
+        uint32_t qh[4], ql[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) tf32_split(__fmul_rn(x[u], scale), qh[u], ql[u]);
+#pragma unroll
+        for (int j = 0; j < NH; ++j) {
+          const int kr = 8 * (j0 + j) + g;
+          uint32_t kh[2], kl[2];
+          tf32_split(ks[kr * DS + swz<DS>(kr, 2 * kk) * 4 + t], kh[0], kl[0]);
+          tf32_split(ks[kr * DS + swz<DS>(kr, 2 * kk + 1) * 4 + t], kh[1], kl[1]);
+          mma3(sc[j], qh, ql, kh, kl);
         }
-        acc[r][t] = s;
-        mx[r] = fmaxf(mx[r], s);
       }
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-#pragma unroll
-      for (int r = 0; r < kRows; ++r)
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], o));
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      sum[r] = 0.f;
-#pragma unroll
-      for (int t = 0; t < TN; ++t) {
-        acc[r][t] = expf(acc[r][t] - mx[r]);
-        sum[r] += acc[r][t];
-      }
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], o);
-#pragma unroll
-    for (int r = 0; r < kRows; ++r)
-#pragma unroll
-      for (int t = 0; t < TN; ++t) acc[r][t] = acc[r][t] / sum[r];
-#pragma unroll
-    for (int t = 0; t < TN; ++t)
-#pragma unroll
-      for (int r = 0; r < kRows; r += 4)
-        *reinterpret_cast<float4*>(ps + (32 * t + lane) * kRows + r) =
-            make_float4(acc[r][t], acc[r + 1][t], acc[r + 2][t], acc[r + 3][t]);
-    __syncwarp();
 
-    // O = P v over the real keys.
-    float o[kRows][DC];
+      // Addends (bias + mask, summed first, as the JAX kernels sum them)
+      // and the row max. Pad keys (at or past n) get -inf, so probability 0.
+      const int id0 = ids ? idw[r0] : 0, id1 = ids ? idw[r1] : 0;
+      float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
-    for (int r = 0; r < kRows; ++r)
+      for (int j = 0; j < NH; ++j) {
 #pragma unroll
-      for (int cc = 0; cc < DC; ++cc) o[r][cc] = 0.f;
-    int col[DC];
+        for (int u = 0; u < 4; ++u) {
+          const int r = u < 2 ? r0 : r1, cc = 8 * (j0 + j) + 2 * t + (u & 1);
+          const bool real = r < n && cc < n;
+          float a = 0.f;
+          if (staged)
+            a = real ? bias_s[r * bld + cc] : 0.f;
+          else if (bias != nullptr)
+            a = real ? __ldg(bias + (size_t)r * n + cc) : 0.f;
+          if (ids)
+            a += idw[cc] != (u < 2 ? id0 : id1) ? -100.f : 0.f;
+          else if (dense != nullptr)
+            a += real ? __ldg(dense + (size_t)r * n + cc) : 0.f;
+          else if (causal)
+            a += cc > r ? -1e9f : 0.f;
+          sc[j][u] = cc < n ? sc[j][u] + a : -INFINITY;
+        }
+        mx0 = fmaxf(mx0, fmaxf(sc[j][0], sc[j][1]));
+        mx1 = fmaxf(mx1, fmaxf(sc[j][2], sc[j][3]));
+      }
+      // The row max over both halves: the quad's, then the other warp's
+      // through shared memory (rx: [half][max, sum][16 rows] per pair).
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+      if (t == 0) {
+        rx[32 * hf + g] = mx0;
+        rx[32 * hf + g + 8] = mx1;
+      }
+      bar_sync(1 + pair, 64);
+      mx0 = fmaxf(mx0, rx[32 * (hf ^ 1) + g]);
+      mx1 = fmaxf(mx1, rx[32 * (hf ^ 1) + g + 8]);
+      // The softmax in f32: exp(x - max) by expf, the sum over both halves,
+      // normalized by division.
+      float l0 = 0.f, l1 = 0.f;
 #pragma unroll
-    for (int cc = 0; cc < DC; ++cc) col[cc] = lane + 32 * cc < d ? lane + 32 * cc : 0;
-#pragma unroll 4
-    for (int j = 0; j < n; ++j) {
-      float p[kRows];
+      for (int j = 0; j < NH; ++j) {
+        sc[j][0] = expf(sc[j][0] - mx0);
+        sc[j][1] = expf(sc[j][1] - mx0);
+        sc[j][2] = expf(sc[j][2] - mx1);
+        sc[j][3] = expf(sc[j][3] - mx1);
+        l0 += sc[j][0] + sc[j][1];
+        l1 += sc[j][2] + sc[j][3];
+      }
+      l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+      l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+      if (t == 0) {
+        rx[32 * hf + 16 + g] = l0;
+        rx[32 * hf + 24 + g] = l1;
+      }
+      bar_sync(1 + pair, 64);
+      l0 += rx[32 * (hf ^ 1) + 16 + g];
+      l1 += rx[32 * (hf ^ 1) + 24 + g];
+
+      // O = P v over this warp's keys. Key slice j: A column t is key
+      // 8 (j0 + j) + 2t, column t + 4 the next key; v's B rows in the same
+      // order. Every 8 slices (64 keys) the slice sums are added to the
+      // output in f32.
+      float o[KD][4], part[KD][4];
 #pragma unroll
-      for (int r = 0; r < kRows; r += 4)
-        *reinterpret_cast<float4*>(p + r) = *reinterpret_cast<const float4*>(ps + j * kRows + r);
+      for (int jd = 0; jd < KD; ++jd)
 #pragma unroll
-      for (int cc = 0; cc < DC; ++cc) {
-        const float v = vs[j * d + col[cc]];
+        for (int u = 0; u < 4; ++u) o[jd][u] = part[jd][u] = 0.f;
 #pragma unroll
-        for (int r = 0; r < kRows; ++r) o[r][cc] = fmaf(p[r], v, o[r][cc]);
+      for (int j = 0; j < NH; ++j) {
+        uint32_t ph[4], pl[4];
+        tf32_split(sc[j][0] / l0, ph[0], pl[0]);
+        tf32_split(sc[j][2] / l1, ph[1], pl[1]);
+        tf32_split(sc[j][1] / l0, ph[2], pl[2]);
+        tf32_split(sc[j][3] / l1, ph[3], pl[3]);
+        const int vr = 8 * (j0 + j) + 2 * t;
+#pragma unroll
+        for (int jd = 0; jd < KD; ++jd) {
+          const int c = 2 * jd + (g >> 2), e = g & 3;
+          uint32_t vh[2], vl[2];
+          tf32_split(vs[vr * DS + swz<DS>(vr, c) * 4 + e], vh[0], vl[0]);
+          tf32_split(vs[(vr + 1) * DS + swz<DS>(vr + 1, c) * 4 + e], vh[1], vl[1]);
+          mma3(part[jd], ph, pl, vh, vl);
+        }
+        if ((j & 7) == 7 || j == NH - 1) {
+#pragma unroll
+          for (int jd = 0; jd < KD; ++jd)
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+              o[jd][u] = __fadd_rn(o[jd][u], part[jd][u]);
+              part[jd][u] = 0.f;
+            }
+        }
+      }
+
+      // The two halves' sums meet over the strip's q rows (both warps are
+      // past their q reads): the second half stages its sums there, the
+      // first adds its own and stores the rows as 16-byte chunks.
+      if (hf == 1) {
+#pragma unroll
+        for (int jd = 0; jd < KD; ++jd) {
+          const int c = 2 * jd + (t >> 1), e = 2 * (t & 1);
+          *reinterpret_cast<float2*>(qs + r0 * DS + swz<DS>(r0, c) * 4 + e) =
+              make_float2(o[jd][0], o[jd][1]);
+          *reinterpret_cast<float2*>(qs + r1 * DS + swz<DS>(r1, c) * 4 + e) =
+              make_float2(o[jd][2], o[jd][3]);
+        }
+      }
+      bar_sync(1 + pair, 64);
+      if (hf == 0) {
+#pragma unroll
+        for (int jd = 0; jd < KD; ++jd) {
+          const int c = 2 * jd + (t >> 1), e = 2 * (t & 1);
+          float2* p0 = reinterpret_cast<float2*>(qs + r0 * DS + swz<DS>(r0, c) * 4 + e);
+          float2* p1 = reinterpret_cast<float2*>(qs + r1 * DS + swz<DS>(r1, c) * 4 + e);
+          const float2 a0 = *p0, a1 = *p1;
+          *p0 = make_float2(__fadd_rn(o[jd][0], a0.x), __fadd_rn(o[jd][1], a0.y));
+          *p1 = make_float2(__fadd_rn(o[jd][2], a1.x), __fadd_rn(o[jd][3], a1.y));
+        }
+        __syncwarp();
+        for (int e = lane; e < 16 * cpr; e += 32) {
+          const int i = 16 * s + e / cpr, c = e % cpr;
+          if (i < n && c * 4 < d)
+            *reinterpret_cast<float4*>(rows.dst(item, h, i) + c * 4) =
+                *reinterpret_cast<const float4*>(qs + i * DS + swz<DS>(i, c) * 4);
+        }
       }
     }
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      if (r0 + r >= n) break;
-#pragma unroll
-      for (int cc = 0; cc < DC; ++cc)
-        if (lane + 32 * cc < d) rows.dst(item, h, r0 + r)[lane + 32 * cc] = o[r][cc];
-    }
-    // The next group's probabilities overwrite this group's buffer.
-    __syncwarp();
+    __syncthreads();
   }
 }
 
 // Whether a kernel's shared-memory limit is raised yet, per instantiation
 // and per translation unit.
 namespace {
-template <class Rows, int TN, int DC>
+template <class Rows, int NT, int DS>
 bool smem_raised = false;
 }  // namespace
 
-template <class Rows, int TN, int DC>
+template <class Rows, int NT, int DS>
 cudaError_t launch(const Rows& rows, const Addends& ad, int windows, int heads, int n, int d,
                    cudaStream_t s) {
-  const Plan p = plan(TN, n, d);
+  const Plan p = plan(NT, n, d, windows, heads, ad.mask_kind == kRegionIds, ad.bias != nullptr);
   if (p.smem > (size_t)core::kSmemLimit) return cudaErrorInvalidValue;
-  auto kernel = window_core_f32_kernel<Rows, TN, DC>;
-  if (!smem_raised<Rows, TN, DC>) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             core::kSmemLimit);
+  auto kernel = window_core_f32_kernel<Rows, NT, DS>;
+  if (!smem_raised<Rows, NT, DS>) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, core::kSmemLimit);
     if (err != cudaSuccess) return err;
-    smem_raised<Rows, TN, DC> = true;
+    smem_raised<Rows, NT, DS> = true;
   }
   // d^-0.5 as the JAX kernels take it: the double d ** -0.5, rounded to f32.
   const float scale = (float)std::pow((double)d, -0.5);
-  kernel<<<dim3(windows, heads), p.warps * 32, p.smem, s>>>(rows, ad, n, d, scale, p.qs, p.ks,
-                                                            p.kt_off, p.v_off, p.p_off);
+  kernel<<<dim3(p.runs, heads), p.warps * 32, p.smem, s>>>(
+      rows, ad, windows, n, d, p.R, p.nbuf, p.bld, scale, p.tile_floats, p.bias_off, p.ids_off,
+      p.red_off);
   return cudaGetLastError();
 }
 
@@ -360,17 +511,17 @@ cudaError_t run(const Rows& rows, const Addends& ad, int windows, int heads, int
       ad.mask_kind > kCausal ||
       ((ad.mask_kind == kNoMask || ad.mask_kind == kCausal) != (ad.mask == nullptr)))
     return cudaErrorInvalidValue;
-  const int tn = (n + 31) / 32;
-  if (d <= 32 || D32_ONLY) {
-    if (tn <= 2) return launch<Rows, 2, 1>(rows, ad, windows, heads, n, d, s);
-    if (tn <= 5) return launch<Rows, 5, 1>(rows, ad, windows, heads, n, d, s);
-    return launch<Rows, 8, 1>(rows, ad, windows, heads, n, d, s);
-  }
-  if constexpr (!D32_ONLY) {
-    if (tn <= 2) return launch<Rows, 2, 2>(rows, ad, windows, heads, n, d, s);
-    if (tn <= 5) return launch<Rows, 5, 2>(rows, ad, windows, heads, n, d, s);
-    return launch<Rows, 8, 2>(rows, ad, windows, heads, n, d, s);
-  }
+  const int nt = (n + 7) / 8, ds = tile_width(d);
+#define BT_CORE_F32_CASE(NT, DS)                                         \
+  if (nt <= NT && ds == DS && (!D32_ONLY || DS == 32))                   \
+    return launch<Rows, NT, (D32_ONLY ? 32 : DS)>(rows, ad, windows, heads, n, d, s);
+#define BT_CORE_F32_CLASS(NT) \
+  BT_CORE_F32_CASE(NT, 8) BT_CORE_F32_CASE(NT, 16) BT_CORE_F32_CASE(NT, 32) BT_CORE_F32_CASE(NT, 64)
+  BT_CORE_F32_CLASS(8)
+  BT_CORE_F32_CLASS(18)
+  BT_CORE_F32_CLASS(32)
+#undef BT_CORE_F32_CLASS
+#undef BT_CORE_F32_CASE
   return cudaErrorInvalidValue;
 }
 

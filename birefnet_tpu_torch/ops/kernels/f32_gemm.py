@@ -12,10 +12,15 @@ plain versions; they are the f32 counterparts of ops/kernels/bf16_gemm.py:
 - `f32_gemm`: epilogue(a w^T + b) for f32 a [M, K] and a linear's f32
   `weight` [N, K] and `bias` [N], f32 out: "store" (K1's qkv), "residual"
   (res + y: K1's proj and K2's fc2) or "gelu" (the exact GELU, K2's fc1).
-  Full f32 products summed in f32 by FFMAs, as the JAX kernels' dots at
-  precision=HIGHEST; no tensor core, so no TF32. The plain version is
-  F.linear in f32 plus the epilogue, which gives the same function only
-  with PyTorch's TF32 flags off (pipeline.make_infer_fn sets them for f32).
+  The kernel runs the products on the tensor cores as three TF32 products
+  (ops/kernels/tf32.py): it reads the weight's TF32 hi and lo parts
+  (`weight_tf32` [2, N, K], added once by params.split_tf32_weights, else
+  split at the call) and splits a itself; each product is within about
+  1e-6 of the f32 one, and the sums are f32, so it holds the f32 bar of
+  the JAX kernels' dots at precision=HIGHEST. PyTorch's TF32 flags do not
+  govern it. The plain version is F.linear in f32 plus the epilogue, which
+  gives the same function only with those flags off
+  (pipeline.make_infer_fn sets them for f32).
 - `ln_rows_f32`: LayerNorm of f32 rows with f32 statistics, the pad tokens
   of a canvas zeroed when one is given (K1's LN1); the plain version is
   layers.layer_norm and the pad mask.
@@ -35,6 +40,7 @@ from .. import layers as L
 from . import build
 from .bf16_gemm import EPILOGUES
 from .fused_block_attn import Canvas, pad_token_rows
+from .tf32 import weight_split_of
 
 
 def f32_gemm_plain(a: torch.Tensor, params, epilogue: str,
@@ -68,14 +74,15 @@ def f32_gemm(a: torch.Tensor, params, epilogue: str,
                          f"N={n}, K={k}")
     f32, dev = torch.float32, a.device
     check = build.check_tensor
+    w = weight_split_of(params)
     check("f32_gemm a", a, f32, (m, k), dev)
-    check("f32_gemm weight", params["weight"], f32, (n, k), dev)
+    check("f32_gemm weight_tf32", w, f32, (2, n, k), dev)
     check("f32_gemm bias", params["bias"], f32, (n,), dev)
     if epilogue == "residual":
         check("f32_gemm res", res, f32, (m, n), dev)
     out = torch.empty((m, n), device=dev, dtype=f32)
     fn = build.function("bt_f32_gemm", 5, 4)
-    code = fn(a.data_ptr(), params["weight"].data_ptr(),
+    code = fn(a.data_ptr(), w.data_ptr(),
               params["bias"].data_ptr(),
               res.data_ptr() if epilogue == "residual" else None,
               out.data_ptr(), m, n, k, EPILOGUES[epilogue], build.stream(dev))

@@ -36,9 +36,11 @@ raises outside them.
 f32 q, k and v (ComputeConfig(dtype=float32) on the kernel tier) run the
 f32 branch of the same Pallas kernels, whose dots run at
 precision=HIGHEST: the f32 core of csrc/window_core_f32.cuh
-(`bt_flash_window_attn_f32`), FFMA throughout, with the scale, the bias
-and the mask unrounded and the causal addend -1e9 in f32; no tensor core,
-so no TF32.
+(`bt_flash_window_attn_f32`), with the scale, the bias and the mask
+unrounded and the causal addend -1e9 in f32. Its two products run on the
+tensor cores as three TF32 products each (ops/kernels/tf32.py), within
+about 1e-6 of f32 products and summed in f32; PyTorch's TF32 flags do not
+govern it.
 
 Each entry point has a plain PyTorch version beside it, built on
 ops/attention.py::window_attention with the bias and mask rounded as the

@@ -43,10 +43,14 @@ proj's residual added in f32.
 f32 (ComputeConfig(dtype=float32) on the kernel tier): an f32 canvas runs
 `bt_fused_block_attn_f32`, the f32 branch of the same TPU kernel (dots at
 precision=HIGHEST; the q scale, bias and mask unrounded), as the same four
-launches on f32 tensors: the f32 row pass, the FFMA f32 GEMM of
+launches on f32 tensors: the f32 row pass, the f32 GEMM of
 csrc/f32_gemm.cu for qkv, the f32 core of csrc/window_core_f32.cuh, and the
-same GEMM for the projection with the residual. No tensor core and no
-TF32. The TPU kernel's f32 body already computes per head; its bf16 packed
+same GEMM for the projection with the residual. The GEMM and the core take
+their products on the tensor cores as three TF32 products each
+(ops/kernels/tf32.py), within about 1e-6 of f32 products and summed in
+f32; the GEMM reads the qkv and proj `weight_tf32` (split once by
+params.split_tf32_weights, else at the call). PyTorch's TF32 flags do not
+govern them. The TPU kernel's f32 body already computes per head; its bf16 packed
 head groups (`_PACKED_G`, a TPU matrix-unit workaround) are not copied by
 either route. Both wrappers take their plain version for a CPU tensor
 and launch their kernels for a CUDA tensor or raise; each counts its own
@@ -66,6 +70,7 @@ from ..attention import (qkv_window_attention, round_addends,
                          window_attention_forward)
 from . import build
 from . import window_core as core
+from .tf32 import weight_split_of
 
 
 def _pad_token_mask(hp: int, wp: int, shift: int, origin: int, h_real: int,
@@ -212,12 +217,17 @@ def fused_window_block_attention(
     b, hp, wp, c = x.shape
     ws = window_size
     f32, wt = torch.float32, x.dtype
+    qkv_p, proj_p = attn_params["qkv"], attn_params["proj"]
+    # The f32 GEMM reads each weight's TF32 hi and lo parts, [2, out, in].
+    w_qkv, w_proj, split = (
+        (weight_split_of(qkv_p), weight_split_of(proj_p), (2,)) if wt == f32
+        else (qkv_p["weight"], proj_p["weight"], ()))
     args = [("ln scale", norm1_params["scale"], f32, (c,)),
             ("ln bias", norm1_params["bias"], f32, (c,)),
-            ("qkv weight", attn_params["qkv"]["weight"], wt, (3 * c, c)),
-            ("qkv bias", attn_params["qkv"]["bias"], f32, (3 * c,)),
-            ("proj weight", attn_params["proj"]["weight"], wt, (c, c)),
-            ("proj bias", attn_params["proj"]["bias"], f32, (c,))]
+            ("qkv weight", w_qkv, wt, (*split, 3 * c, c)),
+            ("qkv bias", qkv_p["bias"], f32, (3 * c,)),
+            ("proj weight", w_proj, wt, (*split, c, c)),
+            ("proj bias", proj_p["bias"], f32, (c,))]
     _check(x, ws, num_heads, [("x", x, wt, tuple(x.shape))] + args)
     bias, mask_ptr, kind = _addends(x, attn_params, attn_mask, ws, num_heads)
     qkv = torch.empty((b, hp, wp, 3 * c), dtype=x.dtype, device=x.device)

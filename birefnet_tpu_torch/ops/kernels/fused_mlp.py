@@ -38,10 +38,13 @@ the bf16 one rounds y and the sum to bf16; the GELU stays the 3-term erf.
 f32 (ComputeConfig(dtype=float32) on the kernel tier): an f32 x runs
 `bt_fused_mlp_f32`, the f32 branch of the same TPU kernel (its dots at
 precision=HIGHEST, the 5-coefficient erf), as the same three launches on
-f32 tensors: the f32 row pass, the FFMA f32 GEMM of csrc/f32_gemm.cu with
-the exact GELU into an f32 [T, 4C] scratch, and the same GEMM with the
-residual (ops/kernels/f32_gemm.py calls both alone). No tensor core and no
-TF32. Every wrapper takes its plain version for a CPU tensor and launches
+f32 tensors: the f32 row pass, the f32 GEMM of csrc/f32_gemm.cu with the
+exact GELU into an f32 [T, 4C] scratch, and the same GEMM with the
+residual (ops/kernels/f32_gemm.py calls both alone). The GEMM takes each
+product on the tensor cores as three TF32 products (ops/kernels/tf32.py),
+reading fc1's and fc2's `weight_tf32` (split once by
+params.split_tf32_weights, else at the call); PyTorch's TF32 flags do not
+govern it. Every wrapper takes its plain version for a CPU tensor and launches
 its kernel for a CUDA tensor or raises; each counts its own launches.
 """
 
@@ -53,6 +56,7 @@ import torch.nn.functional as F
 from .. import layers as L
 from .. import quant
 from . import build
+from .tf32 import weight_split_of
 
 
 def fused_mlp_residual_plain(x: torch.Tensor, norm2_params,
@@ -149,13 +153,17 @@ def fused_mlp_residual(x: torch.Tensor, norm2_params,
         raise ValueError(f"fused_mlp runs on cpu or cuda, got {x.device}")
     c = x.shape[-1]
     f32, wt = torch.float32, x.dtype
+    fc1, fc2 = mlp_params["fc1"], mlp_params["fc2"]
+    # The f32 GEMM reads each weight's TF32 hi and lo parts, [2, out, in].
+    w1, w2, split = ((weight_split_of(fc1), weight_split_of(fc2), (2,))
+                     if wt == f32 else (fc1["weight"], fc2["weight"], ()))
     args = [("x", x, wt, tuple(x.shape)),
             ("ln scale", norm2_params["scale"], f32, (c,)),
             ("ln bias", norm2_params["bias"], f32, (c,)),
-            ("fc1 weight", mlp_params["fc1"]["weight"], wt, (4 * c, c)),
-            ("fc1 bias", mlp_params["fc1"]["bias"], f32, (4 * c,)),
-            ("fc2 weight", mlp_params["fc2"]["weight"], wt, (c, 4 * c)),
-            ("fc2 bias", mlp_params["fc2"]["bias"], f32, (c,))]
+            ("fc1 weight", w1, wt, (*split, 4 * c, c)),
+            ("fc1 bias", fc1["bias"], f32, (4 * c,)),
+            ("fc2 weight", w2, wt, (*split, c, 4 * c)),
+            ("fc2 bias", fc2["bias"], f32, (c,))]
     _check(x, args, 8, MAX_C.get(wt, 0))
     t = x.numel() // c
     hidden = torch.empty((t, 4 * c), dtype=wt, device=x.device)

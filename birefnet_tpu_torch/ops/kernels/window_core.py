@@ -7,6 +7,12 @@ the score addends as they are, with nothing converted per call and in the
 same form for bf16 and f32 activations: the rel-pos bias as [heads, N, N]
 f32, and the mask as one of the cores' MaskKinds. This module holds those
 kinds and the checks of the addends.
+
+The f32 core computes q s k^T and P v on the tensor cores as three TF32
+products each (ops/kernels/tf32.py::window_attention_split emulates it):
+the f32 operands are split into TF32 hi and lo parts in registers, and
+lo hi + hi lo + hi hi is within about 1e-6 of the f32 product; scores,
+softmax and sums stay f32. PyTorch's TF32 flags do not govern it.
 """
 
 from __future__ import annotations

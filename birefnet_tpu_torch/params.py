@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from .configs import BiRefNetConfig, SwinConfig
+from .ops.kernels.tf32 import split_weight
 from .ops.window import relative_position_index
 
 BN_EPS = 1e-5
@@ -430,6 +431,33 @@ def quantize_attn_int8(params, min_channels: int = INT8_MLP_MIN_CHANNELS):
     quantize_mlp_int8; ops/kernels/fused_block_attn.py dispatches on
     `weight_q8`. The attention core itself stays in the activation dtype."""
     return _quantize_blocks(params, "attn", ("qkv", "proj"), min_channels)
+
+
+_SPLIT_LINEARS = {"attn": ("qkv", "proj"), "mlp": ("fc1", "fc2")}
+
+
+def split_tf32_weights(params) -> Dict:
+    """The f32 kernel tier's weights: every Swin block's attention qkv and
+    proj and MLP fc1 and fc2 that the f32 GEMM runs (no `weight_q8`) gain
+    `weight_tf32`, the f32 weight split once into its TF32 hi and lo parts
+    ([2, out, in], ops/kernels/tf32.py::split_weight), which the GEMM reads
+    beside the activations it splits itself. The `weight` leaves stay for
+    the plain versions."""
+    if not isinstance(params, Mapping):
+        return params
+    out = {}
+    for k, v in params.items():
+        if (k in ("attn", "mlp") and isinstance(v, Mapping)
+                and all(name in v for name in _SPLIT_LINEARS[k])):
+            new = dict(v)
+            for name in _SPLIT_LINEARS[k]:
+                lin = v[name]
+                if "weight_q8" not in lin and lin["weight"].dtype == torch.float32:
+                    new[name] = dict(lin, weight_tf32=split_weight(lin["weight"]))
+            out[k] = new
+        else:
+            out[k] = split_tf32_weights(v)
+    return out
 
 
 def tree_map(fn: Callable[[str, torch.Tensor], torch.Tensor], tree) -> Dict:

@@ -20,7 +20,7 @@ from .configs import IMAGENET_MEAN, IMAGENET_STD, BiRefNetConfig, ComputeConfig
 from .models import birefnet
 from .ops.resize import resize_bilinear_half_pixel, resize_lanczos3
 from .params import (cast_matmul_weights, quantize_attn_int8,
-                     quantize_mlp_int8, to_device)
+                     quantize_mlp_int8, split_tf32_weights, to_device)
 
 
 def preprocess(frames_u8: torch.Tensor, size: Tuple[int, int] = (1024, 1024),
@@ -73,8 +73,10 @@ def make_infer_fn(params, cfg: BiRefNetConfig,
     under `compute.int8_mlp` / `int8_attn` the wide Swin blocks' weights
     are quantized from the f32 values (params.quantize_*_int8) before the
     matmul and conv weights are cast to `compute.dtype`, as the JAX
-    package does. The returned function takes [B, H, W, 3] uint8 frames
-    (numpy or tensor) and returns [B, out_h, out_w] masks on the device,
+    package does; on the f32 kernel tier on the card the Swin blocks'
+    f32 GEMM weights are split into their TF32 parts once
+    (params.split_tf32_weights). The returned function takes [B, H, W, 3]
+    uint8 frames (numpy or tensor) and returns [B, out_h, out_w] masks on the device,
     out_size defaulting to the frame size. With an f32 `compute` it runs
     with PyTorch's TF32 flags off (`full_f32`), the int8 flags included.
     """
@@ -93,6 +95,10 @@ def make_infer_fn(params, cfg: BiRefNetConfig,
     if compute.int8_attn:
         params = quantize_attn_int8(params)
     params = cast_matmul_weights(params, compute.dtype)
+    if (device.type == "cuda" and compute.dtype == torch.float32
+            and compute.use_flash_attention):
+        # The f32 GEMM reads each weight's TF32 hi and lo parts: split once.
+        params = split_tf32_weights(params)
 
     @torch.inference_mode()
     def infer(frames_u8) -> torch.Tensor:

@@ -61,13 +61,15 @@ Phases, each printed as it runs; any failure exits non-zero:
    sometimes, such as a lost barrier phase or a cluster race, fails here.
    The f32 tier: K1, K2 and K4 on f32 activations at every Swin-L shape,
    the f32 core at K1's 16 shapes (through flash_window_attention), the
-   FFMA f32 GEMM and the f32 row pass alone at every K1 and K2 shape of
+   3xTF32 f32 GEMM and the f32 row pass alone at every K1 and K2 shape of
    Swin-L and swin_t, K6 and K2 at every swin_t shape (C = 96 included),
    K7 and K8 at the JAX test shapes, each against its plain version with
    TF32 off (max <= BOUND_F32 x max|plain|, mean ratio <= MEAN_BOUND_F32)
    and timed against F.linear / F.layer_norm / SDPA in f32; at every GEMM
    and core shape the plain version in TF32 (operands rounded to TF32,
-   flags on) must break the mean bound. The W8A8 kernels' f32 branches
+   flags on) must break the mean bound. The f32 GEMM and core take each
+   f32 product as three TF32 products on the tensor cores, so their
+   operations count three times against the TF32 peak in the bound. The W8A8 kernels' f32 branches
    (K1-int8 and K3 on f32 activations, entries "*_int8_f32") at every
    Swin-L shape (and K3 at swin_t's stage 3), held to the int8 bounds
    (BOUND, MEAN_BOUND_K1_I8, MEAN_BOUND_K3: the LN sums' order can flip a
@@ -190,8 +192,8 @@ REL_POS_BIAS_SCALE = 20.0
 # The bf16 GEMM and row pass round at their plain versions' points and sum
 # in f32 in another order: mean|kernel - plain| / mean|plain| is bounded.
 MEAN_BOUND_BF16 = 1e-4
-# The f32 tier (K1, K2, K4 and K6-K8 on f32 activations, the FFMA f32 GEMM
-# and window-attention core) is held to its plain versions, run with TF32
+# The f32 tier (K1, K2, K4 and K6-K8 on f32 activations, the f32 GEMM and
+# window-attention core, three TF32 products per f32 product) is held to its plain versions, run with TF32
 # off: max|kernel - plain| <= BOUND_F32 * max|plain| and mean|kernel -
 # plain| / mean|plain| <= MEAN_BOUND_F32, the f32 bar of ROADMAP.md. The
 # same plain versions in TF32 (their operands rounded to TF32 and the flags
@@ -206,7 +208,9 @@ MASK_MAE_F32, FEATURE_F32 = 1e-5, 1e-5
 REPEATS, REPEATS_F32 = 200, 100
 # Published H100 SXM peaks (dense): memory bytes/s and operations/s by type.
 MEM_RATE = 3.35e12
-PEAK = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+# Dense peaks of the H100 SXM; "tf32" is the tensor cores' TF32 rate, on
+# which the f32 GEMM and core run three TF32 products per f32 one.
+PEAK = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12, "tf32": 494.7e12}
 
 
 def fail(msg: str) -> None:
@@ -404,7 +408,7 @@ def make_reports():
 def make_f32_reports():
     """The f32 tier's entries: K1, K2, K4 and K6-K8 on f32 activations
     (main paths "swin_l f32" and "swin_t f32"; K7/K8 at the JAX test
-    shapes), and the FFMA f32 GEMM, f32 row pass and f32 core alone, whose
+    shapes), and the 3xTF32 f32 GEMM, f32 row pass and f32 core alone, whose
     sums go under the f32 K1's and K2's entries; then the W8A8 kernels' f32
     branches, K1-int8 and K3 on f32 activations (main path "swin_l f32
     int8", the int8 bounds), with the int8 GEMM's f32 epilogues and K3's
@@ -550,6 +554,7 @@ def check_kernels(torch, dev, reports, core, gemm, gemm16, rows16, cluster,
                                                 flash_window_attn,
                                                 fused_block_attn, fused_mlp,
                                                 int8_gemm, row_ln, tap_conv)
+    from birefnet_tpu_torch.ops.kernels import tf32 as tf32_split
 
     gen = torch.Generator(dev).manual_seed(0)
     repeats = []  # (label, fn, expected output) for the repeat check
@@ -588,6 +593,7 @@ def check_kernels(torch, dev, reports, core, gemm, gemm16, rows16, cluster,
                  k7=reports["flash_window_attn_masked"],
                  k8=reports["flash_window_attn_plain"], core=core,
                  gemm=gemm16, rows=rows16, repeats=repeats, kind="bf16",
+                 mm=lambda ops: {"bf16": ops}, mm_peak=PEAK["bf16"],
                  gemm_fns=(bf16_gemm.bf16_gemm, bf16_gemm.bf16_gemm_plain),
                  rows_fns=(bf16_gemm.ln_rows, bf16_gemm.ln_rows_plain),
                  k1q=reports["fused_block_attn_int8"],
@@ -599,6 +605,7 @@ def check_kernels(torch, dev, reports, core, gemm, gemm16, rows16, cluster,
                   k8=f32r["flash_window_attn_plain_f32"],
                   core=f32r["window_core_f32"], gemm=f32r["f32_gemm"],
                   rows=f32r["ln_rows_f32"], repeats=repeats_f32, kind="f32",
+                  mm=lambda ops: {"tf32": 3 * ops}, mm_peak=PEAK["tf32"] / 3,
                   gemm_fns=(f32_gemm.f32_gemm, f32_gemm.f32_gemm_plain),
                   rows_fns=(f32_gemm.ln_rows_f32, f32_gemm.ln_rows_f32_plain),
                   k1q=f32r["fused_block_attn_int8_f32"],
@@ -606,6 +613,13 @@ def check_kernels(torch, dev, reports, core, gemm, gemm16, rows16, cluster,
                   cluster=f32r["fused_mlp_int8_cluster_f32"], store="f32",
                   int_mm=extra["int_mm_ms_f32"]),
     }
+
+    def kernel_tree(tree, dtype):
+        """The tree as make_infer_fn prepares it for `dtype`'s kernel tier:
+        the weights cast to the dtype, and in f32 the f32 GEMM's weights
+        split into their TF32 parts once (not per timed call)."""
+        tree = P.cast_matmul_weights(tree, dtype)
+        return P.split_tf32_weights(tree) if dtype == f32 else tree
 
     def tf32_control(plain, dtype, operands, *rest):
         """For f32, the plain version in TF32: its `operands` rounded to
@@ -631,7 +645,7 @@ def check_kernels(torch, dev, reports, core, gemm, gemm16, rows16, cluster,
         norm1 = ln_params(c)
         attn32 = {"qkv": lin(c, 3 * c), "proj": lin(c, c),
                   "cached_bias": randn((heads, ws * ws, ws * ws))}
-        attn = P.cast_matmul_weights(attn32, x.dtype)
+        attn = kernel_tree({"attn": attn32}, x.dtype)["attn"]
         int8 = c >= P.INT8_MLP_MIN_CHANNELS
         if int8:
             attn_q = P.cast_matmul_weights(
@@ -666,7 +680,7 @@ def check_kernels(torch, dev, reports, core, gemm, gemm16, rows16, cluster,
                      fused_block_attn.fused_window_block_attention_plain,
                      (attn["qkv"]["weight"], attn["qkv"]["bias"],
                       attn["proj"]["weight"], attn["proj"]["bias"]),
-                     {r["kind"]: 8 * c * c * t + core_ops})]
+                     r["mm"](8 * c * c * t + core_ops))]
             if int8:
                 # K1-int8's LN1 codes against the plain model's.
                 count_flips(r["k1q"].entry["name"], f"{label} {route}",
@@ -678,7 +692,7 @@ def check_kernels(torch, dev, reports, core, gemm, gemm16, rows16, cluster,
                      fused_block_attn.fused_window_block_attention_int8_plain,
                      tuple(attn_q[n][k] for n in ("qkv", "proj")
                            for k in ("weight_q8", "scale_q8", "bias")),
-                     {"int8": 8 * c * c * t, r["kind"]: core_ops}))
+                     {"int8": 8 * c * c * t, **r["mm"](core_ops)}))
             for rep, p, kernel, plain, weights, ops in runs:
                 args = (canvas, norm1, p, ws, k_shift, heads, mask, h, h,
                         origin)
@@ -712,7 +726,7 @@ def check_kernels(torch, dev, reports, core, gemm, gemm16, rows16, cluster,
                 f"{label} B_={b_} C={c}{'' if mask is None else ' masked'}",
                 depth // 2, fn, partial(plain, *args),
                 (nbytes(qkv, bias, mask) + b_ * 49 * c * qkv.element_size(),
-                 {r["kind"]: 4 * 49 * c * BATCH * h * h}),
+                 r["mm"](4 * 49 * c * BATCH * h * h)),
                 library_fn=sdpa(q, k, v, bias, W.dense_mask(mask)),
                 control_fn=tf32_control(plain, dtype, (qkv,), bias, mask,
                                         heads))
@@ -740,7 +754,7 @@ def check_kernels(torch, dev, reports, core, gemm, gemm16, rows16, cluster,
                 f"{'' if mask is None else ' offset mask'}", depth // 2, fn,
                 partial(plain, *args),
                 (nbytes(qkv, bias, mask) + b_ * 144 * c * qkv.element_size(),
-                 {r["kind"]: 4 * 144 * 144 * c * b_}),
+                 r["mm"](4 * 144 * 144 * c * b_)),
                 library_fn=sdpa(qc, kc, vc, bias, W.dense_mask(mask)),
                 control_fn=tf32_control(plain, dtype, (q, k, v), bias, mask))
             r["repeats"].append((f"core {r['kind']} {label} "
@@ -788,6 +802,8 @@ def check_kernels(torch, dev, reports, core, gemm, gemm16, rows16, cluster,
         a = randn((m, k), 1.0, dtype)
         lin = {"weight": randn((n, k), k ** -0.5, dtype),
                "bias": randn((n,), 0.5)}
+        if dtype == f32:  # the weight's TF32 parts, split once as in a forward
+            lin["weight_tf32"] = tf32_split.split_weight(lin["weight"])
         res = randn((m, n), 1.0, dtype) if epilogue == "residual" else None
         args = (a, lin, epilogue, res)
         ops = 2 * m * n * k
@@ -795,7 +811,7 @@ def check_kernels(torch, dev, reports, core, gemm, gemm16, rows16, cluster,
             torch, model, f"{label} {epilogue} [{m},{k}]x[{n},{k}]", calls,
             partial(kernel, *args), partial(plain, *args),
             (nbytes(a, lin["weight"], lin["bias"], res) + m * n * a.element_size(),
-             {r["kind"]: ops}),
+             r["mm"](ops)),
             library_fn=partial(F.linear, a, lin["weight"],
                                lin["bias"].to(dtype)),
             control_fn=tf32_control(plain, dtype, (a,), dict(
@@ -803,7 +819,7 @@ def check_kernels(torch, dev, reports, core, gemm, gemm16, rows16, cluster,
         rate = ops / ms * 1e3
         name = r["gemm"].entry["name"]
         log(f"{name:<21} {model} {label} {epilogue}: "
-            f"{rate / 1e12:.1f} TFLOP/s ({rate / PEAK[r['kind']]:.3f} of peak)")
+            f"{rate / 1e12:.1f} TFLOP/s ({rate / r['mm_peak']:.3f} of peak)")
         fn = partial(kernel, *args)
         r["repeats"].append((f"{name} {model} {label} {epilogue}", fn, fn()))
 
@@ -902,7 +918,7 @@ def check_kernels(torch, dev, reports, core, gemm, gemm16, rows16, cluster,
         x2 = randn((BATCH * h * h, c), 1.0, dtype)
         norm2 = ln_params(c)
         mlp32 = {"fc1": lin(c, 4 * c), "fc2": lin(4 * c, c)}
-        mlp = P.cast_matmul_weights(mlp32, dtype)
+        mlp = kernel_tree({"mlp": mlp32}, dtype)["mlp"]
         t = x2.shape[0]
         # K2's parts alone: its LN2 rows, fc1 with the GELU, fc2 with the
         # residual.
@@ -917,7 +933,7 @@ def check_kernels(torch, dev, reports, core, gemm, gemm16, rows16, cluster,
                               mlp),
                       (side + nbytes(*(mlp[n][k] for n in ("fc1", "fc2")
                                        for k in ("weight", "bias"))),
-                       {r["kind"]: 16 * c * c * t}))
+                       r["mm"](16 * c * c * t)))
         if c >= P.INT8_MLP_MIN_CHANNELS:
             # Every K3 site of the int8 paths: Swin-L's stages 2-3 and
             # swin_t's stage 3 (C = 768, T = 2048 and 512).
@@ -1008,7 +1024,7 @@ def check_kernels(torch, dev, reports, core, gemm, gemm16, rows16, cluster,
                      partial(plain, q, k, v, *tail),
                      (nbytes(q, k, v, None if causal is not None else bias,
                              mask) + nbytes(q),
-                      {r["kind"]: 4 * n * n * d * b_ * heads}),
+                      r["mm"](4 * n * n * d * b_ * heads)),
                      library_fn=sdpa(q, k, v, bias, mask),
                      control_fn=tf32_control(plain, dtype, (q, k, v), *tail))
 

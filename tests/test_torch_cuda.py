@@ -850,6 +850,28 @@ F32_GEMM_SHAPES = (
     + [(3, 4, 8, "residual")])
 
 
+def _forward_gemm_shapes():
+    """Every f32 GEMM shape of a 1024^2 batch-2 forward (both backbone
+    passes), as chip_smoke.py phase 3 runs them: K1's qkv ("store") and
+    proj ("residual") on Swin-L's padded canvases, K2's fc1 ("gelu") and
+    fc2 ("residual") on Swin-L's and swin_t's tokens."""
+    shapes = set()
+    for model, ws, c0 in (("swin_l", 12, 192), ("swin_t", 7, 96)):
+        for side in (256, 128):
+            for i in range(4):
+                h, c = side >> i, c0 << i
+                t, hp = 2 * h * h, -(-h // ws) * ws
+                if model == "swin_l":
+                    shapes |= {(2 * hp * hp, 3 * c, c, "store"),
+                               (2 * hp * hp, c, c, "residual")}
+                shapes |= {(t, 4 * c, c, "gelu"), (t, c, 4 * c, "residual")}
+    return sorted(shapes)
+
+
+F32_GEMM_SHAPES += [s for s in _forward_gemm_shapes()
+                    if s not in F32_GEMM_SHAPES]
+
+
 def _f32_gemm_case(m, n, k, epilogue, dev):
     gen = torch.Generator(dev).manual_seed(m + n + k)
     a = _randn(gen, (m, k), dev)
@@ -930,6 +952,30 @@ def test_window_core_f32_matches_plain(dev, b_, heads, n, d, kind):
     assert flash_window_attn.flash_window_attention.launches == n0 + 1
     want = flash_window_attn.flash_window_attention_plain(q, k, v, bias, mask)
     _assert_close_f32(got, want)
+
+
+@pytest.mark.parametrize("form", ["none", "ids", "dense", "causal"])
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("n", [49, 144, 256])
+def test_window_core_f32_forms_match_plain(dev, n, d, form):
+    """The strided layout at swin_t's, Swin-L's and the API's widest N,
+    d 32 and 64, with every addend form: a bias alone, region ids and the
+    dense mask of a shifted grid of (sqrt N)^2 windows, and the causal flag
+    (flash_attention, no bias). K1's canvas layout is held by the f32
+    fused_block_attn tests."""
+    gen = torch.Generator(dev).manual_seed(n + d)
+    q, k, v = (_randn(gen, (8, 3, n, d), dev) for _ in range(3))
+    if form == "causal":
+        got = flash_window_attn.flash_attention(q, k, v, True)
+        _assert_close_f32(got, flash_window_attn.flash_attention_plain(
+            q, k, v, True))
+        return
+    bias = _randn(gen, (3, n, n), dev, 3.0)
+    mask = _f32_mask(None if form == "none" else form, 8, n, int(n ** 0.5),
+                     dev, gen)
+    got = flash_window_attn.flash_window_attention(q, k, v, bias, mask)
+    _assert_close_f32(got, flash_window_attn.flash_window_attention_plain(
+        q, k, v, bias, mask))
 
 
 def test_window_core_tf32_plain_breaks_the_f32_bound(dev, tf32_on):
