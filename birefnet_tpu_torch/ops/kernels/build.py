@@ -28,6 +28,7 @@ import os
 import shutil
 import subprocess
 import time
+from typing import Optional
 
 import torch
 
@@ -101,6 +102,33 @@ def build(verbose: bool = False) -> str:
               f"{time.perf_counter() - t0:.1f}s -> {path}")
         print("\n".join(log.strip() for log in logs))
     return path
+
+
+def build_extra(path: str, text: Optional[str] = None) -> str:
+    """Compile one standalone CUDA source with the library's flags into a
+    shared library of its own under build/kernels/extra/, keyed by a hash of
+    its text, and return its path. `text` replaces the file's content (an
+    instrumented copy; `#include "..."` then resolves against csrc/). For
+    tools and tests: a kernel's earlier body, a copy with a phase switched
+    off. The port's library never loads it."""
+    if text is None:
+        with open(path) as f:
+            text = f.read()
+    name = os.path.splitext(os.path.basename(path))[0]
+    tag = hashlib.sha256((" ".join(NVCC_FLAGS) + text).encode()).hexdigest()
+    out_dir = os.path.join(BUILD_DIR, "extra")
+    lib = os.path.join(out_dir, f"{name}_{tag[:16]}.so")
+    if not os.path.exists(lib):
+        os.makedirs(out_dir, exist_ok=True)
+        src = f"{lib[:-3]}.{os.getpid()}.cu"
+        with open(src, "w") as f:
+            f.write(text)
+        tmp = f"{lib}.{os.getpid()}.tmp"
+        _run([[_nvcc(), *NVCC_FLAGS, "-I", _CSRC_DIR, "-shared", "-o", tmp,
+               src]])
+        os.replace(tmp, lib)
+        os.remove(src)
+    return lib
 
 
 @functools.lru_cache(maxsize=1)

@@ -17,6 +17,8 @@ import functools
 import numpy as np
 import torch
 
+from .device_cache import device_cache
+
 
 @functools.lru_cache(maxsize=None)
 def _align_corners_matrix(src: int, dst: int) -> np.ndarray:
@@ -85,7 +87,7 @@ def _triangle_matrix(src: int, dst: int) -> np.ndarray:
     return m.astype(np.float32)
 
 
-@functools.lru_cache(maxsize=256)
+@device_cache(maxsize=256)
 def _device_matrix(matrix_fn, src: int, dst: int, device: torch.device,
                    dtype: torch.dtype) -> torch.Tensor:
     """matrix_fn's matrix as a tensor on `device`, copied once per

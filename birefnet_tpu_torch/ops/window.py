@@ -4,7 +4,8 @@ Counterpart of birefnet_tpu/ops/window.py: partition/reverse, cyclic roll,
 the SW-MSA mask with -100.0 entries (reference: src/swin.rs:603-655), its
 roll-free offset variant, and the relative-position index, all with the
 JAX package's values. The masks are built on the device from arange, once
-per geometry and device (cached), in two forms: the dense [nW, N, N]
+per geometry and device (ops/device_cache.py, which lets a captured CUDA
+graph own what it reads), in two forms: the dense [nW, N, N]
 additive mask of the plain path, and the [nW, N] int32 region ids the
 kernel tier takes (mask -100 where two tokens' ids differ).
 
@@ -19,6 +20,8 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from .device_cache import device_cache
 
 
 def window_partition(x: torch.Tensor, window_size: int) -> torch.Tensor:
@@ -73,9 +76,9 @@ def region_mask(ids: torch.Tensor) -> torch.Tensor:
     """[nW, N] region ids -> the [nW, N, N] float32 mask of 0 / -100.0,
     -100 where the ids of query i and key j differ."""
     diff = ids[:, None, :] - ids[:, :, None]
-    neg = torch.tensor(-100.0, device=ids.device, dtype=torch.float32)
-    zero = torch.tensor(0.0, device=ids.device, dtype=torch.float32)
-    return torch.where(diff != 0, neg, zero)
+    # Python scalars, not tensors built on ids.device: a host-to-device copy
+    # per call is what CUDA graph capture refuses (pipeline.make_infer_fn).
+    return torch.where(diff != 0, -100.0, 0.0).to(torch.float32)
 
 
 def is_region_ids(mask: Optional[torch.Tensor]) -> bool:
@@ -89,7 +92,7 @@ def dense_mask(mask: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     return region_mask(mask) if is_region_ids(mask) else mask
 
 
-@functools.lru_cache(maxsize=64)
+@device_cache(maxsize=64)
 def sw_msa_region_ids(hp: int, wp: int, window_size: int, shift_size: int,
                       device=None, offset: bool = False) -> torch.Tensor:
     """[nW, ws*ws] int32 region ids of the SW-MSA mask (9-region fill; with
@@ -107,7 +110,7 @@ def sw_msa_region_ids(hp: int, wp: int, window_size: int, shift_size: int,
         return m.reshape(-1, ws * ws).contiguous()
 
 
-@functools.lru_cache(maxsize=64)
+@device_cache(maxsize=64)
 def sw_msa_mask(hp: int, wp: int, window_size: int, shift_size: int,
                 device=None) -> torch.Tensor:
     """SW-MSA attention mask [nW, ws*ws, ws*ws] float32 of 0 / -100.0
@@ -118,7 +121,7 @@ def sw_msa_mask(hp: int, wp: int, window_size: int, shift_size: int,
                                              device))
 
 
-@functools.lru_cache(maxsize=64)
+@device_cache(maxsize=64)
 def sw_msa_mask_offset(hp: int, wp: int, window_size: int, shift_size: int,
                        device=None) -> torch.Tensor:
     """SW-MSA mask for the roll-free OFFSET window partition: the cyclic

@@ -3,24 +3,40 @@
 Counterpart of birefnet_tpu/pipeline.py: antialiased triangle resize to the
 model size, /255 and ImageNet normalization, the model, sigmoid, and the
 Lanczos3 resize back, all on the device; only uint8 frames go in and
-masks come out. PyTorch runs it eagerly, so `make_infer_fn` is one plain
-function (the JAX package's staged executables were a TPU compile-size
-workaround and are not ported).
+masks come out. The JAX package compiles that body once per input shape
+(one `jax.jit`); on the CUDA device `make_infer_fn` captures it once per
+input shape as one CUDA graph and replays it (`GraphedInfer`). On the CPU
+it runs the body eagerly. (The JAX package's staged executables were a TPU
+compile-size workaround and are not ported.)
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Optional, Tuple
+import threading
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .configs import IMAGENET_MEAN, IMAGENET_STD, BiRefNetConfig, ComputeConfig
 from .models import birefnet
+from .ops import device_cache
+from .ops.kernels import (bf16_gemm, f32_gemm, flash_window_attn,
+                          fused_block_attn, fused_mlp, int8_gemm, row_ln,
+                          tap_conv)
 from .ops.resize import resize_bilinear_half_pixel, resize_lanczos3
 from .params import (cast_matmul_weights, quantize_attn_int8,
                      quantize_mlp_int8, split_tf32_weights, to_device)
+
+
+@device_cache.device_cache(maxsize=None)
+def _imagenet_stats(device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ImageNet mean and std as f32 tensors on `device`, copied there
+    once: a host-to-device copy inside the body is what CUDA graph capture
+    refuses."""
+    return (torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=device),
+            torch.tensor(IMAGENET_STD, dtype=torch.float32, device=device))
 
 
 def preprocess(frames_u8: torch.Tensor, size: Tuple[int, int] = (1024, 1024),
@@ -28,8 +44,7 @@ def preprocess(frames_u8: torch.Tensor, size: Tuple[int, int] = (1024, 1024),
     """[B, H, W, 3] uint8 -> normalized [B, size[0], size[1], 3]."""
     x = frames_u8.float() / 255.0
     x = resize_bilinear_half_pixel(x, size[1], size[0])
-    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=x.device)
-    std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=x.device)
+    mean, std = _imagenet_stats(x.device)
     return ((x - mean) / std).to(dtype)
 
 
@@ -62,6 +77,124 @@ def full_f32():
             f.allow_tf32 = v
 
 
+def kernel_counters() -> Dict[str, object]:
+    """{"module.wrapper": wrapper} of every kernel wrapper that counts its
+    launches (a `.launches` attribute it raises by one where it launches)."""
+    return {f"{m.__name__.rsplit('.', 1)[-1]}.{name}": fn
+            for m in (bf16_gemm, f32_gemm, flash_window_attn,
+                      fused_block_attn, fused_mlp, int8_gemm, row_ln, tap_conv)
+            for name, fn in vars(m).items()
+            if callable(fn) and hasattr(fn, "launches")}
+
+
+def _as_tensor(frames_u8) -> torch.Tensor:
+    """[B, H, W, 3] frames as a tensor (numpy arrays are wrapped, not
+    copied)."""
+    if isinstance(frames_u8, np.ndarray):
+        frames_u8 = torch.from_numpy(frames_u8)
+    if frames_u8.ndim != 4 or frames_u8.shape[-1] != 3:
+        raise ValueError(f"want [B, H, W, 3] frames, got "
+                         f"{tuple(frames_u8.shape)}")
+    return frames_u8
+
+
+class GraphedInfer:
+    """make_infer_fn's function on a CUDA device: one captured CUDA graph
+    per (shape, dtype) of the frames, the counterpart of the JAX function's
+    `jax.jit`, which compiles one executable per input shape.
+
+    Per key it keeps a static input buffer, the graph of the whole body
+    (preprocess -> forward_logits -> sigmoid -> postprocess) and the graph's
+    static output. A call copies the frames into the buffer, replays the
+    graph and returns a clone of the static output, so a later call never
+    overwrites a mask the caller holds. The first call of a key warms the
+    body on a side stream (the nvcc build, the kernels' one-time attributes,
+    the caches), then captures it. A capture that fails raises; there is no
+    eager fallback. `eager` runs the body uncaptured: what the graph is
+    checked against.
+
+    What a replay reads outside the graph's own pool is owned here: the
+    prepared parameter tree, and every tensor the device caches
+    (ops/device_cache.py: resize matrices, SW-MSA ids and masks, the
+    ImageNet statistics) returned during warm-up and capture. The wgmma
+    GEMMs and K3 encode their TMA descriptors on the host at each launch, so
+    the capture freezes the addresses of the weights (owned), the
+    intermediates (the graph's pool) and the frames (the static input).
+
+    `launches[key]` holds, per kernel wrapper (`kernel_counters`), the
+    launches the captured body made: a replay runs no Python, so the
+    wrappers' counters do not move. `pool_bytes[key]` is the device memory
+    reserved by the capture. One lock, and one stream of its own, serialize
+    copy -> replay -> clone, so threads that share the function never
+    interleave on one graph's static buffers.
+    """
+
+    def __init__(self, body, device: torch.device, params):
+        self._body = body
+        self._params = params  # read by every replay
+        self.device = device
+        self._graphs = {}
+        self._lock = threading.Lock()
+        self._stream = None  # made at the first call, on the card
+        self.launches: Dict[tuple, Dict[str, int]] = {}
+        self.pool_bytes: Dict[tuple, int] = {}
+
+    @torch.inference_mode()
+    def eager(self, frames_u8) -> torch.Tensor:
+        """The body uncaptured, on the current stream."""
+        return self._body(_as_tensor(frames_u8).to(self.device))
+
+    def _capture(self, key, frames: torch.Tensor):
+        dev = self.device
+        static_in = frames.to(dev, copy=True)
+        counters = kernel_counters()
+        with device_cache.retained() as held:
+            # Warm-up on a side stream, as torch.cuda.graphs requires: it
+            # also builds the kernels, sets their one-time attributes and
+            # fills the caches, none of which a capture may do.
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                self._body(static_in)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            torch.cuda.synchronize(dev)
+            torch.cuda.empty_cache()
+            before = {name: fn.launches for name, fn in counters.items()}
+            reserved = torch.cuda.memory_reserved(dev)
+            graph = torch.cuda.CUDAGraph()
+            # Every kernel wrapper launches on the stream current at its call
+            # (ops/kernels/build.py: stream), here the capture stream.
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                static_out = self._body(static_in)
+        self.pool_bytes[key] = torch.cuda.memory_reserved(dev) - reserved
+        self.launches[key] = {name: fn.launches - before[name]
+                              for name, fn in counters.items()
+                              if fn.launches != before[name]}
+        owned = tuple({id(t): t for t in held}.values())
+        return static_in, graph, static_out, owned
+
+    @torch.inference_mode()
+    def __call__(self, frames_u8) -> torch.Tensor:
+        frames = _as_tensor(frames_u8)
+        key = (tuple(frames.shape), frames.dtype)
+        with self._lock, torch.cuda.device(self.device):
+            entry = self._graphs.get(key)
+            if entry is None:
+                entry = self._graphs[key] = self._capture(key, frames)
+            static_in, graph, static_out, _ = entry
+            if self._stream is None:
+                self._stream = torch.cuda.Stream(self.device)
+            current = torch.cuda.current_stream(self.device)
+            self._stream.wait_stream(current)
+            with torch.cuda.stream(self._stream):
+                static_in.copy_(frames)
+                graph.replay()
+                mask = static_out.clone()
+            current.wait_stream(self._stream)
+            mask.record_stream(current)
+            return mask
+
+
 def make_infer_fn(params, cfg: BiRefNetConfig,
                   compute: ComputeConfig = ComputeConfig(), device=None,
                   out_size: Optional[Tuple[int, int]] = None,
@@ -76,9 +209,12 @@ def make_infer_fn(params, cfg: BiRefNetConfig,
     package does; on the f32 kernel tier on the card the Swin blocks'
     f32 GEMM weights are split into their TF32 parts once
     (params.split_tf32_weights). The returned function takes [B, H, W, 3]
-    uint8 frames (numpy or tensor) and returns [B, out_h, out_w] masks on the device,
-    out_size defaulting to the frame size. With an f32 `compute` it runs
-    with PyTorch's TF32 flags off (`full_f32`), the int8 flags included.
+    uint8 frames (numpy or tensor) and returns [B, out_h, out_w] masks on
+    the device, out_size defaulting to the frame size. With an f32
+    `compute` its body runs with PyTorch's TF32 flags off (`full_f32`), the
+    int8 flags included. On a CUDA device it is a `GraphedInfer`: one CUDA
+    graph per input shape, its `.eager` the uncaptured body; on the CPU the
+    body itself.
     """
     device = torch.device(device if device is not None else "cuda")
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -97,14 +233,11 @@ def make_infer_fn(params, cfg: BiRefNetConfig,
     params = cast_matmul_weights(params, compute.dtype)
     if (device.type == "cuda" and compute.dtype == torch.float32
             and compute.use_flash_attention):
-        # The f32 GEMM reads each weight's TF32 hi and lo parts: split once.
+        # The f32 GEMM reads each weight's TF32 hi and lo parts: split once,
+        # so no call splits a weight (and no graph reads a split of its own).
         params = split_tf32_weights(params)
 
-    @torch.inference_mode()
-    def infer(frames_u8) -> torch.Tensor:
-        if isinstance(frames_u8, np.ndarray):
-            frames_u8 = torch.from_numpy(frames_u8)
-        frames_u8 = frames_u8.to(device)
+    def body(frames_u8: torch.Tensor) -> torch.Tensor:
         _, h, w, _ = frames_u8.shape
         oh, ow = out_size if out_size is not None else (h, w)
         with precision():
@@ -116,5 +249,12 @@ def make_infer_fn(params, cfg: BiRefNetConfig,
             logits = birefnet.forward_logits(params, cfg, x, compute)
             return postprocess(torch.sigmoid(logits.float()), oh, ow,
                                as_uint8=as_uint8)
+
+    if device.type == "cuda":
+        return GraphedInfer(body, device, params)
+
+    @torch.inference_mode()
+    def infer(frames_u8) -> torch.Tensor:
+        return body(_as_tensor(frames_u8).to(device))
 
     return infer

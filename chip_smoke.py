@@ -23,7 +23,8 @@ Phases, each printed as it runs; any failure exits non-zero:
    PyTorch takes it beside a bf16 input, else the affine cast to bf16; the
    log says which); compute each call's bound (the larger of its bytes
    over 3.35 TB/s and the operations its real tokens need over the H100's
-   published peak for their type). Check that K1, K1-int8 and K6 take the
+   published peak for their type); K5's device time alone by the
+   profiler beside its event time. Check that K1, K1-int8 and K6 take the
    rel-pos bias rounded to bf16: a bias B and bf16(B) give bitwise the
    same output. K3 (csrc/fused_mlp_i8.cu: the LN2 row pass, then one
    thread-block-cluster kernel that keeps the [T, 4C] hidden in shared
@@ -87,8 +88,17 @@ Phases, each printed as it runs; any failure exits non-zero:
    regular deform mode, random_checkpoint(cfg, 0) (swin_t's rel-pos bias
    tables scaled to std 1, REL_POS_BIAS_SCALE), on uint8 frames, for
    four paths, each with every launch count set to 0 just before it and
-   read just after: Swin-L on the bf16 tier (K1 / K1-int8 / K2 / K3 /
-   row_ln / tap_conv / K6 / K7 / K8: 48/0/48/0/16/1/0/0/0) and its int8
+   read just after. On the card make_infer_fn replays one CUDA graph per
+   input shape: its first call warms the body up and captures it (each
+   runs the body once, so the counts read after it are twice a call's),
+   and the launches the capture made are recorded by the function and
+   held to the counts below; a second call (a replay) must move no count,
+   and the graphed masks must be bitwise the eager body's (`.eager`) for
+   two different frame batches. Every gate below reads the graphed call:
+   its masks, and the backbone features of the captured body, which hold
+   the replay's values. The paths: Swin-L on the bf16 tier (K1 / K1-int8 /
+   K2 / K3 / row_ln / tap_conv / K6 / K7 / K8: 48/0/48/0/16/1/0/0/0) and
+   its int8
    main path, int8_mlp and int8_attn on (8/40/8/40/16/1/0/0/0); swin_t
    (the ws=7 middle tier) on the bf16 tier (0/0/24/0/16/1/24/0/0) and with
    both int8 flags (0/0/20/4/16/1/24/0/0: int8_attn is inert at ws=7).
@@ -115,16 +125,24 @@ Phases, each printed as it runs; any failure exits non-zero:
    logits;
 5. serve 4 in-memory requests of different sizes through serve.segment on
    every path;
-6. time the pipeline's images/s with CUDA events (median of 5 calls after
-   warm-up) in turns: Swin-L int8 path, bf16 kernel tier, plain bf16, f32
+6. time the pipeline with CUDA events, each tier's graphed function and
+   its eager body in turns, 5 calls each after warm-up, one function at a
+   time (each graph keeps its own memory pool), the tiers in order and
+   then in reverse: Swin-L int8 path, bf16 kernel tier, plain bf16, f32
    kernel tier, plain f32, f32 int8 path; swin_t int8 path, bf16 kernel
-   tier, plain bf16.
+   tier, plain bf16; medians and spreads, and each graph's pool;
+7. profile one replay of the Swin-L int8 path's graph and one eager call
+   (tools/gpu_profile.py: wall, device time, idle share, kernels by
+   group); where the profiler resolves the graph's kernels, their launches
+   per group must be what the capture counted.
 
 The line before the last is the nvidia-smi name/power line, the one
 before it the JSON kernel report: per kernel `launches` from its main path
 (Swin-L int8 for K1-K5, swin_t bf16 for K6-K8, the f32 paths for the
-"_f32" entries, Swin-L f32 int8 for the "_int8_f32" ones),
-`launches_by_path` from all eight, and the times and bound
+"_f32" entries, Swin-L f32 int8 for the "_int8_f32" ones): the launches
+captured in one call's graph, which every replay runs;
+`launches_by_path` from all eight, `launches_counted_by_path` the counts
+read after each path's first call (warm-up and capture), and the times and bound
 of its main model's forward (one call at each checked shape for K7 and
 K8), with each model's under `by_model`. The
 last line is `{"ok": true, "device": {...}}`. Without a CUDA device, or
@@ -1051,6 +1069,20 @@ def check_kernels(torch, dev, reports, core, gemm, gemm16, rows16, cluster,
                  (nbytes(xi, kk, kb) + BATCH * SIZE * SIZE * 2,
                   {"f32": 2 * 75 * BATCH * SIZE * SIZE}),
                  library_fn=lambda: F.conv2d(xc, wc, bc, padding=2))
+    # K5's device time alone (the profiler's kernel time per call), beside
+    # its event time above, which also holds the launch path.
+    from torch.profiler import ProfilerActivity, profile
+
+    import gpu_profile
+    k5.entry["device_ms"] = gpu_profile.device_ms_per_call(
+        torch, profile, [ProfilerActivity.CPU, ProfilerActivity.CUDA],
+        lambda: tap_conv.tap_conv_same(xi, kk, kb), 20,
+        lambda name: "tap_conv5_kernel" in name)
+    m = k5.sums["swin_l"]
+    log(f"phase 3: K5 tap_conv [{BATCH},{SIZE},{SIZE},3] per call: kernel "
+        f"{m['ms']:.5f} ms by events, device {k5.entry['device_ms']:.5f} ms; "
+        f"F.conv2d {m['library_ms']:.5f} ms; bound {m['bound_ms']:.5f} ms "
+        f"(bytes {m['bytes_ms']:.5f}, f32 FMAs {m['ops_ms']:.5f})")
 
     # The kernel tier takes the rel-pos bias rounded to bf16 (as the JAX
     # kernels do): a bias B and bf16(B) give bitwise the same K1, K1-int8
@@ -1089,20 +1121,25 @@ def check_kernels(torch, dev, reports, core, gemm, gemm16, rows16, cluster,
 
 
 def with_features(bmodel, infer, frames):
-    """infer(frames), and the backbone stage features its call computed
-    (both passes), caught where models/birefnet.py calls swin_forward."""
+    """infer(frames), and the backbone stage features of the last body run
+    in that call (both passes), caught where models/birefnet.py calls
+    swin_forward. A graphed function's first call runs its body twice, to
+    warm it up and to capture it; the captured features are tensors of the
+    graph, which hold the replay's values when the call returns and are
+    overwritten by the next replay: they are copied out here."""
     feats, swin_forward = [], bmodel.swin_forward
 
     def caught(*args, **kw):
         out = swin_forward(*args, **kw)
-        feats.extend(out)
+        feats.append(out)
         return out
 
     bmodel.swin_forward = caught
     try:
-        return infer(frames), feats
+        mask = infer(frames)
     finally:
         bmodel.swin_forward = swin_forward
+    return mask, [f.clone() for out in feats[-2:] for f in out]
 
 
 def feature_errors(path, feats, ref_feats):
@@ -1118,20 +1155,59 @@ def feature_errors(path, feats, ref_feats):
     return rel
 
 
-def drive(torch, bmodel, reports, infer, frames, want, path):
-    """One make_infer_fn call with every count set to 0 just before it;
-    checks the counts read just after against `want`. Returns the mask and
-    the backbone features."""
+def kernel_names(pipeline):
+    """{id(wrapper): the name pipeline.kernel_counters gives it}."""
+    return {id(fn): name for name, fn in pipeline.kernel_counters().items()}
+
+
+def drive(torch, bmodel, pipeline, reports, infer, frames, frames2, want,
+          path):
+    """The first call of a graphed make_infer_fn with every count set to 0
+    just before it; the counts read just after hold the warm-up's and the
+    capture's launches (each runs the body once), and the capture's own,
+    recorded by the function, must equal `want`. Then: a replay moves no
+    count; the graphed masks are bitwise the eager body's for `frames` and
+    for `frames2`. Returns the mask and the backbone features of the
+    graphed call, and the capture's counts."""
     for r in reports.values():
         r.wrapper.launches = 0
     mask, feats = with_features(bmodel, infer, frames)
     torch.cuda.synchronize()
     counts = {name: r.wrapper.launches for name, r in reports.items()}
-    log(f"phase 4: {path}: launches in one make_infer_fn call: {counts}")
-    if counts != want:
-        fail(f"{path} launch counts {counts} != {want}")
+    names = kernel_names(pipeline)
+    key = (tuple(frames.shape), frames.dtype)
+    captured = {name: infer.launches[key].get(names[id(r.wrapper)], 0)
+                for name, r in reports.items()}
+    log(f"phase 4: {path}: launches captured in the graph of one "
+        f"make_infer_fn call: {captured}; counted over its warm-up and "
+        f"capture: {counts}; graph pool {infer.pool_bytes[key] / 2**30:.2f} "
+        f"GiB, max allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+        f"GiB")
+    if captured != want:
+        fail(f"{path} captured launch counts {captured} != {want}")
+    if counts != {name: 2 * n for name, n in want.items()}:
+        fail(f"{path} launch counts over warm-up and capture {counts} != "
+             f"twice {want}")
     for name, r in reports.items():
-        r.entry["launches_by_path"][path] = counts[name]
+        r.entry["launches_by_path"][path] = captured[name]
+        r.entry.setdefault("launches_counted_by_path", {})[path] = counts[name]
+    for r in reports.values():
+        r.wrapper.launches = 0
+    again = infer(frames)
+    replay_counts = {n: r.wrapper.launches for n, r in reports.items()}
+    if any(replay_counts.values()):
+        fail(f"{path}: a replay ran kernel wrappers: {replay_counts}")
+    second = infer(frames2)
+    for label, got, fr in (("frames", again, frames),
+                           ("second frames", second, frames2)):
+        eager = infer.eager(fr)
+        if not torch.equal(got, eager) or not torch.equal(mask, again):
+            d = (got.float() - eager.float()).abs()
+            fail(f"{path}: graphed mask differs from the eager body's on "
+                 f"{label}: max |diff| {float(d.max())}")
+        del eager
+    log(f"phase 4: {path}: graphed masks bitwise equal to the eager body's "
+        f"on two frame batches; a replay moves no launch count")
     if tuple(mask.shape) != (BATCH, SIZE, SIZE) or not bool(
             torch.isfinite(mask).all()) or float(mask.min()) < 0 or float(
             mask.max()) > 1:
@@ -1162,8 +1238,8 @@ def cudnn_tf32_forced(torch, bmodel):
         bmodel.forward_logits = forward
 
 
-def drive_model(torch, bmodel, pipeline, reports, cfg, params, frames, tiers,
-                plain_bf16, tf32_control=False):
+def drive_model(torch, bmodel, pipeline, reports, cfg, params, frames, frames2,
+                tiers, plain_bf16, tf32_control=False):
     """Phase 4 for one model: its f32 plain reference, then each path (an
     f32 path held to MASK_MAE_F32 and FEATURE_F32; with tf32_control, the
     f32 plain pipeline with cuDNN's TF32 forced on must break FEATURE_F32).
@@ -1196,8 +1272,8 @@ def drive_model(torch, bmodel, pipeline, reports, cfg, params, frames, tiers,
     for path, (compute, want) in tiers.items():
         infer = pipeline.make_infer_fn(params, cfg, compute, dev,
                                        as_uint8=False)
-        masks[path], feats = drive(torch, bmodel, reports, infer, frames, want,
-                                   path)
+        masks[path], feats = drive(torch, bmodel, pipeline, reports, infer,
+                                   frames, frames2, want, path)
         del infer
         # The f32 kernel tier is held to the f32 bar; the int8 paths, f32
         # or bf16, to the int8 one.
@@ -1262,12 +1338,13 @@ def main() -> int:
         fail("torch.cuda.is_available() is False: this smoke run needs a GPU")
     sys.modules["jax"] = None  # the port must not reach for JAX
     sys.path.insert(0, ROOT)
+    sys.path.insert(0, os.path.join(ROOT, "tools"))  # gpu_profile
     dev = torch.device("cuda")
-    kind = torch.cuda.get_device_name(0)
+    device_name = torch.cuda.get_device_name(0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip()
-    log(f"phase 1: {kind}, {torch.cuda.device_count()} device(s); torch "
+    log(f"phase 1: {device_name}, {torch.cuda.device_count()} device(s); torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
 
     from birefnet_tpu_torch import pipeline, serve
@@ -1438,6 +1515,8 @@ def main() -> int:
     frames = np.random.default_rng(42).integers(
         0, 256, size=(BATCH, SIZE, SIZE, 3), dtype=np.uint8)
     frames_dev = torch.from_numpy(frames).to(dev)
+    frames2_dev = torch.from_numpy(np.random.default_rng(43).integers(
+        0, 256, size=(BATCH, SIZE, SIZE, 3), dtype=np.uint8)).to(dev)
     bf16 = ComputeConfig(dtype=torch.bfloat16, use_flash_attention=True)
     int8 = bf16.with_overrides(int8_mlp=True, int8_attn=True)
     f32_tier = ComputeConfig(use_flash_attention=True)
@@ -1472,7 +1551,8 @@ def main() -> int:
     # negative control.
     errs, ref_feats = drive_model(torch, bmodel, pipeline, reports,
                                   cfgs["swin_l"], params["swin_l"], frames_dev,
-                                  tiers["swin_l"], plain_bf16=False,
+                                  frames2_dev, tiers["swin_l"],
+                                  plain_bf16=False,
                                   tf32_control=True)
     limit = int8_gate("swin_l int8", errs, "swin_l bf16")
     # Negative control: int8 scales rolled by one channel (every channel
@@ -1503,7 +1583,7 @@ def main() -> int:
     # rolled by one head as the negative control.
     errs, ref_feats = drive_model(torch, bmodel, pipeline, reports,
                                   cfgs["swin_t"], params["swin_t"], frames_dev,
-                                  tiers["swin_t"], plain_bf16=True)
+                                  frames2_dev, tiers["swin_t"], plain_bf16=True)
     ratio = stage_ratio(errs["swin_t bf16"], errs["plain bf16"])
     log(f"phase 4: swin_t bf16 kernel tier's feature error, stage by stage, at "
         f"most {ratio:.3f} x the plain bf16 pipeline's (gate <= "
@@ -1572,45 +1652,112 @@ def main() -> int:
                 fail(f"{path}: served mask shapes {got} != {sizes}")
             del serve_infer
 
+    # Each tier's function graphed and its eager body, 5 calls each in
+    # turns, one function at a time (each graph keeps its own memory pool),
+    # the tiers in order and then in reverse.
+    plain_bf16 = ComputeConfig(dtype=torch.bfloat16)
+    summary = {}
     for model in MODELS:
-        fns = {f"{model} int8 path": pipeline.make_infer_fn(
-                   params[model], cfgs[model], int8, dev),
-               f"{model} bf16 kernel tier": pipeline.make_infer_fn(
-                   params[model], cfgs[model], bf16, dev),
-               f"{model} plain bf16": pipeline.make_infer_fn(
-                   params[model], cfgs[model],
-                   ComputeConfig(dtype=torch.bfloat16), dev)}
+        tiers6 = {f"{model} int8 path": int8,
+                  f"{model} bf16 kernel tier": bf16,
+                  f"{model} plain bf16": plain_bf16}
         if model == "swin_l":
-            fns[f"{model} f32 kernel tier"] = pipeline.make_infer_fn(
-                params[model], cfgs[model], f32_tier, dev)
-            fns[f"{model} plain f32"] = pipeline.make_infer_fn(
-                params[model], cfgs[model], ComputeConfig(), dev)
-            fns[f"{model} f32 int8 path"] = pipeline.make_infer_fn(
-                params[model], cfgs[model], f32_int8, dev)
-        order = list(fns) + list(fns)[::-1]
-        for name in order:
-            fn = fns[name]
-            ms = []
+            tiers6.update({f"{model} f32 kernel tier": f32_tier,
+                           f"{model} plain f32": ComputeConfig(),
+                           f"{model} f32 int8 path": f32_int8})
+        for name in list(tiers6) + list(tiers6)[::-1]:
+            fn = pipeline.make_infer_fn(params[model], cfgs[model],
+                                        tiers6[name], dev)
             fn(frames_dev)
+            fn.eager(frames_dev)
+            torch.cuda.synchronize()
+            ms = {"graphed": [], "eager": []}
             for _ in range(5):
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-                fn(frames_dev)
-                end.record()
-                torch.cuda.synchronize()
-                ms.append(start.elapsed_time(end))
-            med = sorted(ms)[len(ms) // 2]
-            log(f"phase 6: {name}: median {med:.2f} ms per batch of {BATCH} "
-                f"-> {BATCH / (med / 1e3):.2f} img/s ({smi})")
-        del fns
+                for how, call in (("graphed", fn), ("eager", fn.eager)):
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    call(frames_dev)
+                    end.record()
+                    torch.cuda.synchronize()
+                    ms[how].append(start.elapsed_time(end))
+            key = (tuple(frames_dev.shape), frames_dev.dtype)
+            parts = []
+            for how, v in ms.items():
+                summary.setdefault(name, {}).setdefault(how, []).extend(v)
+                med = sorted(v)[len(v) // 2]
+                parts.append(f"{how} median {med:.2f} ms "
+                             f"({BATCH / med * 1e3:.2f} img/s), spread "
+                             f"{min(v):.2f}-{max(v):.2f}")
+            log(f"phase 6: {name}: {'; '.join(parts)} per batch of {BATCH}; "
+                f"graph pool {fn.pool_bytes[key] / 2**30:.2f} GiB ({smi})")
+            del fn
+    for name, by_how in summary.items():
+        log(f"phase 6: {name} over both turns (10 calls each): " + "; ".join(
+            f"{how} median {sorted(v)[len(v) // 2]:.2f} ms, spread "
+            f"{(max(v) - min(v)) / sorted(v)[len(v) // 2]:.3f}"
+            for how, v in by_how.items()) + f" ({smi})")
+    log(f"phase 6: max allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # Phase 7: one profiled replay of the Swin-L int8 path's graph and one
+    # profiled eager call (tools/gpu_profile.py). Where the profiler resolves
+    # the graph's kernels, their launches per group must match what the
+    # capture counted.
+    import gpu_profile
+    fn = pipeline.make_infer_fn(params["swin_l"], cfgs["swin_l"], int8, dev)
+    fn(frames_dev)
+    cap = fn.launches[(tuple(frames_dev.shape), frames_dev.dtype)]
+    got = gpu_profile.profile_call(torch, fn, frames_dev, "swin_l int8 graphed",
+                                   smi, top=12)
+    eager = gpu_profile.profile_call(torch, fn.eager, frames_dev,
+                                     "swin_l int8 eager", smi, top=0)
+    log(f"phase 7: swin_l int8 path, one profiled call: graphed wall "
+        f"{got['wall_ms']:.2f} ms, device {got['device_ms']:.2f} ms, idle "
+        f"share {got['idle']:.3f}; eager wall {eager['wall_ms']:.2f} ms, "
+        f"device {eager['device_ms']:.2f} ms, idle share {eager['idle']:.3f} "
+        f"({smi})")
+    k1 = cap.get("fused_block_attn.fused_window_block_attention", 0)
+    k1q = cap.get("fused_block_attn.fused_window_block_attention_int8", 0)
+    k2 = cap.get("fused_mlp.fused_mlp_residual", 0)
+    k3 = cap.get("fused_mlp.fused_mlp_residual_int8", 0)
+    want_groups = {
+        "K1 attention core (bf16 and int8 routes)": k1 + k1q,
+        "K1-int8 int8 GEMM, bf16 out (qkv)": k1q,
+        "K1-int8 int8 GEMM + residual (proj)": k1q,
+        "K1-int8 row quantization": 2 * k1q,
+        "K3 cluster kernel (fc1, GELU, int8 hidden, fc2)": k3,
+        "K3 LN2 row quantization": k3,
+        "K1 bf16 GEMM (qkv)": k1,
+        "K1/K2 bf16 GEMM + residual (proj, fc2)": k1 + k2,
+        "K2 bf16 GEMM + GELU (fc1)": k2,
+        "K1 bf16 LN1 rows (pads zeroed)": k1,
+        "K2 bf16 LN2 rows": k2,
+        "K4 row_ln": cap.get("row_ln.layer_norm_rows", 0),
+        "K5 tap_conv": cap.get("tap_conv.tap_conv_same", 0)}
+    if got["device_ms"] == 0:
+        log("phase 7: the profiler resolved no kernel of the replayed graph; "
+            "its counts per group are not checked")
+    else:
+        seen = {g: got["groups"].get(g, [0.0, 0])[1] for g in want_groups}
+        log(f"phase 7: launches per group in the replay: {seen}")
+        if seen != want_groups:
+            fail(f"the replay's kernels per group {seen} != the capture's "
+                 f"{want_groups}")
+        eager_seen = {g: eager["groups"].get(g, [0.0, 0])[1]
+                      for g in want_groups}
+        if eager_seen != want_groups:
+            fail(f"the eager call's kernels per group {eager_seen} != "
+                 f"{want_groups}")
+    del fn
 
     f32_entries = [r.entry for r in f32r.values() if r.main_path is not None]
     print(json.dumps({"kernels": [r.entry for r in reports.values()]
                       + f32_entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+        "platform": "gpu", "kind": device_name,
+        "count": torch.cuda.device_count()}}))
     return 0
 
 

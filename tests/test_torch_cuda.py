@@ -522,7 +522,40 @@ def test_int8_kernels_refuse_f32(dev):
         *args), MEAN_BOUND_I8)
 
 
-@pytest.mark.parametrize("shape", [(2, 32, 40, 3), (1, 70, 130, 3)])
+# K5's shapes: W % 8 == 0 takes the 16-byte staging, other W the scalar
+# staging; H and W off the 32 x 128 tile, B = 3, and the main path's shape.
+TAP_CONV_SHAPES = [(2, 32, 40, 3), (1, 70, 130, 3), (3, 50, 136, 3),
+                   (2, 45, 77, 3), (1, 97, 264, 3), (2, 1024, 1024, 3)]
+
+
+@pytest.fixture(scope="module")
+def tap_conv_first(dev):
+    """K5's first body (tools/tap_conv_first.cu), built with nvcc beside the
+    library, as a function (x, k [5, 5, 3] f32, bias [1] f32) -> out. The
+    redesigned kernel applies the taps in its order (channel, row, column
+    offset, one fmaf each from the bias), so their outputs are bitwise
+    equal."""
+    import ctypes
+
+    from birefnet_tpu_torch.ops.kernels import build
+
+    src = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "tools", "tap_conv_first.cu")
+    lib = build.build_extra(src)
+    fn = ctypes.CDLL(lib).tap_conv5_first
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def run(x, k, b):
+        out = torch.empty(x.shape[:3], dtype=x.dtype, device=x.device)
+        kf = k.reshape(5, 5, 3).float().contiguous()
+        assert fn(x.data_ptr(), kf.data_ptr(), b.data_ptr(), out.data_ptr(),
+                  *x.shape[:3], build.stream(x.device)) == 0
+        return out
+    return run
+
+
+@pytest.mark.parametrize("shape", TAP_CONV_SHAPES)
 def test_tap_conv_kernel_matches_plain(dev, shape):
     gen = torch.Generator(dev).manual_seed(3)
     x = _randn(gen, shape, dev, 1.0, torch.bfloat16)
@@ -532,6 +565,20 @@ def test_tap_conv_kernel_matches_plain(dev, shape):
     got = tap_conv.tap_conv_same(x, k, b)
     assert tap_conv.tap_conv_same.launches == n0 + 1
     _assert_close(got, tap_conv.tap_conv_same_plain(x, k, b))
+
+
+@pytest.mark.parametrize("shape", TAP_CONV_SHAPES)
+def test_tap_conv_kernel_equals_its_first_body(dev, tap_conv_first, shape):
+    """Bitwise equal to K5's first body, with a bias and without one (the
+    redesigned entry takes a null bias for 0)."""
+    gen = torch.Generator(dev).manual_seed(4)
+    x = _randn(gen, shape, dev, 1.0, torch.bfloat16)
+    k = _randn(gen, (5, 5, 3, 1), dev, 0.2)
+    b = _randn(gen, (1,), dev)
+    assert torch.equal(tap_conv.tap_conv_same(x, k, b),
+                       tap_conv_first(x, k, b))
+    assert torch.equal(tap_conv.tap_conv_same(x, k[..., 0]),
+                       tap_conv_first(x, k, torch.zeros(1, device=dev)))
 
 
 def test_kernels_refuse_f32(dev):
@@ -1064,8 +1111,10 @@ def test_fused_block_attn_f32_matches_plain(dev, shift, hw, heads, c,
 def test_int8_path_refuses_f32_on_the_card(dev):
     """No longer refused: make_infer_fn runs the int8 flags on the f32
     kernel tier, Swin-L's stages 2 and 3 through the f32 K1-int8 and K3
-    kernels (one launch of each per block), and its masks stay within the
-    int8 path's mask gate (MAE < 1e-3) of the f32 plain pipeline's."""
+    kernels (one launch of each per block in the captured call; the first
+    call runs the body twice, to warm it up and to capture it), and its
+    masks stay within the int8 path's mask gate (MAE < 1e-3) of the f32
+    plain pipeline's."""
     from birefnet_tpu_torch import pipeline
     from birefnet_tpu_torch.configs import BiRefNetConfig, ComputeConfig
     from birefnet_tpu_torch.params import build_param_tree, random_checkpoint
@@ -1079,10 +1128,14 @@ def test_int8_path_refuses_f32_on_the_card(dev):
     counters = (fused_block_attn.fused_window_block_attention_int8,
                 fused_mlp.fused_mlp_residual_int8)
     before = [f.launches for f in counters]
-    got = pipeline.make_infer_fn(params, cfg, ComputeConfig(
+    infer = pipeline.make_infer_fn(params, cfg, ComputeConfig(
         use_flash_attention=True, int8_mlp=True, int8_attn=True), dev,
-        as_uint8=False)(frames)
-    assert [f.launches - b for f, b in zip(counters, before)] == [40, 40]
+        as_uint8=False)
+    got = infer(frames)
+    assert [f.launches - b for f, b in zip(counters, before)] == [80, 80]
+    (captured,) = infer.launches.values()
+    assert [captured["fused_block_attn.fused_window_block_attention_int8"],
+            captured["fused_mlp.fused_mlp_residual_int8"]] == [40, 40]
     assert got.shape == want.shape and torch.isfinite(got).all()
     mae = (got - want).abs().mean().item()
     assert mae < 1e-3, f"mask MAE {mae}"
@@ -1128,7 +1181,9 @@ def test_swin_f32_kernel_tier_matches_f32_plain(dev, ws):
 def test_make_infer_fn_f32_ignores_tf32_flags(dev, monkeypatch):
     """With PyTorch's default flags (cuDNN TF32 on) the f32 pipeline gives
     the masks and logits of a call made with both flags off, bit for bit:
-    make_infer_fn turns TF32 off for an f32 forward."""
+    make_infer_fn turns TF32 off for an f32 forward. The graphed call with
+    the flags off against the eager body with them on: a replay would not
+    run the body again."""
     from birefnet_tpu_torch import pipeline
     from birefnet_tpu_torch.configs import BiRefNetConfig, ComputeConfig
     from birefnet_tpu_torch.models import birefnet
@@ -1151,9 +1206,190 @@ def test_make_infer_fn_f32_ignores_tf32_flags(dev, monkeypatch):
     off = infer(frames)
     try:
         torch.backends.cudnn.allow_tf32 = True  # PyTorch's default
-        on = infer(frames)
+        on = infer.eager(frames)
         assert torch.backends.cudnn.allow_tf32
     finally:
         torch.backends.cudnn.allow_tf32 = False
-    assert torch.equal(logits[0], logits[1])
+    assert torch.equal(logits[0], logits[-1])
     assert torch.equal(off, on)
+
+
+# make_infer_fn on the card replays one CUDA graph per input shape
+# (pipeline.GraphedInfer); its `eager` runs the same body uncaptured.
+GRAPH_TIERS = {
+    "bf16 kernel tier": dict(dtype=torch.bfloat16, use_flash_attention=True),
+    "int8 path": dict(dtype=torch.bfloat16, use_flash_attention=True,
+                      int8_mlp=True, int8_attn=True),
+    "plain bf16": dict(dtype=torch.bfloat16),
+    "f32 tier": dict(use_flash_attention=True),
+    "f32 int8 path": dict(use_flash_attention=True, int8_mlp=True,
+                          int8_attn=True),
+    "plain f32": dict(),
+}
+
+
+def _graph_model(backbone, size):
+    import dataclasses
+
+    from birefnet_tpu_torch.configs import BiRefNetConfig
+    from birefnet_tpu_torch.params import build_param_tree, random_checkpoint
+
+    cfg = dataclasses.replace(BiRefNetConfig.for_backbone(backbone),
+                              size=(size, size))
+    return cfg, build_param_tree(random_checkpoint(cfg, 0), cfg)
+
+
+@pytest.fixture(scope="module")
+def swin_t_128(dev):
+    return _graph_model("swin_v1_t", 128)
+
+
+@pytest.fixture(scope="module")
+def swin_l_128(dev):
+    return _graph_model("swin_v1_l", 128)
+
+
+def _frames(seed, b=2, hw=128):
+    return np.random.default_rng(seed).integers(0, 256, (b, hw, hw, 3),
+                                                dtype=np.uint8)
+
+
+def _launch_counts():
+    from birefnet_tpu_torch import pipeline
+    return {n: f.launches for n, f in pipeline.kernel_counters().items()}
+
+
+def _moved(before):
+    return {n: c - before[n] for n, c in _launch_counts().items()
+            if c != before[n]}
+
+
+def _graphed_equals_eager(cfg, params, tier, dev):
+    """Graphed masks bitwise equal to the eager body's for two frame
+    batches; the capture's launch counts equal an eager call's; a replay
+    runs no wrapper; the returned masks are fresh tensors."""
+    from birefnet_tpu_torch import pipeline
+    from birefnet_tpu_torch.configs import ComputeConfig
+
+    infer = pipeline.make_infer_fn(params, cfg,
+                                   ComputeConfig(**GRAPH_TIERS[tier]), dev)
+    assert isinstance(infer, pipeline.GraphedInfer)
+    f1, f2 = _frames(1), _frames(2)
+    before = _launch_counts()
+    got1 = infer(f1)  # warm-up, capture, replay
+    first = _moved(before)
+    (key, captured), = infer.launches.items()
+    assert key == ((2, 128, 128, 3), torch.uint8)
+    assert first == {n: 2 * c for n, c in captured.items()}
+    before = _launch_counts()
+    want1 = infer.eager(f1)
+    assert _moved(before) == captured
+    assert torch.equal(got1, want1)
+    before = _launch_counts()
+    got2 = infer(f2)
+    assert _moved(before) == {}  # a replay runs no Python wrapper
+    assert torch.equal(got2, infer.eager(f2))
+    assert torch.equal(got1, want1)  # not overwritten by the second replay
+    static_out = infer._graphs[key][2]
+    assert got2.data_ptr() != static_out.data_ptr()
+    return captured
+
+
+@pytest.mark.parametrize("tier", list(GRAPH_TIERS))
+def test_graphed_infer_equals_eager_swin_t(dev, swin_t_128, tier):
+    captured = _graphed_equals_eager(*swin_t_128, tier, dev)
+    if "plain" not in tier:
+        assert captured["row_ln.layer_norm_rows"] == 16
+        assert captured["flash_window_attn.flash_window_attention_qkv"] == 24
+
+
+@pytest.mark.parametrize("tier", ["int8 path", "f32 int8 path"])
+def test_graphed_infer_equals_eager_swin_l(dev, swin_l_128, tier):
+    captured = _graphed_equals_eager(*swin_l_128, tier, dev)
+    assert captured["fused_block_attn.fused_window_block_attention_int8"] == 40
+    assert captured["fused_mlp.fused_mlp_residual_int8"] == 40
+
+
+def test_graphed_infer_keeps_one_graph_per_batch(dev, swin_t_128):
+    from birefnet_tpu_torch import pipeline
+    from birefnet_tpu_torch.configs import ComputeConfig
+
+    cfg, params = swin_t_128
+    infer = pipeline.make_infer_fn(
+        params, cfg, ComputeConfig(**GRAPH_TIERS["bf16 kernel tier"]), dev)
+    frames = _frames(3)
+    for b in (1, 2, 1):
+        assert torch.equal(infer(frames[:b]), infer.eager(frames[:b]))
+    assert sorted(k[0][0] for k in infer._graphs) == [1, 2]
+    assert set(infer.pool_bytes) == set(infer._graphs)
+
+
+def test_graphed_infer_owns_what_its_graph_reads(dev, swin_t_128):
+    """A replay after every device cache is cleared and the freed memory
+    is handed out again stays bitwise: the function holds its own
+    references to the cached tensors its graph reads."""
+    import gc
+
+    from birefnet_tpu_torch import pipeline
+    from birefnet_tpu_torch.configs import ComputeConfig
+    from birefnet_tpu_torch.ops import resize
+
+    cfg, params = swin_t_128
+    infer = pipeline.make_infer_fn(
+        params, cfg, ComputeConfig(**GRAPH_TIERS["int8 path"]), dev)
+    frames = _frames(4)
+    want = infer(frames)
+    for module in (resize, W, pipeline):
+        for fn in vars(module).values():
+            if callable(getattr(fn, "cache_clear", None)):
+                fn.cache_clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    junk = torch.full((64 << 20,), float("nan"), device=dev)  # 256 MB
+    assert torch.equal(infer(frames), want)
+    del junk
+
+
+def test_graphed_infer_is_safe_across_threads(dev, swin_t_128):
+    """Threads sharing one graphed function, each on a stream of its own,
+    get the masks of their own frames: copy -> replay -> clone never
+    interleaves on the graph's static buffers (one lock, one stream)."""
+    import sys
+    import threading
+
+    from birefnet_tpu_torch import pipeline
+    from birefnet_tpu_torch.configs import ComputeConfig
+
+    cfg, params = swin_t_128
+    infer = pipeline.make_infer_fn(
+        params, cfg, ComputeConfig(**GRAPH_TIERS["bf16 kernel tier"]), dev)
+    frames = [_frames(10 + i) for i in range(4)]
+    want = [infer.eager(f) for f in frames]
+    infer(frames[0])  # the capture
+    torch.cuda.synchronize()
+    bad = []
+
+    def worker(i):
+        try:
+            with torch.cuda.stream(torch.cuda.Stream(dev)):
+                for rep in range(4):
+                    j = (i + rep) % len(frames)
+                    got = infer(frames[j])
+                    if not torch.equal(got, want[j]):
+                        bad.append((i, rep))
+        except Exception as e:  # reported below, with the thread's index
+            bad.append((i, repr(e)))
+
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=worker, args=(i,))
+                   for i in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+    finally:
+        sys.setswitchinterval(switch)
+    assert not any(t.is_alive() for t in threads)
+    assert bad == []

@@ -1,13 +1,13 @@
 """The port imports torch, never JAX, the JAX package, the tests or Triton.
 
 Every .py file of birefnet_tpu_torch/, chip_smoke.py and the tools that
-run on the GPU machine (gpu_profile.py, k3_phases.py, core_f32_time.py and
-tf32_check.py; that machine has no JAX) is parsed with `ast`; an import of `jax`, `birefnet_tpu` (not
-`birefnet_tpu_torch`), `tests` or `triton` fails, wherever it stands: at
-the top of a module, inside a function (a lazy import in a launcher
-counts), or as a constant string given to `importlib.import_module` or
-`__import__`. The kernels are CUDA C++ built with nvcc; nothing needs
-Triton.
+run on the GPU machine (gpu_profile.py, k3_phases.py, core_f32_time.py,
+tf32_check.py and tap_conv_phases.py; that machine has no JAX) is parsed
+with `ast`; an import of `jax`, `birefnet_tpu` (not `birefnet_tpu_torch`),
+`tests` or `triton` fails, wherever it stands: at the top of a module,
+inside a function (a lazy import in a launcher counts), or as a constant
+string given to `importlib.import_module` or `__import__`. The kernels are
+CUDA C++ built with nvcc; nothing needs Triton.
 """
 
 import ast
@@ -24,7 +24,8 @@ FILES = sorted(
 ) + ["chip_smoke.py", os.path.join("tools", "gpu_profile.py"),
      os.path.join("tools", "k3_phases.py"),
      os.path.join("tools", "core_f32_time.py"),
-     os.path.join("tools", "tf32_check.py")]
+     os.path.join("tools", "tf32_check.py"),
+     os.path.join("tools", "tap_conv_phases.py")]
 BANNED = ("jax", "birefnet_tpu", "tests", "triton")
 
 

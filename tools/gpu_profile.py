@@ -11,12 +11,17 @@ regular deform mode, random_checkpoint(cfg, 0) (the chip_smoke.py paths:
 kernel tier, "plain" = bf16 without kernels, "f32" = the f32 kernel tier,
 "f32_int8" = the f32 kernel tier with both int8 flags, "plain_f32" = f32
 without kernels), warms it up with two calls, then
-records one call under torch.profiler (CPU and CUDA activities). Prints,
-per tier: the call's wall time (host clock around the call and a
-synchronize), the summed device kernel time, the device idle share
-(1 - kernel time / wall time; one stream, so kernels do not overlap),
-the kernel time grouped by what it belongs to, and the top kernels.
-Then, for the backbone's 16 row-LayerNorm calls (K4, csrc/row_ln.cu) at
+records one call under torch.profiler (CPU and CUDA activities): first a
+replay of the function's CUDA graph (make_infer_fn on the card captures
+its body once per input shape), then one call of its eager body
+(`.eager`). Prints, per tier and kind: the call's wall time (host clock
+around the call and a synchronize), the summed device kernel time, the
+device idle share (1 - kernel time / wall time; one stream, so kernels do
+not overlap), the kernel time and launches grouped by what it belongs to,
+and the top kernels. Then K5 (csrc/tap_conv.cu) alone at the main path's
+[2, 1024, 1024, 3] bf16: event and device time per call beside F.conv2d's
+(5x5, bf16 NCHW view) and its bounds. Then, for the backbone's 16
+row-LayerNorm calls (K4, csrc/row_ln.cu) at
 their bf16 shapes, the time per call by CUDA events (mean over 20
 back-to-back calls, what a caller waits for) next to the profiler's device
 time per call (the kernel alone), the same two for F.layer_norm on the
@@ -124,17 +129,55 @@ def row_ln_sites(cfg):
     return sites
 
 
+def profiled(torch, profile, activities, fn, margin_s=0.02):
+    """Run fn() under the profiler twice, a warm-up step and a recorded
+    one, with `margin_s` of idle host time at both ends of the recorded
+    step; returns (profiler, wall ms of fn in that step). The profiler
+    keeps the kernels whose device timestamps fall inside the step's host
+    time: without the margins it dropped the first kernels of a recorded
+    forward in some runs on the H100 (one K4, one K1, three convolutions),
+    and every kernel of a short call in others."""
+    from torch.profiler import schedule
+
+    with profile(activities=activities,
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        time.sleep(margin_s)
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        time.sleep(margin_s)
+        prof.step()
+    return prof, wall_ms
+
+
+def kernel_events(prof):
+    """The device-side kernel entries of prof.key_averages(): not the CPU
+    ops (whose entries repeat the device time of the kernels they
+    launched) and not the step annotations that the profiler also puts on
+    the device's timeline ("ProfilerStep*", spanning the whole step)."""
+    from torch.autograd import DeviceType
+
+    return [a for a in prof.key_averages()
+            if a.device_type == DeviceType.CUDA
+            and not getattr(a, "is_user_annotation", False)
+            and not a.key.startswith("ProfilerStep")]
+
+
 def device_ms_per_call(torch, profile, activities, fn, reps, name_key):
     """The profiler's device time per call of the kernels whose name holds
     name_key, over `reps` calls of fn."""
-    from torch.autograd import DeviceType
-    with profile(activities=activities) as prof:
+    def calls():
         for _ in range(reps):
             fn()
-        torch.cuda.synchronize()
-    return sum(a.self_device_time_total for a in prof.key_averages()
-               if a.device_type == DeviceType.CUDA and name_key(a.key)) / (
-                   1e3 * reps)
+
+    prof, _ = profiled(torch, profile, activities, calls)
+    return sum(a.self_device_time_total for a in kernel_events(prof)
+               if name_key(a.key)) / (1e3 * reps)
 
 
 def event_ms_per_call(torch, fn, reps):
@@ -337,6 +380,74 @@ def gemm_table(torch, cfg, smi, kind, reps=20):
               f"{l_dev:.1f} ({ops / l_dev / 1e6:.0f})", flush=True)
 
 
+def profile_call(torch, fn, frames, label, smi, top=20):
+    """One call of fn(frames) under torch.profiler after two warm calls;
+    prints wall time, device kernel time, idle share, the groups and the
+    top kernels. Returns {"wall_ms", "device_ms", "idle", "groups":
+    {group: [ms, launches]}}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        fn(frames)
+    torch.cuda.synchronize()
+    prof, wall_ms = profiled(torch, profile, [ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA],
+                             partial(fn, frames))
+    kernels = [(a.self_device_time_total / 1e3, a.count, a.key)
+               for a in kernel_events(prof) if a.self_device_time_total > 0]
+    total = sum(ms for ms, _, _ in kernels)
+    idle = max(0.0, 1 - total / wall_ms)
+    print(f"[profile] {label}: wall {wall_ms:.2f} ms per batch of "
+          f"{frames.shape[0]}, device kernels {total:.2f} ms, idle share "
+          f"{idle:.3f} ({smi})", flush=True)
+    groups = {}
+    for ms, n, name in kernels:
+        g = groups.setdefault(group_of(name), [0.0, 0])
+        g[0] += ms
+        g[1] += n
+    for g, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
+        print(f"[profile] {label}:   {ms:9.3f} ms  {n:5d} launches  {g}")
+    for ms, n, name in sorted(kernels, reverse=True)[:top]:
+        print(f"[profile] {label}:   top {ms:9.3f} ms  x{n:<4d} {name[:110]}")
+    return {"wall_ms": wall_ms, "device_ms": total, "idle": idle,
+            "groups": groups}
+
+
+def tap_conv_table(torch, smi, reps=20):
+    """K5 at the main path's shape: CUDA-event and device time per call,
+    F.conv2d's two times on the same bf16 operands, and the bounds.
+    Returns the kernel's (event ms, device ms)."""
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    from birefnet_tpu_torch.ops.kernels import tap_conv
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    gen = torch.Generator("cuda").manual_seed(0)
+    b, h, w = 2, 1024, 1024
+    x = torch.randn((b, h, w, 3), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    k = torch.randn((5, 5, 3, 1), generator=gen, device="cuda") * 0.2
+    bias = torch.randn((1,), generator=gen, device="cuda")
+    kern = partial(tap_conv.tap_conv_same, x, k, bias)
+    wc = k[..., 0].permute(2, 0, 1)[None].to(torch.bfloat16)
+    lib = partial(F.conv2d, x.permute(0, 3, 1, 2), wc,
+                  bias.to(torch.bfloat16), padding=2)
+    k_ev = event_ms_per_call(torch, kern, reps)
+    k_dev = device_ms_per_call(torch, profile, acts, kern, reps,
+                               lambda s: "tap_conv5_kernel" in s)
+    l_ev = event_ms_per_call(torch, lib, reps)
+    l_dev = device_ms_per_call(torch, profile, acts, lib, reps,
+                               lambda s: True)
+    byte_ms = (b * h * w * 3 * 2 + b * h * w * 2 + 76 * 4) / 3.35e12 * 1e3
+    op_ms = 2 * 75 * b * h * w / 67e12 * 1e3
+    print(f"[profile] K5 tap_conv [{b},{h},{w},3] bf16 per call, ms: kernel "
+          f"event {k_ev:.4f} / device {k_dev:.4f}, F.conv2d event "
+          f"{l_ev:.4f} / device {l_dev:.4f}, bound {max(byte_ms, op_ms):.5f} "
+          f"(bytes {byte_ms:.5f}, f32 FMAs {op_ms:.5f}) ({smi})", flush=True)
+    return k_ev, k_dev
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--backbone", default="swin_v1_l",
@@ -351,9 +462,6 @@ def main() -> int:
         print("error: needs a CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from birefnet_tpu_torch import pipeline
     from birefnet_tpu_torch.configs import BiRefNetConfig, ComputeConfig
     from birefnet_tpu_torch.ops.kernels import build
@@ -380,35 +488,11 @@ def main() -> int:
              "plain_f32": ComputeConfig()}
     for tier in args.tiers.split(","):
         infer = pipeline.make_infer_fn(params, cfg, tiers[tier], dev)
-        for _ in range(2):
-            infer(frames)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            infer(frames)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        # Device-side events only: a CPU op's entry repeats the device time
-        # of the kernels it launched.
-        kernels = [(a.self_device_time_total / 1e3, a.count, a.key)
-                   for a in prof.key_averages()
-                   if a.device_type == DeviceType.CUDA
-                   and a.self_device_time_total > 0]
-        total = sum(ms for ms, _, _ in kernels)
-        print(f"[profile] {tier}: wall {wall_ms:.2f} ms per batch of 2, device "
-              f"kernels {total:.2f} ms, idle share "
-              f"{max(0.0, 1 - total / wall_ms):.3f} ({smi})", flush=True)
-        groups = {}
-        for ms, n, name in kernels:
-            g = groups.setdefault(group_of(name), [0.0, 0])
-            g[0] += ms
-            g[1] += n
-        for g, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
-            print(f"[profile] {tier}:   {ms:9.3f} ms  {n:5d} launches  {g}")
-        for ms, n, name in sorted(kernels, reverse=True)[:args.top]:
-            print(f"[profile] {tier}:   top {ms:9.3f} ms  x{n:<4d} {name[:110]}")
+        profile_call(torch, infer, frames, f"{tier} graphed", smi, args.top)
+        profile_call(torch, infer.eager, frames, f"{tier} eager", smi,
+                     args.top)
         del infer
+    tap_conv_table(torch, smi)
     row_ln_table(torch, cfg, smi)
     if cfg.swin_config().window_size == 12:
         gemm_table(torch, cfg, smi, "int8")
