@@ -4,7 +4,7 @@ Counterpart of birefnet_tpu/configs.py: the same frozen dataclasses, presets
 and derived channel math, so a config built here describes exactly the
 checkpoint schema and graph the JAX package builds. Only the compute policy
 differs: `ComputeConfig.dtype` is a torch dtype, and the options whose code
-is not ported yet raise `NotImplementedError` naming their ROADMAP.md item.
+is not ported raise `NotImplementedError` naming ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -169,14 +169,18 @@ class ComputeConfig:
     dtype, as the JAX `_kernel_i8` bodies do: f32 activations stay
     unrounded around the int8 products.
 
-    Only `deform_mode="regular"` (offsets ignored: the reference's CPU
-    semantics, which the mask-MAE gate compares against) is ported; it is
-    the default here, where the JAX package defaults to "deformable".
+    `deform_mode` is "deformable" by default, as in the JAX package:
+    faithful modulated deformable sampling at the decoder's 20 ASPP sites
+    (ops/deform_conv.py; kernel D1 on the card, on every tier and dtype).
+    "regular" ignores the offsets and the modulator and runs the regular
+    conv (the reference's CPU semantics, which the mask-MAE gate compares
+    against). "deformable-local", the JAX package's offset-clamped sampler
+    that exists for the TPU's gather floor, is not ported.
     """
 
     dtype: torch.dtype = torch.float32
     use_flash_attention: bool = False
-    deform_mode: str = "regular"
+    deform_mode: str = "deformable"
     int8_mlp: bool = False
     int8_attn: bool = False
 
@@ -184,11 +188,12 @@ class ComputeConfig:
         if self.deform_mode not in ("deformable", "regular",
                                     "deformable-local"):
             raise ValueError(f"unknown deform_mode: {self.deform_mode!r}")
-        if self.deform_mode != "regular":
+        if self.deform_mode == "deformable-local":
             raise NotImplementedError(
-                f"deform_mode={self.deform_mode!r} is not ported yet "
-                "(ROADMAP.md, 'Still to port', item 'Faithful deform_conv2d'); "
-                "use deform_mode='regular'")
+                "deform_mode='deformable-local' is not ported: its "
+                "offset-clamped sampler exists for the TPU's gather floor "
+                "(ROADMAP.md, Standing notes); use 'deformable' (exact) or "
+                "'regular'")
         if self.dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"dtype must be float32 or bfloat16, "
                              f"got {self.dtype}")

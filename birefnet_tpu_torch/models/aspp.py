@@ -1,10 +1,14 @@
-"""Deformable ASPP (regular mode) on NHWC tensors.
+"""Deformable ASPP modules on NHWC tensors.
 
-Counterpart of birefnet_tpu/models/aspp.py with `deform_mode="regular"`:
-each DeformConvASPP runs its regular conv and ignores the offsets and the
-modulator, exactly the reference's CPU semantics (reference:
-src/aspp.rs:183-185) and the basis of the mask-MAE gate. Faithful
-deformable sampling is not ported yet (ROADMAP.md).
+Counterpart of birefnet_tpu/models/aspp.py: DeformConvASPP (modulated
+deformable conv v2), ASPPModuleDeformable (deform -> BN -> ReLU) and
+ASPPDeformable (the 5-branch pyramid fused by a 1x1 conv), plus the
+standalone DeformableConv2d layer. Two modes, as in the JAX package:
+"deformable" (the default) samples at the learned offsets through
+ops/deform_conv.py (kernel D1 on the card); "regular" runs the regular
+conv and ignores the offsets and the modulator, the reference's CPU
+semantics (reference: src/aspp.rs:183-185). "deformable-local" is refused
+by ComputeConfig.
 """
 
 from __future__ import annotations
@@ -13,6 +17,7 @@ import torch
 
 from ..configs import ComputeConfig
 from ..ops import layers as L
+from ..ops.deform_conv import deform_conv2d
 
 # Parallel deformable branch kernel sizes (reference: src/aspp.rs:244).
 ASPP_DEFORM_KERNELS = (1, 3, 7)
@@ -21,12 +26,20 @@ ASPP_DEFORM_KERNELS = (1, 3, 7)
 def deform_conv_aspp_forward(params, x: torch.Tensor, kernel_size: int,
                              padding: int, compute: ComputeConfig,
                              stride: int = 1) -> torch.Tensor:
-    """DeformConvASPP in regular mode: the bias-free regular conv."""
-    if compute.deform_mode != "regular":
-        raise NotImplementedError(
-            f"deform_mode={compute.deform_mode!r} is not ported yet "
-            "(ROADMAP.md, 'Still to port', item 'Faithful deform_conv2d')")
-    return L.conv2d(params["regular_conv"], x, stride=stride, padding=padding)
+    """DeformConvASPP: offsets from offset_conv (read as f32), the mask
+    2*sigmoid(modulator_conv) in f32 rounded to x.dtype, then the modulated
+    deformable conv with regular_conv's weight (and bias, if it has one).
+    In regular mode, regular_conv alone."""
+    if compute.deform_mode == "regular":
+        return L.conv2d(params["regular_conv"], x, stride=stride,
+                        padding=padding)
+    offset = L.conv2d(params["offset_conv"], x, stride=stride, padding=padding)
+    mod_raw = L.conv2d(params["modulator_conv"], x, stride=stride,
+                       padding=padding)
+    mask = (2.0 * torch.sigmoid(mod_raw.float())).to(x.dtype)
+    reg = params["regular_conv"]
+    return deform_conv2d(x, offset.float(), mask, reg["weight"],
+                         bias=reg.get("bias"), stride=stride, padding=padding)
 
 
 def aspp_module_deformable_forward(params, x: torch.Tensor, kernel_size: int,
@@ -59,3 +72,16 @@ def aspp_deformable_forward(params, x: torch.Tensor,
     out = L.conv2d_concat({"weight": weight[:, :c_sp]}, branches)
     out = out + L.conv2d({"weight": weight[:, c_sp:]}, x5)
     return L.relu(L.batch_norm_inference(params["bn1"], out))
+
+
+def deformable_conv2d_forward(params, x: torch.Tensor, kernel_size: int,
+                              stride: int = 1, padding: int = 0,
+                              compute: ComputeConfig = ComputeConfig()
+                              ) -> torch.Tensor:
+    """The standalone DeformableConv2d layer (model-unused; API parity with
+    birefnet_tpu.models.aspp.deformable_conv2d_forward): offset and
+    modulator convs, then modulated deformable sampling with stride and
+    the regular conv's bias. params: {offset_conv, modulator_conv,
+    regular_conv} conv dicts."""
+    return deform_conv_aspp_forward(params, x, kernel_size, padding, compute,
+                                    stride=stride)

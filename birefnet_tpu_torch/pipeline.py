@@ -22,9 +22,9 @@ import torch
 from .configs import IMAGENET_MEAN, IMAGENET_STD, BiRefNetConfig, ComputeConfig
 from .models import birefnet
 from .ops import device_cache
-from .ops.kernels import (bf16_gemm, f32_gemm, flash_window_attn,
-                          fused_block_attn, fused_mlp, int8_gemm, row_ln,
-                          tap_conv)
+from .ops.kernels import (bf16_gemm, deform_im2col, f32_gemm,
+                          flash_window_attn, fused_block_attn, fused_mlp,
+                          int8_gemm, row_ln, tap_conv)
 from .ops.resize import resize_bilinear_half_pixel, resize_lanczos3
 from .params import (cast_matmul_weights, quantize_attn_int8,
                      quantize_mlp_int8, split_tf32_weights, to_device)
@@ -81,7 +81,7 @@ def kernel_counters() -> Dict[str, object]:
     """{"module.wrapper": wrapper} of every kernel wrapper that counts its
     launches (a `.launches` attribute it raises by one where it launches)."""
     return {f"{m.__name__.rsplit('.', 1)[-1]}.{name}": fn
-            for m in (bf16_gemm, f32_gemm, flash_window_attn,
+            for m in (bf16_gemm, deform_im2col, f32_gemm, flash_window_attn,
                       fused_block_attn, fused_mlp, int8_gemm, row_ln, tap_conv)
             for name, fn in vars(m).items()
             if callable(fn) and hasattr(fn, "launches")}

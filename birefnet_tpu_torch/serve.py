@@ -14,9 +14,11 @@ Usage:
 
 It runs on the CUDA device, on the kernel tier for either --dtype (as the
 JAX serve does on its TPU), the int8 flags with either, and on the CPU
-only under --cpu. Single device only: the JAX package's
---dp/--spatial meshes, --aot-dir executables and the deformable modes are
-not ported and are refused.
+only under --cpu. --deform-mode is deformable (faithful sampling, the
+default, as in the JAX serve) or regular. Single device only: the JAX
+package's --dp/--spatial meshes, --aot-dir executables, and the
+deformable-local and auto deform modes (an offset-clamped sampler for the
+TPU's gather floor, and its calibration) are not ported and are refused.
 """
 
 from __future__ import annotations
@@ -54,9 +56,9 @@ def segment(infer: Callable, images: Sequence[np.ndarray], size: int,
 
 
 def compute_config(dtype: str, cuda: bool, int8_mlp: bool = False,
-                   int8_attn: bool = False):
+                   int8_attn: bool = False, deform_mode: str = "deformable"):
     """serve's compute policy, as the JAX serve sets it
-    (birefnet_tpu/serve.py:109-111): the kernel tier on the card for either
+    (birefnet_tpu/serve.py:109-116): the kernel tier on the card for either
     --dtype unless DISABLE_FLASH_ATTN is set, the plain versions on the
     CPU."""
     from .configs import ComputeConfig
@@ -64,7 +66,7 @@ def compute_config(dtype: str, cuda: bool, int8_mlp: bool = False,
     return ComputeConfig(
         dtype=torch.bfloat16 if dtype == "bfloat16" else torch.float32,
         use_flash_attention=cuda and "DISABLE_FLASH_ATTN" not in os.environ,
-        int8_mlp=int8_mlp, int8_attn=int8_attn)
+        deform_mode=deform_mode, int8_mlp=int8_mlp, int8_attn=int8_attn)
 
 
 def _paths(inputs: Sequence[str]) -> List[str]:
@@ -92,7 +94,7 @@ def main(argv=None) -> int:
                                  "swin_v1_l"))
     parser.add_argument("--dtype", choices=("float32", "bfloat16"),
                         default="bfloat16")
-    parser.add_argument("--deform-mode", default="regular",
+    parser.add_argument("--deform-mode", default="deformable",
                         choices=("deformable", "deformable-local", "regular",
                                  "auto"))
     parser.add_argument("--cpu", action="store_true",
@@ -111,12 +113,15 @@ def main(argv=None) -> int:
 
     unported = {"--dp": args.dp, "--spatial": args.spatial != 1,
                 "--aot-dir": args.aot_dir,
-                "--deform-mode": args.deform_mode != "regular"}
+                "--deform-mode": args.deform_mode not in ("deformable",
+                                                          "regular")}
     refused = [flag for flag, on in unported.items() if on]
     if refused:
         parser.error(f"{', '.join(refused)} not ported to birefnet_tpu_torch "
-                     "yet (single device, bf16/f32, deform-mode regular; see "
-                     "ROADMAP.md)")
+                     "(single device, bf16/f32, deform-mode deformable or "
+                     "regular: deformable-local's clamped sampler exists for "
+                     "the TPU's gather floor and auto needs its calibration; "
+                     "see ROADMAP.md)")
     if not args.cpu and not torch.cuda.is_available():
         parser.error("no CUDA device is available; pass --cpu to run on "
                      "the CPU")
@@ -124,7 +129,7 @@ def main(argv=None) -> int:
 
     device = torch.device("cpu" if args.cpu else "cuda")
     compute = compute_config(args.dtype, device.type == "cuda",
-                             args.int8_mlp, args.int8_attn)
+                             args.int8_mlp, args.int8_attn, args.deform_mode)
 
     paths = _paths(args.inputs)
     if not paths:

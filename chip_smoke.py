@@ -81,7 +81,14 @@ Phases, each printed as it runs; any failure exits non-zero:
    bf16 must flip more than FLIP_CONTROL of the codes. The f32 GEMM, core
    and one K1 call per stage, and every K1-int8 f32, K3 f32 (whole and
    from codes) and f32-epilogue int8 GEMM shape, join the repeat check
-   (REPEATS_F32 calls). Phase 3 runs with PyTorch's TF32 flags off;
+   (REPEATS_F32 calls). D1 (csrc/deform_im2col.cu, the deformable-im2col
+   kernel of the decoder's 20 ASPP sites, which has no Pallas
+   original: the JAX package samples with an XLA gather) at the 12
+   distinct site shapes of the forward (C = 64 at 32^2, 64^2, 128^2 and
+   256^2, each with k = 1, 3 and 7), in bf16 and f32, offsets of a few
+   pixels and masks across (0, 2): its columns bitwise the plain
+   version's, timed against it (no one PyTorch call computes them), and
+   in the repeat checks. Phase 3 runs with PyTorch's TF32 flags off;
    the later phases find them as a user does (make_infer_fn turns them off
    for an f32 forward itself);
 4. drive pipeline.make_infer_fn at 1024^2, batch 2, bf16, kernel tier,
@@ -122,15 +129,28 @@ Phases, each printed as it runs; any failure exits non-zero:
    int8 path's; Swin-L's int8 scales rolled by one channel, on f32
    activations, must break that gate. Also the f32 plain forward and
    the f32 kernel tier at 64^2 against the JAX package's committed golden
-   logits;
+   logits (in regular mode within 5e-4, as before; in deformable mode,
+   the golden's own, within the JAX package's 5e-5). All of the above run
+   deform_mode="regular" (ComputeConfig's default is "deformable") and
+   count no D1 launch. Then Swin-L in deformable mode on a tree whose
+   offset convs are scaled by OFFSET_SCALE (offsets of several pixels):
+   its int8 main path, bf16 kernel tier and f32 kernel tier, each with 20
+   D1 launches captured per call (and the counts above), graphed masks
+   bitwise the eager body's, and the output of each of the 20 deformable
+   sites held to the same tree's f32 plain deformable pipeline on the
+   card: the f32 tier's mean|s - ref| / mean|ref| <= DEFORM_F32 at every
+   site, the bf16 and int8 paths' at most DEFORM_RATIO x the plain bf16
+   deformable pipeline's at every site; regular mode on the same tree
+   must break each of those gates;
 5. serve 4 in-memory requests of different sizes through serve.segment on
-   every path;
+   every path, and on Swin-L's deformable int8 path;
 6. time the pipeline with CUDA events, each tier's graphed function and
    its eager body in turns, 5 calls each after warm-up, one function at a
    time (each graph keeps its own memory pool), the tiers in order and
    then in reverse: Swin-L int8 path, bf16 kernel tier, plain bf16, f32
-   kernel tier, plain f32, f32 int8 path; swin_t int8 path, bf16 kernel
-   tier, plain bf16; medians and spreads, and each graph's pool;
+   kernel tier, plain f32, f32 int8 path, and the deformable int8 path and
+   f32 kernel tier; swin_t int8 path, bf16 kernel tier, plain bf16;
+   medians and spreads, and each graph's pool;
 7. profile one replay of the Swin-L int8 path's graph and one eager call
    (tools/gpu_profile.py: wall, device time, idle share, kernels by
    group); where the profiler resolves the graph's kernels, their launches
@@ -139,9 +159,11 @@ Phases, each printed as it runs; any failure exits non-zero:
 The line before the last is the nvidia-smi name/power line, the one
 before it the JSON kernel report: per kernel `launches` from its main path
 (Swin-L int8 for K1-K5, swin_t bf16 for K6-K8, the f32 paths for the
-"_f32" entries, Swin-L f32 int8 for the "_int8_f32" ones): the launches
+"_f32" entries, Swin-L f32 int8 for the "_int8_f32" ones, Swin-L's
+deformable int8 path for D1 and its deformable f32 tier for D1 f32): the
+launches
 captured in one call's graph, which every replay runs;
-`launches_by_path` from all eight, `launches_counted_by_path` the counts
+`launches_by_path` from all eleven, `launches_counted_by_path` the counts
 read after each path's first call (warm-up and capture), and the times and bound
 of its main model's forward (one call at each checked shape for K7 and
 K8), with each model's under `by_model`. The
@@ -222,6 +244,21 @@ BOUND_F32, MEAN_BOUND_F32 = 1e-4, 1e-5
 # The f32 kernel tier's pipeline against the f32 plain pipeline: mask MAE
 # and the backbone features' mean|f - f32| / mean|f32| per stage tensor.
 MASK_MAE_F32, FEATURE_F32 = 1e-5, 1e-5
+# Swin-L's deformable paths: the offset convs (weights and biases) of
+# random_checkpoint(cfg, 0) scaled by OFFSET_SCALE, so that the offsets
+# reach several pixels (unscaled, most sites sample within a fraction of
+# a pixel of the regular grid, and regular mode passes for deformable).
+# Each deformable site's output is held to the f32 plain deformable
+# pipeline's, mean|s - ref| / mean|ref|: the f32 tier within DEFORM_F32,
+# the bf16 and int8 paths within DEFORM_RATIO x the plain bf16 deformable
+# pipeline's error at the same site.
+OFFSET_SCALE = 10.0
+DEFORM_F32, DEFORM_RATIO = 1e-5, 2.0
+# D1's calls per forward at each (side, k) of the 1024^2 batch-2 forward:
+# every ASPP runs k = 1 twice (aspp1 and aspp_deforms_0), k = 3 and 7 once;
+# the squeeze block and decoder_block4 both run at 32^2.
+DEFORM_SITES = [(side, k, (2 if k == 1 else 1) * (2 if side == 32 else 1))
+                for side in (32, 64, 128, 256) for k in (1, 3, 7)]
 # Calls of each shape in phase 3's repeat check (the f32 shapes: fewer).
 REPEATS, REPEATS_F32 = 200, 100
 # Published H100 SXM peaks (dense): memory bytes/s and operations/s by type.
@@ -420,7 +457,24 @@ def make_reports():
          pallas + "flash_window_attn.py:119", flash_window_attn.flash_attention,
          "swin_t bf16", MEAN_BOUND_FWA),
     ]
-    return {r[0]: KernelReport(*r) for r in rows}
+    reports = {r[0]: KernelReport(*r) for r in rows}
+    reports["deform_im2col"] = make_deform_report("swin_l int8 deformable")
+    return reports
+
+
+def make_deform_report(main_path, suffix=""):
+    """D1, bitwise against its plain version. It has no Pallas original:
+    `replaces` names the JAX function whose XLA gather it ports."""
+    from birefnet_tpu_torch.ops.kernels import deform_im2col
+    r = KernelReport(
+        "deform_im2col" + suffix, "cuda",
+        "birefnet_tpu_torch/csrc/deform_im2col.cu",
+        "birefnet_tpu/ops/deform_conv.py:35", deform_im2col.deform_im2col,
+        main_path, bitwise=True)
+    r.entry["note"] = ("no TPU kernel: the JAX package samples with an XLA "
+                       "gather and einsum (deform_conv.py:68-139)")
+    r.entry["library"] = "none: no one PyTorch call computes the columns"
+    return r
 
 
 def make_f32_reports():
@@ -478,6 +532,8 @@ def make_f32_reports():
              fused_mlp.fused_mlp_residual_int8_codes, None, None, True)):
         reports[name] = KernelReport(name, "cuda", src, rep, fn, path,
                                      mean_bound, bitwise)
+    reports["deform_im2col_f32"] = make_deform_report("swin_l f32 deformable",
+                                                      "_f32")
     return reports
 
 
@@ -568,8 +624,8 @@ def check_kernels(torch, dev, reports, core, gemm, gemm16, rows16, cluster,
     from birefnet_tpu_torch import params as P
     from birefnet_tpu_torch.models import swin
     from birefnet_tpu_torch.ops import window as W
-    from birefnet_tpu_torch.ops.kernels import (bf16_gemm, f32_gemm,
-                                                flash_window_attn,
+    from birefnet_tpu_torch.ops.kernels import (bf16_gemm, deform_im2col,
+                                                f32_gemm, flash_window_attn,
                                                 fused_block_attn, fused_mlp,
                                                 int8_gemm, row_ln, tap_conv)
     from birefnet_tpu_torch.ops.kernels import tf32 as tf32_split
@@ -616,7 +672,8 @@ def check_kernels(torch, dev, reports, core, gemm, gemm16, rows16, cluster,
                  rows_fns=(bf16_gemm.ln_rows, bf16_gemm.ln_rows_plain),
                  k1q=reports["fused_block_attn_int8"],
                  k3=reports["fused_mlp_int8"], gemm8=gemm, cluster=cluster,
-                 store="bf16", int_mm=extra["int_mm_ms"]),
+                 store="bf16", int_mm=extra["int_mm_ms"],
+                 d1=reports["deform_im2col"]),
         f32: dict(k1=f32r["fused_block_attn_f32"], k2=f32r["fused_mlp_f32"],
                   k4=f32r["row_ln_f32"], k6=f32r["flash_window_attn_qkv_f32"],
                   k7=f32r["flash_window_attn_masked_f32"],
@@ -629,7 +686,7 @@ def check_kernels(torch, dev, reports, core, gemm, gemm16, rows16, cluster,
                   k1q=f32r["fused_block_attn_int8_f32"],
                   k3=f32r["fused_mlp_int8_f32"], gemm8=f32r["int8_gemm_f32"],
                   cluster=f32r["fused_mlp_int8_cluster_f32"], store="f32",
-                  int_mm=extra["int_mm_ms_f32"]),
+                  int_mm=extra["int_mm_ms_f32"], d1=f32r["deform_im2col_f32"]),
     }
 
     def kernel_tree(tree, dtype):
@@ -1058,6 +1115,31 @@ def check_kernels(torch, dev, reports, core, gemm, gemm16, rows16, cluster,
         for dtype in (bf, f32):
             check_api(key, label, b_, heads, n, d, nw, causal, dtype)
 
+    def check_deform(side, k, calls, dtype):
+        """D1 in `dtype` at one ASPP site shape of the forward (C = 64),
+        offsets of a few pixels and masks across (0, 2), bitwise against
+        its plain version; then kept for the repeat check. Work: the
+        columns written once, x, the offsets and the mask read once; 7 f32
+        operations (4 products, 3 sums) per column value."""
+        r = by_dtype[dtype]
+        x = randn((BATCH, side, side, 64), 1.0, dtype)
+        offset = randn((BATCH, side, side, 2 * k * k), 3.0)
+        mask = (2 * torch.rand((BATCH, side, side, k * k), generator=gen,
+                               device=dev)).to(dtype)
+        args = (x, offset, mask, k, k, 1, k // 2)
+        fn = partial(deform_im2col.deform_im2col, *args)
+        n_cols = BATCH * side * side * k * k * 64
+        r["d1"].check(torch, "swin_l", f"[{BATCH},{side},{side},64] k={k}",
+                      calls, fn, partial(deform_im2col.deform_im2col_plain,
+                                         *args),
+                      (nbytes(x, offset, mask) + n_cols * x.element_size(),
+                       {"f32": 7 * n_cols}))
+        r["repeats"].append((f"D1 {r['kind']} {side}^2 k={k}", fn, fn()))
+
+    for side, k, calls in DEFORM_SITES:
+        for dtype in (bf, f32):
+            check_deform(side, k, calls, dtype)
+
     xi = randn((BATCH, SIZE, SIZE, 3), 1.0, bf)
     kk, kb = randn((5, 5, 3, 1), 0.2), randn((1,))
     xc = xi.permute(0, 3, 1, 2)  # channels-last NCHW view
@@ -1120,26 +1202,45 @@ def check_kernels(torch, dev, reports, core, gemm, gemm16, rows16, cluster,
     repeat_check(torch, repeats_f32, REPEATS_F32)
 
 
-def with_features(bmodel, infer, frames):
+def with_features(bmodel, infer, frames, sites=False):
     """infer(frames), and the backbone stage features of the last body run
     in that call (both passes), caught where models/birefnet.py calls
     swin_forward. A graphed function's first call runs its body twice, to
     warm it up and to capture it; the captured features are tensors of the
     graph, which hold the replay's values when the call returns and are
-    overwritten by the next replay: they are copied out here."""
+    overwritten by the next replay: they are copied out here. With
+    `sites`, also the outputs of the last body run's 20 deformable sites
+    (models/aspp.py::deform_conv_aspp_forward, in forward order), copied
+    out the same way: returns (mask, features, sites)."""
+    from birefnet_tpu_torch.models import aspp
+
     feats, swin_forward = [], bmodel.swin_forward
+    outs, site_forward = [], aspp.deform_conv_aspp_forward
 
     def caught(*args, **kw):
         out = swin_forward(*args, **kw)
         feats.append(out)
         return out
 
+    def site(*args, **kw):
+        out = site_forward(*args, **kw)
+        outs.append(out)
+        return out
+
     bmodel.swin_forward = caught
+    if sites:
+        aspp.deform_conv_aspp_forward = site
     try:
         mask = infer(frames)
     finally:
         bmodel.swin_forward = swin_forward
-    return mask, [f.clone() for out in feats[-2:] for f in out]
+        aspp.deform_conv_aspp_forward = site_forward
+    feats = [f.clone() for out in feats[-2:] for f in out]
+    if not sites:
+        return mask, feats
+    if len(outs) < 20:
+        fail(f"{len(outs)} deformable site outputs, want 20")
+    return mask, feats, [o.clone() for o in outs[-20:]]
 
 
 def feature_errors(path, feats, ref_feats):
@@ -1161,17 +1262,17 @@ def kernel_names(pipeline):
 
 
 def drive(torch, bmodel, pipeline, reports, infer, frames, frames2, want,
-          path):
+          path, sites=False):
     """The first call of a graphed make_infer_fn with every count set to 0
     just before it; the counts read just after hold the warm-up's and the
     capture's launches (each runs the body once), and the capture's own,
     recorded by the function, must equal `want`. Then: a replay moves no
     count; the graphed masks are bitwise the eager body's for `frames` and
     for `frames2`. Returns the mask and the backbone features of the
-    graphed call, and the capture's counts."""
+    graphed call (and, with `sites`, its 20 deformable sites' outputs)."""
     for r in reports.values():
         r.wrapper.launches = 0
-    mask, feats = with_features(bmodel, infer, frames)
+    mask, feats, *site_outs = with_features(bmodel, infer, frames, sites)
     torch.cuda.synchronize()
     counts = {name: r.wrapper.launches for name, r in reports.items()}
     names = kernel_names(pipeline)
@@ -1213,7 +1314,7 @@ def drive(torch, bmodel, pipeline, reports, infer, frames, frames2, want,
             mask.max()) > 1:
         fail(f"{path}: bad mask: shape {tuple(mask.shape)}, range "
              f"[{float(mask.min())}, {float(mask.max())}]")
-    return mask, feats
+    return (mask, feats, *site_outs)
 
 
 @contextlib.contextmanager
@@ -1247,12 +1348,13 @@ def drive_model(torch, bmodel, pipeline, reports, cfg, params, frames, frames2,
     from birefnet_tpu_torch.configs import ComputeConfig
 
     dev = frames.device
+    f32_plain = ComputeConfig(deform_mode="regular")
     ref, ref_feats = with_features(bmodel, pipeline.make_infer_fn(
-        params, cfg, ComputeConfig(), dev, as_uint8=False), frames)
+        params, cfg, f32_plain, dev, as_uint8=False), frames)
     if tf32_control:
         with cudnn_tf32_forced(torch, bmodel):
             _, feats = with_features(bmodel, pipeline.make_infer_fn(
-                params, cfg, ComputeConfig(), dev, as_uint8=False), frames)
+                params, cfg, f32_plain, dev, as_uint8=False), frames)
         worst = max(feature_errors(f"{cfg.backbone} f32 plain, cuDNN TF32 "
                                    f"forced on", feats, ref_feats))
         log(f"phase 4: {cfg.backbone} f32 plain pipeline with cuDNN TF32 "
@@ -1264,7 +1366,8 @@ def drive_model(torch, bmodel, pipeline, reports, cfg, params, frames, frames2,
     errs, masks = {}, {}
     if plain_bf16:
         _, feats = with_features(bmodel, pipeline.make_infer_fn(
-            params, cfg, ComputeConfig(dtype=torch.bfloat16), dev,
+            params, cfg, ComputeConfig(dtype=torch.bfloat16,
+                                       deform_mode="regular"), dev,
             as_uint8=False), frames)
         errs["plain bf16"] = feature_errors(f"{cfg.backbone} plain bf16", feats,
                                             ref_feats)
@@ -1298,6 +1401,115 @@ def drive_model(torch, bmodel, pipeline, reports, cfg, params, frames, frames2,
     log(f"phase 4: {paths[1]} vs {paths[0]} masks: mean |diff| "
         f"{float(d.mean()):.3e}, max {float(d.max()):.3e} (not gated)")
     return errs, ref_feats
+
+
+def scale_offset_convs(tree, scale):
+    """The tree with every offset_conv's weight and bias multiplied by
+    `scale`; the other leaves are shared, not copied."""
+    return {k: ({n: t * scale for n, t in v.items()} if k == "offset_conv"
+                else scale_offset_convs(v, scale)) if isinstance(v, dict)
+            else v for k, v in tree.items()}
+
+
+def site_errors(path, outs, ref_outs):
+    """mean|s - ref| / mean|ref| at each of the 20 deformable sites, in
+    forward order (the squeeze block, then decoder_block4..1; per block
+    aspp1, then k = 1, 3, 7), logged."""
+    rel = [float((o.float() - r).abs().mean() / r.abs().mean())
+           for o, r in zip(outs, ref_outs)]
+    log(f"phase 4: {path}: deformable site outputs vs f32 plain deformable "
+        f"pipeline, mean|s - ref| / mean|ref| per site: "
+        + " ".join(f"{e:.3e}" for e in rel))
+    return rel
+
+
+def offset_stats(aspp, infer, frames):
+    """One eager call of `infer` with the offsets of each deformable site
+    caught where models/aspp.py calls deform_conv2d: per site (side, k,
+    mean |offset|, max |offset|) in pixels."""
+    stats, deform = [], aspp.deform_conv2d
+
+    def caught(x, offset, mask, weight, *args, **kw):
+        a = offset.abs()
+        stats.append((x.shape[1], weight.shape[-1], a.mean(), a.amax()))
+        return deform(x, offset, mask, weight, *args, **kw)
+
+    aspp.deform_conv2d = caught
+    try:
+        infer.eager(frames)
+    finally:
+        aspp.deform_conv2d = deform
+    return [(side, k, float(m), float(x)) for side, k, m, x in stats]
+
+
+def drive_deformable(torch, bmodel, pipeline, reports, cfg, tree, frames,
+                     frames2, paths):
+    """Phase 4's deformable paths on one tree: the f32 plain deformable
+    pipeline as the reference (and its offsets per site), the plain bf16
+    deformable pipeline's site errors, then each path through drive() with
+    its site gate, then each path in regular mode (eager) as the control
+    that must break its gate."""
+    from birefnet_tpu_torch.configs import ComputeConfig
+    from birefnet_tpu_torch.models import aspp
+
+    dev = frames.device
+    ref_fn = pipeline.make_infer_fn(tree, cfg, ComputeConfig(), dev,
+                                    as_uint8=False)
+    ref, _, ref_sites = with_features(bmodel, ref_fn, frames, True)
+    stats = offset_stats(aspp, ref_fn, frames)
+    del ref_fn
+    log("phase 4: swin_l deformable tree: |offset| per site, mean / max px: "
+        + " ".join(f"{side}^2k{k} {m:.2f}/{x:.1f}" for side, k, m, x in stats))
+    _, _, plain = with_features(bmodel, pipeline.make_infer_fn(
+        tree, cfg, ComputeConfig(dtype=torch.bfloat16), dev,
+        as_uint8=False), frames, True)
+    plain_errs = site_errors("swin_l plain bf16 deformable", plain, ref_sites)
+    del plain
+
+    def gate(path, compute, errs):
+        """(value, limit, what): the f32 tier's worst site error against
+        DEFORM_F32, a bf16 path's worst ratio to the plain bf16 error."""
+        if compute.dtype == torch.float32:
+            return max(errs), DEFORM_F32, "worst site error"
+        return (max(e / p for e, p in zip(errs, plain_errs)), DEFORM_RATIO,
+                "worst site ratio to plain bf16 deformable")
+
+    results = {}
+    for path, (compute, want) in paths.items():
+        infer = pipeline.make_infer_fn(tree, cfg, compute, dev,
+                                       as_uint8=False)
+        mask, _, outs = drive(torch, bmodel, pipeline, reports, infer, frames,
+                              frames2, want, path, sites=True)
+        del infer
+        f32 = compute.dtype == torch.float32 and not compute.int8_mlp
+        limit_mae = MASK_MAE_F32 if f32 else 1e-3
+        mae = float((mask - ref).abs().mean())
+        log(f"phase 4: {path}: mask MAE vs f32 plain deformable pipeline = "
+            f"{mae:.3e} (gate < {limit_mae})")
+        if not mae < limit_mae:
+            fail(f"{path} mask MAE {mae} >= {limit_mae}")
+        value, limit, what = gate(path, compute, site_errors(path, outs,
+                                                             ref_sites))
+        log(f"phase 4: {path}: {what} {value:.3e} (gate <= {limit})")
+        if not value <= limit:
+            fail(f"{path}: {what} {value} > {limit}")
+        results[path] = value
+        del outs
+    for path, (compute, _) in paths.items():
+        regular = compute.with_overrides(deform_mode="regular")
+        fn = pipeline.make_infer_fn(tree, cfg, regular, dev, as_uint8=False)
+        _, _, outs = with_features(bmodel, fn.eager, frames, True)
+        del fn
+        value, limit, what = gate(path, regular, site_errors(
+            f"{path} in regular mode", outs, ref_sites))
+        log(f"phase 4: {path} in regular mode (control): {what} {value:.3e} "
+            f"(must break the gate {limit})")
+        if not value > limit:
+            fail(f"{path}: regular mode passes the deformable gate "
+                 f"({value} <= {limit})")
+        results[f"{path} regular control"] = value
+        del outs
+    return results
 
 
 def int8_gate(path, errs, bf16_path):
@@ -1504,6 +1716,14 @@ def main() -> int:
             f"{m['library_ms']:.4f} ms, plain {m['plain_ms']:.4f} ms, bound "
             f"{m['bound_ms']:.4f} ms ({m['bound_by']}); kernel / SDPA "
             f"{m['ms'] / m['library_ms']:.3f} ({smi})")
+    for name, r in (("D1 deform_im2col bf16", reports["deform_im2col"]),
+                    ("D1 deform_im2col f32", f32r["deform_im2col_f32"])):
+        m = r.by_model()["swin_l"]
+        log(f"phase 3: {name} per Swin-L forward (20 sites): kernel "
+            f"{m['ms']:.4f} ms, plain {m['plain_ms']:.4f} ms, bound "
+            f"{m['bound_ms']:.4f} ms ({m['bound_by']}); "
+            f"{m['bound_ms'] / m['ms']:.3f} of the bound; columns bitwise "
+            f"the plain version's at every shape ({smi})")
     for name, m in (("K1-int8's int8 GEMMs", gemm_sums["swin_l"]),):
         lib = ("n/a" if m["library_ms"] is None
                else f"{m['library_ms']:.4f} ms")
@@ -1517,26 +1737,43 @@ def main() -> int:
     frames_dev = torch.from_numpy(frames).to(dev)
     frames2_dev = torch.from_numpy(np.random.default_rng(43).integers(
         0, 256, size=(BATCH, SIZE, SIZE, 3), dtype=np.uint8)).to(dev)
-    bf16 = ComputeConfig(dtype=torch.bfloat16, use_flash_attention=True)
+    # The paths of earlier slices run regular mode, as bench.py's main path
+    # does; ComputeConfig's default is deformable.
+    bf16 = ComputeConfig(dtype=torch.bfloat16, use_flash_attention=True,
+                         deform_mode="regular")
     int8 = bf16.with_overrides(int8_mlp=True, int8_attn=True)
-    f32_tier = ComputeConfig(use_flash_attention=True)
+    f32_tier = ComputeConfig(use_flash_attention=True, deform_mode="regular")
     f32_int8 = f32_tier.with_overrides(int8_mlp=True, int8_attn=True)
     names = list(reports)
-    # Launches per make_infer_fn call, in the order of `reports`. The f32
-    # tier runs the f32 kernels behind the same wrappers (no tap_conv: the
-    # decoder runs it for bf16 only).
+    # Launches per make_infer_fn call, in the order of `reports` (K1,
+    # K1-int8, K2, K3, row_ln, tap_conv, K6, K7, K8, D1). The f32 tier runs
+    # the f32 kernels behind the same wrappers (no tap_conv: the decoder
+    # runs it for bf16 only); regular mode runs no D1.
     paths = {
-        "swin_l": {"swin_l bf16": (bf16, (48, 0, 48, 0, 16, 1, 0, 0, 0)),
-                   "swin_l int8": (int8, (8, 40, 8, 40, 16, 1, 0, 0, 0)),
-                   "swin_l f32": (f32_tier, (48, 0, 48, 0, 16, 0, 0, 0, 0)),
+        "swin_l": {"swin_l bf16": (bf16, (48, 0, 48, 0, 16, 1, 0, 0, 0, 0)),
+                   "swin_l int8": (int8, (8, 40, 8, 40, 16, 1, 0, 0, 0, 0)),
+                   "swin_l f32": (f32_tier,
+                                  (48, 0, 48, 0, 16, 0, 0, 0, 0, 0)),
                    "swin_l f32 int8": (f32_int8,
-                                       (8, 40, 8, 40, 16, 0, 0, 0, 0))},
-        "swin_t": {"swin_t bf16": (bf16, (0, 0, 24, 0, 16, 1, 24, 0, 0)),
-                   "swin_t int8": (int8, (0, 0, 20, 4, 16, 1, 24, 0, 0)),
-                   "swin_t f32": (f32_tier, (0, 0, 24, 0, 16, 0, 24, 0, 0)),
+                                       (8, 40, 8, 40, 16, 0, 0, 0, 0, 0))},
+        "swin_t": {"swin_t bf16": (bf16, (0, 0, 24, 0, 16, 1, 24, 0, 0, 0)),
+                   "swin_t int8": (int8, (0, 0, 20, 4, 16, 1, 24, 0, 0, 0)),
+                   "swin_t f32": (f32_tier,
+                                  (0, 0, 24, 0, 16, 0, 24, 0, 0, 0)),
                    "swin_t f32 int8": (f32_int8,
-                                       (0, 0, 20, 4, 16, 0, 24, 0, 0))},
+                                       (0, 0, 20, 4, 16, 0, 24, 0, 0, 0))},
     }
+    # Swin-L's deformable paths: the same kernels and D1 at its 20 sites.
+    int8_def = int8.with_overrides(deform_mode="deformable")
+    bf16_def = bf16.with_overrides(deform_mode="deformable")
+    f32_def = f32_tier.with_overrides(deform_mode="deformable")
+    deform_paths = {
+        "swin_l int8 deformable": (int8_def,
+                                   (8, 40, 8, 40, 16, 1, 0, 0, 0, 20)),
+        "swin_l bf16 deformable": (bf16_def,
+                                   (48, 0, 48, 0, 16, 1, 0, 0, 0, 20)),
+        "swin_l f32 deformable": (f32_def,
+                                  (48, 0, 48, 0, 16, 0, 0, 0, 0, 20))}
     cfgs = {"swin_l": BiRefNetConfig.swin_l(),
             "swin_t": BiRefNetConfig.for_backbone("swin_v1_t")}
     flat = {m: random_checkpoint(cfg, 0) for m, cfg in cfgs.items()}
@@ -1546,6 +1783,11 @@ def main() -> int:
     del flat
     tiers = {m: {p: (c, dict(zip(names, w))) for p, (c, w) in ps.items()}
              for m, ps in paths.items()}
+    deform_tiers = {p: (c, dict(zip(names, w)))
+                    for p, (c, w) in deform_paths.items()}
+    if any(len(w) != len(names) for ps in (*paths.values(), deform_paths)
+           for _, w in ps.values()):
+        fail(f"a path's launch counts do not name every kernel of {names}")
 
     # Swin-L: the int8 path against its bf16 tier, and the rolled-scale
     # negative control.
@@ -1603,6 +1845,14 @@ def main() -> int:
     if not bad > FEATURE_RATIO_T:
         fail("the feature gate does not see a rel-pos bias rolled by one head")
     del rolled, feats, ref_feats
+
+    # Swin-L in deformable mode, offset convs scaled: each path's 20 site
+    # outputs against the f32 plain deformable pipeline's, regular mode as
+    # the control.
+    def_tree = scale_offset_convs(params["swin_l"], OFFSET_SCALE)
+    deform_results = drive_deformable(torch, bmodel, pipeline, reports,
+                                      cfgs["swin_l"], def_tree, frames_dev,
+                                      frames2_dev, deform_tiers)
     for r in reports.values():
         r.finish("api" if r in (reports["flash_window_attn_masked"],
                                 reports["flash_window_attn_plain"])
@@ -1623,39 +1873,47 @@ def main() -> int:
                                                golden_cfg), dev)
     xg = (np.random.default_rng(0).normal(size=(1, 64, 64, 3)) * 0.5).astype(
         np.float32)
-    for name, compute in (("plain", ComputeConfig()),
-                          ("kernel tier", f32_tier)):
+    # The golden is the JAX package's deformable forward: regular mode
+    # holds 5e-4 as before, deformable mode the JAX package's own 5e-5.
+    for name, compute, bound in (
+            ("plain", ComputeConfig(deform_mode="regular"), 5e-4),
+            ("kernel tier", f32_tier, 5e-4),
+            ("plain deformable", ComputeConfig(), 5e-5),
+            ("kernel tier deformable", f32_def, 5e-5)):
         with torch.inference_mode(), pipeline.full_f32():
             logits = bmodel.forward_logits(params_golden, golden_cfg,
                                            torch.from_numpy(xg).to(dev),
                                            compute)
         diff = np.abs(logits.cpu().numpy() - np.load(golden))
         log(f"phase 4: f32 {name} 64^2 logits vs JAX golden: max|diff| "
-            f"{diff.max():.3e} (bound 5e-4)")
-        if not diff.max() < 5e-4:
+            f"{diff.max():.3e} (bound {bound})")
+        if not diff.max() < bound:
             fail(f"f32 {name} golden logits differ by {diff.max()}")
     del params_golden
 
     rng = np.random.default_rng(7)
     sizes = [(720, 1280), (1024, 1024), (480, 640), (1500, 900)]
     images = [rng.integers(0, 256, (h, w, 3), dtype=np.uint8) for h, w in sizes]
-    for model, model_tiers in tiers.items():
-        for path, (compute, _) in model_tiers.items():
-            serve_infer = pipeline.make_infer_fn(params[model], cfgs[model],
-                                                 compute, dev,
-                                                 out_size=(SIZE, SIZE))
-            served = serve.segment(serve_infer, images, SIZE, BATCH)
-            got = [m.shape for m in served]
-            log(f"phase 5: {path}: served {len(served)} requests, mask shapes "
-                f"{got}")
-            if got != sizes or any(m.dtype != np.uint8 for m in served):
-                fail(f"{path}: served mask shapes {got} != {sizes}")
-            del serve_infer
+    serve_paths = [(model, path, compute, params[model])
+                   for model, model_tiers in tiers.items()
+                   for path, (compute, _) in model_tiers.items()]
+    serve_paths.append(("swin_l", "swin_l int8 deformable", int8_def,
+                        def_tree))
+    for model, path, compute, tree in serve_paths:
+        serve_infer = pipeline.make_infer_fn(tree, cfgs[model], compute, dev,
+                                             out_size=(SIZE, SIZE))
+        served = serve.segment(serve_infer, images, SIZE, BATCH)
+        got = [m.shape for m in served]
+        log(f"phase 5: {path}: served {len(served)} requests, mask shapes "
+            f"{got}")
+        if got != sizes or any(m.dtype != np.uint8 for m in served):
+            fail(f"{path}: served mask shapes {got} != {sizes}")
+        del serve_infer
 
     # Each tier's function graphed and its eager body, 5 calls each in
     # turns, one function at a time (each graph keeps its own memory pool),
     # the tiers in order and then in reverse.
-    plain_bf16 = ComputeConfig(dtype=torch.bfloat16)
+    plain_bf16 = ComputeConfig(dtype=torch.bfloat16, deform_mode="regular")
     summary = {}
     for model in MODELS:
         tiers6 = {f"{model} int8 path": int8,
@@ -1663,8 +1921,11 @@ def main() -> int:
                   f"{model} plain bf16": plain_bf16}
         if model == "swin_l":
             tiers6.update({f"{model} f32 kernel tier": f32_tier,
-                           f"{model} plain f32": ComputeConfig(),
-                           f"{model} f32 int8 path": f32_int8})
+                           f"{model} plain f32": ComputeConfig(
+                               deform_mode="regular"),
+                           f"{model} f32 int8 path": f32_int8,
+                           f"{model} int8 path deformable": int8_def,
+                           f"{model} f32 kernel tier deformable": f32_def})
         for name in list(tiers6) + list(tiers6)[::-1]:
             fn = pipeline.make_infer_fn(params[model], cfgs[model],
                                         tiers6[name], dev)
@@ -1751,6 +2012,7 @@ def main() -> int:
                  f"{want_groups}")
     del fn
 
+    reports["deform_im2col"].entry["deformable_gates"] = deform_results
     f32_entries = [r.entry for r in f32r.values() if r.main_path is not None]
     print(json.dumps({"kernels": [r.entry for r in reports.values()]
                       + f32_entries}))

@@ -29,8 +29,8 @@ import torch
 from birefnet_tpu_torch import params as pparams
 from birefnet_tpu_torch.models import swin
 from birefnet_tpu_torch.ops import window as W
-from birefnet_tpu_torch.ops.kernels import (bf16_gemm, f32_gemm,
-                                            flash_window_attn,
+from birefnet_tpu_torch.ops.kernels import (bf16_gemm, deform_im2col,
+                                            f32_gemm, flash_window_attn,
                                             fused_block_attn, fused_mlp,
                                             int8_gemm, row_ln, tap_conv)
 
@@ -1123,14 +1123,15 @@ def test_int8_path_refuses_f32_on_the_card(dev):
     params = build_param_tree(random_checkpoint(cfg, 7), cfg)
     frames = np.random.default_rng(4).integers(0, 256, (2, 128, 128, 3),
                                                dtype=np.uint8)
-    want = pipeline.make_infer_fn(params, cfg, ComputeConfig(), dev,
+    want = pipeline.make_infer_fn(params, cfg,
+                                  ComputeConfig(deform_mode="regular"), dev,
                                   as_uint8=False)(frames)
     counters = (fused_block_attn.fused_window_block_attention_int8,
                 fused_mlp.fused_mlp_residual_int8)
     before = [f.launches for f in counters]
     infer = pipeline.make_infer_fn(params, cfg, ComputeConfig(
-        use_flash_attention=True, int8_mlp=True, int8_attn=True), dev,
-        as_uint8=False)
+        use_flash_attention=True, int8_mlp=True, int8_attn=True,
+        deform_mode="regular"), dev, as_uint8=False)
     got = infer(frames)
     assert [f.launches - b for f, b in zip(counters, before)] == [80, 80]
     (captured,) = infer.launches.values()
@@ -1199,7 +1200,8 @@ def test_make_infer_fn_f32_ignores_tf32_flags(dev, monkeypatch):
         return logits[-1]
 
     monkeypatch.setattr(birefnet, "forward_logits", caught)
-    infer = pipeline.make_infer_fn(params, cfg, ComputeConfig(), dev,
+    infer = pipeline.make_infer_fn(params, cfg,
+                                   ComputeConfig(deform_mode="regular"), dev,
                                    as_uint8=False)
     frames = np.random.default_rng(3).integers(0, 256, (2, 128, 128, 3),
                                                dtype=np.uint8)
@@ -1217,14 +1219,15 @@ def test_make_infer_fn_f32_ignores_tf32_flags(dev, monkeypatch):
 # make_infer_fn on the card replays one CUDA graph per input shape
 # (pipeline.GraphedInfer); its `eager` runs the same body uncaptured.
 GRAPH_TIERS = {
-    "bf16 kernel tier": dict(dtype=torch.bfloat16, use_flash_attention=True),
+    "bf16 kernel tier": dict(dtype=torch.bfloat16, use_flash_attention=True,
+                             deform_mode="regular"),
     "int8 path": dict(dtype=torch.bfloat16, use_flash_attention=True,
-                      int8_mlp=True, int8_attn=True),
-    "plain bf16": dict(dtype=torch.bfloat16),
-    "f32 tier": dict(use_flash_attention=True),
+                      int8_mlp=True, int8_attn=True, deform_mode="regular"),
+    "plain bf16": dict(dtype=torch.bfloat16, deform_mode="regular"),
+    "f32 tier": dict(use_flash_attention=True, deform_mode="regular"),
     "f32 int8 path": dict(use_flash_attention=True, int8_mlp=True,
-                          int8_attn=True),
-    "plain f32": dict(),
+                          int8_attn=True, deform_mode="regular"),
+    "plain f32": dict(deform_mode="regular"),
 }
 
 
@@ -1271,8 +1274,9 @@ def _graphed_equals_eager(cfg, params, tier, dev):
     from birefnet_tpu_torch import pipeline
     from birefnet_tpu_torch.configs import ComputeConfig
 
-    infer = pipeline.make_infer_fn(params, cfg,
-                                   ComputeConfig(**GRAPH_TIERS[tier]), dev)
+    tiers = {**GRAPH_TIERS, **DEFORM_GRAPH_TIERS}
+    infer = pipeline.make_infer_fn(params, cfg, ComputeConfig(**tiers[tier]),
+                                   dev)
     assert isinstance(infer, pipeline.GraphedInfer)
     f1, f2 = _frames(1), _frames(2)
     before = _launch_counts()
@@ -1306,6 +1310,7 @@ def test_graphed_infer_equals_eager_swin_t(dev, swin_t_128, tier):
 @pytest.mark.parametrize("tier", ["int8 path", "f32 int8 path"])
 def test_graphed_infer_equals_eager_swin_l(dev, swin_l_128, tier):
     captured = _graphed_equals_eager(*swin_l_128, tier, dev)
+    assert "deform_im2col.deform_im2col" not in captured  # regular mode
     assert captured["fused_block_attn.fused_window_block_attention_int8"] == 40
     assert captured["fused_mlp.fused_mlp_residual_int8"] == 40
 
@@ -1393,3 +1398,86 @@ def test_graphed_infer_is_safe_across_threads(dev, swin_t_128):
         sys.setswitchinterval(switch)
     assert not any(t.is_alive() for t in threads)
     assert bad == []
+
+
+# D1 (csrc/deform_im2col.cu) at the decoder's 12 ASPP site shapes of a
+# 1024^2 batch-2 forward: C = 64 at 32^2 (the squeeze block and
+# decoder_block4), 64^2, 128^2 and 256^2, each with k = 1, 3 and 7; the
+# offsets a few pixels, the masks across (0, 2). The kernel computes the
+# plain version's f32 operations in the same order without FMA
+# contraction: its columns are bitwise the plain version's.
+DEFORM_SITES = [(side, k) for side in (32, 64, 128, 256) for k in (1, 3, 7)]
+
+
+def _deform_case(side, k, dtype, dev, c=64, b=2):
+    gen = torch.Generator(dev).manual_seed(1000 * side + k)
+    x = torch.randn((b, side, side, c), generator=gen, device=dev).to(dtype)
+    offset = torch.randn((b, side, side, 2 * k * k), generator=gen,
+                         device=dev) * 3
+    mask = (2 * torch.rand((b, side, side, k * k), generator=gen,
+                           device=dev)).to(dtype)
+    return x, offset, mask
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("side,k", DEFORM_SITES)
+def test_deform_im2col_kernel_matches_plain_bitwise(dev, side, k, dtype):
+    x, offset, mask = _deform_case(side, k, dtype, dev)
+    before = deform_im2col.deform_im2col.launches
+    got = deform_im2col.deform_im2col(x, offset, mask, k, k, 1, k // 2)
+    assert deform_im2col.deform_im2col.launches == before + 1
+    want = deform_im2col.deform_im2col_plain(x, offset, mask, k, k, 1, k // 2)
+    assert got.shape == (2 * side * side, k * k * 64) and got.dtype == dtype
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("c,stride", [(64, 2), (6, 1), (5, 2)])
+def test_deform_im2col_kernel_takes_views_strides_and_odd_widths(dev, c,
+                                                                 stride,
+                                                                 dtype):
+    """A permuted (non-contiguous) input, stride 2, and widths that take
+    the scalar path (C not a multiple of the 16-byte vector): still
+    bitwise the plain version."""
+    k, pad = 3, 1
+    x, _, _ = _deform_case(19, k, dtype, dev, c=c)
+    x = x.permute(0, 2, 1, 3)  # a view with other strides
+    oh = (19 + 2 * pad - k) // stride + 1
+    gen = torch.Generator(dev).manual_seed(c)
+    offset = torch.randn((2, oh, oh, 2 * k * k), generator=gen,
+                         device=dev) * 3
+    mask = (2 * torch.rand((2, oh, oh, k * k), generator=gen,
+                           device=dev)).to(dtype)
+    got = deform_im2col.deform_im2col(x, offset, mask, k, k, stride, pad)
+    want = deform_im2col.deform_im2col_plain(x, offset, mask, k, k, stride,
+                                             pad)
+    assert torch.equal(got, want)
+
+
+def test_deform_im2col_refuses_other_dtypes(dev):
+    x, offset, mask = _deform_case(32, 3, torch.float16, dev)
+    with pytest.raises(TypeError, match="bf16 or f32"):
+        deform_im2col.deform_im2col(x, offset, mask, 3, 3, 1, 1)
+    x, offset, mask = _deform_case(32, 3, torch.bfloat16, dev)
+    with pytest.raises(TypeError, match="mask in x's dtype"):
+        deform_im2col.deform_im2col(x, offset, mask.float(), 3, 3, 1, 1)
+
+
+DEFORM_GRAPH_TIERS = {
+    "int8 path deformable": dict(dtype=torch.bfloat16,
+                                 use_flash_attention=True, int8_mlp=True,
+                                 int8_attn=True, deform_mode="deformable"),
+    "bf16 kernel tier deformable": dict(dtype=torch.bfloat16,
+                                        use_flash_attention=True,
+                                        deform_mode="deformable"),
+    "f32 tier deformable": dict(use_flash_attention=True,
+                                deform_mode="deformable"),
+}
+
+
+@pytest.mark.parametrize("tier", list(DEFORM_GRAPH_TIERS))
+def test_graphed_deformable_infer_equals_eager(dev, swin_l_128, tier):
+    """The deformable paths of Swin-L: graphed masks bitwise the eager
+    body's, D1 launched once per ASPP site (20) in the capture."""
+    captured = _graphed_equals_eager(*swin_l_128, tier, dev)
+    assert captured["deform_im2col.deform_im2col"] == 20

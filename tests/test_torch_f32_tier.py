@@ -284,8 +284,8 @@ def test_infer_turns_tf32_off_for_f32_only(tiny_t, tf32_flags, monkeypatch,
         return forward(*args, **kw)
 
     monkeypatch.setattr(birefnet, "forward_logits", recording)
-    infer = pipeline.make_infer_fn(params, cfg, ComputeConfig(dtype=dtype),
-                                   "cpu")
+    infer = pipeline.make_infer_fn(
+        params, cfg, ComputeConfig(dtype=dtype, deform_mode="regular"), "cpu")
     masks = infer(np.zeros((1, 64, 64, 3), np.uint8))
     assert masks.shape == (1, 64, 64)
     assert seen == [(False, False) if dtype == torch.float32 else (True, True)]

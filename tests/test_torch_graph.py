@@ -23,11 +23,15 @@ from birefnet_tpu_torch.ops import window as W
 from birefnet_tpu_torch.params import build_param_tree, random_checkpoint
 
 TIERS = {
-    "plain bf16": ComputeConfig(dtype=torch.bfloat16),
+    "plain bf16": ComputeConfig(dtype=torch.bfloat16, deform_mode="regular"),
     "kernel tier int8": ComputeConfig(dtype=torch.bfloat16,
                                       use_flash_attention=True,
-                                      int8_mlp=True, int8_attn=True),
-    "f32 tier": ComputeConfig(use_flash_attention=True),
+                                      int8_mlp=True, int8_attn=True,
+                                      deform_mode="regular"),
+    "f32 tier": ComputeConfig(use_flash_attention=True, deform_mode="regular"),
+    "kernel tier int8 deformable": ComputeConfig(
+        dtype=torch.bfloat16, use_flash_attention=True, int8_mlp=True,
+        int8_attn=True, deform_mode="deformable"),
 }
 
 

@@ -2,7 +2,8 @@
 
 Every .py file of birefnet_tpu_torch/, chip_smoke.py and the tools that
 run on the GPU machine (gpu_profile.py, k3_phases.py, core_f32_time.py,
-tf32_check.py and tap_conv_phases.py; that machine has no JAX) is parsed
+tf32_check.py, tap_conv_phases.py and deform_im2col_time.py; that machine
+has no JAX) is parsed
 with `ast`; an import of `jax`, `birefnet_tpu` (not `birefnet_tpu_torch`),
 `tests` or `triton` fails, wherever it stands: at the top of a module,
 inside a function (a lazy import in a launcher counts), or as a constant
@@ -25,7 +26,8 @@ FILES = sorted(
      os.path.join("tools", "k3_phases.py"),
      os.path.join("tools", "core_f32_time.py"),
      os.path.join("tools", "tf32_check.py"),
-     os.path.join("tools", "tap_conv_phases.py")]
+     os.path.join("tools", "tap_conv_phases.py"),
+     os.path.join("tools", "deform_im2col_time.py")]
 BANNED = ("jax", "birefnet_tpu", "tests", "triton")
 
 

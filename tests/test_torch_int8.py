@@ -360,7 +360,8 @@ def test_make_infer_fn_int8_matches_jax(interpret_reciprocal, monkeypatch):
     ptree = pt.build_param_tree(flat, pcfg)
     got = ppipeline.make_infer_fn(
         ptree, pcfg, pt.ComputeConfig(use_flash_attention=True, int8_mlp=True,
-                                      int8_attn=True), "cpu",
+                                      int8_attn=True, deform_mode="regular"),
+        "cpu",
         as_uint8=False)(frames)
     assert calls == {"mlp": 40, "attn": 40}
     assert got.shape == want.shape == (2, 128, 128)
@@ -437,7 +438,8 @@ def test_make_infer_fn_swin_t_matches_jax(interpret_reciprocal, monkeypatch):
     ptree = pt.build_param_tree(flat, pcfg)
     got = ppipeline.make_infer_fn(
         ptree, pcfg, pt.ComputeConfig(use_flash_attention=True, int8_mlp=True,
-                                      int8_attn=True), "cpu",
+                                      int8_attn=True, deform_mode="regular"),
+        "cpu",
         as_uint8=False)(frames)
     assert calls == {"k6": 24, "k2": 20, "k3": 4}
     assert got.shape == want.shape == (2, 128, 128)

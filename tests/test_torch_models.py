@@ -149,7 +149,7 @@ def test_aspp_regular_matches_jax(squeeze_block):
     want = jaspp.aspp_deformable_forward(
         jp["dec_att"], jnp.asarray(x), bt.ComputeConfig(deform_mode="regular"))
     got = paspp.aspp_deformable_forward(tp["dec_att"], torch.from_numpy(x),
-                                        pt.ComputeConfig())
+                                        pt.ComputeConfig(deform_mode="regular"))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
                                rtol=1e-3)
 
@@ -161,7 +161,7 @@ def test_basic_dec_blk_matches_jax(squeeze_block):
     want = jdec.basic_dec_blk_forward(jp, jnp.asarray(x),
                                       bt.ComputeConfig(deform_mode="regular"))
     got = pdec.basic_dec_blk_forward(tp, torch.from_numpy(x),
-                                     pt.ComputeConfig())
+                                     pt.ComputeConfig(deform_mode="regular"))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
                                rtol=1e-3)
 

@@ -82,16 +82,31 @@ def test_strict_loader_reports_schema_errors(flat):
         pt.build_param_tree(missing, PCFG)
 
 
-# The deformable modes stay refused on every tier and dtype, int8 or not.
+# deformable-local (the TPU's offset-clamped sampler) stays refused on
+# every tier and dtype, int8 or not, with its reason.
+@pytest.mark.parametrize("kw", [
+    {"deform_mode": "deformable-local", "dtype": torch.bfloat16,
+     "use_flash_attention": True},
+    {"deform_mode": "deformable-local", "int8_mlp": True, "int8_attn": True}])
+def test_unported_compute_options_raise(kw):
+    with pytest.raises(NotImplementedError, match="gather floor.*ROADMAP"):
+        pt.ComputeConfig(**kw)
+
+
+# deformable is accepted on every tier and dtype and is the default, as in
+# the JAX package; regular stays.
 @pytest.mark.parametrize("kw", [
     {"deform_mode": "deformable", "dtype": torch.bfloat16,
      "use_flash_attention": True},
-    {"deform_mode": "deformable-local", "int8_mlp": True, "int8_attn": True},
-    {"deform_mode": "deformable"},
-    {"deform_mode": "deformable-local"}])
-def test_unported_compute_options_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt.ComputeConfig(**kw)
+    {"deform_mode": "deformable"}, {"deform_mode": "regular"}])
+def test_deform_modes_construct(kw):
+    assert pt.ComputeConfig(**kw).deform_mode == kw["deform_mode"]
+
+
+def test_default_deform_mode_matches_jax():
+    import birefnet_tpu as bt
+    assert pt.ComputeConfig().deform_mode == bt.ComputeConfig().deform_mode \
+        == "deformable"
 
 
 @pytest.mark.parametrize("kw", [{"int8_mlp": True}, {"int8_attn": True},

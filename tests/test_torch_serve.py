@@ -3,8 +3,8 @@ host-resize bindings against the JAX package's.
 
 serve.main decodes three PNGs of different sizes, runs them through the
 pipeline at a tiny model size (64x64, f32, CPU, the swin_v1_t backbone to
-keep the checkpoint small) in batches of 2 and writes one mask per image
-at the image's own size.
+keep the checkpoint small; the default deform mode, deformable) in
+batches of 2 and writes one mask per image at the image's own size.
 """
 
 import os
@@ -48,12 +48,42 @@ def test_serve_main_writes_masks_at_image_sizes(tmp_path, ckpt_path):
 
 
 @pytest.mark.parametrize("flag", [["--dp", "2"], ["--spatial", "2"],
-                                  ["--deform-mode", "deformable"],
+                                  ["--deform-mode", "deformable-local"],
+                                  ["--deform-mode", "auto"],
                                   ["--aot-dir", "x"]])
 def test_serve_refuses_unported_flags(tmp_path, flag):
     with pytest.raises(SystemExit) as exc:
         serve.main([str(tmp_path), "--checkpoint", "unused"] + flag)
     assert exc.value.code == 2
+
+
+@pytest.mark.parametrize("argv,want", [([], "deformable"),
+                                       (["--deform-mode", "deformable"],
+                                        "deformable"),
+                                       (["--deform-mode", "regular"],
+                                        "regular")])
+def test_serve_main_passes_the_deform_mode(tmp_path, monkeypatch, argv, want):
+    """--deform-mode defaults to deformable, as in the JAX serve, and
+    reaches make_infer_fn's compute policy (here on the CPU)."""
+    import torch
+    from birefnet_tpu_torch import params as P
+    from birefnet_tpu_torch import pipeline
+
+    seen = []
+
+    def fake_make_infer_fn(params, cfg, compute, device, out_size):
+        seen.append((compute.deform_mode, torch.device(device).type))
+        return lambda frames: torch.zeros(tuple(frames.shape[:3]),
+                                          dtype=torch.uint8)
+
+    monkeypatch.setattr(pipeline, "make_infer_fn", fake_make_infer_fn)
+    monkeypatch.setattr(P, "load_checkpoint", lambda path, cfg: {})
+    Image.fromarray(np.zeros((40, 30, 3), np.uint8), "RGB").save(
+        tmp_path / "a.png")
+    rc = serve.main([str(tmp_path / "a.png"), "--out", str(tmp_path / "m"),
+                     "--checkpoint", "unused", "--size", "64", "--cpu"]
+                    + argv)
+    assert rc == 0 and seen == [(want, "cpu")]
 
 
 def test_serve_without_gpu_or_cpu_flag_exits(tmp_path, monkeypatch, capsys):

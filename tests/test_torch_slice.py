@@ -2,11 +2,15 @@
 
 tests/goldens/*_jax.npy hold the JAX package's per-stage features and
 logits for random_checkpoint(swin_l, seed 7) on a 64x64 input made from
-seed 0 (tests/test_goldens.py). The port runs the same checkpoint and
-input in f32 with the kernel tier on, so every kernel wrapper's dispatch
-runs and takes its plain version (CPU tensors), and with it off.
-Tolerances: stages atol 1e-4 / rtol 1e-3; logits atol 5e-4 / rtol 1e-3
-and mask MAE < 1e-5 (the f32 parity bar of PARITY.md).
+seed 0 (tests/test_goldens.py), the logits in the JAX package's default
+deform mode, deformable. The port runs the same checkpoint and input in
+f32 with the kernel tier on, so every kernel wrapper's dispatch runs and
+takes its plain version (CPU tensors), and with it off; the logits in
+deformable mode too. Tolerances: stages atol 1e-4 / rtol 1e-3; logits
+atol 5e-5 / rtol 1e-4, the JAX package's own golden bound (the port read
+max|diff| 7.5e-8 in deformable mode; regular mode reads 3.8e-6, within
+it too: the random offset convs give sub-pixel offsets at 64^2), and mask
+MAE < 1e-5 (the f32 parity bar of PARITY.md).
 """
 
 import os
@@ -59,11 +63,12 @@ def test_logits_and_mask_match_golden(params, x, kernel_tier):
     with torch.inference_mode():
         logits = bmodel.forward_logits(
             params, CFG, x,
-            pt.ComputeConfig(use_flash_attention=kernel_tier)).numpy()
+            pt.ComputeConfig(use_flash_attention=kernel_tier,
+                             deform_mode="deformable")).numpy()
     assert [f.launches for f in WRAPPERS] == before  # CPU: plain versions
     want = np.load(os.path.join(GOLDEN_DIR, "logits_jax.npy"))
     assert logits.shape == want.shape == (1, 64, 64, 1)
-    np.testing.assert_allclose(logits, want, atol=5e-4, rtol=1e-3)
+    np.testing.assert_allclose(logits, want, atol=5e-5, rtol=1e-4)
     mae = np.abs(1 / (1 + np.exp(-logits)) - 1 / (1 + np.exp(-want))).mean()
     assert mae < 1e-5
 
@@ -74,7 +79,7 @@ def test_infer_fn_uint8_to_mask(params):
     cfg = pt.BiRefNetConfig(size=(64, 64))
     frames = np.random.default_rng(1).integers(0, 256, (2, 96, 80, 3),
                                                dtype=np.uint8)
-    compute = pt.ComputeConfig(use_flash_attention=True)
+    compute = pt.ComputeConfig(use_flash_attention=True, deform_mode="regular")
     infer = pipeline.make_infer_fn(params, cfg, compute, "cpu",
                                    as_uint8=False)
     got = infer(frames)

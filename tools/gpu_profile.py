@@ -2,11 +2,13 @@
 """Where the device time goes in one pipeline call of the PyTorch port.
 
     python3 tools/gpu_profile.py [--backbone swin_v1_l] [--tiers int8,bf16,plain]
-                                 [--top 20]
+                                 [--deform-mode regular] [--top 20]
 
 For each tier, builds pipeline.make_infer_fn for the backbone (Swin-L by
 default; swin_v1_t runs the ws=7 middle tier) at 1024^2, batch 2,
-regular deform mode, random_checkpoint(cfg, 0) (the chip_smoke.py paths:
+in --deform-mode (regular by default, the main path's mode; deformable
+runs D1 at the decoder's 20 ASPP sites), random_checkpoint(cfg, 0) (the
+chip_smoke.py paths:
 "int8" = bf16 kernel tier with int8_mlp and int8_attn, "bf16" = bf16
 kernel tier, "plain" = bf16 without kernels, "f32" = the f32 kernel tier,
 "f32_int8" = the f32 kernel tier with both int8 flags, "plain_f32" = f32
@@ -36,6 +38,12 @@ device time and TOP/s, beside torch._int_mm's two products.
 Last, the bf16 GEMM of K1 and K2 (csrc/bf16_gemm.cu) alone at the bf16
 tier's shapes (32 for Swin-L, 16 for swin_t), with the same two times and
 TFLOP/s, beside F.linear's on the same bf16 operands.
+With --deform-mode deformable, last, the deformable sites alone: per site
+shape of the forward (C = 64 at 32^2 to 256^2, k = 1, 3, 7) in bf16, the
+device time per call of the offset conv, the modulator conv and its
+2*sigmoid, D1 (csrc/deform_im2col.cu), the contraction of the columns
+(one torch.matmul), and the regular conv that regular mode runs instead,
+with their sums per forward (20 sites).
 Needs one CUDA device; exits 1 without one.
 """
 
@@ -65,6 +73,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # core window_core_f32_kernel<F32CanvasRows | F32StridedRows, ...>
 # (csrc/window_core_f32.cuh) and row_ln_kernel<float, caller>.
 GROUPS = [
+    ("D1 deform_im2col", ("deform_im2col_kernel",)),
     ("K1 f32 attention core", ("F32CanvasRows",)),
     ("K6 f32 window attention", ("F32StridedRows",)),
     ("K1 f32 GEMM (qkv)", ("f32_gemm_kernel<0>",)),
@@ -448,12 +457,75 @@ def tap_conv_table(torch, smi, reps=20):
     return k_ev, k_dev
 
 
+def deform_table(torch, smi, reps=20):
+    """The deformable sites alone in bf16: per (side, k) of a 1024^2
+    batch-2 forward, the device time per call of each piece a deformable
+    site runs (offset conv; modulator conv and 2*sigmoid; D1; the
+    contraction) and of the regular conv, and their sums per forward."""
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    from birefnet_tpu_torch.ops import layers as L
+    from birefnet_tpu_torch.ops.kernels import deform_im2col
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    gen = torch.Generator("cuda").manual_seed(0)
+    bf = torch.bfloat16
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    names = ("offset conv", "modulator conv + 2 sigmoid", "D1 deform_im2col",
+             "contraction (torch.matmul)", "regular conv")
+    total = dict.fromkeys(names, 0.0)
+    print(f"[profile] deformable sites, bf16, device ms per call: "
+          f"{', '.join(names)} ({smi})", flush=True)
+    for side in (32, 64, 128, 256):
+        for k in (1, 3, 7):
+            calls = (2 if k == 1 else 1) * (2 if side == 32 else 1)
+            kk, pad = k * k, k // 2
+            x = randn(2, side, side, 64).to(bf)
+            off_p = {"weight": randn(2 * kk, 64, k, k, scale=0.05).to(bf),
+                     "bias": randn(2 * kk)}
+            mod_p = {"weight": randn(kk, 64, k, k, scale=0.05).to(bf),
+                     "bias": randn(kk)}
+            reg = {"weight": randn(256, 64, k, k, scale=0.05).to(bf)}
+            offset = randn(2, side, side, 2 * kk, scale=3.0)
+            mask = (2 * torch.rand((2, side, side, kk), generator=gen,
+                                   device="cuda")).to(bf)
+            cols = deform_im2col.deform_im2col(x, offset, mask, k, k, 1, pad)
+            w_kc = reg["weight"].permute(2, 3, 1, 0).reshape(kk * 64, 256)
+            fns = {
+                "offset conv": lambda: L.conv2d(off_p, x, padding=pad).float(),
+                "modulator conv + 2 sigmoid": lambda: (2.0 * torch.sigmoid(
+                    L.conv2d(mod_p, x, padding=pad).float())).to(bf),
+                "D1 deform_im2col": lambda: deform_im2col.deform_im2col(
+                    x, offset, mask, k, k, 1, pad),
+                "contraction (torch.matmul)": lambda: torch.matmul(cols, w_kc),
+                "regular conv": lambda: L.conv2d(reg, x, padding=pad),
+            }
+            row = {n: device_ms_per_call(torch, profile, acts, fns[n], reps,
+                                         lambda name: True) for n in names}
+            for n in names:
+                total[n] += calls * row[n]
+            print(f"[profile] deform [2,{side},{side},64] k={k} x{calls}: "
+                  + "  ".join(f"{row[n]:.4f}" for n in names), flush=True)
+    print(f"[profile] deformable sites per forward (20), ms: "
+          + ", ".join(f"{n} {total[n]:.4f}" for n in names)
+          + f"; a deformable site minus a regular one: "
+          f"{sum(total[n] for n in names[:4]) - total['regular conv']:.4f} "
+          f"({smi})", flush=True)
+    return total
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--backbone", default="swin_v1_l",
                         choices=("swin_v1_t", "swin_v1_s", "swin_v1_b",
                                  "swin_v1_l"))
     parser.add_argument("--tiers", default="int8,bf16")
+    parser.add_argument("--deform-mode", default="regular",
+                        choices=("regular", "deformable"))
     parser.add_argument("--top", type=int, default=20)
     args = parser.parse_args()
 
@@ -486,6 +558,9 @@ def main() -> int:
              "f32_int8": ComputeConfig(use_flash_attention=True,
                                        int8_mlp=True, int8_attn=True),
              "plain_f32": ComputeConfig()}
+    tiers = {name: c.with_overrides(deform_mode=args.deform_mode)
+             for name, c in tiers.items()}
+    print(f"[profile] deform mode {args.deform_mode}", flush=True)
     for tier in args.tiers.split(","):
         infer = pipeline.make_infer_fn(params, cfg, tiers[tier], dev)
         profile_call(torch, infer, frames, f"{tier} graphed", smi, args.top)
@@ -498,6 +573,8 @@ def main() -> int:
         gemm_table(torch, cfg, smi, "int8")
     k3_table(torch, cfg, smi)
     gemm_table(torch, cfg, smi, "bf16")
+    if args.deform_mode == "deformable":
+        deform_table(torch, smi)
     return 0
 
 

@@ -6,7 +6,7 @@ caller has set?
 
 ROOT is a checkout of this repository (default: the one holding this file),
 whose package is imported. Builds the f32 plain pipeline
-(`ComputeConfig()`) of Swin-L at 128^2 from random_checkpoint(cfg, 7), runs
+(`ComputeConfig(deform_mode="regular")`) of Swin-L at 128^2 from random_checkpoint(cfg, 7), runs
 one batch of 2 random uint8 frames with both of PyTorch's TF32 flags off,
 then with PyTorch's defaults (cuDNN's flag on, the matmul flag off), and
 prints whether the masks and the logits are bitwise equal and the largest
@@ -43,8 +43,9 @@ def main() -> int:
         return logits[-1]
 
     birefnet.forward_logits = caught
-    infer = pipeline.make_infer_fn(params, cfg, ComputeConfig(), "cuda",
-                                   as_uint8=False)
+    infer = pipeline.make_infer_fn(params, cfg,
+                                   ComputeConfig(deform_mode="regular"),
+                                   "cuda", as_uint8=False)
     frames = np.random.default_rng(3).integers(0, 256, (2, 128, 128, 3),
                                                dtype=np.uint8)
     torch.backends.cuda.matmul.allow_tf32 = False
