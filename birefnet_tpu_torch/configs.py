@@ -176,6 +176,16 @@ class ComputeConfig:
     conv (the reference's CPU semantics, which the mask-MAE gate compares
     against). "deformable-local", the JAX package's offset-clamped sampler
     that exists for the TPU's gather floor, is not ported.
+
+    `differentiable` (set by train.validate_train_compute) keeps every
+    forward formulation differentiable: the decoder's head stays off the
+    forward-only tap-conv kernel (birefnet_tpu/models/decoder.py:194-204).
+    `remat_blocks` recomputes each Swin block's activations in the backward
+    instead of saving them (torch.utils.checkpoint around the block;
+    training only, no effect on a forward without grad). The JAX package's
+    `unroll_deep_stage` and `deep_stage_scan_unroll` are not ported: they
+    tune the TPU's lax.scan over block pairs, and the port runs its blocks
+    in a Python loop.
     """
 
     dtype: torch.dtype = torch.float32
@@ -183,6 +193,8 @@ class ComputeConfig:
     deform_mode: str = "deformable"
     int8_mlp: bool = False
     int8_attn: bool = False
+    differentiable: bool = False
+    remat_blocks: bool = False
 
     def __post_init__(self):
         if self.deform_mode not in ("deformable", "regular",

@@ -6,7 +6,8 @@ folded final head. The head folds as in the JAX package: the 1x1 conv_out1
 is absorbed into decoder_block1's conv_out/bn_out (the p1 branch) and into
 ipt_blk1's conv pair, which is composed into one 5x5 conv from the image
 with an exact recompute of the outermost output ring. On the kernel tier,
-a bf16 CUDA image runs that 5x5 conv through the tap-conv kernel.
+a bf16 CUDA image runs that 5x5 conv through the tap-conv kernel, unless
+`compute.differentiable` is set.
 """
 
 from __future__ import annotations
@@ -67,6 +68,15 @@ def image2patches(x: torch.Tensor, target_h: int, target_w: int) -> torch.Tensor
     return x.reshape(b, target_h, target_w, c * gh * gw)
 
 
+def use_tap_conv(dtype: torch.dtype, device, compute: ComputeConfig) -> bool:
+    """Whether the composed 5x5 head runs the tap-conv kernel: a bf16 CUDA
+    image on the kernel tier, unless `compute.differentiable` asks for a
+    differentiable forward (the kernel computes no gradient), as in
+    birefnet_tpu/models/decoder.py:194-204."""
+    return (dtype == torch.bfloat16 and torch.device(device).type == "cuda"
+            and compute.use_flash_attention and not compute.differentiable)
+
+
 def _composed_pair_conv(pa, pb, x: torch.Tensor,
                         compute: ComputeConfig) -> torch.Tensor:
     """conv3x3_B(conv3x3_A(x)) with a single output channel, as ONE composed
@@ -90,8 +100,7 @@ def _composed_pair_conv(pa, pb, x: torch.Tensor,
         bb = pb["bias"].float()
         b_comp = bb if b_comp is None else b_comp + bb
 
-    if (x.dtype == torch.bfloat16 and x.device.type == "cuda"
-            and compute.use_flash_attention):
+    if use_tap_conv(x.dtype, x.device, compute):
         out = tap_conv_same(x.contiguous(), k_comp, b_comp)
     else:
         comp = {"weight": k_comp.permute(3, 2, 0, 1)}

@@ -19,6 +19,10 @@ int8 kernels through the same fused wrappers, which dispatch on them; the
 unfused path and the middle tier's qkv and proj products read only the
 `weight` leaves, as the JAX package's L.linear reads only `kernel`, so
 int8_attn changes nothing at ws=7.
+
+`compute.remat_blocks` runs each block under torch.utils.checkpoint when
+autograd records the forward (the JAX package checkpoints block pairs in
+its scan, single blocks elsewhere; the port checkpoints every block).
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from typing import List, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..configs import ComputeConfig, SwinConfig
 from ..ops import attention as attn_ops
@@ -165,9 +170,14 @@ def basic_layer_forward(params, x: torch.Tensor, depth: int, num_heads: int,
     else:
         attn_mask = W.sw_msa_mask(hp, wp, window_size, shift_size, x.device)
     for j in range(depth):
-        x = swin_block_forward(params[f"blocks_{j}"], x, window_size,
-                               0 if j % 2 == 0 else shift_size, num_heads,
-                               attn_mask, compute)
+        args = (params[f"blocks_{j}"], x, window_size,
+                0 if j % 2 == 0 else shift_size, num_heads, attn_mask, compute)
+        if compute.remat_blocks and torch.is_grad_enabled():
+            # Gradient checkpointing (birefnet_tpu/models/swin.py:262-292):
+            # the backward recomputes the block from its input.
+            x = checkpoint(swin_block_forward, *args, use_reentrant=False)
+        else:
+            x = swin_block_forward(*args)
     x_down = (patch_merging_forward(params["downsample"], x, compute)
               if downsample else x)
     return x, x_down

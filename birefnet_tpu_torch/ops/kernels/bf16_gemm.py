@@ -64,6 +64,7 @@ def bf16_gemm(a: torch.Tensor, params, epilogue: str,
         return bf16_gemm_plain(a, params, epilogue, res)
     if a.device.type != "cuda":
         raise ValueError(f"bf16_gemm runs on cpu or cuda, got {a.device}")
+    build.refuse_grad("bf16_gemm", a, params, res)
     m, k = a.shape
     n = params["weight"].shape[0]
     if n % 8 or k % 8:
@@ -110,6 +111,7 @@ def ln_rows(x: torch.Tensor, ln,
         return ln_rows_plain(x, ln, canvas)
     if x.device.type != "cuda":
         raise ValueError(f"ln_rows runs on cpu or cuda, got {x.device}")
+    build.refuse_grad("ln_rows", x, ln)
     if x.ndim != 2 or x.dtype != torch.bfloat16:
         raise ValueError(f"ln_rows takes bf16 [T, C], got {x.dtype} "
                          f"{tuple(x.shape)}")

@@ -163,6 +163,33 @@ def check_tensor(name, t, dtype, shape, device) -> None:
                          f"{tuple(t.shape)} on {t.device}")
 
 
+def _tensors(obj):
+    """Every tensor in obj: a tensor, or dicts, lists and tuples of them."""
+    if isinstance(obj, torch.Tensor):
+        yield obj
+    elif isinstance(obj, dict):
+        for v in obj.values():
+            yield from _tensors(v)
+    elif isinstance(obj, (list, tuple)):
+        for v in obj:
+            yield from _tensors(v)
+
+
+def refuse_grad(name: str, *inputs) -> None:
+    """Raise if grad mode is on and any tensor among `inputs` (tensors, or
+    parameter dicts and lists of them) requires grad. The kernels compute
+    forward values only: their outputs have no grad_fn, so an autograd
+    graph through them would end there and leave everything upstream
+    without a gradient. Training runs the plain PyTorch versions
+    (train.validate_train_compute), or a kernel with its own backward."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in _tensors(inputs)):
+        raise RuntimeError(
+            f"CUDA kernel {name} computes no gradient, and an input requires "
+            f"grad: run it under torch.no_grad() or torch.inference_mode(), "
+            f"or train without the kernel flags (train.validate_train_compute)")
+
+
 def check(code: int, name: str) -> None:
     if code != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "

@@ -18,7 +18,11 @@ forward.
 `deform_im2col` takes the plain version for a CPU tensor and launches the
 kernel for a CUDA tensor, or raises; it never falls back. The kernel
 computes the plain version's f32 operations in the same order without FMA
-contraction, so the two give bitwise the same columns.
+contraction, so the two give bitwise the same columns. It computes no
+gradient: on a CUDA tensor with grad enabled it refuses inputs that
+require grad. `deform_col2im` is D1b, D1's backward
+(csrc/deform_col2im.cu, f32): ops/deform_conv.py pairs the two in a
+torch.autograd.Function.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import build
 
@@ -53,7 +58,8 @@ def deform_im2col_plain(x: torch.Tensor, offset: torch.Tensor,
     unless -1 < ys < H and -1 < xs < W, each corner also outside the image;
     corner weight ((wy * wx) * valid) * mask rounded to x.dtype; the corner
     sum ((q00 + q01) + q10) + q11 of f32 products, rounded to x.dtype. The
-    gather runs over blocks of positions under a byte budget."""
+    gather runs over blocks of positions under a byte budget; where autograd
+    records it, each block runs under torch.utils.checkpoint."""
     b, h, w, c = x.shape
     k = kh * kw
     oh, ow = output_size(h, w, kh, kw, stride, padding, dilation)
@@ -72,11 +78,7 @@ def deform_im2col_plain(x: torch.Tensor, offset: torch.Tensor,
     x_rows = x.reshape(b * h * w, c)
     b_base = (torch.arange(b, device=dev) * (h * w)).view(b, 1, 1)
 
-    cols = torch.empty((b, p, k * c), dtype=x.dtype, device=dev)
-    pb = max(1, min(p, _IM2COL_BUDGET // max(1, b * k * c * 4)))
-    for p0 in range(0, p, pb):
-        sl = slice(p0, min(p, p0 + pb))
-        yy, xx, m = ys[:, sl], xs[:, sl], m_all[:, sl]
+    def block(x_rows, yy, xx, m):
         valid = (yy > -1) & (yy < h) & (xx > -1) & (xx < w)
         y0f, x0f = torch.floor(yy), torch.floor(xx)
         ly, lx = yy - y0f, xx - x0f
@@ -93,7 +95,22 @@ def deform_im2col_plain(x: torch.Tensor, offset: torch.Tensor,
             idx = b_base + cy.clamp(0, h - 1) * w + cx.clamp(0, w - 1)
             term = x_rows[idx.reshape(-1)].float().reshape(*idx.shape, c) * wt[..., None]
             acc = term if acc is None else acc + term
-        cols[:, sl] = acc.to(x.dtype).reshape(b, -1, k * c)
+        return acc.to(x.dtype).reshape(b, -1, k * c)
+
+    pb = max(1, min(p, _IM2COL_BUDGET // max(1, b * k * c * 4)))
+    blocks = [slice(p0, min(p, p0 + pb)) for p0 in range(0, p, pb)]
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, offset, mask)):
+        # Differentiated: each block is recomputed in the backward instead
+        # of saving its gathered corners (the JAX package's scan over
+        # jax.checkpoint, birefnet_tpu/ops/deform_conv.py:149-155).
+        cols = torch.cat([checkpoint(block, x_rows, ys[:, sl], xs[:, sl],
+                                     m_all[:, sl], use_reentrant=False)
+                          for sl in blocks], dim=1)
+    else:
+        cols = torch.empty((b, p, k * c), dtype=x.dtype, device=dev)
+        for sl in blocks:
+            cols[:, sl] = block(x_rows, ys[:, sl], xs[:, sl], m_all[:, sl])
     return cols.reshape(b * p, k * c)
 
 
@@ -115,6 +132,8 @@ def deform_im2col(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
     if mask.dtype is not x.dtype:
         raise TypeError(f"deform_im2col kernel takes the mask in x's dtype "
                         f"{x.dtype}, got {mask.dtype}")
+    build.refuse_grad("deform_im2col (differentiate through "
+                      "ops/deform_conv.py::im2col)", x, offset, mask)
     b, h, w, c = x.shape
     oh, ow = output_size(h, w, kh, kw, stride, padding, dilation)
     k = kh * kw
@@ -137,3 +156,62 @@ def deform_im2col(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
 
 
 deform_im2col.launches = 0
+
+
+def deform_col2im_plain(grad_cols: torch.Tensor, x: torch.Tensor,
+                        offset: torch.Tensor, mask: torch.Tensor, kh: int,
+                        kw: int, stride: int = 1, padding: int = 0,
+                        dilation: int = 1):
+    """Plain version of D1b: autograd through `deform_im2col_plain`.
+    Returns (grad_x, grad_offset, grad_mask) in the dtypes of x, offset
+    and mask."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (x, offset, mask)]
+        cols = deform_im2col_plain(*leaves, kh, kw, stride, padding, dilation)
+        return torch.autograd.grad(cols, leaves, grad_cols)
+
+
+def deform_col2im(grad_cols: torch.Tensor, x: torch.Tensor,
+                  offset: torch.Tensor, mask: torch.Tensor, kh: int, kw: int,
+                  stride: int = 1, padding: int = 0, dilation: int = 1):
+    """D1b, the backward of `deform_im2col`: given the gradient of the
+    columns [B*OH*OW, K*C], the gradients (grad_x [B, H, W, C], grad_offset
+    [B, OH, OW, 2K], grad_mask [B, OH, OW, K]) of its three inputs. The
+    plain version on the CPU; on a CUDA tensor the kernel of
+    csrc/deform_col2im.cu (f32 only: training runs f32), or it raises.
+    grad_x is summed by atomic adds, so its last bits vary between runs;
+    the call makes no host sync."""
+    if x.device.type == "cpu":
+        return deform_col2im_plain(grad_cols, x, offset, mask, kh, kw, stride,
+                                   padding, dilation)
+    if x.device.type != "cuda":
+        raise ValueError(f"deform_col2im runs on cpu or cuda, got {x.device}")
+    f32 = torch.float32
+    if any(t.dtype is not f32 for t in (grad_cols, x, offset, mask)):
+        raise TypeError(f"deform_col2im kernel takes f32 only, got "
+                        f"{[t.dtype for t in (grad_cols, x, offset, mask)]}")
+    b, h, w, c = x.shape
+    oh, ow = output_size(h, w, kh, kw, stride, padding, dilation)
+    k = kh * kw
+    grad_cols, x = grad_cols.contiguous(), x.contiguous()
+    offset, mask = offset.contiguous(), mask.contiguous()
+    for name, t, shape in (("grad_cols", grad_cols, (b * oh * ow, k * c)),
+                           ("offset", offset, (b, oh, ow, 2 * k)),
+                           ("mask", mask, (b, oh, ow, k))):
+        if tuple(t.shape) != shape or t.device != x.device:
+            raise ValueError(f"deform_col2im {name}: want {shape} on "
+                             f"{x.device}, got {tuple(t.shape)} on {t.device}")
+    grad_x = torch.empty_like(x)
+    grad_offset = torch.empty_like(offset)
+    grad_mask = torch.empty_like(mask)
+    fn = build.function("bt_deform_col2im", 7, 11)
+    code = fn(grad_cols.data_ptr(), x.data_ptr(), offset.data_ptr(),
+              mask.data_ptr(), grad_x.data_ptr(), grad_offset.data_ptr(),
+              grad_mask.data_ptr(), b, h, w, c, oh, ow, kh, kw, stride,
+              padding, dilation, build.stream(x.device))
+    build.check(code, "deform_col2im")
+    deform_col2im.launches += 1
+    return grad_x, grad_offset, grad_mask
+
+
+deform_col2im.launches = 0

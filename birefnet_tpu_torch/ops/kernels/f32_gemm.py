@@ -67,6 +67,7 @@ def f32_gemm(a: torch.Tensor, params, epilogue: str,
         return f32_gemm_plain(a, params, epilogue, res)
     if a.device.type != "cuda":
         raise ValueError(f"f32_gemm runs on cpu or cuda, got {a.device}")
+    build.refuse_grad("f32_gemm", a, params, res)
     m, k = a.shape
     n = params["weight"].shape[0]
     if n % 4 or k % 8:
@@ -113,6 +114,7 @@ def ln_rows_f32(x: torch.Tensor, ln,
         return ln_rows_f32_plain(x, ln, canvas)
     if x.device.type != "cuda":
         raise ValueError(f"ln_rows_f32 runs on cpu or cuda, got {x.device}")
+    build.refuse_grad("ln_rows_f32", x, ln)
     if x.ndim != 2 or x.dtype != torch.float32:
         raise ValueError(f"ln_rows_f32 takes f32 [T, C], got {x.dtype} "
                          f"{tuple(x.shape)}")

@@ -168,6 +168,7 @@ def flash_window_attention_qkv(qkv: torch.Tensor, bias: torch.Tensor,
     [B_, N, C], ready for the output projection."""
     if not _cuda(qkv, "flash_window_attention_qkv"):
         return flash_window_attention_qkv_plain(qkv, bias, mask, num_heads)
+    build.refuse_grad("flash_window_attn_qkv", qkv, bias)
     b_, n, c3 = qkv.shape
     c = c3 // 3
     if c3 % 3 or c % num_heads or not qkv.is_contiguous():
@@ -196,6 +197,7 @@ def flash_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B_ % nW == 0."""
     if not _cuda(q, "flash_window_attention"):
         return flash_window_attention_plain(q, k, v, bias, mask)
+    build.refuse_grad("flash_window_attn", q, k, v, bias)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _launch(q, k, v, out, bias, mask, q.shape[1])
     flash_window_attention.launches += 1
@@ -212,6 +214,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     query with a finite -1e9 addend."""
     if not _cuda(q, "flash_attention"):
         return flash_attention_plain(q, k, v, causal)
+    build.refuse_grad("flash_attention", q, k, v)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _launch(q, k, v, out, None, None, q.shape[1], causal)
     flash_attention.launches += 1

@@ -214,6 +214,7 @@ def fused_window_block_attention(
             attn_mask, h_real, w_real, origin)
     if x.device.type != "cuda":
         raise ValueError(f"fused_block_attn runs on cpu or cuda, got {x.device}")
+    build.refuse_grad("fused_block_attn", x, norm1_params, attn_params)
     b, hp, wp, c = x.shape
     ws = window_size
     f32, wt = torch.float32, x.dtype
@@ -261,6 +262,7 @@ def fused_window_block_attention_int8(
     if x.device.type != "cuda":
         raise ValueError(f"fused_block_attn_int8 runs on cpu or cuda, got "
                          f"{x.device}")
+    build.refuse_grad("fused_block_attn_int8", x, norm1_params, attn_params)
     b, hp, wp, c = x.shape
     ws = window_size
     f32, i8 = torch.float32, torch.int8

@@ -151,6 +151,7 @@ def fused_mlp_residual(x: torch.Tensor, norm2_params,
         return fused_mlp_residual_plain(x, norm2_params, mlp_params)
     if x.device.type != "cuda":
         raise ValueError(f"fused_mlp runs on cpu or cuda, got {x.device}")
+    build.refuse_grad("fused_mlp", x, norm2_params, mlp_params)
     c = x.shape[-1]
     f32, wt = torch.float32, x.dtype
     fc1, fc2 = mlp_params["fc1"], mlp_params["fc2"]
@@ -201,6 +202,7 @@ def fused_mlp_residual_int8(x: torch.Tensor, norm2_params,
         return fused_mlp_residual_int8_plain(x, norm2_params, mlp_params)
     if x.device.type != "cuda":
         raise ValueError(f"fused_mlp_int8 runs on cpu or cuda, got {x.device}")
+    build.refuse_grad("fused_mlp_int8", x, norm2_params, mlp_params)
     c = x.shape[-1]
     f32 = torch.float32
     args = [("x", x, x.dtype, tuple(x.shape)),
@@ -236,6 +238,7 @@ def fused_mlp_residual_int8_codes(x: torch.Tensor, codes: torch.Tensor,
                                                    mlp_params)
     if x.device.type != "cuda":
         raise ValueError(f"fused_mlp_int8 runs on cpu or cuda, got {x.device}")
+    build.refuse_grad("fused_mlp_int8_codes", x, scales, mlp_params)
     if x.ndim != 2:
         raise ValueError(f"fused_mlp_int8_codes takes x [T, C], got "
                          f"{tuple(x.shape)}")

@@ -75,6 +75,7 @@ def int8_gemm(q: torch.Tensor, sx: torch.Tensor, params, epilogue: str,
         return int8_gemm_plain(q, sx, params, epilogue, res)
     if q.device.type != "cuda":
         raise ValueError(f"int8_gemm runs on cpu or cuda, got {q.device}")
+    build.refuse_grad("int8_gemm", sx, params, res)
     if epilogue not in KERNEL_EPILOGUES:
         raise ValueError(f"int8_gemm kernel epilogue {epilogue!r} not in "
                          f"{list(KERNEL_EPILOGUES)}: K3's GELU runs inside "
@@ -153,6 +154,7 @@ def quantize_rows(x: torch.Tensor, ln=None, canvas: Optional[Canvas] = None):
         return quantize_rows_plain(x, ln, canvas)
     if x.device.type != "cuda":
         raise ValueError(f"quantize_rows runs on cpu or cuda, got {x.device}")
+    build.refuse_grad("quantize_rows", x, ln)
     if x.ndim != 2 or x.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"quantize_rows kernel takes bf16 or f32 [T, K], got "
                          f"{x.dtype} {tuple(x.shape)}")

@@ -64,6 +64,7 @@ def layer_norm_rows(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
         if x.device.type == "cpu":
             return layer_norm_rows_plain(params, x, eps)
         raise ValueError(f"row_ln runs on cpu or cuda, got {x.device}")
+    build.refuse_grad("row_ln", x, params)
     c = _check(params, x)
     out = torch.empty_like(x)
     n = x.numel() // c if c else 0

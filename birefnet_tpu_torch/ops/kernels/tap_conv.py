@@ -54,6 +54,7 @@ def tap_conv_same(x: torch.Tensor, kernel: torch.Tensor,
         return tap_conv_same_plain(x, kernel, bias)
     if x.device.type != "cuda":
         raise ValueError(f"tap_conv runs on cpu or cuda, got {x.device}")
+    build.refuse_grad("tap_conv", x, kernel, bias)
     if x.dtype != torch.bfloat16:
         raise TypeError(f"tap_conv kernel takes bf16, got {x.dtype}")
     if x.ndim != 4 or x.shape[-1] != 3 or not x.is_contiguous():

@@ -91,8 +91,12 @@ def _triangle_matrix(src: int, dst: int) -> np.ndarray:
 def _device_matrix(matrix_fn, src: int, dst: int, device: torch.device,
                    dtype: torch.dtype) -> torch.Tensor:
     """matrix_fn's matrix as a tensor on `device`, copied once per
-    (shape, device, dtype) rather than at every call."""
-    return torch.from_numpy(matrix_fn(src, dst)).to(device=device, dtype=dtype)
+    (shape, device, dtype) rather than at every call. Built outside
+    inference mode, so that a forward autograd records (training) may use
+    the copy a forward under torch.inference_mode (serving) cached."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(matrix_fn(src, dst)).to(device=device,
+                                                        dtype=dtype)
 
 
 def _apply_separable(x: torch.Tensor, out_h: int, out_w: int,

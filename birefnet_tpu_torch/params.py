@@ -13,6 +13,10 @@ JAX package's nesting and key names, with two differences:
 BatchNorm folds to {"scale", "shift"} and the window-attention bias table
 expands to the [heads, N, N] "cached_bias" exactly as in the JAX loader.
 `from_jax_params` converts the JAX package's tree (as numpy) to this one.
+`export_checkpoint` is the exact inverse of `build_param_tree`, rule for
+rule the JAX package's (birefnet_tpu/params.py:543-690), so a trained tree
+(train.py trains the inference tree: folded BN and "cached_bias" are its
+leaves) goes back to the torch schema.
 """
 
 from __future__ import annotations
@@ -478,6 +482,14 @@ def cast_matmul_weights(params, dtype: torch.dtype) -> Dict:
     return tree_map(lambda k, v: v.to(dtype) if k == "weight" else v, params)
 
 
+def init_params(cfg: BiRefNetConfig, seed: int = 0, device=None) -> Dict:
+    """A random tree of the checkpoint's schema (for tests, benchmarks and
+    training from scratch): build_param_tree(random_checkpoint(cfg, seed)),
+    as birefnet_tpu.params.init_params, on `device` (the CPU by default)."""
+    tree = build_param_tree(random_checkpoint(cfg, seed), cfg)
+    return tree if device is None else to_device(tree, device)
+
+
 def load_checkpoint(path: str, cfg: BiRefNetConfig | None = None,
                     strict: bool = True, device=None) -> Dict:
     """Load a safetensors checkpoint into a tree of tensors on `device`."""
@@ -486,3 +498,193 @@ def load_checkpoint(path: str, cfg: BiRefNetConfig | None = None,
     tree = build_param_tree(load_file(path), cfg or BiRefNetConfig.swin_l(),
                             strict=strict)
     return tree if device is None else to_device(tree, device)
+
+
+# ---------------------------------------------------------------------------
+# Export: nested tree -> flat torch-schema checkpoint (inverse of the loader)
+# ---------------------------------------------------------------------------
+# Every load-time transform is inverted bit-exactly, as in the JAX package:
+#   conv / linear weights: already in the torch layouts here;
+#   BN fold: written as weight = scale, bias = shift, running_mean = 0,
+#            running_var = 1 - BN_EPS, for which the loader's
+#            weight / sqrt(var + eps) is exactly 1.0 in f32, so the fold
+#            round-trips to the bit; a torch eval-mode BN with these
+#            statistics computes the same affine;
+#   cached_bias: scattered back into the (2w-1)^2-row bias table (the
+#            relative-position index covers every row).
+
+# Leaves that only a prepared inference tree carries (int8 codes and
+# scales, TF32 splits): derived from "weight", never exported.
+_DERIVED_LEAVES = ("weight_q8", "scale_q8", "weight_tf32")
+
+
+def _f32(t) -> np.ndarray:
+    if isinstance(t, torch.Tensor):
+        t = t.detach().to("cpu", torch.float32).numpy()
+    return np.asarray(t, dtype=np.float32)
+
+
+def _inv_conv(tree, name: str, out: Dict[str, np.ndarray], bias: bool = True):
+    out[f"{name}.weight"] = _f32(tree["weight"])
+    if bias:
+        out[f"{name}.bias"] = _f32(tree["bias"])
+
+
+_inv_linear = _inv_conv  # [out, in] as loaded
+
+
+def _inv_ln(tree, name: str, out):
+    out[f"{name}.weight"] = _f32(tree["scale"])
+    out[f"{name}.bias"] = _f32(tree["bias"])
+
+
+def _inv_bn(tree, name: str, out):
+    scale, shift = _f32(tree["scale"]), _f32(tree["shift"])
+    var = np.full_like(scale, np.float32(1.0) - np.float32(BN_EPS))
+    assert float(np.sqrt(var.flat[0] + np.float32(BN_EPS))) == 1.0
+    out[f"{name}.weight"] = scale
+    out[f"{name}.bias"] = shift
+    out[f"{name}.running_mean"] = np.zeros_like(scale)
+    out[f"{name}.running_var"] = var
+
+
+def _inv_attn(tree, name: str, window_size: int, num_heads: int, out):
+    _inv_linear(tree["qkv"], f"{name}.qkv", out)
+    _inv_linear(tree["proj"], f"{name}.proj", out)
+    cached = _f32(tree["cached_bias"])  # [heads, N, N]
+    n = window_size * window_size
+    idx = np.asarray(relative_position_index(window_size)).reshape(-1)
+    table = np.zeros(((2 * window_size - 1) ** 2, num_heads), np.float32)
+    # Every (i, j) pair of one relative displacement carries the same value
+    # in a loaded tree; the scatter keeps the last.
+    table[idx] = cached.transpose(1, 2, 0).reshape(n * n, num_heads)
+    assert len(np.unique(idx)) == table.shape[0], "bias table not covered"
+    out[f"{name}.relative_position_bias_table"] = table
+
+
+def _inv_deform_conv(tree, name: str, out):
+    _inv_conv(tree["offset_conv"], f"{name}.offset_conv", out)
+    _inv_conv(tree["modulator_conv"], f"{name}.modulator_conv", out)
+    _inv_conv(tree["regular_conv"], f"{name}.regular_conv", out, bias=False)
+
+
+def _inv_aspp_deformable(tree, name: str, out):
+    _inv_deform_conv(tree["aspp1"]["atrous_conv"], f"{name}.aspp1.atrous_conv",
+                     out)
+    _inv_bn(tree["aspp1"]["bn"], f"{name}.aspp1.bn", out)
+    for i in range(3):
+        sub = tree[f"aspp_deforms_{i}"]
+        _inv_deform_conv(sub["atrous_conv"],
+                         f"{name}.aspp_deforms.{i}.atrous_conv", out)
+        _inv_bn(sub["bn"], f"{name}.aspp_deforms.{i}.bn", out)
+    _inv_conv(tree["global_avg_pool_conv"], f"{name}.global_avg_pool.1",
+              out, bias=False)
+    _inv_bn(tree["global_avg_pool_bn"], f"{name}.global_avg_pool.2", out)
+    _inv_conv(tree["conv1"], f"{name}.conv1", out, bias=False)
+    _inv_bn(tree["bn1"], f"{name}.bn1", out)
+
+
+def _inv_basic_dec_blk(tree, name: str, out):
+    _inv_conv(tree["conv_in"], f"{name}.conv_in", out)
+    _inv_bn(tree["bn_in"], f"{name}.bn_in", out)
+    _inv_aspp_deformable(tree["dec_att"], f"{name}.dec_att", out)
+    _inv_conv(tree["conv_out"], f"{name}.conv_out", out)
+    _inv_bn(tree["bn_out"], f"{name}.bn_out", out)
+
+
+def _inv_simple_convs(tree, name: str, out):
+    _inv_conv(tree["conv1"], f"{name}.conv1", out)
+    _inv_conv(tree["conv_out"], f"{name}.conv_out", out)
+
+
+def _inv_swin(tree, prefix: str, cfg: SwinConfig, out):
+    _inv_conv(tree["patch_embed"]["proj"], f"{prefix}.patch_embed.proj", out)
+    _inv_ln(tree["patch_embed"]["norm"], f"{prefix}.patch_embed.norm", out)
+    for i, depth in enumerate(cfg.depths):
+        layer = tree[f"layers_{i}"]
+        for j in range(depth):
+            blk = layer[f"blocks_{j}"]
+            b = f"{prefix}.layers.{i}.blocks.{j}"
+            _inv_ln(blk["norm1"], f"{b}.norm1", out)
+            _inv_attn(blk["attn"], f"{b}.attn", cfg.window_size,
+                      cfg.num_heads[i], out)
+            _inv_ln(blk["norm2"], f"{b}.norm2", out)
+            _inv_linear(blk["mlp"]["fc1"], f"{b}.mlp.fc1", out)
+            _inv_linear(blk["mlp"]["fc2"], f"{b}.mlp.fc2", out)
+        if i < len(cfg.depths) - 1:
+            _inv_ln(layer["downsample"]["norm"],
+                    f"{prefix}.layers.{i}.downsample.norm", out)
+            _inv_linear(layer["downsample"]["reduction"],
+                        f"{prefix}.layers.{i}.downsample.reduction",
+                        out, bias=False)
+        _inv_ln(tree[f"norm_{i}"], f"{prefix}.norm{i}", out)
+
+
+def _derived_leaves(tree, path=""):
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _derived_leaves(v, f"{path}{k}.")
+        elif k in _DERIVED_LEAVES:
+            yield f"{path}{k}"
+
+
+def export_checkpoint(params, cfg: BiRefNetConfig) -> Dict[str, np.ndarray]:
+    """Nested tree -> flat torch-schema tensors (f32 numpy), the exact
+    inverse of build_param_tree: checkpoint_spec(cfg) name for name and
+    shape for shape (checked here), and
+    build_param_tree(export_checkpoint(p)) == p bit for bit. A tree that
+    carries int8 or TF32-split leaves (quantize_*_int8,
+    split_tf32_weights: a prepared inference tree) is refused; export the
+    tree they were derived from."""
+    derived = list(_derived_leaves(params))
+    if derived:
+        raise ValueError(
+            f"export_checkpoint takes the f32 parameter tree; this one "
+            f"carries {len(derived)} derived inference leaves (e.g. "
+            f"{derived[:3]}) from quantize_*_int8 or split_tf32_weights")
+    out: Dict[str, np.ndarray] = {}
+    _inv_swin(params["bb"], "bb", cfg.swin_config(), out)
+    _inv_basic_dec_blk(params["squeeze_module"]["blocks_0"],
+                       "squeeze_module.0", out)
+    d, dec = "decoder", params["decoder"]
+    for idx in range(5):
+        _inv_simple_convs(dec[f"ipt_blk{idx + 1}"], f"{d}.ipt_blk{idx + 1}",
+                          out)
+    for stage in (4, 3, 2, 1):
+        _inv_basic_dec_blk(dec[f"decoder_block{stage}"],
+                           f"{d}.decoder_block{stage}", out)
+    for stage in (4, 3, 2):
+        _inv_conv(dec[f"lateral_block{stage}"]["conv"],
+                  f"{d}.lateral_block{stage}.conv", out)
+        _inv_conv(dec[f"gdt_convs_{stage}"]["conv"],
+                  f"{d}.gdt_convs_{stage}.0", out)
+        _inv_bn(dec[f"gdt_convs_{stage}"]["bn"], f"{d}.gdt_convs_{stage}.1",
+                out)
+        _inv_conv(dec[f"gdt_convs_attn_{stage}"],
+                  f"{d}.gdt_convs_attn_{stage}.0", out)
+        _inv_conv(dec[f"gdt_convs_pred_{stage}"],
+                  f"{d}.gdt_convs_pred_{stage}.0", out)
+        _inv_conv(dec[f"conv_ms_spvn_{stage}"], f"{d}.conv_ms_spvn_{stage}",
+                  out)
+    _inv_conv(dec["conv_out1"], f"{d}.conv_out1.0", out)
+
+    spec = dict(checkpoint_spec(cfg))
+    missing = sorted(set(spec) - set(out))
+    extra = sorted(set(out) - set(spec))
+    if missing or extra:
+        raise ValueError(
+            f"export schema mismatch: missing {missing[:5]} extra {extra[:5]}")
+    for k, v in out.items():
+        if tuple(v.shape) != tuple(spec[k]):
+            raise ValueError(f"{k}: exported {v.shape} != spec {spec[k]}")
+    return {k: np.ascontiguousarray(v) for k, v in out.items()}
+
+
+def save_checkpoint(path: str, params, cfg: BiRefNetConfig | None = None) -> None:
+    """Write params as a ZhengPeng7-schema safetensors file, loadable by
+    load_checkpoint here, by the JAX package's and by the upstream torch
+    BiRefNet in eval mode."""
+    from safetensors.numpy import save_file
+
+    cfg = cfg or BiRefNetConfig.swin_l()
+    save_file(export_checkpoint(params, cfg), path)

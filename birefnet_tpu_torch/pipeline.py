@@ -34,9 +34,14 @@ from .params import (cast_matmul_weights, quantize_attn_int8,
 def _imagenet_stats(device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
     """The ImageNet mean and std as f32 tensors on `device`, copied there
     once: a host-to-device copy inside the body is what CUDA graph capture
-    refuses."""
-    return (torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=device),
-            torch.tensor(IMAGENET_STD, dtype=torch.float32, device=device))
+    refuses. Built outside inference mode, as every cached device tensor
+    is (ops/window.py, ops/resize.py), so that training after serving may
+    use them."""
+    with torch.inference_mode(False):
+        return (torch.tensor(IMAGENET_MEAN, dtype=torch.float32,
+                             device=device),
+                torch.tensor(IMAGENET_STD, dtype=torch.float32,
+                             device=device))
 
 
 def preprocess(frames_u8: torch.Tensor, size: Tuple[int, int] = (1024, 1024),

@@ -154,7 +154,28 @@ Phases, each printed as it runs; any failure exits non-zero:
 7. profile one replay of the Swin-L int8 path's graph and one eager call
    (tools/gpu_profile.py: wall, device time, idle share, kernels by
    group); where the profiler resolves the graph's kernels, their launches
-   per group must be what the capture counted.
+   per group must be what the capture counted;
+8. train (train.py, finetune.py, the export), f32, deformable: D1b
+   (csrc/deform_col2im.cu, D1's backward, f32 atomics) at the inputs of
+   the 20 deformable sites of one eager f32 forward of the offset-scaled
+   Swin-L tree, with a seeded column gradient, against autograd through
+   D1's plain version (each gradient within D1B_BOUND x max|plain|, mean
+   ratio within D1B_MEAN; (dx, dy) read for (dy, dx) must break the max
+   bound), timed by CUDA events, by device time and against its bound;
+   Swin-L's gradients at GRAD_SIZE^2, batch 2, on that tree through D1/D1b
+   (20 launches each) against the plain route (every leaf within
+   GRAD_LEAF_BOUND, relative L2 within GRAD_L2_BOUND, TF32 off), the same
+   route twice for the noise, regular mode as the control that must break
+   the offset-conv leaves; finetune.main at Swin-L 1024^2, batch 2, 3
+   steps, on 4 image/mask pairs written from a seed into a temp dir, and
+   again with --accum-steps 2, each with every launch count set to 0 just
+   before it and read just after (D1 and D1b 20 per microbatch, nothing
+   else), the loss and ms per step and the peak memory (--remat only if
+   batch 2 does not fit, and the log says so); the written checkpoint
+   loaded and served through make_infer_fn; tests/test_train.py's overfit
+   check (disk masks, lr 1e-4, no decay, 3 steps at GRAD_SIZE^2: the loss
+   falls, decoder_block1's offset convs move); one profiled train step at
+   1024^2.
 
 The line before the last is the nvidia-smi name/power line, the one
 before it the JSON kernel report: per kernel `launches` from its main path
@@ -162,7 +183,9 @@ before it the JSON kernel report: per kernel `launches` from its main path
 "_f32" entries, Swin-L f32 int8 for the "_int8_f32" ones, Swin-L's
 deformable int8 path for D1 and its deformable f32 tier for D1 f32): the
 launches
-captured in one call's graph, which every replay runs;
+captured in one call's graph, which every replay runs (D1b: the launches
+of phase 8's first finetune.main run, its times per step of one
+microbatch, its errors relative to max|plain|);
 `launches_by_path` from all eleven, `launches_counted_by_path` the counts
 read after each path's first call (warm-up and capture), and the times and bound
 of its main model's forward (one call at each checked shape for K7 and
@@ -259,6 +282,23 @@ DEFORM_F32, DEFORM_RATIO = 1e-5, 2.0
 # the squeeze block and decoder_block4 both run at 32^2.
 DEFORM_SITES = [(side, k, (2 if k == 1 else 1) * (2 if side == 32 else 1))
                 for side in (32, 64, 128, 256) for k in (1, 3, 7)]
+# Phase 8 (training). D1b against autograd through D1's plain version at
+# the 20 deformable sites' inputs of the offset-scaled Swin-L forward, f32:
+# each gradient within D1B_BOUND x max|plain|, mean ratio within D1B_MEAN,
+# the f32 tier's mean bound (tests/test_torch_cuda.py holds the same): the
+# sums run in another order (grad_x by atomic adds, the offsets' and the
+# masks' over the channels in a tree), and the offsets' gradients are
+# differences of corner terms; a first bound of 1e-6 read 1.14e-6 on
+# grad_offset at the first site. (dx, dy) read for (dy, dx) must break
+# the max bound. The whole model's gradients through D1/D1b against the
+# plain route (autograd through the plain columns), TF32 off: every leaf
+# within GRAD_LEAF_BOUND x its max |plain grad|, the relative L2 of all
+# within GRAD_L2_BOUND (the CPU tests hold the port to JAX's gradients
+# with the same two bounds); regular mode must break the offset-conv
+# leaves' bound. TRAIN_STEPS steps of finetune.main at SIZE, batch BATCH.
+D1B_BOUND, D1B_MEAN = 1e-5, 1e-5
+GRAD_LEAF_BOUND, GRAD_L2_BOUND = 1e-3, 1e-4
+GRAD_SIZE, TRAIN_STEPS = 256, 3
 # Calls of each shape in phase 3's repeat check (the f32 shapes: fewer).
 REPEATS, REPEATS_F32 = 200, 100
 # Published H100 SXM peaks (dense): memory bytes/s and operations/s by type.
@@ -1539,6 +1579,409 @@ def stage_ratio(errs, plain):
     return max(e / p for e, p in zip(errs, plain))
 
 
+def site_inputs(infer, frames):
+    """(x, offset, mask, k) of the 20 deformable sites, in forward order,
+    as one eager call of `infer` gives them to models/aspp.py's
+    deform_conv2d (copies)."""
+    from birefnet_tpu_torch.models import aspp
+
+    caught, deform = [], aspp.deform_conv2d
+
+    def catch(x, offset, mask, weight, *args, **kw):
+        caught.append((x, offset, mask, weight.shape[-1]))
+        return deform(x, offset, mask, weight, *args, **kw)
+
+    aspp.deform_conv2d = catch
+    try:
+        infer.eager(frames)
+    finally:
+        aspp.deform_conv2d = deform
+    if len(caught) != 20:
+        fail(f"{len(caught)} deformable sites, want 20")
+    # Copied outside inference mode: autograd takes no inference tensor.
+    return [(x.clone(), offset.float().contiguous().clone(), mask.clone(), k)
+            for x, offset, mask, k in caught]
+
+
+def check_d1b(torch, dev, sites, smi):
+    """Phase 8: D1b at each site's inputs with a seeded column gradient,
+    against deform_col2im_plain (autograd through D1's plain version); the
+    (dy, dx) swap control; CUDA-event time of kernel and plain version,
+    device time of the kernel (with the memset of grad_x) from the
+    profiler, and the bound: G, x, the offsets and the mask read once, the
+    three gradients written once, over 3.35 TB/s, against 36 f32
+    operations per column value (per corner: the G x product, three
+    multiply-adds, the masked weight and the atomic add) over the f32
+    peak. Returns the kernel report entry (times summed per train step of
+    one microbatch: the 20 calls)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    import gpu_profile
+    from birefnet_tpu_torch.ops.kernels import deform_im2col as d1
+
+    gen = torch.Generator(dev).manual_seed(8)
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    sums = dict.fromkeys(("ms", "plain_ms", "device_ms", "bound_ms",
+                          "bytes_ms", "ops_ms"), 0.0)
+    worst = {"abs": 0.0, "max": 0.0, "mean": 0.0,
+             "control_min": float("inf")}
+    for i, (x, offset, mask, k) in enumerate(sites):
+        b, h, w, c = x.shape
+        g = torch.randn((b * h * w, k * k * c), generator=gen, device=dev)
+        args = (g, x, offset, mask, k, k, 1, k // 2)
+        got = d1.deform_col2im(*args)
+        want = d1.deform_col2im_plain(*args)
+        swapped = offset.reshape(b, h, w, k * k, 2).flip(-1).reshape(
+            offset.shape).contiguous()
+        ctl = d1.deform_col2im(g, x, swapped, mask, k, k, 1, k // 2)
+        errs = []
+        for name, gv, wv, cv in zip(("grad_x", "grad_offset", "grad_mask"),
+                                    got, want, ctl):
+            if not bool(torch.isfinite(gv).all()):
+                fail(f"D1b site {i}: non-finite {name}")
+            scale = float(wv.abs().max())
+            abs_err = float((gv - wv).abs().max())
+            worst["abs"] = max(worst["abs"], abs_err)
+            err = abs_err / scale
+            mean = float((gv - wv).abs().mean() / wv.abs().mean())
+            errs.append((name, err, mean, float((cv - wv).abs().max()) / scale))
+            if not (err <= D1B_BOUND and mean <= D1B_MEAN):
+                fail(f"D1b site {i} [{b},{h},{w},{c}] k={k} {name}: max ratio "
+                     f"{err} (bound {D1B_BOUND}), mean ratio {mean} (bound "
+                     f"{D1B_MEAN})")
+        control = max(e[3] for e in errs)
+        if not control > D1B_BOUND:
+            fail(f"D1b site {i}: swapped (dy, dx) within the bound "
+                 f"({control})")
+        worst["max"] = max(worst["max"], max(e[1] for e in errs))
+        worst["mean"] = max(worst["mean"], max(e[2] for e in errs))
+        worst["control_min"] = min(worst["control_min"], control)
+        del got, want, ctl
+        kernel_fn = partial(d1.deform_col2im, *args)
+        ms = cuda_ms(torch, kernel_fn)
+        plain_ms = cuda_ms(torch, partial(d1.deform_col2im_plain, *args),
+                           reps=3)
+        dev_ms = gpu_profile.device_ms_per_call(torch, profile, acts,
+                                                kernel_fn, 10, lambda n: True)
+        n_cols = g.numel()
+        byte_ms = nbytes(g, x, offset, mask, x, offset, mask) / MEM_RATE * 1e3
+        op_ms = 36 * n_cols / PEAK["f32"] * 1e3
+        for key, v in (("ms", ms), ("plain_ms", plain_ms),
+                       ("device_ms", dev_ms), ("bound_ms", max(byte_ms, op_ms)),
+                       ("bytes_ms", byte_ms), ("ops_ms", op_ms)):
+            sums[key] += v
+        log(f"phase 8: D1b site {i:2d} [{b},{h},{w},{c}] k={k}: "
+            + ", ".join(f"{n} max {e:.2e} mean {m:.2e} swapped {cl:.2e}"
+                        for n, e, m, cl in errs)
+            + f"; kernel {ms:.4f} ms (device {dev_ms:.4f}), plain "
+            f"{plain_ms:.4f} ms, least {max(byte_ms, op_ms):.4f} ms")
+    bound_by = "bytes" if sums["bytes_ms"] >= sums["ops_ms"] else "operations"
+    log(f"phase 8: D1b per train step (20 sites, one microbatch of {BATCH}): "
+        f"kernel {sums['ms']:.4f} ms by events, {sums['device_ms']:.4f} ms "
+        f"device; plain {sums['plain_ms']:.4f} ms; bound "
+        f"{sums['bound_ms']:.4f} ms ({bound_by}); worst max ratio "
+        f"{worst['max']:.3e} (bound {D1B_BOUND}), mean {worst['mean']:.3e} "
+        f"(bound {D1B_MEAN}); the swap control's smallest "
+        f"{worst['control_min']:.3e} ({smi})")
+    return {"name": "deform_col2im", "route": "cuda",
+            "source": "birefnet_tpu_torch/csrc/deform_col2im.cu",
+            "replaces": "birefnet_tpu/ops/deform_conv.py:35",
+            "note": ("no TPU kernel: D1's backward, the counterpart of the VJP "
+                     "JAX forms for its gather (deform_conv.py:68-158); times "
+                     "per train step of one microbatch (20 calls); "
+                     "max_rel_err is max|k - p| / max|p| at the worst site"),
+            "launches": None, "launches_by_path": {},
+            "max_abs_err": worst["abs"], "max_rel_err": worst["max"],
+            "mean_rel_err": worst["mean"],
+            "swap_control_min": worst["control_min"], "ms": sums["ms"],
+            "device_ms": sums["device_ms"], "plain_ms": sums["plain_ms"],
+            "bound_ms": sums["bound_ms"], "bound_by": bound_by,
+            "library_ms": None,
+            "library": "none: no one PyTorch call computes these gradients"}
+
+
+def model_grads(torch, cfg, tree, x, y, compute):
+    """(loss, {path: gradient}) of the structure loss of one forward, as
+    train.make_train_step computes them, TF32 off."""
+    from birefnet_tpu_torch import pipeline, train
+    from birefnet_tpu_torch.models import birefnet as bmodel
+
+    keys, leaves = zip(*train.flatten(tree))
+    live = [t.detach().requires_grad_(True) for t in leaves]
+    compute = train.validate_train_compute(compute)
+    with pipeline.full_f32():
+        logits = bmodel.forward_logits(train.unflatten(zip(keys, live)), cfg,
+                                       x, compute)
+        loss = train.structure_loss(logits, y)
+        grads = torch.autograd.grad(loss, live, allow_unused=True)
+    return float(loss.detach()), {k: torch.zeros_like(t) if g is None else g
+                                  for k, t, g in zip(keys, live, grads)}
+
+
+def grad_errors(want, got):
+    """({path: max|got - want| / max|want|}, relative L2 of the whole)."""
+    errs, num, den = {}, 0.0, 0.0
+    for k, w in want.items():
+        d = (got[k] - w).double()
+        scale = float(w.abs().max())
+        errs[k] = float(d.abs().max()) / scale if scale else float(
+            got[k].abs().max())
+        num += float((d * d).sum())
+        den += float((w.double() ** 2).sum())
+    return errs, (num / den) ** 0.5
+
+
+def check_model_grads(torch, dev, cfg, tree, smi):
+    """Phase 8: Swin-L's gradients at GRAD_SIZE^2, batch BATCH, on the
+    offset-scaled tree: through D1/D1b, against the plain route; the same
+    route twice (not gated: what the nondeterministic atomics and cuDNN
+    backward algorithms leave); regular mode as the control."""
+    import dataclasses
+
+    from birefnet_tpu_torch.configs import ComputeConfig
+    from birefnet_tpu_torch.ops import deform_conv
+    from birefnet_tpu_torch.ops.kernels import deform_im2col as d1
+    from birefnet_tpu_torch.params import to_device
+
+    cfg = dataclasses.replace(cfg, size=(GRAD_SIZE, GRAD_SIZE))
+    tree = to_device(tree, dev)
+    gen = torch.Generator(dev).manual_seed(9)
+    x = torch.randn((BATCH, GRAD_SIZE, GRAD_SIZE, 3), generator=gen,
+                    device=dev)
+    yy, xx = torch.meshgrid(torch.arange(GRAD_SIZE, device=dev),
+                            torch.arange(GRAD_SIZE, device=dev),
+                            indexing="ij")
+    disk = (((yy - 120) ** 2 + (xx - 136) ** 2) < 70 ** 2).float()
+    y = torch.stack([disk, disk.flip(1)])
+    d1.deform_im2col.launches = d1.deform_col2im.launches = 0
+    loss, kern = model_grads(torch, cfg, tree, x, y, ComputeConfig())
+    launches = (d1.deform_im2col.launches, d1.deform_col2im.launches)
+    if launches != (20, 20):
+        fail(f"phase 8: the gradient through D1/D1b launched (D1, D1b) = "
+             f"{launches}, want (20, 20)")
+    _, again = model_grads(torch, cfg, tree, x, y, ComputeConfig())
+    route = deform_conv.im2col
+    deform_conv.im2col = d1.deform_im2col_plain
+    try:
+        plain_loss, plain = model_grads(torch, cfg, tree, x, y,
+                                        ComputeConfig())
+    finally:
+        deform_conv.im2col = route
+    _, regular = model_grads(torch, cfg, tree, x, y,
+                             ComputeConfig(deform_mode="regular"))
+    errs, rel_l2 = grad_errors(plain, kern)
+    twice, twice_l2 = grad_errors(kern, again)
+    ctl, ctl_l2 = grad_errors(plain, regular)
+    worst = max(errs, key=errs.get)
+    offsets = [k for k in errs if "offset_conv" in k]
+    ctl_off = min(ctl[k] for k in offsets)
+    log(f"phase 8: swin_l gradients at {GRAD_SIZE}^2 batch {BATCH}, offset "
+        f"convs x{OFFSET_SCALE}: loss {loss:.6f} via D1/D1b, {plain_loss:.6f} "
+        f"plain route; worst leaf {errs[worst]:.3e} ({worst}; gate "
+        f"{GRAD_LEAF_BOUND}), relative L2 {rel_l2:.3e} (gate {GRAD_L2_BOUND}); "
+        f"the D1/D1b route twice: worst leaf {max(twice.values()):.3e}, "
+        f"relative L2 {twice_l2:.3e}; regular mode (control): offset-conv "
+        f"leaves at least {ctl_off:.3e}, relative L2 {ctl_l2:.3e} ({smi})")
+    if not (errs[worst] <= GRAD_LEAF_BOUND and rel_l2 <= GRAD_L2_BOUND):
+        fail(f"phase 8: gradients through D1/D1b off the plain route: "
+             f"{worst} {errs[worst]}, relative L2 {rel_l2}")
+    if len(offsets) != 40 or not ctl_off > GRAD_LEAF_BOUND:
+        fail(f"phase 8: regular mode passes the offset-conv gradient gate "
+             f"({ctl_off}, {len(offsets)} leaves)")
+    return {"worst_leaf": errs[worst], "rel_l2": rel_l2,
+            "twice_worst_leaf": max(twice.values()), "twice_rel_l2": twice_l2,
+            "regular_offset_min": ctl_off, "regular_rel_l2": ctl_l2}
+
+
+def write_pairs(root, seed=5):
+    """Four image/mask pairs made from `seed` in root/imgs and root/masks:
+    noise images and disk masks at the model's size. (At other sizes the
+    loader resizes them on the host: where the native library does not
+    build, its NumPy fallback took 57 s per batch of 2 on the GPU machine's
+    host; the CPU tests hold the resize to the JAX package's.)"""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    imgs, masks = os.path.join(root, "imgs"), os.path.join(root, "masks")
+    os.makedirs(imgs), os.makedirs(masks)
+    yy, xx = np.mgrid[:SIZE, :SIZE]
+    for i in range(4):
+        Image.fromarray(rng.integers(0, 256, (SIZE, SIZE, 3),
+                                     dtype=np.uint8)).save(
+            os.path.join(imgs, f"im{i}.png"))
+        cy, cx = SIZE * rng.uniform(0.3, 0.7, size=2)
+        r = SIZE * rng.uniform(0.2, 0.35)
+        disk = (((yy - cy) ** 2 + (xx - cx) ** 2) < r * r).astype(np.uint8)
+        Image.fromarray(disk * 255).save(os.path.join(masks, f"im{i}.png"))
+    return imgs, masks
+
+
+def run_finetune(torch, pipeline, finetune, label, argv, microbatches, smi):
+    """finetune.main(argv) with every launch count set to 0 just before it
+    and read just after: D1 and D1b 20 times per microbatch, no other
+    kernel. Logs the loss per step, the median ms per step, the peak
+    memory. With no room for batch 2, reruns with --remat and says so."""
+    counters = pipeline.kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    history = []
+    try:
+        finetune.main(argv, history=history)
+    except torch.cuda.OutOfMemoryError:
+        log(f"phase 8: {label}: out of memory without --remat; running "
+            f"again with --remat")
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        history, argv = [], argv + ["--remat"]
+        finetune.main(argv, history=history)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    counts = {n: fn.launches for n, fn in counters.items() if fn.launches}
+    want = {"deform_im2col.deform_im2col": 20 * microbatches,
+            "deform_im2col.deform_col2im": 20 * microbatches}
+    ms = sorted(h["ms"] for h in history)
+    load_ms = sorted(h["load_ms"] for h in history)
+    losses = [h["loss"] for h in history]
+    log(f"phase 8: {label}: loss per step "
+        + " ".join(f"{v:.5f}" for v in losses) + "; ms per step "
+        + " ".join(f"{h['ms']:.1f}" for h in history)
+        + f" (median {ms[len(ms) // 2]:.1f}; host loading median "
+        f"{load_ms[len(ms) // 2]:.1f}); max allocated {peak / 2**30:.2f} GiB; "
+        f"launches {counts} ({smi})")
+    if counts != want:
+        fail(f"phase 8: {label}: launches {counts} != {want}")
+    if len(history) != TRAIN_STEPS or not all(np.isfinite(losses)):
+        fail(f"phase 8: {label}: bad history {history}")
+    return {"losses": losses, "ms": [h["ms"] for h in history],
+            "median_ms": ms[len(ms) // 2], "peak_gib": peak / 2**30,
+            "launches": counts, "remat": "--remat" in argv}
+
+
+def check_overfit(torch, dev, cfg, smi):
+    """Phase 8: tests/test_train.py's overfit check on the card: Swin-L at
+    GRAD_SIZE^2, batch BATCH, disk masks, lr 1e-4, weight decay 0, 3 steps.
+    The loss must fall over the steps, and the offset convs must move: all
+    of decoder_block1's (the sites next to the head) and at least as many
+    as there are. Deeper sites may not: random weights at std 0.05 shrink
+    the gradient by about 1e-5 per decoder block (the CPU at 64^2 and
+    128^2 read max |grad| about 1e-8 at decoder_block1's offset convs,
+    1e-12 at decoder_block2's, 1e-16, 1e-21 and 1e-28 deeper), and Adam's
+    step g / (|g| + 1e-8) of such a gradient is below one f32 ulp of the
+    weight."""
+    import dataclasses
+
+    from birefnet_tpu_torch import params as P
+    from birefnet_tpu_torch import train
+    from birefnet_tpu_torch.configs import ComputeConfig
+
+    cfg = dataclasses.replace(cfg, size=(GRAD_SIZE, GRAD_SIZE))
+    tcfg = train.TrainConfig(learning_rate=1e-4, weight_decay=0.0)
+    state = train.init_train_state(P.init_params(cfg, 0, device=dev), tcfg)
+    before = {k: v.clone() for k, v in train.flatten(state.params)
+              if "offset_conv" in k}
+    step = train.make_train_step(cfg, ComputeConfig(), tcfg)
+    gen = torch.Generator(dev).manual_seed(10)
+    x = torch.randn((BATCH, GRAD_SIZE, GRAD_SIZE, 3), generator=gen,
+                    device=dev)
+    yy, xx = torch.meshgrid(torch.arange(GRAD_SIZE, device=dev),
+                            torch.arange(GRAD_SIZE, device=dev),
+                            indexing="ij")
+    y = ((yy - 128) ** 2 + (xx - 128) ** 2 < 80 ** 2).float().expand(
+        BATCH, -1, -1).contiguous()
+    losses = []
+    for _ in range(3):
+        state, m = step(state, x, y)
+        losses.append(float(m["loss"]))
+    after = dict(train.flatten(state.params))
+    moved = [k for k, v in before.items() if not torch.equal(v, after[k])]
+    head = [k for k in before if k.startswith("decoder/decoder_block1/")]
+    log(f"phase 8: overfit, swin_l {GRAD_SIZE}^2 batch {BATCH}, disk masks, "
+        f"lr 1e-4, no decay: loss {' -> '.join(f'{v:.5f}' for v in losses)}; "
+        f"offset-conv leaves moved {len(moved)} of {len(before)}, by block: "
+        f"{sorted({k.split('/dec_att/')[0] for k in moved})} ({smi})")
+    if (not losses[-1] < losses[0] or len(before) != 40 or len(head) != 8
+            or not set(head) <= set(moved)):
+        fail(f"phase 8: overfit check: losses {losses}, moved {moved}")
+    return {"losses": losses, "offset_leaves_moved": len(moved)}
+
+
+def train_phase(torch, dev, pipeline, cfg, def_tree, frames, smi):
+    """Phase 8: training on the card (see the module docstring)."""
+    import tempfile
+
+    import gpu_profile
+    from birefnet_tpu_torch import finetune
+    from birefnet_tpu_torch import params as P
+    from birefnet_tpu_torch import train
+    from birefnet_tpu_torch.configs import ComputeConfig
+
+    ref = pipeline.make_infer_fn(def_tree, cfg, ComputeConfig(), dev)
+    d1b = check_d1b(torch, dev, site_inputs(ref, frames), smi)
+    del ref
+    torch.cuda.empty_cache()
+    results = {"gradients": check_model_grads(torch, dev, cfg, def_tree, smi)}
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        imgs, masks = write_pairs(tmp)
+        out = os.path.join(tmp, "trained.safetensors")
+        argv = [imgs, masks, "--out", out, "--size", str(SIZE), "--batch",
+                str(BATCH), "--steps", str(TRAIN_STEPS), "--lr", "1e-5"]
+        results["finetune"] = run_finetune(
+            torch, pipeline, finetune, f"finetune.main swin_l {SIZE}^2 batch "
+            f"{BATCH}, {TRAIN_STEPS} steps", argv, TRAIN_STEPS, smi)
+        results["finetune accum 2"] = run_finetune(
+            torch, pipeline, finetune, f"finetune.main swin_l {SIZE}^2 batch "
+            f"{BATCH}, --accum-steps 2", argv + ["--accum-steps", "2"],
+            2 * TRAIN_STEPS, smi)
+        # The written checkpoint loads and serves on the card.
+        trained = P.load_checkpoint(out, cfg)
+        infer = pipeline.make_infer_fn(trained, cfg, ComputeConfig(), dev)
+        mask = infer(frames)
+        if (tuple(mask.shape) != (BATCH, SIZE, SIZE)
+                or mask.dtype != torch.uint8):
+            fail(f"phase 8: the trained checkpoint's masks {mask.shape}")
+        log(f"phase 8: the written checkpoint loads and runs through "
+            f"make_infer_fn on the card: masks {tuple(mask.shape)}, mean "
+            f"{float(mask.float().mean()):.2f}")
+        del infer, trained
+    results["overfit"] = check_overfit(torch, dev, cfg, smi)
+    # One profiled train step at SIZE^2, batch BATCH: where its time goes.
+    torch.cuda.empty_cache()
+    tcfg = train.TrainConfig()
+    state = [train.init_train_state(P.init_params(cfg, 0, device=dev), tcfg)]
+    step = train.make_train_step(cfg, ComputeConfig(), tcfg)
+    x = pipeline.preprocess(frames, cfg.size)
+    y = (x[..., 0] > 0).float()
+
+    def one_step(x):
+        state[0], m = step(state[0], x, y)
+        return m["loss"]
+
+    prof = gpu_profile.profile_call(torch, one_step, x,
+                                    f"swin_l train step {SIZE}^2", smi, top=12)
+    results["profiled_step"] = {k: prof[k] for k in ("wall_ms", "device_ms",
+                                                     "idle")}
+    log(f"phase 8: one profiled train step: wall {prof['wall_ms']:.1f} ms, "
+        f"device {prof['device_ms']:.1f} ms, idle share {prof['idle']:.3f} "
+        f"({smi})")
+    del state
+    d1b["launches"] = results["finetune"]["launches"][
+        "deform_im2col.deform_col2im"]
+    d1b["launches_by_path"] = {
+        "finetune": d1b["launches"],
+        "finetune accum 2": results["finetune accum 2"]["launches"][
+            "deform_im2col.deform_col2im"],
+        "gradient check": 20}
+    log(f"phase 8: D1b launches: {d1b['launches_by_path']}; per step of one "
+        f"microbatch {d1b['ms']:.4f} ms by events, {d1b['device_ms']:.4f} ms "
+        f"device, bound {d1b['bound_ms']:.4f} ms ({smi})")
+    return d1b, results
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "birefnet_tpu_torch")):
         fail(f"birefnet_tpu_torch/ not found beside {__file__}")
@@ -2012,10 +2455,15 @@ def main() -> int:
                  f"{want_groups}")
     del fn
 
+    # Phase 8: training (train.py, finetune.py, D1b).
+    d1b, train_results = train_phase(torch, dev, pipeline, cfgs["swin_l"],
+                                     def_tree, frames_dev, smi)
+    log(f"phase 8: train results {json.dumps(train_results)}")
+
     reports["deform_im2col"].entry["deformable_gates"] = deform_results
     f32_entries = [r.entry for r in f32r.values() if r.main_path is not None]
     print(json.dumps({"kernels": [r.entry for r in reports.values()]
-                      + f32_entries}))
+                      + f32_entries + [d1b]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_name,

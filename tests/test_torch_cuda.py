@@ -1481,3 +1481,164 @@ def test_graphed_deformable_infer_equals_eager(dev, swin_l_128, tier):
     body's, D1 launched once per ASPP site (20) in the capture."""
     captured = _graphed_equals_eager(*swin_l_128, tier, dev)
     assert captured["deform_im2col.deform_im2col"] == 20
+
+
+# D1b (csrc/deform_col2im.cu), the backward of D1, at the same 12 site
+# shapes in f32 (training runs f32), against autograd through D1's plain
+# version: the three gradients within D1B_BOUND x max|plain| and the mean
+# ratio within D1B_MEAN (the f32 tier's mean bound). grad_x is summed by
+# atomic adds and the channel sums of grad_offset and grad_mask run in
+# another order, so the kernel is not bitwise; offsets and masks read in
+# (dy, dx) order, swapped, must break the bound.
+D1B_BOUND = 1e-5
+D1B_MEAN = 1e-5
+
+
+def _col2im_case(side, k, dev, c=64, stride=1):
+    x, offset, mask = _deform_case(side, k, torch.float32, dev, c=c)
+    oh = (side + 2 * (k // 2) - k) // stride + 1
+    offset, mask = offset[:, :oh, :oh].contiguous(), mask[:, :oh, :oh].contiguous()
+    gen = torch.Generator(dev).manual_seed(7 * side + k)
+    grad_cols = torch.randn((2 * oh * oh, k * k * c), generator=gen,
+                            device=dev)
+    return grad_cols, x, offset, mask
+
+
+def _assert_grads_close(got, want, bound=D1B_BOUND, mean=D1B_MEAN):
+    for name, g, w in zip(("grad_x", "grad_offset", "grad_mask"), got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        err = (g - w).abs().max().item()
+        assert err <= bound * w.abs().max().item(), (name, err)
+        rel = ((g - w).abs().mean() / w.abs().mean()).item()
+        assert rel <= mean, (name, rel)
+
+
+@pytest.mark.parametrize("side,k", DEFORM_SITES)
+def test_deform_col2im_kernel_matches_plain(dev, side, k):
+    args = _col2im_case(side, k, dev)
+    before = deform_im2col.deform_col2im.launches
+    got = deform_im2col.deform_col2im(*args, k, k, 1, k // 2)
+    assert deform_im2col.deform_col2im.launches == before + 1
+    want = deform_im2col.deform_col2im_plain(*args, k, k, 1, k // 2)
+    _assert_grads_close(got, want)
+
+
+def test_deform_col2im_swapped_offsets_break_the_bound(dev):
+    g, x, offset, mask = _col2im_case(64, 3, dev)
+    swapped = offset.reshape(2, 64, 64, 9, 2).flip(-1).reshape(offset.shape)
+    got = deform_im2col.deform_col2im(g, x, swapped.contiguous(), mask, 3, 3,
+                                      1, 1)
+    want = deform_im2col.deform_col2im_plain(g, x, offset, mask, 3, 3, 1, 1)
+    with pytest.raises(AssertionError):
+        _assert_grads_close(got, want)
+
+
+@pytest.mark.parametrize("c,stride", [(64, 2), (6, 1), (5, 2), (96, 1)])
+def test_deform_col2im_takes_strides_and_odd_widths(dev, c, stride):
+    """Stride 2, widths that take the scalar path (C % 4 != 0) and one
+    whose group spans 32 lanes with a second pass (C = 96)."""
+    args = _col2im_case(19, 3, dev, c=c, stride=stride)
+    got = deform_im2col.deform_col2im(*args, 3, 3, stride, 1)
+    want = deform_im2col.deform_col2im_plain(*args, 3, 3, stride, 1)
+    _assert_grads_close(got, want)
+
+
+def test_deform_col2im_refuses_bf16(dev):
+    g, x, offset, mask = _col2im_case(32, 3, dev)
+    with pytest.raises(TypeError, match="f32 only"):
+        deform_im2col.deform_col2im(g, x.bfloat16(), offset, mask.bfloat16(),
+                                    3, 3, 1, 1)
+
+
+def test_deform_conv2d_differentiates_through_d1_and_d1b(dev):
+    """ops/deform_conv.py on CUDA tensors that require grad: one D1 and one
+    D1b launch, and the gradients of x, offset, mask and the weight those
+    of the plain route (im2col replaced by the plain version)."""
+    from birefnet_tpu_torch.ops import deform_conv
+
+    _, x, offset, mask = _col2im_case(32, 3, dev)
+    weight = torch.randn((16, 64, 3, 3), device=dev) * 0.05
+    leaves = [t.clone().requires_grad_(True) for t in (x, offset, mask,
+                                                       weight)]
+
+    def grads():
+        out = deform_conv.deform_conv2d(*leaves, padding=1)
+        return torch.autograd.grad((out * out).sum(), leaves)
+
+    d1_before = deform_im2col.deform_im2col.launches
+    d1b_before = deform_im2col.deform_col2im.launches
+    got = grads()
+    assert deform_im2col.deform_im2col.launches == d1_before + 1
+    assert deform_im2col.deform_col2im.launches == d1b_before + 1
+    kernel_route = deform_conv.im2col
+    deform_conv.im2col = deform_im2col.deform_im2col_plain
+    try:
+        want = grads()
+    finally:
+        deform_conv.im2col = kernel_route
+    for g, w in zip(got, want):
+        assert (g - w).abs().max().item() <= D1B_BOUND * w.abs().max().item()
+
+
+def _refusing_calls(dev):
+    """(name, call) of every forward-only wrapper, called on tensors that
+    require grad; the refusal comes before any check of their shapes."""
+    t = torch.zeros(4, device=dev, requires_grad=True)
+    p = {"weight": t, "bias": t}
+    attn = {"qkv": p, "proj": p, "cached_bias": t}
+    attn8 = {"qkv": dict(p, weight_q8=t), "proj": p, "cached_bias": t}
+    mlp, mlp8 = {"fc1": p, "fc2": p}, {"fc1": dict(p, weight_q8=t), "fc2": p}
+    ln = {"scale": t, "bias": t}
+    return [
+        ("K1", lambda: fused_block_attn.fused_window_block_attention(
+            t, ln, attn, 12, 0, 1, None, 1, 1)),
+        ("K1-int8", lambda: fused_block_attn.fused_window_block_attention(
+            t, ln, attn8, 12, 0, 1, None, 1, 1)),
+        ("K2", lambda: fused_mlp.fused_mlp_residual(t, ln, mlp)),
+        ("K3", lambda: fused_mlp.fused_mlp_residual(t, ln, mlp8)),
+        ("K3 codes", lambda: fused_mlp.fused_mlp_residual_int8_codes(
+            t, t, t, mlp8)),
+        ("K4", lambda: row_ln.layer_norm_rows(ln, t)),
+        ("K5", lambda: tap_conv.tap_conv_same(t, t, t)),
+        ("K6", lambda: flash_window_attn.flash_window_attention_qkv(t, t)),
+        ("K7", lambda: flash_window_attn.flash_window_attention(t, t, t, t)),
+        ("K8", lambda: flash_window_attn.flash_attention(t, t, t)),
+        ("D1", lambda: deform_im2col.deform_im2col(t, t, t, 1, 1)),
+        ("bf16 GEMM", lambda: bf16_gemm.bf16_gemm(t, p, "store")),
+        ("f32 GEMM", lambda: f32_gemm.f32_gemm(t, p, "store")),
+        ("int8 GEMM", lambda: int8_gemm.int8_gemm(t, t, dict(p, scale_q8=t),
+                                                  "bf16")),
+    ]
+
+
+@pytest.mark.parametrize("index", range(14))
+def test_forward_only_wrappers_refuse_gradients(dev, index):
+    name, call = _refusing_calls(dev)[index]
+    with pytest.raises(RuntimeError, match="computes no gradient"):
+        call()
+
+
+def test_train_step_on_the_card_runs_d1_and_d1b_only(dev):
+    """One train step of swin_t at 64^2, batch 2, deformable: 20 D1 and 20
+    D1b launches, no launch of any forward-only kernel; a finite loss."""
+    import dataclasses
+
+    from birefnet_tpu_torch import pipeline, train
+    from birefnet_tpu_torch.configs import BiRefNetConfig, ComputeConfig
+
+    cfg = dataclasses.replace(BiRefNetConfig.for_backbone("swin_v1_t"),
+                              size=(64, 64))
+    params = pparams.init_params(cfg, 0, device=dev)
+    state = train.init_train_state(params, train.TrainConfig())
+    step = train.make_train_step(cfg, ComputeConfig(), train.TrainConfig())
+    counters = pipeline.kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    gen = torch.Generator(dev).manual_seed(0)
+    x = torch.randn((2, 64, 64, 3), generator=gen, device=dev)
+    y = (torch.rand((2, 64, 64), generator=gen, device=dev) > 0.5).float()
+    state, m = step(state, x, y)
+    counts = {n: fn.launches for n, fn in counters.items() if fn.launches}
+    assert counts == {"deform_im2col.deform_im2col": 20,
+                      "deform_im2col.deform_col2im": 20}
+    assert np.isfinite(float(m["loss"]))

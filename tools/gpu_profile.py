@@ -74,6 +74,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # (csrc/window_core_f32.cuh) and row_ln_kernel<float, caller>.
 GROUPS = [
     ("D1 deform_im2col", ("deform_im2col_kernel",)),
+    ("D1b deform_col2im", ("deform_col2im_kernel",)),
     ("K1 f32 attention core", ("F32CanvasRows",)),
     ("K6 f32 window attention", ("F32StridedRows",)),
     ("K1 f32 GEMM (qkv)", ("f32_gemm_kernel<0>",)),
