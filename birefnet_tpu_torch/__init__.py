@@ -13,14 +13,14 @@ deformable sampling's own backward kernel.
 """
 
 from .configs import (IMAGENET_MEAN, IMAGENET_STD, BiRefNetConfig,
-                      ComputeConfig, SwinConfig)
+                      ComputeConfig, DecoderConfig, SwinConfig)
 from .params import (build_param_tree, checkpoint_spec, export_checkpoint,
                      from_jax_params, init_params, load_checkpoint,
                      quantize_attn_int8, quantize_mlp_int8, random_checkpoint,
                      save_checkpoint)
 
 __all__ = [
-    "BiRefNetConfig", "ComputeConfig", "SwinConfig",
+    "BiRefNetConfig", "ComputeConfig", "DecoderConfig", "SwinConfig",
     "IMAGENET_MEAN", "IMAGENET_STD", "build_param_tree", "checkpoint_spec",
     "export_checkpoint", "from_jax_params", "init_params", "load_checkpoint",
     "quantize_attn_int8", "quantize_mlp_int8", "random_checkpoint",

@@ -54,6 +54,19 @@ class SwinConfig:
         return tuple(self.embed_dim * (1 << i) for i in range(len(self.depths)))
 
 
+@dataclasses.dataclass(frozen=True)
+class DecoderConfig:
+    """Decoder block configuration (counterpart of
+    birefnet_tpu.configs.DecoderConfig; reference: src/decoder.rs:11-24)."""
+
+    use_aspp_deformable: bool = True
+    # BiRefNet uses fixed 64 inter channels (reference: src/decoder.rs:21,93-97).
+    inter_channels_adaptive: bool = False
+
+    def inter_channels(self, in_channels: int) -> int:
+        return in_channels // 4 if self.inter_channels_adaptive else 64
+
+
 _SWIN_BACKBONES = {
     "swin_v1_t": SwinConfig.swin_t,
     "swin_v1_s": SwinConfig.swin_s,
@@ -135,6 +148,12 @@ class BiRefNetConfig:
 
     def final_channels(self) -> int:
         return self.dec_out_channels()[3] + self.ipt_out_channels()[0]
+
+    def decoder_config(self) -> DecoderConfig:
+        return DecoderConfig(
+            use_aspp_deformable=self.use_aspp_deformable,
+            inter_channels_adaptive=False,
+        )
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,15 +1,21 @@
-"""Host-side image decoding for the PyTorch port.
+"""Serving data loader: host-side decode and batching for the pipeline.
 
-Counterpart of the two per-image functions of birefnet_tpu/loader.py:27-46,
-which finetune.py reads its frames with: decode (PIL, or an array given as
-is) and the native antialiased triangle resize to the model size. The JAX
-module's threaded `BatchLoader` is not ported yet (ROADMAP.md, module
-item 5).
+Counterpart of birefnet_tpu/loader.py. It turns a stream of images of
+any sizes into fixed-shape uint8 batches on the host: decode (PIL, or an
+array given as is) and the native antialiased triangle resize to the
+model size (utils/native.py, OpenMP) run on a thread pool, and prepared
+batches are buffered ahead of the consumer, while normalization and the
+model run on the device (pipeline.py). finetune.py reads its frames with
+`load_frame`; serve.main reads its batches from `BatchLoader`.
 """
 
 from __future__ import annotations
 
-from typing import Tuple, Union
+import concurrent.futures as cf
+import os
+import queue
+import threading
+from typing import Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -40,3 +46,96 @@ def load_frame(src: ImageSource,
     if (oh, ow) != (size, size):
         img = native.resize_triangle_u8(img, size, size)
     return img, (oh, ow)
+
+
+class BatchLoader:
+    """Iterate fixed-shape uint8 batches over an image stream.
+
+    Decode and resize run on `workers` threads (the native resize releases
+    the GIL inside OpenMP); up to `prefetch` prepared batches are buffered
+    so the host stays ahead of the device. The batches are bitwise those
+    of birefnet_tpu.loader.BatchLoader for the same sources.
+    """
+
+    def __init__(self, sources: Sequence[ImageSource], batch_size: int = 4,
+                 size: int = 1024, workers: Optional[int] = None,
+                 prefetch: int = 2, drop_remainder: bool = False):
+        self.sources = list(sources)
+        self.batch_size = batch_size
+        self.size = size
+        self.workers = workers or min(8, os.cpu_count() or 4)
+        self.prefetch = prefetch
+        self.drop_remainder = drop_remainder
+
+    def __len__(self) -> int:
+        n = len(self.sources)
+        return (n // self.batch_size if self.drop_remainder
+                else -(-n // self.batch_size))
+
+    def __iter__(self) -> Iterator[Tuple[np.ndarray, List[Tuple[int, int]]]]:
+        """Yields (frames [B, size, size, 3] uint8, list of original sizes).
+
+        The final batch is zero-padded to batch_size (one input shape, so
+        one CUDA graph, per run) unless drop_remainder; its size list keeps
+        the true length.
+        """
+        q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
+        stop = object()
+        # Set when the consumer abandons the iterator early (generator close
+        # or an exception): the producer checks it around every bounded put,
+        # so the thread and its pool always wind down in a long-lived server.
+        cancelled = threading.Event()
+
+        def _put(item) -> bool:
+            while not cancelled.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def produce():
+            with cf.ThreadPoolExecutor(self.workers) as pool:
+                bs = self.batch_size
+                n = len(self.sources)
+                end = (n // bs) * bs if self.drop_remainder else n
+                for i in range(0, end, bs):
+                    if cancelled.is_set():
+                        return
+                    chunk = self.sources[i:i + bs]
+                    results = list(pool.map(
+                        lambda s: load_frame(s, self.size), chunk))
+                    frames = np.stack([r[0] for r in results])
+                    sizes = [r[1] for r in results]
+                    if frames.shape[0] < bs:
+                        pad = bs - frames.shape[0]
+                        frames = np.concatenate(
+                            [frames, np.zeros((pad, *frames.shape[1:]),
+                                              np.uint8)])
+                    if not _put((frames, sizes)):
+                        return
+            _put(stop)
+
+        def producer():
+            # A source that fails to decode reaches the consumer as its
+            # exception: a producer that died silently would leave it
+            # waiting on the queue forever.
+            try:
+                produce()
+            except Exception as e:  # noqa: BLE001 - re-raised by the consumer
+                _put(e)
+
+        t = threading.Thread(target=producer, daemon=True)
+        t.start()
+        try:
+            while True:
+                item = q.get()
+                if item is stop:
+                    break
+                if isinstance(item, Exception):
+                    raise item
+                yield item
+        finally:
+            cancelled.set()
+            t.join()

@@ -131,7 +131,9 @@ class GraphedInfer:
     wrappers' counters do not move. `pool_bytes[key]` is the device memory
     reserved by the capture. One lock, and one stream of its own, serialize
     copy -> replay -> clone, so threads that share the function never
-    interleave on one graph's static buffers.
+    interleave on one graph's static buffers. `submit` enqueues the same
+    copy -> replay with the read-back into the caller's pinned buffer and
+    returns at once, so a server keeps batches in flight (serve.main).
     """
 
     def __init__(self, body, device: torch.device, params):
@@ -178,17 +180,22 @@ class GraphedInfer:
         owned = tuple({id(t): t for t in held}.values())
         return static_in, graph, static_out, owned
 
+    def _entry(self, frames: torch.Tensor):
+        """(static input, graph, static output) of the frames' key, captured
+        at its first call; the caller holds the lock."""
+        key = (tuple(frames.shape), frames.dtype)
+        entry = self._graphs.get(key)
+        if entry is None:
+            entry = self._graphs[key] = self._capture(key, frames)
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        return entry[:3]
+
     @torch.inference_mode()
     def __call__(self, frames_u8) -> torch.Tensor:
         frames = _as_tensor(frames_u8)
-        key = (tuple(frames.shape), frames.dtype)
         with self._lock, torch.cuda.device(self.device):
-            entry = self._graphs.get(key)
-            if entry is None:
-                entry = self._graphs[key] = self._capture(key, frames)
-            static_in, graph, static_out, _ = entry
-            if self._stream is None:
-                self._stream = torch.cuda.Stream(self.device)
+            static_in, graph, static_out = self._entry(frames)
             current = torch.cuda.current_stream(self.device)
             self._stream.wait_stream(current)
             with torch.cuda.stream(self._stream):
@@ -198,6 +205,33 @@ class GraphedInfer:
             current.wait_stream(self._stream)
             mask.record_stream(current)
             return mask
+
+    @torch.inference_mode()
+    def submit(self, frames: torch.Tensor,
+               out: torch.Tensor) -> torch.cuda.Event:
+        """Enqueue one call without waiting for it: copy `frames` (a CPU
+        tensor, pinned for the copy to be asynchronous) to the static
+        input, replay, and copy the masks into `out` (pinned CPU memory of
+        the masks' shape and dtype), all on this function's stream. Returns
+        a CUDA event that fires once `out` holds the masks: the caller
+        waits on it, not on the device, and reuses neither buffer before
+        it has fired. The masks are the replay's, bitwise those __call__
+        returns."""
+        frames = _as_tensor(frames)
+        with self._lock, torch.cuda.device(self.device):
+            static_in, graph, static_out = self._entry(frames)
+            if out.shape != static_out.shape or out.dtype != static_out.dtype:
+                raise ValueError(f"out is {tuple(out.shape)} {out.dtype}, "
+                                 f"the masks {tuple(static_out.shape)} "
+                                 f"{static_out.dtype}")
+            self._stream.wait_stream(torch.cuda.current_stream(self.device))
+            done = torch.cuda.Event()
+            with torch.cuda.stream(self._stream):
+                static_in.copy_(frames, non_blocking=True)
+                graph.replay()
+                out.copy_(static_out, non_blocking=True)
+                done.record()
+            return done
 
 
 def make_infer_fn(params, cfg: BiRefNetConfig,

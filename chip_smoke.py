@@ -152,9 +152,11 @@ Phases, each printed as it runs; any failure exits non-zero:
    f32 kernel tier; swin_t int8 path, bf16 kernel tier, plain bf16;
    medians and spreads, and each graph's pool;
 7. profile one replay of the Swin-L int8 path's graph and one eager call
-   (tools/gpu_profile.py: wall, device time, idle share, kernels by
-   group); where the profiler resolves the graph's kernels, their launches
-   per group must be what the capture counted;
+   (tools/gpu_profile.py on birefnet_tpu_torch/utils/profiling.py: wall,
+   device time, idle share, kernels by group); where the profiler resolves
+   the graph's kernels, their launches per group must be what the capture
+   counted; then the replay's costliest kernels by
+   utils/profiling.device_op_profile;
 8. train (train.py, finetune.py, the export), f32, deformable: D1b
    (csrc/deform_col2im.cu, D1's backward, f32 atomics) at the inputs of
    the 20 deformable sites of one eager f32 forward of the offset-scaled
@@ -175,7 +177,27 @@ Phases, each printed as it runs; any failure exits non-zero:
    loaded and served through make_infer_fn; tests/test_train.py's overfit
    check (disk masks, lr 1e-4, no decay, 3 steps at GRAD_SIZE^2: the loss
    falls, decoder_block1's offset convs move); one profiled train step at
-   1024^2.
+   1024^2;
+9. the entry points a user starts the port with, at Swin-L 1024^2 batch 2
+   on seed-0 weights saved to a temporary safetensors file: the native
+   host-image library must build and load (utils/native.require; its
+   path is printed); 16 seeded images of mixed sizes (ENTRY_SIZES,
+   1440x1080 among them) as PNG and JPEG; serve.main on its default flags
+   (bf16, deformable: K1 / K2 / K4 / K5 / D1 48/48/16/1/20) and on the main
+   path's (--int8-mlp --int8-attn --deform-mode regular: K1 / K1-int8 / K2
+   / K3 / K4 / K5 8/40/8/40/16/1), ENTRY_RUNS runs each, the first of the
+   default flags without --checkpoint (the checkpoint from an HF cache
+   under a $HOME of its own), each with every launch count set to 0 just
+   before it and read just after: one graph captured, holding those
+   launches (counted twice by its first call, none by a replay), every
+   written mask bitwise the sequential path's (serve.main's loop before
+   it overlapped: decode, serve.segment, write, in series, on the same
+   function), img/s including IO of both loops, medians; cli.main on the
+   1440x1080 image with its defaults (f32 kernel tier, deformable: K1 / K2
+   / K4 / D1 48/48/16/20 captured), its mask bitwise make_infer_fn's for
+   the same frame and flags and its stats line printed; evaluate.main on
+   the served masks of the small images against seeded disks: seven
+   scores, each in [0, 1].
 
 The line before the last is the nvidia-smi name/power line, the one
 before it the JSON kernel report: per kernel `launches` from its main path
@@ -195,6 +217,7 @@ without the package beside this file, it exits 1 and prints no result.
 """
 
 import contextlib
+import io
 import json
 import os
 import subprocess
@@ -299,6 +322,29 @@ DEFORM_SITES = [(side, k, (2 if k == 1 else 1) * (2 if side == 32 else 1))
 D1B_BOUND, D1B_MEAN = 1e-5, 1e-5
 GRAD_LEAF_BOUND, GRAD_L2_BOUND = 1e-3, 1e-4
 GRAD_SIZE, TRAIN_STEPS = 256, 3
+# Phase 9 (entry points). The images serve.main and cli.main read, (height,
+# width), PNG at even indices and JPEG at odd ones; evaluate.main scores
+# the masks of those of at most ENTRY_EVAL_PIXELS (its E-measure loops 256
+# thresholds over every pixel: about 13 s a 1440x1080 mask on one core).
+ENTRY_SIZES = [(1080, 1440), (1440, 1080), (1024, 1024), (720, 1280),
+               (480, 640), (300, 400), (1500, 900), (256, 320)] * 2
+ENTRY_EVAL_PIXELS = 300 * 400
+ENTRY_RUNS = 3
+# Launches per call captured in serve.main's graph, by its flags (the
+# default: bf16, deformable; the main path's), and in cli.main's (f32,
+# deformable).
+K1, K1Q = ("fused_block_attn.fused_window_block_attention",
+           "fused_block_attn.fused_window_block_attention_int8")
+K2, K3 = "fused_mlp.fused_mlp_residual", "fused_mlp.fused_mlp_residual_int8"
+K4, K5, D1 = ("row_ln.layer_norm_rows", "tap_conv.tap_conv_same",
+              "deform_im2col.deform_im2col")
+SERVE_FLAGS = {
+    "serve.main default": ([], {K1: 48, K2: 48, K4: 16, K5: 1, D1: 20}),
+    "serve.main main path": (["--int8-mlp", "--int8-attn", "--deform-mode",
+                              "regular"],
+                             {K1: 8, K1Q: 40, K2: 8, K3: 40, K4: 16, K5: 1}),
+}
+CLI_LAUNCHES = {K1: 48, K2: 48, K4: 16, D1: 20}
 # Calls of each shape in phase 3's repeat check (the f32 shapes: fewer).
 REPEATS, REPEATS_F32 = 200, 100
 # Published H100 SXM peaks (dense): memory bytes/s and operations/s by type.
@@ -1193,11 +1239,8 @@ def check_kernels(torch, dev, reports, core, gemm, gemm16, rows16, cluster,
                  library_fn=lambda: F.conv2d(xc, wc, bc, padding=2))
     # K5's device time alone (the profiler's kernel time per call), beside
     # its event time above, which also holds the launch path.
-    from torch.profiler import ProfilerActivity, profile
-
     import gpu_profile
     k5.entry["device_ms"] = gpu_profile.device_ms_per_call(
-        torch, profile, [ProfilerActivity.CPU, ProfilerActivity.CUDA],
         lambda: tap_conv.tap_conv_same(xi, kk, kb), 20,
         lambda name: "tap_conv5_kernel" in name)
     m = k5.sums["swin_l"]
@@ -1614,13 +1657,11 @@ def check_d1b(torch, dev, sites, smi):
     multiply-adds, the masked weight and the atomic add) over the f32
     peak. Returns the kernel report entry (times summed per train step of
     one microbatch: the 20 calls)."""
-    from torch.profiler import ProfilerActivity, profile
 
     import gpu_profile
     from birefnet_tpu_torch.ops.kernels import deform_im2col as d1
 
     gen = torch.Generator(dev).manual_seed(8)
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     sums = dict.fromkeys(("ms", "plain_ms", "device_ms", "bound_ms",
                           "bytes_ms", "ops_ms"), 0.0)
     worst = {"abs": 0.0, "max": 0.0, "mean": 0.0,
@@ -1661,8 +1702,7 @@ def check_d1b(torch, dev, sites, smi):
         ms = cuda_ms(torch, kernel_fn)
         plain_ms = cuda_ms(torch, partial(d1.deform_col2im_plain, *args),
                            reps=3)
-        dev_ms = gpu_profile.device_ms_per_call(torch, profile, acts,
-                                                kernel_fn, 10, lambda n: True)
+        dev_ms = gpu_profile.device_ms_per_call(kernel_fn, 10, lambda n: True)
         n_cols = g.numel()
         byte_ms = nbytes(g, x, offset, mask, x, offset, mask) / MEM_RATE * 1e3
         op_ms = 36 * n_cols / PEAK["f32"] * 1e3
@@ -1980,6 +2020,261 @@ def train_phase(torch, dev, pipeline, cfg, def_tree, frames, smi):
         f"microbatch {d1b['ms']:.4f} ms by events, {d1b['device_ms']:.4f} ms "
         f"device, bound {d1b['bound_ms']:.4f} ms ({smi})")
     return d1b, results
+
+
+def write_entry_inputs(root, seed=9):
+    """The ENTRY_SIZES images from a seed (smooth gradients with noise, so
+    that PNG and JPEG sizes are an image's, not noise's), with a seeded
+    ground-truth disk per image; returns (image paths, masks dir)."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    imgs, masks = os.path.join(root, "entry_imgs"), os.path.join(root, "gt")
+    os.makedirs(imgs), os.makedirs(masks)
+    paths = []
+    for i, (h, w) in enumerate(ENTRY_SIZES):
+        yy, xx = np.mgrid[:h, :w]
+        base = np.stack([xx * (255 / w), yy * (255 / h),
+                         np.full((h, w), 128.0)], -1)
+        img = np.clip(base + rng.normal(0, 24, (h, w, 3)), 0, 255)
+        path = os.path.join(imgs, f"im{i:02d}.{'png' if i % 2 == 0 else 'jpg'}")
+        Image.fromarray(img.astype(np.uint8)).save(path)
+        paths.append(path)
+        cy, cx, r = h * rng.uniform(0.3, 0.7), w * rng.uniform(0.3, 0.7), \
+            min(h, w) * rng.uniform(0.2, 0.35)
+        disk = ((yy - cy) ** 2 + (xx - cx) ** 2) < r * r
+        Image.fromarray(disk.astype(np.uint8) * 255).save(
+            os.path.join(masks, f"im{i:02d}_mask.png"))
+    return paths, masks
+
+
+def run_entry(torch, pipeline, label, entry, argv):
+    """entry(argv) (serve.main or cli.main) with every launch count set to 0
+    just before it and read just after, and the function it builds kept
+    (make_infer_fn wrapped for the call). Its standard output is logged and
+    returned. Fails unless it returns 0 having built one function that
+    captured one graph. Returns (stdout, function, launches captured in its
+    graph, launches counted)."""
+    counters = pipeline.kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    made, make = [], pipeline.make_infer_fn
+
+    def keep(*args, **kw):
+        made.append(make(*args, **kw))
+        return made[-1]
+
+    pipeline.make_infer_fn = keep
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = entry(argv)
+    finally:
+        pipeline.make_infer_fn = make
+    counted = {n: fn.launches for n, fn in counters.items() if fn.launches}
+    for line in out.getvalue().splitlines():
+        log(f"phase 9: {label}: {line}")
+    if rc != 0 or len(made) != 1:
+        fail(f"phase 9: {label} returned {rc} having built {len(made)} "
+             f"functions")
+    graphs = made[0].launches
+    if len(graphs) != 1:
+        fail(f"phase 9: {label} captured {len(graphs)} graphs, not one: "
+             f"{list(graphs)}")
+    return out.getvalue(), made[0], next(iter(graphs.values())), counted
+
+
+def check_launches(label, captured, counted, want):
+    """The launches captured in the graph are `want`; each kernel of the
+    path was launched in the run: twice a call's by the first call (the
+    warm-up and the capture), none by a replay."""
+    log(f"phase 9: {label}: launches captured in its graph {captured}; "
+        f"counted in the run {counted}")
+    if captured != want:
+        fail(f"phase 9: {label}: captured launches {captured} != {want}")
+    if counted != {k: 2 * v for k, v in want.items()}:
+        fail(f"phase 9: {label}: launches counted in the run {counted} != "
+             f"twice {want}")
+
+
+def serve_sequential(serve, infer, paths, size, batch, out_dir):
+    """serve.main's loop before it overlapped, on the same function:
+    decode a chunk, serve.segment it, write its masks, each in series.
+    Returns img/s including IO."""
+    from PIL import Image
+
+    from birefnet_tpu_torch import loader
+
+    os.makedirs(out_dir)
+    t0 = time.perf_counter()
+    for start in range(0, len(paths), batch):
+        chunk = paths[start:start + batch]
+        images = [loader._decode(p) for p in chunk]
+        for p, m in zip(chunk, serve.segment(infer, images, size, batch)):
+            name = os.path.splitext(os.path.basename(p))[0] + "_mask.png"
+            Image.fromarray(m).save(os.path.join(out_dir, name))
+    return len(paths) / (time.perf_counter() - t0)
+
+
+def same_masks(a_dir, b_dir, paths):
+    """Whether every image's mask PNG in the two directories holds the same
+    pixels."""
+    from PIL import Image
+
+    for p in paths:
+        name = os.path.splitext(os.path.basename(p))[0] + "_mask.png"
+        a = np.asarray(Image.open(os.path.join(a_dir, name)))
+        b = np.asarray(Image.open(os.path.join(b_dir, name)))
+        if a.shape != b.shape or not np.array_equal(a, b):
+            return False
+    return True
+
+
+def entry_points_phase(torch, dev, smi):
+    """Phase 9: the entry points a user starts the port with, at Swin-L
+    1024^2 on seed-0 weights saved to a temporary safetensors file (see
+    the module docstring)."""
+    import re
+    import shutil
+    import tempfile
+
+    from PIL import Image
+    from safetensors.numpy import save_file
+
+    from birefnet_tpu_torch import cli, evaluate, pipeline, serve
+    from birefnet_tpu_torch.configs import BiRefNetConfig, ComputeConfig
+    from birefnet_tpu_torch.params import load_checkpoint, random_checkpoint
+    from birefnet_tpu_torch.utils import native
+
+    t_phase = time.perf_counter()
+    try:
+        lib = native.require()
+    except native.NativeLibraryError as e:
+        fail(f"phase 9: the host-image library: {e}")
+    log(f"phase 9: host-image library loaded from {lib}")
+    results = {"native_library": os.path.relpath(lib, ROOT)}
+    cfg = BiRefNetConfig.swin_l()
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "model.safetensors")
+        save_file(random_checkpoint(cfg, 0), ckpt)
+        paths, gt_dir = write_entry_inputs(tmp)
+        # An HF cache under a $HOME of its own: serve.main's first run takes
+        # its checkpoint from there, as a user's without --checkpoint does.
+        home = os.path.join(tmp, "home")
+        snap = os.path.join(home, ".cache", "huggingface", "hub",
+                            "models--ZhengPeng7--BiRefNet", "snapshots", "s0")
+        os.makedirs(snap)
+        cached = os.path.join(snap, "model.safetensors")
+        os.symlink(ckpt, cached)
+        for label, (flags, want) in SERVE_FLAGS.items():
+            rates = {"overlapped": [], "sequential": []}
+            for run in range(ENTRY_RUNS):
+                out = os.path.join(tmp, f"{label} {run}".replace(" ", "_"))
+                argv = [*paths, "--out", out, "--batch", str(BATCH), *flags]
+                from_cache = run == 0 and not flags
+                saved_home = os.environ.get("HOME")
+                if from_cache:
+                    os.environ["HOME"] = home
+                else:
+                    argv += ["--checkpoint", ckpt]
+                try:
+                    stdout, infer, captured, counted = run_entry(
+                        torch, pipeline, f"{label} run {run}", serve.main,
+                        argv)
+                finally:
+                    if saved_home is None:
+                        os.environ.pop("HOME", None)
+                    else:
+                        os.environ["HOME"] = saved_home
+                if from_cache and f"Loading {cached} " not in stdout:
+                    fail(f"phase 9: {label} did not take its checkpoint "
+                         f"from the HF cache at {cached}")
+                check_launches(f"{label} run {run}", captured, counted, want)
+                rate = re.search(r"\(([0-9.]+) img/s incl\. IO\)", stdout)
+                if rate is None:
+                    fail(f"phase 9: {label} printed no img/s")
+                rates["overlapped"].append(float(rate.group(1)))
+                rates["sequential"].append(serve_sequential(
+                    serve, infer, paths, SIZE, BATCH, out + "_sequential"))
+                if not same_masks(out, out + "_sequential", paths):
+                    fail(f"phase 9: {label} run {run}: the masks differ from "
+                         f"the sequential path's")
+                log(f"phase 9: {label} run {run}: {len(paths)} masks bitwise "
+                    f"the sequential path's (serve.segment on the same "
+                    f"decoded images, the same function)")
+                if run < ENTRY_RUNS - 1:
+                    shutil.rmtree(out + "_sequential")
+                del infer
+                torch.cuda.empty_cache()
+            med = {k: sorted(v)[len(v) // 2] for k, v in rates.items()}
+            log(f"phase 9: {label} ({' '.join(flags) or 'bf16, deformable'}): "
+                f"img/s incl. IO, {len(paths)} images, batch {BATCH}, median "
+                f"of {ENTRY_RUNS}: overlapped {med['overlapped']:.2f} "
+                f"{rates['overlapped']}, sequential {med['sequential']:.2f} "
+                f"{[round(r, 2) for r in rates['sequential']]} ({smi})")
+            results[label] = {"img_s_overlapped": rates["overlapped"],
+                              "img_s_sequential": rates["sequential"],
+                              "launches": want}
+
+        # cli.main on the 1440x1080 image with its defaults: the f32 kernel
+        # tier, deformable, at the frame's own size.
+        img = paths[0]
+        out_png = os.path.join(tmp, "cli_mask.png")
+        stdout, infer, captured, counted = run_entry(
+            torch, pipeline, "cli.main", cli.main,
+            [img, out_png, "--checkpoint", ckpt])
+        check_launches("cli.main", captured, counted, CLI_LAUNCHES)
+        stats = re.search(r"Mask stats - min: ([0-9.]+), max: ([0-9.]+), "
+                          r"mean: ([0-9.]+)", stdout)
+        if stats is None:
+            fail("phase 9: cli.main printed no mask stats")
+        times = re.findall(r"Inference time \([^)]*\): ([0-9.]+)s", stdout)
+        del infer
+        torch.cuda.empty_cache()
+        ref = pipeline.make_infer_fn(load_checkpoint(ckpt, cfg), cfg,
+                                     ComputeConfig(use_flash_attention=True),
+                                     dev)
+        with Image.open(img) as im:
+            frame = np.array(im.convert("RGB"), np.uint8)
+        want_mask = ref(frame[None]).cpu().numpy()[0]
+        got = np.asarray(Image.open(out_png))
+        if got.shape != frame.shape[:2] or not np.array_equal(got, want_mask):
+            fail(f"phase 9: cli.main's mask {got.shape} is not make_infer_fn's "
+                 f"for the same frame and flags")
+        log(f"phase 9: cli.main's {got.shape[1]}x{got.shape[0]} mask bitwise "
+            f"make_infer_fn's (f32 kernel tier, deformable); first call "
+            f"{times[0]} s, steady state {times[1]} s ({smi})")
+        results["cli.main"] = {"launches": CLI_LAUNCHES,
+                               "seconds_first_steady": [float(t) for t in times],
+                               "mask_stats": [float(v) for v in stats.groups()]}
+        del ref
+        torch.cuda.empty_cache()
+
+        # evaluate.main on the served masks of the small images against
+        # their seeded disks.
+        pred_dir, gts = os.path.join(tmp, "eval_pred"), os.path.join(tmp,
+                                                                     "eval_gt")
+        os.makedirs(pred_dir), os.makedirs(gts)
+        served = os.path.join(tmp, "serve.main_default_0")
+        for p, (h, w) in zip(paths, ENTRY_SIZES):
+            if h * w <= ENTRY_EVAL_PIXELS:
+                name = os.path.splitext(os.path.basename(p))[0] + "_mask.png"
+                shutil.copy(os.path.join(served, name), pred_dir)
+                shutil.copy(os.path.join(gt_dir, name), gts)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = evaluate.main([pred_dir, gts])
+        scores = {k: float(v) for k, v in (
+            line.split() for line in buf.getvalue().splitlines())}
+        log(f"phase 9: evaluate.main on {len(os.listdir(pred_dir))} served "
+            f"masks against seeded disks: {scores}")
+        if rc != 0 or len(scores) != 7 or not all(
+                0.0 <= v <= 1.0 for v in scores.values()):
+            fail(f"phase 9: evaluate.main returned {rc}, scores {scores}")
+        results["evaluate.main"] = scores
+    results["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 9: entry points done in {results['seconds']:.1f} s")
+    return results
 
 
 def main() -> int:
@@ -2409,6 +2704,7 @@ def main() -> int:
     # the graph's kernels, their launches per group must match what the
     # capture counted.
     import gpu_profile
+    from birefnet_tpu_torch.utils import profiling
     fn = pipeline.make_infer_fn(params["swin_l"], cfgs["swin_l"], int8, dev)
     fn(frames_dev)
     cap = fn.launches[(tuple(frames_dev.shape), frames_dev.dtype)]
@@ -2421,6 +2717,12 @@ def main() -> int:
         f"share {got['idle']:.3f}; eager wall {eager['wall_ms']:.2f} ms, "
         f"device {eager['device_ms']:.2f} ms, idle share {eager['idle']:.3f} "
         f"({smi})")
+    top = profiling.device_op_profile(fn, frames_dev, iters=2)
+    if not top:
+        fail("phase 7: utils/profiling.device_op_profile found no kernel")
+    log(f"phase 7: utils/profiling.device_op_profile of the replay, device "
+        f"ms per call of the 5 costliest of {len(top)} kernels: " + "; ".join(
+            f"{ms:.3f} x{n:g} {name[:60]}" for ms, n, name in top[:5]))
     k1 = cap.get("fused_block_attn.fused_window_block_attention", 0)
     k1q = cap.get("fused_block_attn.fused_window_block_attention_int8", 0)
     k2 = cap.get("fused_mlp.fused_mlp_residual", 0)
@@ -2459,6 +2761,10 @@ def main() -> int:
     d1b, train_results = train_phase(torch, dev, pipeline, cfgs["swin_l"],
                                      def_tree, frames_dev, smi)
     log(f"phase 8: train results {json.dumps(train_results)}")
+
+    # Phase 9: the entry points (serve.main, cli.main, evaluate.main).
+    torch.cuda.empty_cache()
+    log(f"phase 9: results {json.dumps(entry_points_phase(torch, dev, smi))}")
 
     reports["deform_im2col"].entry["deformable_gates"] = deform_results
     f32_entries = [r.entry for r in f32r.values() if r.main_path is not None]

@@ -1400,6 +1400,36 @@ def test_graphed_infer_is_safe_across_threads(dev, swin_t_128):
     assert bad == []
 
 
+def test_graphed_infer_submit_reads_back_bitwise(dev, swin_t_128):
+    """serve.main's batches in flight: GraphedInfer.submit copies pinned
+    frames in and the masks out into a pinned slot behind an event;
+    three batches in flight (serve.DEPTH = 2: three slots) and two more after
+    give bitwise __call__'s masks; a fourth batch in flight is refused, as
+    is an `out` of the wrong shape."""
+    from birefnet_tpu_torch import pipeline, serve
+    from birefnet_tpu_torch.configs import ComputeConfig
+
+    cfg, params = swin_t_128
+    infer = pipeline.make_infer_fn(
+        params, cfg, ComputeConfig(**GRAPH_TIERS["bf16 kernel tier"]), dev,
+        out_size=(128, 128))
+    frames = [_frames(20 + i) for i in range(5)]
+    want = [infer(f).cpu().numpy() for f in frames]
+    flight = serve.InFlight(infer, 2, 128)
+    handles = [flight.submit(f) for f in frames[:3]]
+    with pytest.raises(RuntimeError, match="in flight"):
+        flight.submit(frames[3])
+    got = [flight.wait(h) for h in handles]
+    handles = [flight.submit(f) for f in frames[3:]]
+    got += [flight.wait(h) for h in handles]
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert len(infer.launches) == 1
+    out = torch.empty((2, 64, 64), dtype=torch.uint8, pin_memory=True)
+    with pytest.raises(ValueError, match="out is"):
+        infer.submit(torch.from_numpy(frames[0]), out)
+
+
 # D1 (csrc/deform_im2col.cu) at the decoder's 12 ASPP site shapes of a
 # 1024^2 batch-2 forward: C = 64 at 32^2 (the squeeze block and
 # decoder_block4), 64^2, 128^2 and 256^2, each with k = 1, 3 and 7; the

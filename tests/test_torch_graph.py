@@ -35,6 +35,18 @@ TIERS = {
 }
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this module's PyTorch CPU work, restored
+    after it: the suite runs in several worker processes at once, and one
+    thread per core in each oversubscribes the cores
+    (tests/test_torch_train.py measured its forwards 50x slower)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def swin_t():
     cfg = dataclasses.replace(BiRefNetConfig.for_backbone("swin_v1_t"),

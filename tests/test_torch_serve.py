@@ -11,6 +11,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 from PIL import Image
 from safetensors.numpy import save_file
 
@@ -18,6 +19,18 @@ import birefnet_tpu_torch as pt
 from birefnet_tpu.utils import native as jnative
 from birefnet_tpu_torch import serve
 from birefnet_tpu_torch.utils import native
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this module's PyTorch CPU work, restored
+    after it: the suite runs in several worker processes at once, and one
+    thread per core in each oversubscribes the cores
+    (tests/test_torch_train.py measured its forwards 50x slower)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

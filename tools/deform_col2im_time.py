@@ -45,7 +45,6 @@ def main() -> int:
         return 1
     sys.path.insert(0, ROOT)
     sys.path.insert(0, os.path.join(ROOT, "tools"))
-    from torch.profiler import ProfilerActivity, profile
 
     import gpu_profile
     from birefnet_tpu_torch.ops.kernels import build, deform_im2col
@@ -62,7 +61,6 @@ def main() -> int:
     scalar.restype = ctypes.c_int
     dev = torch.device("cuda", torch.cuda.current_device())
     gen = torch.Generator(dev).manual_seed(0)
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     print(f"[d1b] D1b per call, ms: scalar atomics event / device, vector "
           f"atomics event / device, byte bound ({smi})", flush=True)
     total = [0.0] * 5
@@ -102,8 +100,8 @@ def main() -> int:
                          ("vector", run_vector), ("scalar", run_scalar)):
             times[name].append((
                 gpu_profile.event_ms_per_call(torch, fn, args.reps),
-                gpu_profile.device_ms_per_call(torch, profile, acts, fn,
-                                               args.reps, lambda n: True)))
+                gpu_profile.device_ms_per_call(fn, args.reps,
+                                               lambda n: True)))
         row = [sum(t[i] for t in times[n]) / 2 for n in ("scalar", "vector")
                for i in (0, 1)]
         nbytes = sum(t.numel() * 4 for t in (g, x, offset, mask, x, offset,

@@ -40,7 +40,6 @@ def main() -> int:
         return 1
     sys.path.insert(0, ROOT)
     sys.path.insert(0, os.path.join(ROOT, "tools"))
-    from torch.profiler import ProfilerActivity, profile
 
     import gpu_profile
     from birefnet_tpu_torch.ops.kernels import build, deform_im2col
@@ -54,7 +53,6 @@ def main() -> int:
     first.restype = ctypes.c_int
     dev = torch.device("cuda", torch.cuda.current_device())
     gen = torch.Generator(dev).manual_seed(0)
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     print(f"[d1] D1 per call, ms: first body event / device, kernel event / "
           f"device, byte bound ({smi})", flush=True)
     for dtype in (torch.bfloat16, torch.float32):
@@ -95,8 +93,7 @@ def main() -> int:
                 row[j] += gpu_profile.event_ms_per_call(torch, fn,
                                                         args.reps) / 2
                 row[j + 1] += gpu_profile.device_ms_per_call(
-                    torch, profile, acts, fn, args.reps,
-                    lambda s: "deform_im2col_kernel" in s) / 2
+                    fn, args.reps, lambda s: "deform_im2col_kernel" in s) / 2
             nbytes = sum(t.numel() * t.element_size()
                          for t in (x, offset, mask, want))
             bound = nbytes / 3.35e12 * 1e3

@@ -51,12 +51,14 @@ import argparse
 import os
 import subprocess
 import sys
-import time
 from functools import partial
 
 import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+from birefnet_tpu_torch.utils.profiling import (  # noqa: E402
+    device_ms_per_call, kernel_events, profiled)
 
 # (group, substrings of the kernel name), first match wins. The shared
 # window-attention core (csrc/window_core.cuh) runs as two template
@@ -139,57 +141,6 @@ def row_ln_sites(cfg):
     return sites
 
 
-def profiled(torch, profile, activities, fn, margin_s=0.02):
-    """Run fn() under the profiler twice, a warm-up step and a recorded
-    one, with `margin_s` of idle host time at both ends of the recorded
-    step; returns (profiler, wall ms of fn in that step). The profiler
-    keeps the kernels whose device timestamps fall inside the step's host
-    time: without the margins it dropped the first kernels of a recorded
-    forward in some runs on the H100 (one K4, one K1, three convolutions),
-    and every kernel of a short call in others."""
-    from torch.profiler import schedule
-
-    with profile(activities=activities,
-                 schedule=schedule(wait=0, warmup=1, active=1,
-                                   repeat=1)) as prof:
-        fn()
-        torch.cuda.synchronize()
-        prof.step()
-        time.sleep(margin_s)
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-        time.sleep(margin_s)
-        prof.step()
-    return prof, wall_ms
-
-
-def kernel_events(prof):
-    """The device-side kernel entries of prof.key_averages(): not the CPU
-    ops (whose entries repeat the device time of the kernels they
-    launched) and not the step annotations that the profiler also puts on
-    the device's timeline ("ProfilerStep*", spanning the whole step)."""
-    from torch.autograd import DeviceType
-
-    return [a for a in prof.key_averages()
-            if a.device_type == DeviceType.CUDA
-            and not getattr(a, "is_user_annotation", False)
-            and not a.key.startswith("ProfilerStep")]
-
-
-def device_ms_per_call(torch, profile, activities, fn, reps, name_key):
-    """The profiler's device time per call of the kernels whose name holds
-    name_key, over `reps` calls of fn."""
-    def calls():
-        for _ in range(reps):
-            fn()
-
-    prof, _ = profiled(torch, profile, activities, calls)
-    return sum(a.self_device_time_total for a in kernel_events(prof)
-               if name_key(a.key)) / (1e3 * reps)
-
-
 def event_ms_per_call(torch, fn, reps):
     fn()
     torch.cuda.synchronize()
@@ -206,11 +157,9 @@ def event_ms_per_call(torch, fn, reps):
 def row_ln_table(torch, cfg, smi, reps=20):
     """K4 per call: CUDA-event and device time against F.layer_norm's."""
     import torch.nn.functional as F
-    from torch.profiler import ProfilerActivity, profile
 
     from birefnet_tpu_torch.ops.kernels import row_ln
 
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     gen = torch.Generator("cuda").manual_seed(0)
     total = {"k_ev": 0.0, "k_dev": 0.0, "l_ev": 0.0, "l_dev": 0.0, "bound": 0.0}
     print(f"[profile] K4 row_ln per call, bf16, ms: kernel event / device, "
@@ -229,10 +178,10 @@ def row_ln_table(torch, cfg, smi, reps=20):
         lib = partial(F.layer_norm, x, (c,), affine["scale"], affine["bias"],
                       1e-5)
         row = {"k_ev": event_ms_per_call(torch, kern, reps),
-               "k_dev": device_ms_per_call(torch, profile, acts, kern, reps,
+               "k_dev": device_ms_per_call(kern, reps,
                                            lambda k: "row_ln_kernel" in k),
                "l_ev": event_ms_per_call(torch, lib, reps),
-               "l_dev": device_ms_per_call(torch, profile, acts, lib, reps,
+               "l_dev": device_ms_per_call(lib, reps,
                                            lambda k: "norm" in k.lower()),
                "bound": (2 * n * c * 2 + 8 * c) / 3.35e12 * 1e3}
         for key, v in row.items():
@@ -282,12 +231,10 @@ def k3_table(torch, cfg, smi, reps=20):
     device time (LN2 row pass and cluster kernel), the cluster kernel's
     device time and its rate, and torch._int_mm's event and device time
     for the two products (s32 only, no LayerNorm, GELU or quantization)."""
-    from torch.profiler import ProfilerActivity, profile
 
     from birefnet_tpu_torch import params as P
     from birefnet_tpu_torch.ops.kernels import fused_mlp
 
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     gen = torch.Generator("cuda").manual_seed(0)
     print(f"[profile] K3 per call, us: call event / device, cluster kernel "
           f"device (TOP/s), _int_mm x2 event / device ({smi})", flush=True)
@@ -319,13 +266,13 @@ def k3_table(torch, cfg, smi, reps=20):
                 torch._int_mm(q2, w2.t())
 
             row = [event_ms_per_call(torch, kern, reps) * 1e3,
-                   device_ms_per_call(torch, profile, acts, kern, reps,
+                   device_ms_per_call(kern, reps,
                                       lambda s: True) * 1e3,
-                   device_ms_per_call(torch, profile, acts, kern, reps,
+                   device_ms_per_call(kern, reps,
                                       lambda s: "fused_mlp_i8_kernel" in s)
                    * 1e3,
                    event_ms_per_call(torch, lib, reps) * 1e3,
-                   device_ms_per_call(torch, profile, acts, lib, reps,
+                   device_ms_per_call(lib, reps,
                                       lambda s: True) * 1e3]
             total = [a + depth * b / 1e3 for a, b in zip(total, row)]
             ops = 16 * c * c * t
@@ -345,11 +292,9 @@ def gemm_table(torch, cfg, smi, kind, reps=20):
     epilogue) or F.linear (the bf16 product and bias, no GELU or
     residual)."""
     import torch.nn.functional as F
-    from torch.profiler import ProfilerActivity, profile
 
     from birefnet_tpu_torch.ops.kernels import bf16_gemm, int8_gemm
 
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     gen = torch.Generator("cuda").manual_seed(0)
     bf = torch.bfloat16
     unit, lib_name = ("TOP/s", "_int_mm") if kind == "int8" else ("TFLOP/s",
@@ -378,10 +323,10 @@ def gemm_table(torch, cfg, smi, kind, reps=20):
             kern = partial(bf16_gemm.bf16_gemm, a, lin, epilogue, res)
             lib = partial(F.linear, a, lin["weight"], lin["bias"].to(bf))
         k_ev = event_ms_per_call(torch, kern, reps) * 1e3
-        k_dev = device_ms_per_call(torch, profile, acts, kern, reps,
+        k_dev = device_ms_per_call(kern, reps,
                                    lambda s: "gemm_kernel" in s) * 1e3
         l_ev = event_ms_per_call(torch, lib, reps) * 1e3
-        l_dev = device_ms_per_call(torch, profile, acts, lib, reps,
+        l_dev = device_ms_per_call(lib, reps,
                                    lambda s: True) * 1e3
         ops = 2 * m * n * k
         print(f"[profile] {kind} GEMM {label:<14} {epilogue:<8} "
@@ -395,14 +340,11 @@ def profile_call(torch, fn, frames, label, smi, top=20):
     prints wall time, device kernel time, idle share, the groups and the
     top kernels. Returns {"wall_ms", "device_ms", "idle", "groups":
     {group: [ms, launches]}}."""
-    from torch.profiler import ProfilerActivity, profile
 
     for _ in range(2):
         fn(frames)
     torch.cuda.synchronize()
-    prof, wall_ms = profiled(torch, profile, [ProfilerActivity.CPU,
-                                              ProfilerActivity.CUDA],
-                             partial(fn, frames))
+    prof, wall_ms = profiled(partial(fn, frames))
     kernels = [(a.self_device_time_total / 1e3, a.count, a.key)
                for a in kernel_events(prof) if a.self_device_time_total > 0]
     total = sum(ms for ms, _, _ in kernels)
@@ -428,11 +370,9 @@ def tap_conv_table(torch, smi, reps=20):
     F.conv2d's two times on the same bf16 operands, and the bounds.
     Returns the kernel's (event ms, device ms)."""
     import torch.nn.functional as F
-    from torch.profiler import ProfilerActivity, profile
 
     from birefnet_tpu_torch.ops.kernels import tap_conv
 
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     gen = torch.Generator("cuda").manual_seed(0)
     b, h, w = 2, 1024, 1024
     x = torch.randn((b, h, w, 3), generator=gen, device="cuda").to(
@@ -444,10 +384,10 @@ def tap_conv_table(torch, smi, reps=20):
     lib = partial(F.conv2d, x.permute(0, 3, 1, 2), wc,
                   bias.to(torch.bfloat16), padding=2)
     k_ev = event_ms_per_call(torch, kern, reps)
-    k_dev = device_ms_per_call(torch, profile, acts, kern, reps,
+    k_dev = device_ms_per_call(kern, reps,
                                lambda s: "tap_conv5_kernel" in s)
     l_ev = event_ms_per_call(torch, lib, reps)
-    l_dev = device_ms_per_call(torch, profile, acts, lib, reps,
+    l_dev = device_ms_per_call(lib, reps,
                                lambda s: True)
     byte_ms = (b * h * w * 3 * 2 + b * h * w * 2 + 76 * 4) / 3.35e12 * 1e3
     op_ms = 2 * 75 * b * h * w / 67e12 * 1e3
@@ -464,12 +404,10 @@ def deform_table(torch, smi, reps=20):
     site runs (offset conv; modulator conv and 2*sigmoid; D1; the
     contraction) and of the regular conv, and their sums per forward."""
     import torch.nn.functional as F
-    from torch.profiler import ProfilerActivity, profile
 
     from birefnet_tpu_torch.ops import layers as L
     from birefnet_tpu_torch.ops.kernels import deform_im2col
 
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     gen = torch.Generator("cuda").manual_seed(0)
     bf = torch.bfloat16
 
@@ -505,7 +443,7 @@ def deform_table(torch, smi, reps=20):
                 "contraction (torch.matmul)": lambda: torch.matmul(cols, w_kc),
                 "regular conv": lambda: L.conv2d(reg, x, padding=pad),
             }
-            row = {n: device_ms_per_call(torch, profile, acts, fns[n], reps,
+            row = {n: device_ms_per_call(fns[n], reps,
                                          lambda name: True) for n in names}
             for n in names:
                 total[n] += calls * row[n]

@@ -72,7 +72,6 @@ def main() -> int:
         return 1
     sys.path.insert(0, ROOT)
     sys.path.insert(0, os.path.join(ROOT, "tools"))
-    from torch.profiler import ProfilerActivity, profile
 
     import gpu_profile
     from birefnet_tpu_torch.ops.kernels import build, tap_conv
@@ -111,7 +110,6 @@ def main() -> int:
     if not torch.equal(call(fns["first body"]), want):
         print("error: the kernel differs from its first body", file=sys.stderr)
         return 1
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     byte_ms = (b * h * w * 3 * 2 + b * h * w * 2 + 76 * 4) / 3.35e12 * 1e3
     op_ms = 2 * 75 * b * h * w / 67e12 * 1e3
     print(f"[tap_conv] [{b},{h},{w},3] bf16 per call; bound "
@@ -126,8 +124,7 @@ def main() -> int:
                 torch.cuda.synchronize()
             run = partial(call, fn)
             dev = gpu_profile.device_ms_per_call(
-                torch, profile, acts, run, args.reps,
-                lambda s: "tap_conv5_kernel" in s)
+                run, args.reps, lambda s: "tap_conv5_kernel" in s)
             ev = gpu_profile.event_ms_per_call(torch, run, args.reps)
             print(f"[tap_conv] round {rnd} {name:<12} device {dev * 1e3:.2f} us, "
                   f"events {ev * 1e3:.2f} us", flush=True)
