@@ -24,14 +24,42 @@ __device__ __forceinline__ void tf32_split(float x, uint32_t& hi, uint32_t& lo) 
   lo = __float_as_uint(__fsub_rn(x, __uint_as_float(hi)));
 }
 
-// The current device's SM count, read once (host).
+// Host state that belongs to one device is kept per device index: a
+// kernel's attributes (cudaFuncSetAttribute) belong to the context of the
+// device current when they are set, so a process that drives two cards
+// sets them on each. Indices at or past kMaxDevices are refused.
+constexpr int kMaxDevices = 64;
+
+// The current device's index (host), or -1 if it cannot be read or is at
+// or past kMaxDevices.
+inline int device_index() {
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices) return -1;
+  return dev;
+}
+
+// set() once on each device: the first call on a device runs it and marks
+// the device in `done` if it succeeds. Returns set()'s error, or
+// cudaErrorInvalidDevice for a device past kMaxDevices.
+template <class F>
+cudaError_t once_per_device(bool (&done)[kMaxDevices], F set) {
+  const int dev = device_index();
+  if (dev < 0) return cudaErrorInvalidDevice;
+  if (done[dev]) return cudaSuccess;
+  const cudaError_t err = set();
+  if (err == cudaSuccess) done[dev] = true;
+  return err;
+}
+
+// The current device's SM count, read once per device (host).
 inline int sm_count() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-  }
+  static int count[kMaxDevices] = {};
+  const int dev = device_index();
+  if (dev >= 0 && count[dev] > 0) return count[dev];
+  int n = 0, d = 0;
+  cudaGetDevice(&d);
+  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, d);
+  if (dev >= 0) count[dev] = n;
   return n;
 }
 

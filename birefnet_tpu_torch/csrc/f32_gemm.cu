@@ -236,13 +236,12 @@ cudaError_t gemm_f32(const float* A, const float* W, const float* bias, const fl
   if (M <= 0 || N <= 0 || K <= 0 || N % 4 != 0 || K % 8 != 0 ||
       (EPI == kResidual && res == nullptr))
     return cudaErrorInvalidValue;
-  static bool attr = false;
-  if (!attr) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        f32_gemm_kernel<EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-    if (err != cudaSuccess) return err;
-    attr = true;
-  }
+  static bool attr[kMaxDevices];
+  const cudaError_t err = once_per_device(attr, [] {
+    return cudaFuncSetAttribute(f32_gemm_kernel<EPI>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  });
+  if (err != cudaSuccess) return err;
   CUtensorMap tmA, tmWh, tmWl;
   if (!ring::encode(&tmA, A, M, K, kBM) || !ring::encode(&tmWh, W, N, K, kBN) ||
       !ring::encode(&tmWl, W + (size_t)N * K, N, K, kBN))

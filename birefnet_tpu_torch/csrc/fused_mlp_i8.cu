@@ -618,17 +618,19 @@ cudaError_t launch(const int8_t* codes, const float* sx, const int8_t* w1q, cons
                    const Tx* x, Tx* out, int T, int C, cudaStream_t s) {
   if (T <= 0 || C <= 0 || C % 64 != 0 || C > kMaxCluster * kOut) return cudaErrorInvalidValue;
   const int S = (C + kOut - 1) / kOut;
-  static int max_clusters[kMaxCluster + 1];
-  static bool attr = false;
-  if (!attr) {
+  // Both per device: the attributes and the occupancy read under them.
+  static int max_clusters[bt::kMaxDevices][kMaxCluster + 1];
+  static bool attr[bt::kMaxDevices];
+  cudaError_t set = bt::once_per_device(attr, [] {
     cudaError_t err = cudaFuncSetAttribute(
         fused_mlp_i8_kernel<Tx>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
     if (err == cudaSuccess)
       err = cudaFuncSetAttribute(fused_mlp_i8_kernel<Tx>,
                                  cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (err != cudaSuccess) return err;
-    attr = true;
-  }
+    return err;
+  });
+  if (set != cudaSuccess) return set;
+  int* fits = max_clusters[bt::device_index()];
   CUtensorMap tmA, tmW1, tmW2;
   if (!encode(&tmA, codes, T, C, kRows) || !encode(&tmW1, w1q, 4 * C, C, kHalf) ||
       !encode(&tmW2, w2q, C, 4 * C, kOut))
@@ -644,16 +646,16 @@ cudaError_t launch(const int8_t* codes, const float* sx, const int8_t* w1q, cons
   cfg.stream = s;
   cfg.attrs = cluster;
   cfg.numAttrs = 1;
-  if (max_clusters[S] == 0) {
+  if (fits[S] == 0) {
     cfg.gridDim = dim3(S);
     int n = 0;
     const cudaError_t err = cudaOccupancyMaxActiveClusters(&n, fused_mlp_i8_kernel<Tx>, &cfg);
     if (err != cudaSuccess) return err;
     if (n <= 0) return cudaErrorLaunchOutOfResources;  // no cluster of S fits
-    max_clusters[S] = n;
+    fits[S] = n;
   }
   const int row_blocks = (T + kRows - 1) / kRows;
-  const int clusters = row_blocks < max_clusters[S] ? row_blocks : max_clusters[S];
+  const int clusters = row_blocks < fits[S] ? row_blocks : fits[S];
   cfg.gridDim = dim3(clusters * S);
   const cudaError_t err = cudaLaunchKernelEx(&cfg, fused_mlp_i8_kernel<Tx>, tmA, tmW1, tmW2, sx,
                                              s1, b1, s2, b2, x, out, T, C, S);

@@ -217,13 +217,12 @@ tap_conv5_kernel(const bf16* __restrict__ x, const float* __restrict__ k,
 template <bool kVec>
 cudaError_t launch(const bf16* x, const float* k, const float* bias, bf16* out, int B, int H,
                    int W, cudaStream_t s) {
-  static bool attr = false;
-  if (!attr) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        tap_conv5_kernel<kVec>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
-    if (err != cudaSuccess) return err;
-    attr = true;
-  }
+  static bool attr[bt::kMaxDevices];
+  const cudaError_t err = bt::once_per_device(attr, [] {
+    return cudaFuncSetAttribute(tap_conv5_kernel<kVec>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
+  });
+  if (err != cudaSuccess) return err;
   const int tiles_w = (W + kTileW - 1) / kTileW, tiles_h = (H + kTileH - 1) / kTileH;
   const long tiles = (long)B * tiles_w * tiles_h;
   if (tiles > 0x7fffffff) return cudaErrorInvalidValue;

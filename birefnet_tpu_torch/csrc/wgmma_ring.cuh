@@ -556,13 +556,12 @@ cudaError_t launch(const In* A, const In* W, const float* sa, const float* sw,
                    cudaStream_t s) {
   if (M <= 0 || N <= 0 || K <= 0 || N % 8 != 0 || K * (int)sizeof(In) % 16 != 0)
     return cudaErrorInvalidValue;
-  static bool attr = false;
-  if (!attr) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        gemm_kernel<In, EPI, Out>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem<Out>);
-    if (err != cudaSuccess) return err;
-    attr = true;
-  }
+  static bool attr[kMaxDevices];
+  const cudaError_t err = once_per_device(attr, [] {
+    return cudaFuncSetAttribute(gemm_kernel<In, EPI, Out>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem<Out>);
+  });
+  if (err != cudaSuccess) return err;
   CUtensorMap tmA, tmW;
   if (!encode(&tmA, A, M, K, kBM) || !encode(&tmW, W, N, K, kBN)) return cudaErrorInvalidValue;
   const int tiles = (M + kBM - 1) / kBM * ((N + kBN - 1) / kBN);

@@ -566,24 +566,23 @@ window_core_kernel(Rows rows, Addends ad, int windows, int n, int d, int G, int 
   }
 }
 
-// Whether a kernel's shared-memory limit is raised yet, per instantiation
-// and per translation unit (internal linkage: a process that loads two
-// builds of the library keeps one flag per build).
+// Whether a kernel's shared-memory limit is raised yet, per instantiation,
+// per device (common.cuh) and per translation unit (internal linkage: a
+// process that loads two builds of the library keeps one flag per build).
 namespace {
 template <class Rows, int NT, int DS, int MODE>
-bool smem_raised = false;
+bool smem_raised[kMaxDevices];
 }  // namespace
 
 template <class Rows, int NT, int DS, int MODE>
 cudaError_t launch_mode(const Rows& rows, const Addends& ad, const Plan& p, int windows,
                         int n, int d, float scale, float causal_neg, cudaStream_t s) {
   auto kernel = window_core_kernel<Rows, NT, DS, MODE>;
-  if (!smem_raised<Rows, NT, DS, MODE>) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
-    if (err != cudaSuccess) return err;
-    smem_raised<Rows, NT, DS, MODE> = true;
-  }
+  const cudaError_t err = once_per_device(smem_raised<Rows, NT, DS, MODE>, [&] {
+    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                kSmemLimit);
+  });
+  if (err != cudaSuccess) return err;
   kernel<<<dim3(p.runs, p.groups), p.warps * 32, p.smem, s>>>(
       rows, ad, windows, n, d, p.G, p.R, p.nbuf, scale, causal_neg, p.tile_elems,
       p.bias_off, p.ids_off);

@@ -473,11 +473,11 @@ window_core_f32_kernel(Rows rows, Addends ad, int windows, int n, int d, int R, 
   }
 }
 
-// Whether a kernel's shared-memory limit is raised yet, per instantiation
-// and per translation unit.
+// Whether a kernel's shared-memory limit is raised yet, per instantiation,
+// per device (common.cuh) and per translation unit.
 namespace {
 template <class Rows, int NT, int DS>
-bool smem_raised = false;
+bool smem_raised[kMaxDevices];
 }  // namespace
 
 template <class Rows, int NT, int DS>
@@ -486,12 +486,11 @@ cudaError_t launch(const Rows& rows, const Addends& ad, int windows, int heads, 
   const Plan p = plan(NT, n, d, windows, heads, ad.mask_kind == kRegionIds, ad.bias != nullptr);
   if (p.smem > (size_t)core::kSmemLimit) return cudaErrorInvalidValue;
   auto kernel = window_core_f32_kernel<Rows, NT, DS>;
-  if (!smem_raised<Rows, NT, DS>) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, core::kSmemLimit);
-    if (err != cudaSuccess) return err;
-    smem_raised<Rows, NT, DS> = true;
-  }
+  const cudaError_t err = once_per_device(smem_raised<Rows, NT, DS>, [&] {
+    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                core::kSmemLimit);
+  });
+  if (err != cudaSuccess) return err;
   // d^-0.5 as the JAX kernels take it: the double d ** -0.5, rounded to f32.
   const float scale = (float)std::pow((double)d, -0.5);
   kernel<<<dim3(p.runs, heads), p.warps * 32, p.smem, s>>>(

@@ -129,9 +129,10 @@ class GraphedInfer:
     `launches[key]` holds, per kernel wrapper (`kernel_counters`), the
     launches the captured body made: a replay runs no Python, so the
     wrappers' counters do not move. `pool_bytes[key]` is the device memory
-    reserved by the capture. One lock, and one stream of its own, serialize
-    copy -> replay -> clone, so threads that share the function never
-    interleave on one graph's static buffers. `submit` enqueues the same
+    reserved by the capture. One lock, and one stream of its own (its
+    graphs' capture stream too), serialize copy -> replay -> clone, so
+    threads that share the function never interleave on one graph's static
+    buffers. `submit` enqueues the same
     copy -> replay with the read-back into the caller's pinned buffer and
     returns at once, so a server keeps batches in flight (serve.main).
     """
@@ -142,14 +143,15 @@ class GraphedInfer:
         self.device = device
         self._graphs = {}
         self._lock = threading.Lock()
-        self._stream = None  # made at the first call, on the card
+        self._stream = None  # made at the first capture, on the card
         self.launches: Dict[tuple, Dict[str, int]] = {}
         self.pool_bytes: Dict[tuple, int] = {}
 
     @torch.inference_mode()
     def eager(self, frames_u8) -> torch.Tensor:
-        """The body uncaptured, on the current stream."""
-        return self._body(_as_tensor(frames_u8).to(self.device))
+        """The body uncaptured, on the device's current stream."""
+        with torch.cuda.device(self.device):
+            return self._body(_as_tensor(frames_u8).to(self.device))
 
     def _capture(self, key, frames: torch.Tensor):
         dev = self.device
@@ -169,9 +171,18 @@ class GraphedInfer:
             before = {name: fn.launches for name, fn in counters.items()}
             reserved = torch.cuda.memory_reserved(dev)
             graph = torch.cuda.CUDAGraph()
+            if self._stream is None:
+                self._stream = torch.cuda.Stream(dev)
             # Every kernel wrapper launches on the stream current at its call
-            # (ops/kernels/build.py: stream), here the capture stream.
-            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            # (ops/kernels/build.py: stream), here the capture stream: this
+            # function's own, on its device. torch.cuda.graph's default is
+            # one stream for the whole process, made on whichever device was
+            # current at the first capture, and cuBLAS keeps its workspace
+            # per stream: graphs of two functions captured on it share that
+            # workspace, and replays of both at once (two data groups on one
+            # card, sharding.ShardedInfer.submit) wrote over each other's.
+            with torch.cuda.graph(graph, stream=self._stream,
+                                  capture_error_mode="thread_local"):
                 static_out = self._body(static_in)
         self.pool_bytes[key] = torch.cuda.memory_reserved(dev) - reserved
         self.launches[key] = {name: fn.launches - before[name]
@@ -187,8 +198,6 @@ class GraphedInfer:
         entry = self._graphs.get(key)
         if entry is None:
             entry = self._graphs[key] = self._capture(key, frames)
-        if self._stream is None:
-            self._stream = torch.cuda.Stream(self.device)
         return entry[:3]
 
     @torch.inference_mode()

@@ -1,4 +1,4 @@
-"""Batch serving: segment a list of images on one device.
+"""Batch serving: segment a list of images on one device or a mesh of them.
 
 Counterpart of birefnet_tpu/serve.py. The serving core, `segment`, works
 on in-memory uint8 images of any sizes: each is resized on the host to the
@@ -23,10 +23,14 @@ serve does on its TPU) unless DISABLE_FLASH_ATTN is set, the int8 flags
 with either, and on the CPU only under --cpu. On the card it builds the
 native host-resize library first and stops with the compiler's output if
 that fails. --deform-mode is deformable (faithful sampling, the default,
-as in the JAX serve) or regular. Single device only: the JAX package's
---dp/--spatial meshes, --aot-dir executables, and the deformable-local
-and auto deform modes (an offset-clamped sampler for the TPU's gather
-floor, and its calibration) are not ported and are refused.
+as in the JAX serve) or regular. --dp N serves on a mesh of N data
+groups (parallel/sharding.make_sharded_infer_fn): cuda:0..N-1, or N CPU
+groups under --cpu; each batch is split into N equal groups, one captured
+graph per card, and two batches stay in flight across all of them.
+--spatial > 1 is refused (parallel/mesh.SPATIAL_CUT: 2048^2 fits one
+card), as are --aot-dir executables and the deformable-local and auto
+deform modes (an offset-clamped sampler for the TPU's gather floor, and
+its calibration).
 """
 
 from __future__ import annotations
@@ -191,7 +195,7 @@ def write_masks(infer: Callable, loader, out_dir: str) -> int:
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
-        description="BiRefNet batch segmentation (PyTorch, one device)")
+        description="BiRefNet batch segmentation (PyTorch)")
     parser.add_argument("inputs", nargs="+",
                         help="image files, globs, or directories")
     parser.add_argument("--out", default="masks",
@@ -217,26 +221,44 @@ def main(argv=None) -> int:
     parser.add_argument("--int8-attn", action="store_true",
                         help="W8A8 int8 attention qkv/proj at the same "
                         "stages (CUDA kernel tier only)")
+    parser.add_argument("--dp", type=int, default=0,
+                        help="data-parallel groups: the batch split over "
+                        "cuda:0..N-1 (N CPU groups under --cpu)")
+    parser.add_argument("--spatial", type=int, default=1,
+                        help="spatial shards per group: only 1 (refused "
+                        "above, parallel/mesh.py says why)")
     # Accepted for command-line parity with birefnet_tpu.serve, refused below.
     parser.add_argument("--aot-dir", default=None)
-    parser.add_argument("--dp", type=int, default=0)
-    parser.add_argument("--spatial", type=int, default=1)
     args = parser.parse_args(argv)
 
-    unported = {"--dp": args.dp, "--spatial": args.spatial != 1,
-                "--aot-dir": args.aot_dir,
+    unported = {"--aot-dir": args.aot_dir,
                 "--deform-mode": args.deform_mode not in ("deformable",
                                                           "regular")}
     refused = [flag for flag, on in unported.items() if on]
     if refused:
         parser.error(f"{', '.join(refused)} not ported to birefnet_tpu_torch "
-                     "(single device, bf16/f32, deform-mode deformable or "
-                     "regular: deformable-local's clamped sampler exists for "
-                     "the TPU's gather floor and auto needs its calibration; "
-                     "see ROADMAP.md)")
+                     "(bf16/f32, deform-mode deformable or regular: "
+                     "deformable-local's clamped sampler exists for the TPU's "
+                     "gather floor and auto needs its calibration; see "
+                     "ROADMAP.md)")
     if not args.cpu and not torch.cuda.is_available():
         parser.error("no CUDA device is available; pass --cpu to run on "
                      "the CPU")
+    # The JAX serve's mesh checks, in its order (birefnet_tpu/serve.py).
+    if args.spatial > 1 and not args.dp:
+        parser.error("--spatial requires --dp (use --dp 1 for a "
+                     "spatial-only mesh)")
+    if args.dp:
+        if args.batch % args.dp != 0:
+            parser.error(f"--batch {args.batch} not divisible by --dp "
+                         f"{args.dp}")
+        cards = torch.cuda.device_count() if not args.cpu else None
+        if cards is not None and args.dp * args.spatial > cards:
+            parser.error(f"--dp {args.dp} x --spatial {args.spatial} > "
+                         f"{cards} devices")
+    if args.spatial != 1:
+        from .parallel.mesh import SPATIAL_CUT
+        parser.error(f"--spatial {args.spatial}: {SPATIAL_CUT}")
 
     paths = _paths(args.inputs)
     if not paths:
@@ -270,11 +292,21 @@ def main(argv=None) -> int:
                               size=(args.size, args.size))
     print(f"Loading {ckpt} ...")
     params = load_checkpoint(ckpt, cfg)
-    infer = pipeline.make_infer_fn(params, cfg, compute, device,
-                                   out_size=(args.size, args.size))
+    if args.dp:
+        from .parallel import mesh, sharding
+
+        grid = mesh.make_mesh(devices=[
+            "cpu" if args.cpu else f"cuda:{i}" for i in range(args.dp)])
+        print(f"Sharded over {args.dp} devices (data {args.dp} x spatial 1; "
+              f"{args.batch // args.dp} images/group/step)")
+        infer = sharding.make_sharded_infer_fn(
+            grid, params, cfg, compute, out_size=(args.size, args.size))
+    else:
+        infer = pipeline.make_infer_fn(params, cfg, compute, device,
+                                       out_size=(args.size, args.size))
     if device.type == "cuda":
-        # Capture the batch shape's graph before the clock starts, as the
-        # JAX serve compiles its units before the first batch.
+        # Capture the batch shape's graph (on every card) before the clock
+        # starts, as the JAX serve compiles its units before the first batch.
         infer(np.zeros((args.batch, args.size, args.size, 3), np.uint8))
 
     try:
@@ -286,7 +318,8 @@ def main(argv=None) -> int:
         print(f"error: {e}", file=sys.stderr)
         return 1
     dt = time.perf_counter() - t0
-    print(f"Segmented {done} images in {dt:.3f}s on {device} "
+    where = f"{args.dp} x {device}" if args.dp else device
+    print(f"Segmented {done} images in {dt:.3f}s on {where} "
           f"({done / dt:.2f} img/s incl. IO)")
     return 0
 

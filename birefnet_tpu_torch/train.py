@@ -24,11 +24,15 @@ same forward the pipeline runs, in f32:
 - the forward and the backward run with PyTorch's TF32 flags off
   (`pipeline.full_f32`), the JAX package's precision=HIGHEST.
 
-The JAX step's sharding arguments (`in_sharding`, `param_sharding`: FSDP
-over a TPU mesh) and `split_update` (two programs, a workaround for the
-TPU's remote-compile memory cap) are not ported: a value other than the
-default raises (ROADMAP.md, module item 9, multi-GPU). `donate` keeps its
-meaning: with donate=True the step updates the state's tensors in place.
+Data parallelism: with `process_group` the step runs as one rank of a
+torch.distributed group (parallel/ranks.py): each rank runs its rows of
+each microbatch, one all-reduce averages the gradients and the loss, and
+every rank applies the same update to its replicated state. The JAX step's
+sharding arguments (`in_sharding`, `param_sharding`: FSDP over a TPU mesh)
+and `split_update` (two programs, a workaround for the TPU's
+remote-compile memory cap) are not ported: a value other than the default
+raises. `donate` keeps its meaning: with donate=True the step updates the
+state's tensors in place.
 
 Loss reference (behavioral): ZhengPeng7/BiRefNet `loss.py` structure_loss,
 weit = 1 + 5*|avg_pool31(gt) - gt| with torch's avg_pool2d default
@@ -48,9 +52,16 @@ from .configs import BiRefNetConfig, ComputeConfig
 from .models import birefnet
 from .pipeline import full_f32
 
-_NOT_PORTED = ("is a TPU or multi-device feature of the JAX package and is "
-               "not ported (ROADMAP.md, module item 9): the port trains on "
-               "one device")
+_NOT_PORTED = {
+    "in_sharding": "FSDP over a TPU mesh is not ported: pass process_group= "
+                   "for data-parallel training (replicated state, all-reduced "
+                   "gradients)",
+    "param_sharding": "FSDP over a TPU mesh is not ported: pass "
+                      "process_group= for data-parallel training (replicated "
+                      "state, all-reduced gradients)",
+    "split_update": "the two-program step, a workaround for the TPU's "
+                    "remote-compile memory cap, is not ported",
+}
 
 
 def validate_train_compute(compute: ComputeConfig) -> ComputeConfig:
@@ -348,6 +359,21 @@ def load_train_state(path: str, template: TrainState) -> TrainState:
 # The step
 # ---------------------------------------------------------------------------
 
+def all_reduce_mean(loss: torch.Tensor, grads: List[torch.Tensor],
+                    group) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """The mean of (loss, grads) over the ranks of `group`: one all-reduce
+    (sum) of one flat f32 bucket holding every gradient and the loss, then
+    a divide by the world size. The returned gradients are views of the
+    bucket."""
+    import torch.distributed as dist
+
+    bucket = torch.cat([g.reshape(-1) for g in grads] + [loss.reshape(1)])
+    dist.all_reduce(bucket, op=dist.ReduceOp.SUM, group=group)
+    bucket.div_(dist.get_world_size(group))
+    parts = bucket.split([g.numel() for g in grads] + [1])
+    return parts[-1].reshape(()), [p.view_as(g) for p, g in zip(parts, grads)]
+
+
 def make_train_step(
     cfg: BiRefNetConfig,
     compute: ComputeConfig = ComputeConfig(),
@@ -356,19 +382,31 @@ def make_train_step(
     donate: bool = True,
     param_sharding=None,
     split_update: Optional[bool] = None,
+    process_group=None,
 ) -> Callable[[TrainState, torch.Tensor, torch.Tensor], tuple]:
     """step(state, x, labels) -> (state', {"loss", "grad_norm"}), where x is
     the normalized [B, H, W, 3] image (pipeline.preprocess) and labels the
     [B, H, W] masks in [0, 1], on the state's device. With accum_steps = k,
     B is k microbatches. donate=True updates the state's tensors in place
     (the state passed in is then the state returned); donate=False leaves
-    them untouched."""
+    them untouched.
+
+    With `process_group` (a torch.distributed group of W ranks) x and
+    labels are this rank's rows, sharding.rank_rows of the global batch:
+    the rank-th 1/W of each microbatch, in microbatch order. After the
+    microbatches, one all-reduce sums the rank's mean gradients and loss
+    over the ranks in one flat f32 bucket, divided by W; only then come the
+    clip and AdamW, so every rank sees the global norm and applies the same
+    update to its replicated state. A group of one rank gives bitwise the
+    step without one. State is replicated, not FSDP-sharded as in the JAX
+    package: Swin-L's parameters, gradients and two AdamW moments are 3.5
+    GB in f32, beside 80 GB on an H100."""
     for name, value in (("in_sharding", in_sharding),
                         ("param_sharding", param_sharding),
                         ("split_update", split_update)):
         if value is not None:
-            raise NotImplementedError(f"make_train_step({name}=...) "
-                                      f"{_NOT_PORTED}")
+            raise NotImplementedError(f"make_train_step({name}=...): "
+                                      f"{_NOT_PORTED[name]}")
     compute = validate_train_compute(compute)
     opt = make_optimizer(tcfg)
     accum = tcfg.accum_steps
@@ -413,6 +451,8 @@ def make_train_step(
                 inv = 1.0 / accum
                 loss = loss * inv
                 grads = torch._foreach_mul(grads, inv)
+            if process_group is not None:
+                loss, grads = all_reduce_mean(loss, grads, process_group)
             with torch.no_grad():
                 grad_tree = unflatten(zip(keys, grads))
                 updates, opt_state = opt.update(grad_tree, state.opt_state,
@@ -424,3 +464,40 @@ def make_train_step(
         return new_state, {"loss": loss, "grad_norm": gnorm}
 
     return step
+
+
+def rank_step(rank: int, world: int, device: torch.device,
+              cfg: BiRefNetConfig, compute: ComputeConfig, tcfg: TrainConfig,
+              checkpoint: str, x, labels, out: str) -> None:
+    """One data-parallel step as rank `rank` of `world`, a
+    parallel.ranks.spawn rank function: the tree of the safetensors
+    `checkpoint` on `device`, a fresh train state, and one make_train_step
+    call in the default group on the rank's rows (sharding.rank_rows) of
+    the global batch, x the normalized [B, H, W, 3] and labels the
+    [B, H, W] masks (numpy). Rank 0 saves the new state to `out`
+    (save_train_state); every rank writes its loss, grad norm and peak
+    device memory (CUDA only, else null) to `out`.rank<r>.json."""
+    import json
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from .params import load_checkpoint
+    from .parallel.sharding import rank_rows
+
+    rows = rank_rows(x.shape[0], tcfg.accum_steps, rank, world)
+    state = init_train_state(load_checkpoint(checkpoint, cfg, device=device),
+                             tcfg)
+    step = make_train_step(cfg, compute, tcfg, process_group=dist.group.WORLD)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    state, metrics = step(state, torch.from_numpy(np.ascontiguousarray(
+        x[rows])).to(device), torch.from_numpy(np.ascontiguousarray(
+            labels[rows])).to(device))
+    if rank == 0:
+        save_train_state(out, state)
+    with open(f"{out}.rank{rank}.json", "w") as f:
+        json.dump({"loss": float(metrics["loss"]),
+                   "grad_norm": float(metrics["grad_norm"]),
+                   "peak_bytes": (torch.cuda.max_memory_allocated(device)
+                                  if device.type == "cuda" else None)}, f)

@@ -197,7 +197,39 @@ Phases, each printed as it runs; any failure exits non-zero:
    / K4 / D1 48/48/16/20 captured), its mask bitwise make_infer_fn's for
    the same frame and flags and its stats line printed; evaluate.main on
    the served masks of the small images against seeded disks: seven
-   scores, each in [0, 1].
+   scores, each in [0, 1];
+10. data parallelism (parallel/) over N data groups, one per card on a
+   machine of several cards, else two on cuda:0 (which measure no
+   scaling), and the 2048^2 HR configuration. DP serving:
+   make_sharded_infer_fn over the groups on the main path's flags and on
+   the f32 kernel tier, Swin-L 1024^2, batch 2 a group: each group
+   captures one graph holding its tier's launches (counted twice a group
+   in the run: warm-up and capture), the masks bitwise batch-2
+   make_infer_fn calls on cuda:0 on the same rows, `submit` bitwise the
+   call; ms of both and, over cards of their own, the img/s scaling;
+   serve.main --dp C --batch 2C (C cards: --dp 1 on one) bitwise
+   serve.main --batch 2 on phase 9's images (default flags, one graph a
+   card, its launches). DP training: make_train_step in a one-rank NCCL
+   group at Swin-L 1024^2 batch 2, after two steps without a group, in
+   deformable mode (f32; D1b's atomics make two steps differ, so each
+   leaf within 1e-3 x lr beyond one f32 ulp) and in regular mode with
+   cuDNN's deterministic algorithms (the steps repeat bitwise, and the
+   grouped step must be bitwise the step without a group); one step over
+   a rank per group (train.rank_step, Swin-L 512^2, one row a rank,
+   regular, deterministic; NCCL over cards of their own, gloo on one)
+   against the single-process accum_steps=N step: bitwise for two ranks,
+   and the loss, gradient norm and each leaf's AdamW first moment within
+   DP_REL relative (the batch-N step's distance logged beside it), the
+   per-rank peak memory; over several cards, finetune.main --dp N at
+   1024^2, batch N, 3 steps. HR: make_infer_fn for Swin-L at 2048^2,
+   batch 1 and 2, on the main path's flags (bf16, int8, regular) and on
+   serve's default (bf16, deformable), each against the f32 plain
+   pipeline of its deform mode at batch 1 (TF32 off): ms graphed (median
+   of 5), the graph pool, the peak allocated memory, the launches
+   captured, mask MAE < HR_MASK_MAE.
+
+`python3 chip_smoke.py --phase 10` runs phases 1, 2 and 10 alone (no
+kernel report; the last line also names the phases).
 
 The line before the last is the nvidia-smi name/power line, the one
 before it the JSON kernel report: per kernel `launches` from its main path
@@ -2048,13 +2080,14 @@ def write_entry_inputs(root, seed=9):
     return paths, masks
 
 
-def run_entry(torch, pipeline, label, entry, argv):
+def run_entry(torch, pipeline, label, entry, argv, phase=9, groups=1):
     """entry(argv) (serve.main or cli.main) with every launch count set to 0
-    just before it and read just after, and the function it builds kept
+    just before it and read just after, and the functions it builds kept
     (make_infer_fn wrapped for the call). Its standard output is logged and
-    returned. Fails unless it returns 0 having built one function that
-    captured one graph. Returns (stdout, function, launches captured in its
-    graph, launches counted)."""
+    returned. Fails unless it returns 0 having built `groups` functions
+    (one per data group), each of which captured one graph holding the
+    same launches. Returns (stdout, the first function, launches captured
+    in its graph, launches counted)."""
     counters = pipeline.kernel_counters()
     for fn in counters.values():
         fn.launches = 0
@@ -2073,28 +2106,28 @@ def run_entry(torch, pipeline, label, entry, argv):
         pipeline.make_infer_fn = make
     counted = {n: fn.launches for n, fn in counters.items() if fn.launches}
     for line in out.getvalue().splitlines():
-        log(f"phase 9: {label}: {line}")
-    if rc != 0 or len(made) != 1:
-        fail(f"phase 9: {label} returned {rc} having built {len(made)} "
-             f"functions")
-    graphs = made[0].launches
-    if len(graphs) != 1:
-        fail(f"phase 9: {label} captured {len(graphs)} graphs, not one: "
-             f"{list(graphs)}")
-    return out.getvalue(), made[0], next(iter(graphs.values())), counted
+        log(f"phase {phase}: {label}: {line}")
+    if rc != 0 or len(made) != groups:
+        fail(f"phase {phase}: {label} returned {rc} having built {len(made)} "
+             f"functions, not {groups}")
+    graphs = [list(fn.launches.values()) for fn in made]
+    if any(len(g) != 1 or g != graphs[0] for g in graphs):
+        fail(f"phase {phase}: {label} captured {graphs}: not one graph a "
+             f"function, each with the same launches")
+    return out.getvalue(), made[0], graphs[0][0], counted
 
 
-def check_launches(label, captured, counted, want):
+def check_launches(label, captured, counted, want, phase=9, groups=1):
     """The launches captured in the graph are `want`; each kernel of the
-    path was launched in the run: twice a call's by the first call (the
-    warm-up and the capture), none by a replay."""
-    log(f"phase 9: {label}: launches captured in its graph {captured}; "
+    path was launched in the run: twice a call's by each group's first call
+    (the warm-up and the capture), none by a replay."""
+    log(f"phase {phase}: {label}: launches captured in its graph {captured}; "
         f"counted in the run {counted}")
     if captured != want:
-        fail(f"phase 9: {label}: captured launches {captured} != {want}")
-    if counted != {k: 2 * v for k, v in want.items()}:
-        fail(f"phase 9: {label}: launches counted in the run {counted} != "
-             f"twice {want}")
+        fail(f"phase {phase}: {label}: captured launches {captured} != {want}")
+    if counted != {k: 2 * groups * v for k, v in want.items()}:
+        fail(f"phase {phase}: {label}: launches counted in the run "
+             f"{counted} != {2 * groups} x {want}")
 
 
 def serve_sequential(serve, infer, paths, size, batch, out_dir):
@@ -2277,7 +2310,509 @@ def entry_points_phase(torch, dev, smi):
     return results
 
 
+# Phase 10: data parallelism (parallel/) and the 2048^2 HR configuration.
+# The 2048^2 runs: (label, compute, batch); the f32 plain pipeline at batch
+# 1, TF32 off, is each deform mode's mask reference.
+HR_SIZE = 2048
+HR_MASK_MAE = 1e-3
+# The relative bound on the loss and the global gradient norm of a
+# data-parallel step against one process's step on the same rows, and on
+# AdamW's first moment after it, (1 - b1) x the clipped mean gradient, per
+# leaf against that leaf's largest: where more than two ranks add their
+# gradients in an order of the collective's, not the process's.
+DP_REL = 1e-5
+
+
+def data_devices(torch):
+    """Phase 10's data groups: one per card on a machine of several cards,
+    else two on cuda:0 (one card runs the multi-card paths, and shows no
+    scaling)."""
+    n = torch.cuda.device_count()
+    return ([f"cuda:{i}" for i in range(n)] if n > 1
+            else ["cuda:0", "cuda:0"])
+
+
+def timed_ms(torch, fn, frames, reps=5):
+    """Median CUDA-event ms of fn(frames) over `reps` calls after fn's
+    first call."""
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn(frames)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[len(times) // 2], times
+
+
+def dp_serving(torch, pipeline, cfg, params, devices, smi):
+    """make_sharded_infer_fn over `devices`, BATCH images a group, on the
+    main path's flags and on the f32 kernel tier (the other sources'
+    per-device attributes): each group captures one graph holding its
+    tier's launches (counted twice a group in the run: warm-up and
+    capture), the masks bitwise make_infer_fn's on cuda:0 at batch BATCH on
+    the same rows, `submit` bitwise the call; ms of both, and the img/s
+    scaling where the groups are on cards of their own."""
+    from birefnet_tpu_torch.configs import ComputeConfig
+    from birefnet_tpu_torch.parallel import mesh as pmesh
+    from birefnet_tpu_torch.parallel import sharding
+
+    groups, cards = len(devices), len(set(devices))
+    grid = pmesh.make_mesh(devices=devices)
+    frames = np.random.default_rng(45).integers(
+        0, 256, (BATCH * groups, SIZE, SIZE, 3), dtype=np.uint8)
+    tiers = {"main path": (ComputeConfig(
+        dtype=torch.bfloat16, use_flash_attention=True, deform_mode="regular",
+        int8_mlp=True, int8_attn=True), SERVE_FLAGS["serve.main main path"][1]),
+        "f32 tier": (ComputeConfig(use_flash_attention=True,
+                                   deform_mode="regular"),
+                     {K1: 48, K2: 48, K4: 16})}
+    counters = pipeline.kernel_counters()
+    results = {}
+    for name, (compute, want) in tiers.items():
+        for fn in counters.values():
+            fn.launches = 0
+        sharded = sharding.make_sharded_infer_fn(grid, params, cfg, compute)
+        got = sharded(frames)
+        counted = {n: fn.launches for n, fn in counters.items() if fn.launches}
+        captured = [list(g.values()) for g in sharded.launches]
+        log(f"phase 10: DP serving, {name}, {groups} groups on {devices}, "
+            f"swin_l {SIZE}^2 batch {BATCH * groups}: launches captured per "
+            f"group {captured}; counted {counted}")
+        if captured != [[want]] * groups:
+            fail(f"phase 10: DP groups ({name}) captured {captured}, want "
+                 f"one graph each with {want}")
+        if counted != {k: 2 * groups * v for k, v in want.items()}:
+            fail(f"phase 10: DP launches ({name}) counted {counted} != "
+                 f"{2 * groups} x {want} (each group's warm-up and capture)")
+        single = pipeline.make_infer_fn(params, cfg, compute, "cuda:0")
+        ref = torch.cat([single(frames[i * BATCH:(i + 1) * BATCH])
+                         for i in range(groups)])
+        if not torch.equal(got, ref):
+            fail(f"phase 10: the DP masks ({name}) differ from cuda:0's "
+                 f"make_infer_fn's on the same rows")
+        pinned_in = torch.from_numpy(frames).pin_memory()
+        pinned_out = torch.empty(tuple(got.shape), dtype=torch.uint8,
+                                 pin_memory=True)
+        sharded.submit(pinned_in, pinned_out).synchronize()
+        if not torch.equal(pinned_out, got.cpu()):
+            fail(f"phase 10: ShardedInfer.submit's masks ({name}) differ "
+                 f"from its call's")
+        ms = {}
+        for _ in range(2):
+            for label, fn, x in (
+                    (f"{groups} groups, batch {BATCH * groups}", sharded,
+                     frames),
+                    (f"make_infer_fn, batch {BATCH}", single,
+                     frames[:BATCH])):
+                ms.setdefault(label, []).extend(timed_ms(torch, fn, x)[1])
+        ms = {k: sorted(v)[len(v) // 2] for k, v in ms.items()}
+        one, many = ms[f"make_infer_fn, batch {BATCH}"], ms[
+            f"{groups} groups, batch {BATCH * groups}"]
+        scaling = groups * one / many if cards == groups else None
+        log(f"phase 10: DP serving, {name}: masks bitwise cuda:0's "
+            f"make_infer_fn, submit bitwise the call; ms per call (median "
+            f"of 10, in turns): {ms}; " + (
+                f"img/s scaling {scaling:.3f} of {groups}" if scaling
+                else f"{groups} groups on {cards} card(s) measure no "
+                     f"scaling") + f" ({smi})")
+        results[name] = {
+            "devices": devices, "launches_per_group": want, "ms": ms,
+            "scaling": scaling,
+            "graph_pool_gib": [sum(p.values()) / 2 ** 30
+                               for p in sharded.pool_bytes]}
+        del sharded, single
+        torch.cuda.empty_cache()
+    return results
+
+
+def dp_serve_main(torch, pipeline, serve, cfg, n, smi):
+    """serve.main --dp n --batch n BATCH bitwise serve.main --batch BATCH on
+    phase 9's images (default flags; n = 1 on one card): one graph a card,
+    each with the path's launches; img/s of both."""
+    import tempfile
+
+    from safetensors.numpy import save_file
+
+    from birefnet_tpu_torch.params import random_checkpoint
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "model.safetensors")
+        save_file(random_checkpoint(cfg, 0), ckpt)
+        paths, _ = write_entry_inputs(tmp)
+        outs, rates = {}, {}
+        want = SERVE_FLAGS["serve.main default"][1]
+        for label, extra, groups in (
+                ("serve.main", ["--batch", str(BATCH)], 1),
+                (f"serve.main --dp {n}",
+                 ["--dp", str(n), "--batch", str(BATCH * n)], n)):
+            outs[label] = os.path.join(tmp, label.replace(" ", "_"))
+            stdout, infer, captured, counted = run_entry(
+                torch, pipeline, label, serve.main,
+                [*paths, "--out", outs[label], "--checkpoint", ckpt, *extra],
+                phase=10, groups=groups)
+            check_launches(label, captured, counted, want, phase=10,
+                           groups=groups)
+            rates[label] = float(stdout.split(" img/s")[0].rsplit("(", 1)[1])
+            del infer
+            torch.cuda.empty_cache()
+        if not same_masks(*outs.values(), paths):
+            fail(f"phase 10: serve.main --dp {n} masks differ from "
+                 f"serve.main's")
+    log(f"phase 10: serve.main --dp {n} --batch {BATCH * n}: {len(paths)} "
+        f"masks bitwise serve.main --batch {BATCH}'s (default flags); img/s "
+        f"incl. IO {rates} ({smi})")
+    return rates
+
+
+def dp_training(torch, dev, cfg, params, devices, smi):
+    """One make_train_step in a one-rank NCCL group, bitwise the step
+    without a group (Swin-L 1024^2 batch 2, f32); one step over a rank per
+    entry of `devices` (train.rank_step, Swin-L 512^2, one row a rank: NCCL
+    where each rank has a card, gloo where they share cuda:0) against one
+    process's accum_steps=N step on the same rows; where the ranks have
+    cards of their own, finetune.main --dp N."""
+    import dataclasses
+    import tempfile
+
+    from safetensors.numpy import save_file
+
+    from birefnet_tpu_torch import pipeline, train
+    from birefnet_tpu_torch.configs import ComputeConfig
+    from birefnet_tpu_torch.params import (load_checkpoint, random_checkpoint,
+                                           to_device)
+    from birefnet_tpu_torch.parallel import ranks
+
+    lr, step_bound = 1e-4, 1e-3  # tests/test_torch_parallel.py's
+    eps = float(np.finfo(np.float32).eps)
+    rng = np.random.default_rng(17)
+    results = {}
+
+    def batch(size, n=BATCH):
+        frames = rng.integers(0, 256, (n, size, size, 3), dtype=np.uint8)
+        with torch.no_grad():
+            x = pipeline.preprocess(torch.from_numpy(frames).to(dev),
+                                    (size, size))
+        yy, xx = np.mgrid[:size, :size]
+        y = np.stack([((yy - size * f) ** 2 + (xx - size / 2) ** 2
+                       < (size / 4) ** 2) for f in np.linspace(0.4, 0.6, n)])
+        return x, torch.from_numpy(y.astype(np.float32)).to(dev)
+
+    tcfg = train.TrainConfig(learning_rate=lr)
+    x, y = batch(SIZE)
+    tree = to_device(params, dev)
+
+    def gap(a, b, start):
+        """(max over leaves of |a - b| / lr; the same less one ulp of the
+        leaf's largest value in the tree `start`, which step_bound holds;
+        whether every tensor of the two states is bitwise equal)."""
+        before = dict(train.flatten(start))
+        pa, pb = dict(train.flatten(a.params)), dict(train.flatten(b.params))
+        diff = {k: float((pa[k] - pb[k]).abs().max()) for k in pa}
+        worst = max((d - eps * float(before[k].abs().max())) / lr
+                    for k, d in diff.items())
+        same = all(torch.equal(u, v) for (_, u), (_, v) in zip(
+            train._state_items(a), train._state_items(b)))
+        return max(diff.values()) / lr, worst, same, max(diff, key=diff.get)
+
+    def moment_gap(a, b):
+        """The largest over leaves of max|mu_a - mu_b| / max|mu_b|: after one
+        step AdamW's first moment mu is (1 - b1) x the clipped mean
+        gradient, so this is the gradients' relative error, which Adam's
+        first update, lr g / (|g| + 1e-8), hides."""
+        ma = dict(train.flatten(a.opt_state["mu"]))
+        return max(float((ma[k] - v).abs().max()) / max(
+            float(v.abs().max()), 1e-30)
+            for k, v in train.flatten(b.opt_state["mu"]))
+
+    deterministic = torch.backends.cudnn.deterministic
+    with tempfile.TemporaryDirectory() as tmp:
+        # The step without a group twice, then in a one-rank NCCL group, in
+        # each mode. Deformable mode's backward (D1b) adds into grad_x with
+        # f32 atomics, in an order that changes from run to run, so two
+        # steps without a group differ there; regular mode with cuDNN's
+        # deterministic algorithms repeats bit for bit, and there the
+        # grouped step must be bitwise the step without a group.
+        with ranks.process_group(0, 1, "cuda:0",
+                                 os.path.join(tmp, "store")) as group:
+            for mode in ("deformable", "regular"):
+                torch.backends.cudnn.deterministic = mode == "regular"
+                runs = []
+                try:
+                    for pg in (None, None, group):
+                        # donate=False: every step starts from `tree`.
+                        step = train.make_train_step(
+                            cfg, ComputeConfig(deform_mode=mode), tcfg,
+                            donate=False, process_group=pg)
+                        start = train.init_train_state(tree, tcfg)
+                        held = torch.cuda.memory_allocated()
+                        torch.cuda.reset_peak_memory_stats()
+                        t0 = time.perf_counter()
+                        state, m = step(start, x, y)
+                        torch.cuda.synchronize()
+                        # The step's own peak: above what was held before it
+                        # (the tree, the fresh state, the earlier runs').
+                        runs.append((state, float(m["loss"]),
+                                     time.perf_counter() - t0,
+                                     torch.cuda.max_memory_allocated() - held))
+                        del start
+                finally:
+                    torch.backends.cudnn.deterministic = deterministic
+                (a, al, at, ap), (b, bl, _, _), (c, cl, ct, cp) = runs
+                noise, _, repeat, _ = gap(a, b, tree)
+                off, worst, same, _ = gap(a, c, tree)
+                how = mode + (", cuDNN deterministic" if mode == "regular"
+                              else "")
+                log(f"phase 10: one-rank NCCL group, swin_l {SIZE}^2 batch "
+                    f"{BATCH}, {how}: two steps without a group bitwise: "
+                    f"{repeat} (max |diff| {noise:.3e} x lr); the grouped "
+                    f"step bitwise the first: {same} (max |diff| {off:.3e} "
+                    f"x lr; less 1 ulp {worst:.3e}, bound {step_bound}); "
+                    f"losses {al:.6f} / {bl:.6f} / {cl:.6f}; {at:.2f} s / "
+                    f"{ct:.2f} s (the process's first and third step); the "
+                    f"step's own peak {ap / 2**30:.2f} / {cp / 2**30:.2f} GiB "
+                    f"(without / with the group) ({smi})")
+                if mode == "regular" and not (repeat and same):
+                    fail(f"phase 10: in regular mode, deterministic, the "
+                         f"steps repeat bitwise: {repeat}; the grouped step "
+                         f"is bitwise: {same}")
+                if not (worst <= step_bound and al == cl):
+                    fail(f"phase 10: the one-rank NCCL step ({mode}) is off "
+                         f"the step without a group by {worst} x lr")
+                results[f"nccl_one_rank_{mode}"] = {
+                    "repeat_bitwise": repeat, "noise_lr": noise,
+                    "grouped_bitwise": same, "grouped_diff_lr": off,
+                    "s": [at, ct], "peak_gib": [ap / 2**30, cp / 2**30]}
+                del runs, a, b, c, state
+                torch.cuda.empty_cache()
+        del tree
+        torch.cuda.empty_cache()
+
+        # N ranks, one row each, against one process, all in regular mode
+        # with cuDNN's deterministic algorithms. The computation the ranks
+        # must equal is the accum_steps=N step: the same N one-row
+        # microbatches, their gradients summed and divided by N. Two ranks
+        # sum in the process's one order, so there the step must be bitwise
+        # that step; more ranks sum in the collective's order, so there the
+        # loss, the global gradient norm and each leaf's first moment must
+        # be within DP_REL. The batch-N step is a different computation
+        # (cuDNN's algorithms by batch size): its distance is logged, with
+        # that of the accum_steps=N step to it, which says how far batch
+        # size alone moves the parameters (Adam's first step, lr g / (|g| +
+        # 1e-8), turns the smallest gradients' rounding into differences of
+        # up to lr).
+        world = len(devices)
+        backend = "nccl" if len(set(devices)) == world else "gloo"
+        size = SIZE // 2
+        cfg_s = dataclasses.replace(cfg, size=(size, size))
+        regular = ComputeConfig(deform_mode="regular")
+        ckpt = os.path.join(tmp, "model.safetensors")
+        save_file(random_checkpoint(cfg, 0), ckpt)
+        x, y = batch(size, world)
+        out = os.path.join(tmp, "state.safetensors")
+        t0 = time.perf_counter()
+        ranks.spawn(deterministic_rank_step, devices,
+                    (cfg_s, regular, tcfg, ckpt, x.cpu().numpy(),
+                     y.cpu().numpy(), out), backend=backend, timeout=600)
+        spawn_s = time.perf_counter() - t0
+        per_rank = []
+        for r in range(world):
+            with open(f"{out}.rank{r}.json") as f:
+                per_rank.append(json.load(f))
+        start = load_checkpoint(ckpt, cfg_s, device=dev)
+        got = train.load_train_state(out, train.init_train_state(start, tcfg))
+        torch.cuda.synchronize()
+        refs = {}
+        torch.backends.cudnn.deterministic = True
+        try:
+            for accum in (1, world):
+                refs[accum] = train.make_train_step(
+                    cfg_s, regular, dataclasses.replace(tcfg,
+                                                        accum_steps=accum),
+                    donate=False)(train.init_train_state(start, tcfg), x, y)
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        (accum_state, accum_m), (batch_state, batch_m) = refs[world], refs[1]
+        diff, _, same, _ = gap(accum_state, got, start)
+        mu_rel = moment_gap(got, accum_state)
+        off, worst, _, leaf = gap(batch_state, got, start)
+        split, _, _, split_leaf = gap(batch_state, accum_state, start)
+        rel = {k: abs(per_rank[0][k] - float(accum_m[k])) / abs(
+            float(accum_m[k])) for k in ("loss", "grad_norm")}
+        rel_batch = {k: abs(per_rank[0][k] - float(batch_m[k])) / abs(
+            float(batch_m[k])) for k in ("loss", "grad_norm")}
+        agree = all(p["loss"] == per_rank[0]["loss"] for p in per_rank)
+        log(f"phase 10: {world} {backend} ranks on {devices}, swin_l {size}^2 "
+            f"global batch {world}, regular, cuDNN deterministic, against "
+            f"one process's accum_steps={world} step: bitwise {same} (params "
+            f"max |diff| {diff:.3e} x lr); loss rel err {rel['loss']:.2e}, "
+            f"grad norm rel err {rel['grad_norm']:.2e}, first moment rel err "
+            f"{mu_rel:.2e} (bounds {DP_REL}); every rank's loss the same: "
+            f"{agree}. Against the batch-{world} step (not gated): loss "
+            f"{rel_batch['loss']:.2e}, grad norm {rel_batch['grad_norm']:.2e},"
+            f" params max |diff| {off:.3e} x lr at {leaf} (less 1 ulp "
+            f"{worst:.3e}), where the accum_steps={world} step is {split:.3e} "
+            f"x lr off it at {split_leaf}; per-rank peak "
+            f"{[round(p['peak_bytes'] / 2**30, 2) for p in per_rank]} GiB; "
+            f"spawn to end {spawn_s:.1f} s ({smi})")
+        if not (agree and max(*rel.values(), mu_rel) <= DP_REL):
+            fail(f"phase 10: the {world}-rank step is off the "
+                 f"accum_steps={world} step")
+        if world == 2 and not same:
+            fail("phase 10: the two-rank step is not bitwise the "
+                 "accum_steps=2 step")
+        results[f"{backend}_{world}_ranks"] = {
+            "accum_bitwise": same, "accum_diff_lr": diff,
+            "accum_rel_err": rel, "accum_moment_rel_err": mu_rel,
+            "batch_rel_err": rel_batch, "batch_diff_lr": off,
+            "batch_less_ulp_lr": worst, "accum_vs_batch_lr": split,
+            "peak_gib_per_rank": [p["peak_bytes"] / 2**30 for p in per_rank],
+            "seconds": spawn_s}
+        del start, got, refs, accum_state, batch_state
+        torch.cuda.empty_cache()
+        if backend == "nccl":
+            results["finetune_dp"] = dp_finetune(tmp, world, smi)
+    torch.cuda.empty_cache()
+    return results
+
+
+def dp_finetune(tmp, n, smi):
+    """finetune.main --dp n at SIZE^2, batch n (one row a rank), 3 steps on
+    write_pairs' images: it returns 0 with 3 steps of finite loss; ms a
+    step."""
+    from birefnet_tpu_torch import finetune
+
+    imgs, masks = write_pairs(tmp)
+    history = []
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = finetune.main([imgs, masks, "--out",
+                            os.path.join(tmp, "trained.safetensors"),
+                            "--size", str(SIZE), "--batch", str(n), "--steps",
+                            "3", "--lr", "1e-5", "--dp", str(n)],
+                           history=history)
+    for line in out.getvalue().splitlines():
+        log(f"phase 10: finetune.main --dp {n}: {line}")
+    steps = [(h["step"], h["loss"], h["ms"]) for h in history]
+    log(f"phase 10: finetune.main --dp {n}, {SIZE}^2 batch {n}: rc {rc} in "
+        f"{time.perf_counter() - t0:.1f} s; (step, loss, ms) {steps} ({smi})")
+    if rc != 0 or len(history) != 3 or not all(
+            np.isfinite(h["loss"]) for h in history):
+        fail(f"phase 10: finetune.main --dp {n} returned {rc} after "
+             f"{len(history)} steps")
+    return history
+
+
+def deterministic_rank_step(rank, world, device, *args):
+    """train.rank_step with cuDNN's deterministic algorithms: phase 10's
+    two-rank step, in a spawned rank (a fresh interpreter, which does not
+    inherit the parent's cuDNN flags)."""
+    import torch
+
+    from birefnet_tpu_torch import train
+
+    torch.backends.cudnn.deterministic = True
+    train.rank_step(rank, world, device, *args)
+
+
+def hr_phase(torch, pipeline, params, smi):
+    """Swin-L at 2048^2 on one card: batch 1 and 2 on the main path's flags
+    (bf16, int8, regular) and on serve's default (bf16 kernel tier,
+    deformable), each against the f32 plain pipeline at batch 1 (TF32 off)
+    in its deform mode: ms graphed, the graph pool, the peak allocated
+    memory, the mask MAE (< HR_MASK_MAE), the launches captured."""
+    import dataclasses
+
+    from birefnet_tpu_torch.configs import BiRefNetConfig, ComputeConfig
+
+    dev = torch.device("cuda:0")
+    cfg = dataclasses.replace(BiRefNetConfig.swin_l(), size=(HR_SIZE, HR_SIZE))
+    frames = np.random.default_rng(44).integers(
+        0, 256, (BATCH, HR_SIZE, HR_SIZE, 3), dtype=np.uint8)
+    frames_dev = torch.from_numpy(frames).to(dev)
+    bf16 = ComputeConfig(dtype=torch.bfloat16, use_flash_attention=True)
+    runs = {"regular": ("main path (bf16, int8, regular)",
+                        bf16.with_overrides(int8_mlp=True, int8_attn=True,
+                                            deform_mode="regular")),
+            "deformable": ("serve default (bf16, deformable)", bf16)}
+    results = {}
+    for mode, (label, compute) in runs.items():
+        torch.cuda.empty_cache()
+        ref_fn = pipeline.make_infer_fn(
+            params, cfg, ComputeConfig(deform_mode=mode), dev, as_uint8=False)
+        torch.cuda.reset_peak_memory_stats()
+        ref = torch.cat([ref_fn(frames_dev[i:i + 1]) for i in range(BATCH)])
+        ref_peak = torch.cuda.max_memory_allocated()
+        ref_ms, _ = timed_ms(torch, ref_fn, frames_dev[:1], reps=3)
+        ref_pool = sum(ref_fn.pool_bytes.values())
+        log(f"phase 10: HR f32 plain {mode} {HR_SIZE}^2 batch 1: {ref_ms:.2f} "
+            f"ms graphed, pool {ref_pool / 2**30:.2f} GiB, peak allocated "
+            f"{ref_peak / 2**30:.2f} GiB ({smi})")
+        results[f"f32 plain {mode} batch 1"] = {
+            "ms": ref_ms, "pool_gib": ref_pool / 2**30,
+            "peak_gib": ref_peak / 2**30}
+        del ref_fn
+        torch.cuda.empty_cache()
+        for b in (1, 2):
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            fn = pipeline.make_infer_fn(params, cfg, compute, dev,
+                                        as_uint8=False)
+            masks = fn(frames_dev[:b])
+            peak = torch.cuda.max_memory_allocated()
+            key = (tuple(frames_dev[:b].shape), frames_dev.dtype)
+            ms, times = timed_ms(torch, fn, frames_dev[:b])
+            mae = float((masks - ref[:b]).abs().mean())
+            entry = {"ms": ms, "ms_calls": times,
+                     "pool_gib": fn.pool_bytes[key] / 2**30,
+                     "peak_gib": peak / 2**30, "base_gib": base / 2**30,
+                     "mask_mae": mae, "launches": fn.launches[key]}
+            results[f"{label} batch {b}"] = entry
+            log(f"phase 10: HR swin_l {HR_SIZE}^2 {label} batch {b}: "
+                f"{ms:.2f} ms graphed (median of 5), pool "
+                f"{entry['pool_gib']:.2f} GiB, peak allocated "
+                f"{entry['peak_gib']:.2f} GiB (of which {base / 2**30:.2f} "
+                f"held before), mask MAE vs f32 plain {mae:.3e} (gate < "
+                f"{HR_MASK_MAE}); launches {entry['launches']} ({smi})")
+            if not mae < HR_MASK_MAE:
+                fail(f"phase 10: HR {label} batch {b} mask MAE {mae}")
+            del fn, masks
+            torch.cuda.empty_cache()
+        del ref
+    return results
+
+
+def parallel_phase(torch, dev, smi):
+    """Phase 10 (see the module docstring)."""
+    from birefnet_tpu_torch import pipeline, serve
+    from birefnet_tpu_torch.configs import BiRefNetConfig
+    from birefnet_tpu_torch.params import build_param_tree, random_checkpoint
+
+    t_phase = time.perf_counter()
+    cfg = BiRefNetConfig.swin_l()
+    params = build_param_tree(random_checkpoint(cfg, 0), cfg)
+    devices = data_devices(torch)
+    cards = torch.cuda.device_count()
+    results = {"devices": devices,
+               "dp_serving": dp_serving(torch, pipeline, cfg, params, devices,
+                                        smi),
+               "serve_dp": dp_serve_main(torch, pipeline, serve, cfg, cards,
+                                         smi),
+               "dp_training": dp_training(torch, dev, cfg, params, devices,
+                                          smi),
+               "hr": hr_phase(torch, pipeline, params, smi)}
+    results["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 10: done in {results['seconds']:.1f} s")
+    return results
+
+
 def main() -> int:
+    only_parallel = sys.argv[1:] == ["--phase", "10"]
+    if sys.argv[1:] and not only_parallel:
+        fail(f"usage: python3 chip_smoke.py [--phase 10]; got {sys.argv[1:]}")
     if not os.path.isdir(os.path.join(ROOT, "birefnet_tpu_torch")):
         fail(f"birefnet_tpu_torch/ not found beside {__file__}")
     try:
@@ -2291,9 +2826,11 @@ def main() -> int:
     sys.path.insert(0, os.path.join(ROOT, "tools"))  # gpu_profile
     dev = torch.device("cuda")
     device_name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60, check=True).stdout.strip()
+    # One line per card, joined (one card: nvidia-smi's line as it is).
+    smi = "; ".join(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+        check=True).stdout.strip().splitlines())
     log(f"phase 1: {device_name}, {torch.cuda.device_count()} device(s); torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
 
@@ -2308,6 +2845,13 @@ def main() -> int:
     t0 = time.perf_counter()
     build.build(verbose=True)
     log(f"phase 2: kernels built in {time.perf_counter() - t0:.1f} s")
+    if only_parallel:
+        log(f"phase 10: results {json.dumps(parallel_phase(torch, dev, smi))}")
+        print(smi)
+        print(json.dumps({"ok": True, "phases": [1, 2, 10], "device": {
+            "platform": "gpu", "kind": device_name,
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     # PyTorch's TF32 flags stay as a user finds them (cuDNN's on): phase 3
     # sets them off for its plain versions, and phase 4 runs make_infer_fn,
@@ -2765,6 +3309,10 @@ def main() -> int:
     # Phase 9: the entry points (serve.main, cli.main, evaluate.main).
     torch.cuda.empty_cache()
     log(f"phase 9: results {json.dumps(entry_points_phase(torch, dev, smi))}")
+
+    # Phase 10: data parallelism and the 2048^2 HR configuration.
+    torch.cuda.empty_cache()
+    log(f"phase 10: results {json.dumps(parallel_phase(torch, dev, smi))}")
 
     reports["deform_im2col"].entry["deformable_gates"] = deform_results
     f32_entries = [r.entry for r in f32r.values() if r.main_path is not None]

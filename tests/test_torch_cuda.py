@@ -1355,6 +1355,28 @@ def test_graphed_infer_owns_what_its_graph_reads(dev, swin_t_128):
     del junk
 
 
+def test_two_graphed_functions_replay_at_once_on_one_card(dev, swin_t_128):
+    """Two data groups on one card (parallel/sharding.ShardedInfer over
+    [cuda:0, cuda:0]) replay their graphs at once through submit: each
+    GraphedInfer captures on a stream of its own, so their graphs share no
+    cuBLAS workspace; the masks are bitwise the sequential calls'."""
+    from birefnet_tpu_torch.configs import ComputeConfig
+    from birefnet_tpu_torch.parallel import mesh, sharding
+
+    cfg, params = swin_t_128
+    card = torch.device("cuda", torch.cuda.current_device())
+    infer = sharding.make_sharded_infer_fn(
+        mesh.make_mesh(devices=[card, card]), params, cfg,
+        ComputeConfig(**GRAPH_TIERS["bf16 kernel tier"]))
+    frames = np.concatenate([_frames(20), _frames(21)])
+    want = infer(frames).cpu()
+    out = torch.empty(tuple(want.shape), dtype=torch.uint8, pin_memory=True)
+    for _ in range(4):
+        out.zero_()
+        infer.submit(torch.from_numpy(frames).pin_memory(), out).synchronize()
+        assert torch.equal(out, want)
+
+
 def test_graphed_infer_is_safe_across_threads(dev, swin_t_128):
     """Threads sharing one graphed function, each on a stream of its own,
     get the masks of their own frames: copy -> replay -> clone never

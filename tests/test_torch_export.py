@@ -14,6 +14,7 @@ on one Swin-L block.
 """
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -79,6 +80,7 @@ def test_saved_file_loads_through_both_packages(flat, tmp_path):
     _assert_trees_equal(pt.load_checkpoint(path, CFG_P), tree)
     jtree = bt.load_checkpoint(path, CFG_J)
     _assert_trees_equal(pt.from_jax_params(jtree), tree)
+    os.remove(path)  # 172 MB; a parallel run of the suite keeps tmp_path
 
 
 def test_init_params_equals_the_jax_init(flat):

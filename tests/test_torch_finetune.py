@@ -5,8 +5,11 @@
   a tiny dataset of odd-sized images (so the native triangle resize runs);
 - finetune.main --device cpu at swin_v1_t 64^2, 2 steps, writes a
   checkpoint that both packages load and a train state that resumes;
-- --dp > 1 and a missing CUDA device raise.
+- a microbatch not divisible by --dp (the JAX package's check) and a
+  missing CUDA device raise; tests/test_torch_parallel.py runs --dp 2.
 """
+
+import shutil
 
 import numpy as np
 import pytest
@@ -30,6 +33,15 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
+
+
+@pytest.fixture()
+def tmp_path(tmp_path):
+    """pytest's tmp_path, emptied when the test ends: the checkpoints and
+    training states written here are hundreds of MB each, and a parallel
+    run of the suite that kept them all would fill a small disk."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 @pytest.fixture()
@@ -111,8 +123,9 @@ def test_main_refuses_dp_and_a_missing_device(dataset, tmp_path):
     imgs, masks = dataset
     args = [imgs, masks, "--out", str(tmp_path / "x.safetensors"), "--size",
             "64", "--backbone", "swin_v1_t", "--steps", "1"]
-    with pytest.raises(NotImplementedError, match="module item 9"):
-        finetune.main(args + ["--dp", "2", "--device", "cpu"])
+    with pytest.raises(ValueError, match="not divisible by --dp 2"):
+        finetune.main(args + ["--batch", "3", "--dp", "2", "--device",
+                              "cpu"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             finetune.main(args)

@@ -57,7 +57,8 @@ def ckpt_t(tmp_path_factory):
     path = tmp_path_factory.mktemp("ck") / "model.safetensors"
     save_file(pt.random_checkpoint(pt.BiRefNetConfig.for_backbone("swin_v1_t"),
                                    3), str(path))
-    return str(path)
+    yield str(path)
+    shutil.rmtree(path.parent, ignore_errors=True)
 
 
 @pytest.fixture(scope="module")

@@ -1,6 +1,7 @@
 """The port imports torch, never JAX, the JAX package, the tests or Triton.
 
-Every .py file of birefnet_tpu_torch/, chip_smoke.py and the tools that
+Every .py file of birefnet_tpu_torch/ (parallel/ included: its spawned
+ranks import the port alone), chip_smoke.py and the tools that
 run on the GPU machine (gpu_profile.py, k3_phases.py, core_f32_time.py,
 tf32_check.py, tap_conv_phases.py, deform_im2col_time.py,
 deform_col2im_time.py and serve_stages.py; that machine has no JAX) is parsed
@@ -59,6 +60,10 @@ def test_the_files_are_found():
     assert len(FILES) > 20
     assert os.path.join("birefnet_tpu_torch", "ops", "kernels",
                         "row_ln.py") in FILES
+    # parallel/: its ranks import the port only (the spawned children).
+    for name in ("__init__", "mesh", "ranks", "sharding"):
+        assert os.path.join("birefnet_tpu_torch", "parallel",
+                            f"{name}.py") in FILES
 
 
 @pytest.mark.parametrize("path", FILES)

@@ -8,6 +8,7 @@ batches of 2 and writes one mask per image at the image's own size.
 """
 
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -38,7 +39,8 @@ def ckpt_path(tmp_path_factory):
     path = tmp_path_factory.mktemp("ck") / "m.safetensors"
     save_file(pt.random_checkpoint(pt.BiRefNetConfig.for_backbone("swin_v1_t"),
                                    3), str(path))
-    return str(path)
+    yield str(path)
+    shutil.rmtree(path.parent, ignore_errors=True)
 
 
 def test_serve_main_writes_masks_at_image_sizes(tmp_path, ckpt_path):
@@ -60,7 +62,8 @@ def test_serve_main_writes_masks_at_image_sizes(tmp_path, ckpt_path):
         assert m.shape == (h, w) and m.dtype == np.uint8
 
 
-@pytest.mark.parametrize("flag", [["--dp", "2"], ["--spatial", "2"],
+@pytest.mark.parametrize("flag", [["--batch", "3", "--dp", "2"],
+                                  ["--spatial", "2"],
                                   ["--deform-mode", "deformable-local"],
                                   ["--deform-mode", "auto"],
                                   ["--aot-dir", "x"]])

@@ -221,8 +221,10 @@ def test_validate_train_compute_refuses_kernel_flags(flag):
 @pytest.mark.parametrize("arg", ["in_sharding", "param_sharding",
                                  "split_update"])
 def test_unported_step_arguments_raise(arg):
-    with pytest.raises(NotImplementedError, match="module item 9"):
+    """FSDP's arguments point to process_group, data parallelism's port."""
+    with pytest.raises(NotImplementedError, match="not ported") as exc:
         train.make_train_step(CFG_P, **{arg: True})
+    assert ("process_group=" in str(exc.value)) == (arg != "split_update")
 
 
 # ---------------------------------------------------------------------------
