@@ -656,4 +656,331 @@ cudaError_t run(const Rows& rows, const Addends& ad, int windows, int heads, int
 }
 
 }  // namespace core
+
+// The key-tiled core: K6-K8 at the shapes the core above does not take
+// (N > 256, a head dim above 64, or a head dim that the wrapper padded to a
+// multiple of 8 and that therefore needs its true d^-0.5 given), the same
+// function with the same rounding points:
+//
+//   out = bf16(bf16(exp(s - m) / l) v),  s = bf16(q * scale) k^T + addends
+//
+// with m and l each query row's max and sum of exp(s - m) over all keys, in
+// f32. It ports the JAX kernels' whole-window tile
+// (birefnet_tpu/ops/pallas/flash_window_attn.py::_attn_core, which takes
+// any N and d) to blocks of 64 query rows that walk the keys in tiles of
+// 64, twice:
+//
+// - Pass 1 computes each tile's scores (q k^T by mma.sync m16n8k16 over d
+//   in chunks of up to 64 columns, plus the addends) and keeps each row's
+//   running max and sum in f32, rescaling the sum at each new max.
+// - Pass 2 recomputes the same scores tile by tile (bitwise the first
+//   pass's), forms exp(s - m) / l, rounds it to bf16 and accumulates P v in
+//   f32 registers.
+//
+// A one-pass online softmax would round unnormalized probabilities to bf16
+// and rescale the sums afterwards: another rounding than the JAX kernel's
+// and the plain version's, which normalize before the cast. The price is a
+// second q k^T, on an API path no forward calls.
+//
+// What bounds it: the scores are recomputed, so per (window, head) it does
+// 6 N^2 d flops (two q k^T, one P v) against 8 N d bytes plus the addends;
+// at N = 1024, d = 128 that is about 770 flops a byte, above the H100's
+// bf16 ridge, so large calls are bound by the tensor cores and small ones
+// (N = 257, 576) by latency. The design answers the latency:
+// - The key tiles stream through two buffers: the next (key tile, d chunk)
+//   stage of k (and, in pass 2, the next tile's v rows) is copied by
+//   cp.async while the current one computes. A first body that waited for
+//   each tile's copies ran N = 4096 causal at 8.5x SDPA's time.
+// - flash_attention's causal flag skips the key tiles past a block's last
+//   query row in both passes: their probabilities are exactly 0 (bf16(-1e9)
+//   under every row's max, whose exp underflows) and their sums exactly 0,
+//   so the output is bitwise what the whole walk gives.
+// - The addends are read in place: the f32 bias and a dense f32 mask from
+//   device memory and L2 (too large to stage at these N), region ids from
+//   L1, the causal flag from nothing. q stays in shared memory for the
+//   whole block where d <= 128 (else its chunks stream beside k's).
+//
+// Head dim: q k^T contracts over dqk (a multiple of 8), and one launch
+// writes dv <= 128 output columns of v's (the caller's) view: the wrapper
+// launches one slice per 128 columns where d > 128. Pad keys get
+// probability 0, pad query rows and columns are never written.
+namespace core_tiled {
+
+constexpr int kRows = 64;  // query rows a block: four warps of 16-row strips
+constexpr int kKeys = 64;  // keys a tile
+constexpr int kThreads = 128;
+
+// Chunks of q kept in shared memory: two of 64 columns (d <= 128 stays for
+// the whole block; above, the two slots hold the streamed chunks), one of a
+// narrower chunk (d fits it).
+__host__ __device__ constexpr int q_chunks(int dk) { return dk == 64 ? 2 : 1; }
+
+// q's chunks, then two buffers each of k chunks and v tiles.
+__host__ __device__ constexpr size_t smem_bytes(int dk, int dv) {
+  return ((size_t)q_chunks(dk) * kRows * dk + 2 * (size_t)kKeys * dk + 2 * (size_t)kKeys * dv) *
+         2;
+}
+
+// Copy rows [r0, r0 + 64) and columns [c0, c0 + W) of operand `part` of
+// head h into a [64, W] tile, swizzled as core::swz; zero at rows past n
+// and columns past `cols`.
+template <class Rows, int W>
+__device__ __forceinline__ void stage(const Rows& rows, bf16* dst, int part, long long item,
+                                      int h, int r0, int n, int c0, int cols) {
+  constexpr int cpr = W / 8;
+  for (int e = threadIdx.x; e < 64 * cpr; e += kThreads) {
+    const int i = e / cpr, c = e - (e / cpr) * cpr;
+    const int r = r0 + i, col = c0 + c * 8;
+    const bool valid = r < n && col < cols;
+    const bf16* src = valid ? rows.in(part, item, h, r) + col : rows.in(part, item, h, 0);
+    core::cp_async16(dst + i * W + core::swz<W>(i, c) * 8, src, valid);
+  }
+}
+
+// One block: query rows [64 qt, +64) of window w, head h; blockIdx.x =
+// w * nqt + qt. DK: width of a q/k chunk (16, 32 or 64); DV: width of the
+// v tile and the output slice (16 to 128).
+template <class Rows, int DK, int DV>
+__global__ void __launch_bounds__(kThreads)
+window_tiled_kernel(Rows rows, Addends ad, int n, int dqk, int dv, int nqt, float scale,
+                    float causal_neg) {
+  constexpr int KD = DK / 16, OT = DV / 8, NT = kKeys / 8, QC = q_chunks(DK);
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* qs = reinterpret_cast<bf16*>(smem);  // QC x [64, DK]
+  bf16* ks = qs + QC * kRows * DK;           // 2 x [64, DK]
+  bf16* vs = ks + 2 * kKeys * DK;            // 2 x [64, DV]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int w = blockIdx.x / nqt, qt = blockIdx.x - w * nqt, h = blockIdx.y;
+  const long long item = rows.item(w);
+  const int row0 = qt * kRows;
+  const int r0 = row0 + warp * 16 + g, r1 = r0 + 8;
+  const int nck = (dqk + DK - 1) / DK;
+  const bool qres = nck <= QC;
+  const int kind = ad.mask_kind;
+  // Key tiles to walk: all of them, or with the causal flag those up to the
+  // block's last real query row.
+  int nkt = (n + kKeys - 1) / kKeys;
+  if (kind == kCausal) nkt = min(nkt, (min(row0 + kRows, n) - 1) / kKeys + 1);
+  const int stages = nkt * nck;  // (key tile, d chunk) stages of one pass
+  const float* bias = ad.bias != nullptr ? ad.bias + (size_t)h * n * n : nullptr;
+  const float* dense = kind == kMaskF32
+                           ? static_cast<const float*>(ad.mask) + (size_t)(w % ad.nw) * n * n
+                           : nullptr;
+  const int* ids = kind == kRegionIds
+                       ? static_cast<const int*>(ad.mask) + (size_t)(w % ad.nw) * n
+                       : nullptr;
+  const int id0 = ids != nullptr && r0 < n ? __ldg(ids + r0) : 0;
+  const int id1 = ids != nullptr && r1 < n ? __ldg(ids + r1) : 0;
+
+  if (qres) {
+    for (int c = 0; c < nck; ++c)
+      stage<Rows, DK>(rows, qs + c * kRows * DK, 0, item, h, row0, n, c * DK, dqk);
+    asm volatile("cp.async.commit_group;\n");
+  }
+
+  // Copy stage i (key tile i / nck, d chunk i % nck) into buffer i % 2: its
+  // k chunk, q's chunk where q does not stay, and with with_v the tile's v
+  // rows (at its first chunk) into v buffer kt % 2. One commit group a
+  // stage, empty past the last.
+  auto fetch = [&](int i, bool with_v) {
+    if (i < stages) {
+      const int kt = i / nck, c = i - kt * nck;
+      if (!qres) stage<Rows, DK>(rows, qs + (i & 1) * kRows * DK, 0, item, h, row0, n, c * DK, dqk);
+      stage<Rows, DK>(rows, ks + (i & 1) * kKeys * DK, 1, item, h, kt * kKeys, n, c * DK, dqk);
+      if (with_v && c == 0)
+        stage<Rows, DV>(rows, vs + (kt & 1) * kKeys * DV, 2, item, h, kt * kKeys, n, 0, dv);
+    }
+    asm volatile("cp.async.commit_group;\n");
+  };
+
+  // Scores of key tile kt (stages kt nck ..) with their addends (pad keys
+  // -inf), the next stage's copies requested before each chunk computes.
+  auto scores = [&](int kt, bool with_v, float (&sc)[NT][4]) {
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int u = 0; u < 4; ++u) sc[j][u] = 0.f;
+    for (int c = 0; c < nck; ++c) {
+      const int i = kt * nck + c;
+      __syncthreads();  // every warp is past its reads of buffer (i + 1) % 2
+      fetch(i + 1, with_v);
+      asm volatile("cp.async.wait_group 1;\n");
+      __syncthreads();
+      __syncwarp();
+      const bf16* qc = qs + (qres ? c : (i & 1)) * kRows * DK;
+      const bf16* kc = ks + (i & 1) * kKeys * DK;
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        unsigned qa[4];
+        const int r = warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+        const int cq = 2 * kk + (lane >> 4);
+        core::ldsm_x4(qa, qc + r * DK + core::swz<DK>(r, cq) * 8);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const float2 f = core::unpack_bf16(qa[u]);
+          qa[u] = core::pack_bf16(f.x * scale, f.y * scale);
+        }
+#pragma unroll
+        for (int j = 0; j < NT; j += 2) {
+          const int rk = 8 * j + (lane & 7) + (lane >> 4) * 8;
+          const int ck = 2 * kk + ((lane >> 3) & 1);
+          unsigned kb[4];
+          core::ldsm_x4(kb, kc + rk * DK + core::swz<DK>(rk, ck) * 8);
+          core::mma16816(sc[j], qa, kb[0], kb[1]);
+          core::mma16816(sc[j + 1], qa, kb[2], kb[3]);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int r = u < 2 ? r0 : r1, cc = kt * kKeys + 8 * j + 2 * t + (u & 1);
+        if (cc >= n) {
+          sc[j][u] = -INFINITY;
+          continue;
+        }
+        float e = 0.f;
+        if (bias != nullptr && r < n) e = core::load_addend(bias, (size_t)r * n + cc);
+        if (ids != nullptr)
+          e += __ldg(ids + cc) != (u < 2 ? id0 : id1) ? -100.f : 0.f;
+        else if (kind == kCausal)
+          e += cc > r ? causal_neg : 0.f;
+        else if (dense != nullptr && r < n)
+          e += core::load_addend(dense, (size_t)r * n + cc);
+        sc[j][u] += e;
+      }
+  };
+
+  // Pass 1: each row's max and sum of exp(s - max) over the key tiles.
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+  float sc[NT][4];
+  fetch(0, false);
+  for (int kt = 0; kt < nkt; ++kt) {
+    scores(kt, false, sc);
+    float x0 = -INFINITY, x1 = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      x0 = fmaxf(x0, fmaxf(sc[j][0], sc[j][1]));
+      x1 = fmaxf(x1, fmaxf(sc[j][2], sc[j][3]));
+    }
+    x0 = fmaxf(x0, __shfl_xor_sync(0xffffffffu, x0, 1));
+    x0 = fmaxf(x0, __shfl_xor_sync(0xffffffffu, x0, 2));
+    x1 = fmaxf(x1, __shfl_xor_sync(0xffffffffu, x1, 1));
+    x1 = fmaxf(x1, __shfl_xor_sync(0xffffffffu, x1, 2));
+    // Every tile holds a real key, so the new max is finite; the old sum
+    // (0 before the first tile) is rescaled to it.
+    const float n0 = fmaxf(m0, x0), n1 = fmaxf(m1, x1);
+    float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      s0 += __expf(sc[j][0] - n0) + __expf(sc[j][1] - n0);
+      s1 += __expf(sc[j][2] - n1) + __expf(sc[j][3] - n1);
+    }
+    s0 += __shfl_xor_sync(0xffffffffu, s0, 1);
+    s0 += __shfl_xor_sync(0xffffffffu, s0, 2);
+    s1 += __shfl_xor_sync(0xffffffffu, s1, 1);
+    s1 += __shfl_xor_sync(0xffffffffu, s1, 2);
+    l0 = l0 * __expf(m0 - n0) + s0;
+    l1 = l1 * __expf(m1 - n1) + s1;
+    m0 = n0;
+    m1 = n1;
+  }
+  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+
+  // Pass 2: O = P v, P normalized and then rounded to bf16.
+  float o[OT][4];
+#pragma unroll
+  for (int jd = 0; jd < OT; ++jd)
+#pragma unroll
+    for (int u = 0; u < 4; ++u) o[jd][u] = 0.f;
+  __syncthreads();  // every warp is past pass 1's reads of buffer 0
+  fetch(0, true);
+  for (int kt = 0; kt < nkt; ++kt) {
+    scores(kt, true, sc);
+    // The tile's v rows arrived with its first stage.
+    const bf16* vt = vs + (kt & 1) * kKeys * DV;
+#pragma unroll
+    for (int j = 0; j < NT; j += 2) {
+      const unsigned pa[4] = {
+          core::pack_bf16(__expf(sc[j][0] - m0) * inv0, __expf(sc[j][1] - m0) * inv0),
+          core::pack_bf16(__expf(sc[j][2] - m1) * inv1, __expf(sc[j][3] - m1) * inv1),
+          core::pack_bf16(__expf(sc[j + 1][0] - m0) * inv0, __expf(sc[j + 1][1] - m0) * inv0),
+          core::pack_bf16(__expf(sc[j + 1][2] - m1) * inv1, __expf(sc[j + 1][3] - m1) * inv1)};
+#pragma unroll
+      for (int jd = 0; jd < OT; jd += 2) {
+        const int r = 8 * j + (lane & 7) + ((lane >> 3) & 1) * 8;
+        const int c = jd + (lane >> 4);
+        unsigned vb[4];
+        core::ldsm_x4_trans(vb, vt + r * DV + core::swz<DV>(r, c) * 8);
+        core::mma16816(o[jd], pa, vb[0], vb[1]);
+        core::mma16816(o[jd + 1], pa, vb[2], vb[3]);
+      }
+    }
+  }
+  asm volatile("cp.async.wait_group 0;\n");
+
+  // The rows' outputs rounded to bf16, two columns a store.
+#pragma unroll
+  for (int jd = 0; jd < OT; ++jd) {
+    const int col = 8 * jd + 2 * t;
+    if (col >= dv) continue;
+    if (r0 < n)
+      *reinterpret_cast<unsigned*>(rows.dst(item, h, r0) + col) = core::pack_bf16(o[jd][0], o[jd][1]);
+    if (r1 < n)
+      *reinterpret_cast<unsigned*>(rows.dst(item, h, r1) + col) = core::pack_bf16(o[jd][2], o[jd][3]);
+  }
+}
+
+// Whether a kernel's shared-memory limit is raised yet, per instantiation,
+// per device and per translation unit.
+namespace {
+template <class Rows, int DK, int DV>
+bool smem_raised[kMaxDevices];
+}  // namespace
+
+template <class Rows, int DK, int DV>
+cudaError_t launch(const Rows& rows, const Addends& ad, int windows, int heads, int n, int dqk,
+                   int dv, float scale, float causal_neg, cudaStream_t s) {
+  const int nqt = (n + kRows - 1) / kRows;
+  if ((long long)windows * nqt > 0x7fffffffLL) return cudaErrorInvalidValue;
+  auto kernel = window_tiled_kernel<Rows, DK, DV>;
+  const size_t smem = smem_bytes(DK, DV);
+  const cudaError_t err = once_per_device(smem_raised<Rows, DK, DV>, [&] {
+    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  });
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(windows * nqt, heads), kThreads, smem, s>>>(rows, ad, n, dqk, dv, nqt, scale,
+                                                            causal_neg);
+  return cudaGetLastError();
+}
+
+// K6-K8 on `windows` x `heads` items of any N = n: q k^T over dqk columns
+// (a multiple of 8), dv <= 128 output columns (a multiple of 8) of v's and
+// out's views, scores scaled by `scale` (rounded to bf16 by the caller).
+template <class Rows>
+cudaError_t run(const Rows& rows, const Addends& ad, int windows, int heads, int n, int dqk,
+                int dv, float scale, cudaStream_t s) {
+  if (windows <= 0 || heads <= 0 || heads > 65535 || n <= 0 || dqk <= 0 || dqk % 8 != 0 ||
+      dv <= 0 || dv > 128 || dv % 8 != 0 || ad.nw <= 0 || ad.mask_kind < kNoMask ||
+      ad.mask_kind > kCausal ||
+      ((ad.mask_kind == kNoMask || ad.mask_kind == kCausal) != (ad.mask == nullptr)))
+    return cudaErrorInvalidValue;
+  const float causal_neg = core::round_bf16_host(-1e9f);
+  if (dqk <= 16 && dv <= 16)
+    return launch<Rows, 16, 16>(rows, ad, windows, heads, n, dqk, dv, scale, causal_neg, s);
+  if (dqk <= 32 && dv <= 32)
+    return launch<Rows, 32, 32>(rows, ad, windows, heads, n, dqk, dv, scale, causal_neg, s);
+  if (dv <= 16)
+    return launch<Rows, 64, 16>(rows, ad, windows, heads, n, dqk, dv, scale, causal_neg, s);
+  if (dv <= 32)
+    return launch<Rows, 64, 32>(rows, ad, windows, heads, n, dqk, dv, scale, causal_neg, s);
+  if (dv <= 64)
+    return launch<Rows, 64, 64>(rows, ad, windows, heads, n, dqk, dv, scale, causal_neg, s);
+  return launch<Rows, 64, 128>(rows, ad, windows, heads, n, dqk, dv, scale, causal_neg, s);
+}
+
+}  // namespace core_tiled
 }  // namespace bt

@@ -30,8 +30,17 @@ the rel-pos bias in f32 (rounded to bf16 as it is staged), the mask as a
 dense [nW, N, N] f32 tensor or as the [nW, N] int32 region ids of an
 SW-MSA mask (window.sw_msa_region_ids, built once per geometry: -100
 where two tokens' ids differ). It is bound by device-memory bytes (see
-the source note). It takes N <= 256 and d a multiple of 8 up to 64, and
-raises outside them.
+the source note).
+
+Every N and head dim d that the JAX entry points take runs on the card.
+N <= 256 with d a multiple of 8 up to 64 (every model site) runs the core
+above; any other shape runs the key-tiled core of the same sources (two
+passes over key tiles, so the probabilities are normalized before they
+are rounded, as in the JAX kernel): d not a multiple of 8 is zero-padded
+to one in scratch copies of q, k and v (`pad_head_dim`) and scaled by the
+true d's d^-0.5 (`head_dim_scale`), and a head dim above 128 is written
+in output slices of at most 128 columns (`column_slices`), one launch
+each, every launch contracting q k^T over all of d.
 
 f32 q, k and v (ComputeConfig(dtype=float32) on the kernel tier) run the
 f32 branch of the same Pallas kernels, whose dots run at
@@ -46,12 +55,14 @@ Each entry point has a plain PyTorch version beside it, built on
 ops/attention.py::window_attention with the bias and mask rounded as the
 kernels round them (`round_addends`, which also expands region ids). A
 CPU tensor takes the plain version; a CUDA tensor launches the kernel or
-raises. Each entry point counts its own launches.
+raises. Each entry point counts its own launches in `.launches`: one per
+call that reaches the kernel, so a call at d > 128 counts one although the
+device runs one kernel per column slice.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -59,7 +70,8 @@ from ..attention import qkv_window_attention, round_addends, window_attention
 from . import build
 from . import window_core as core
 
-MAX_N, MAX_D = 256, 64
+# Output columns of one launch of the key-tiled core.
+SLICE = 128
 
 
 def flash_window_attention_qkv_plain(qkv: torch.Tensor, bias: torch.Tensor,
@@ -103,19 +115,70 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 CAUSAL_NEG = float(torch.tensor(-1e9, dtype=torch.bfloat16))
 
 
-def _strides(t: torch.Tensor, name: str, dtype: torch.dtype):
-    """(window, head, token) element strides of a [B_, heads, N, d] view of
-    `dtype` (bf16 or f32)."""
+def _check_dtype(t: torch.Tensor, name: str, dtype: torch.dtype) -> None:
     if t.dtype not in (torch.bfloat16, torch.float32) or t.dtype != dtype:
         raise TypeError(f"flash_window_attn kernel takes bf16 or f32 q, k, v "
                         f"and out of one dtype, got {name} {t.dtype} beside "
                         f"{dtype}")
+
+
+def _strides(t: torch.Tensor, name: str, dtype: torch.dtype):
+    """(window, head, token) element strides of a [B_, heads, N, d] view of
+    `dtype` (bf16 or f32)."""
+    _check_dtype(t, name, dtype)
     s = t.stride()
     per16 = 16 // t.element_size()  # elements in 16 bytes
     if s[3] != 1 or (s[0] | s[1] | s[2]) % per16 or t.data_ptr() % 16:
         raise ValueError(f"flash_window_attn {name}: want a contiguous head "
                          f"dim and 16-byte aligned rows, got strides {s}")
     return s[:3]
+
+
+def padded_head_dim(d: int) -> int:
+    """The head dim the kernel runs for d: the next multiple of 8."""
+    return -(-d // 8) * 8
+
+
+def pad_head_dim(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of t [..., d] zero-padded to padded_head_dim(d)
+    columns: the zero columns add nothing to q k^T, and P v's extra columns
+    are dropped."""
+    d = t.shape[-1]
+    out = t.new_zeros((*t.shape[:-1], padded_head_dim(d)))
+    out[..., :d] = t
+    return out
+
+
+def head_dim_scale(d: int, dtype: torch.dtype) -> float:
+    """d^-0.5 in `dtype`, as the plain version multiplies q by it: the
+    explicit scale a padded call gives the kernel."""
+    return float(torch.tensor(d ** -0.5, dtype=dtype))
+
+
+def column_slices(d: int, width: int = SLICE) -> List[Tuple[int, int]]:
+    """The output column slices [c0, c1) of one launch each: d in runs of
+    at most `width` columns."""
+    return [(c0, min(c0 + width, d)) for c0 in range(0, d, width)]
+
+
+def _launch_slices(q, k, v, out, bias, mask, kind, nw, scale) -> None:
+    """The C entry on [B_, heads, N, d] views (d a multiple of 8), one
+    launch per output column slice; scale 0 for the kernel's own d^-0.5."""
+    b_, heads, n, d = q.shape
+    dt = q.dtype
+    fn = build.function("bt_flash_window_attn_f32" if dt == torch.float32
+                        else "bt_flash_window_attn", 6, 19, 1)
+    qk = (*_strides(q, "q", dt), *_strides(k, "k", dt))
+    for c0, c1 in column_slices(d):
+        vs, os_ = (v, out) if c1 - c0 == d else (v[..., c0:c1],
+                                                   out[..., c0:c1])
+        code = fn(q.data_ptr(), k.data_ptr(), vs.data_ptr(), os_.data_ptr(),
+                  None if bias is None else bias.data_ptr(),
+                  None if mask is None else mask.data_ptr(),
+                  *qk, *_strides(vs, "v", dt), *_strides(os_, "out", dt),
+                  b_, heads, n, d, nw, kind, c1 - c0, scale,
+                  build.stream(q.device))
+        build.check(code, "flash_window_attn")
 
 
 def _launch(q, k, v, out, bias, mask, num_heads, causal=False) -> None:
@@ -125,9 +188,6 @@ def _launch(q, k, v, out, bias, mask, num_heads, causal=False) -> None:
         raise ValueError(f"flash_window_attn: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}, heads "
                          f"{num_heads}")
-    if n > MAX_N or d % 8 or d > MAX_D:
-        raise ValueError(f"flash_window_attn kernel needs N <= {MAX_N} and d "
-                         f"a multiple of 8 up to {MAX_D}, got N={n}, d={d}")
     if bias is not None:
         core.check_addend("flash_window_attn bias", bias, (heads, n, n),
                           torch.float32, q.device)
@@ -137,17 +197,16 @@ def _launch(q, k, v, out, bias, mask, num_heads, causal=False) -> None:
     if b_ % nw:
         raise ValueError(f"flash_window_attn: B_={b_} is not a multiple of "
                          f"the mask's {nw} windows")
-    dt = q.dtype
-    strides = (*_strides(q, "q", dt), *_strides(k, "k", dt),
-               *_strides(v, "v", dt), *_strides(out, "out", dt))
-    fn = build.function("bt_flash_window_attn_f32" if dt == torch.float32
-                        else "bt_flash_window_attn", 6, 18)
-    code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-              None if bias is None else bias.data_ptr(),
-              None if mask is None else mask.data_ptr(),
-              *strides, b_, heads, n, d, nw, kind,
-              build.stream(q.device))
-    build.check(code, "flash_window_attn")
+    if d % 8 == 0:
+        _launch_slices(q, k, v, out, bias, mask, kind, nw, 0.0)
+        return
+    for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
+        _check_dtype(t, name, q.dtype)
+    padded = [pad_head_dim(t) for t in (q, k, v)]
+    scratch = torch.empty_like(padded[0])
+    _launch_slices(*padded, scratch, bias, mask, kind, nw,
+                   head_dim_scale(d, q.dtype))
+    out.copy_(scratch[..., :d])
 
 
 def _cuda(x: torch.Tensor, name: str) -> bool:

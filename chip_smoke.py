@@ -10,11 +10,15 @@ Phases, each printed as it runs; any failure exits non-zero:
    process per source, all in parallel);
 3. check each hand-written kernel against its plain PyTorch version on the
    same inputs (bound max|kernel - plain| <= 2e-2 * max|plain|) at every
-   shape the 1024^2 batch-2 forwards give it: Swin-L (K1, K1-int8, K2, K3,
-   K4, K5) and swin_t (K6 masked and unmasked at every stage of both
+   shape the 1024^2 batch-2 forwards give it: Swin-L and swin_b (K1,
+   K1-int8, K2, K3, K4, K5; swin_b's C = 128 2^k, 4-32 heads, K3 at C =
+   1024) and swin_t (K6 masked and unmasked at every stage of both
    backbone passes, K2 including C = 96, K3 at stage 3, K4 at the swin_t
-   widths); K7 and
-   K8, which no forward calls, at the JAX package's test shapes. bf16
+   widths; swin_s runs these shapes); K7 and K8, which no forward calls,
+   at the JAX package's test shapes and at the shapes of the key-tiled
+   core (N = 257, 576, 1024 and 4096, d = 20 padded, 96, 128 and 160 in
+   two output slices; K6 at d = 20 and N = 289), each call's launch
+   counted. bf16
    kernels run on bf16 weights, the W8A8 kernels (K1-int8, K3) on weights
    quantized from f32 by params.quantize_*_int8; those two and K6-K8 also
    hold a bound on mean|kernel - plain| / mean|plain|. Time each kernel,
@@ -141,7 +145,17 @@ Phases, each printed as it runs; any failure exits non-zero:
    card: the f32 tier's mean|s - ref| / mean|ref| <= DEFORM_F32 at every
    site, the bf16 and int8 paths' at most DEFORM_RATIO x the plain bf16
    deformable pipeline's at every site; regular mode on the same tree
-   must break each of those gates;
+   must break each of those gates. Then swin_b and swin_s at full preset
+   depth (2, 2, 18, 2) on the bf16 tier (48/0/48/0/16/1/0/0/0 and
+   0/0/48/0/16/1/48/0/0), with both int8 flags (44/4/44/4/16/1/0/0/0:
+   W8A8 at swin_b's stage 3 only; 0/0/44/4/16/1/48/0/0) and on the f32
+   kernel tier (48/0/48/0/16/0/0/0/0 and 0/0/48/0/16/0/48/0/0), each
+   model's bf16 tier at most FEATURE_RATIO_T x its plain bf16 pipeline's
+   error at every stage, its int8 path at most FEATURE_RATIO x its bf16
+   tier's, its f32 tier to the f32 bar with cuDNN's TF32 as the control;
+   swin_s's rel-pos tables scaled as swin_t's, its rolled bias the stage
+   gate's control; and each on serve's default (bf16, deformable, 20 D1)
+   on its offset-scaled tree, regular mode as the control;
 5. serve 4 in-memory requests of different sizes through serve.segment on
    every path, and on Swin-L's deformable int8 path;
 6. time the pipeline with CUDA events, each tier's graphed function and
@@ -149,8 +163,8 @@ Phases, each printed as it runs; any failure exits non-zero:
    time (each graph keeps its own memory pool), the tiers in order and
    then in reverse: Swin-L int8 path, bf16 kernel tier, plain bf16, f32
    kernel tier, plain f32, f32 int8 path, and the deformable int8 path and
-   f32 kernel tier; swin_t int8 path, bf16 kernel tier, plain bf16;
-   medians and spreads, and each graph's pool;
+   f32 kernel tier; swin_b, swin_t and swin_s each: int8 path, bf16
+   kernel tier, plain bf16; medians and spreads, and each graph's pool;
 7. profile one replay of the Swin-L int8 path's graph and one eager call
    (tools/gpu_profile.py on birefnet_tpu_torch/utils/profiling.py: wall,
    device time, idle share, kernels by group); where the profiler resolves
@@ -195,7 +209,9 @@ Phases, each printed as it runs; any failure exits non-zero:
    function), img/s including IO of both loops, medians; cli.main on the
    1440x1080 image with its defaults (f32 kernel tier, deformable: K1 / K2
    / K4 / D1 48/48/16/20 captured), its mask bitwise make_infer_fn's for
-   the same frame and flags and its stats line printed; evaluate.main on
+   the same frame and flags and its stats line printed; swin_b through
+   serve.main and cli.main (--backbone swin_v1_b, one call each, the same
+   launches and checks); evaluate.main on
    the served masks of the small images against seeded disks: seven
    scores, each in [0, 1];
 10. data parallelism (parallel/) over N data groups, one per card on a
@@ -262,12 +278,17 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 BATCH, SIZE = 2, 1024
 # Stage geometry per model and backbone pass: (H of the stage, C, heads,
-# depth); window 12 for Swin-L, 7 for swin_t.
+# depth); window 12 for Swin-L and swin_b, 7 for swin_t. swin_s runs
+# swin_t's shapes (18 blocks at stage 2), so phase 3 checks none of its own.
 MODELS = {
     "swin_l": (12, {"full": [(256, 192, 6, 2), (128, 384, 12, 2),
                              (64, 768, 24, 18), (32, 1536, 48, 2)],
                     "half": [(128, 192, 6, 2), (64, 384, 12, 2),
                              (32, 768, 24, 18), (16, 1536, 48, 2)]}),
+    "swin_b": (12, {"full": [(256, 128, 4, 2), (128, 256, 8, 2),
+                             (64, 512, 16, 18), (32, 1024, 32, 2)],
+                    "half": [(128, 128, 4, 2), (64, 256, 8, 2),
+                             (32, 512, 16, 18), (16, 1024, 32, 2)]}),
     "swin_t": (7, {"full": [(256, 96, 3, 2), (128, 192, 6, 2),
                             (64, 384, 12, 6), (32, 768, 24, 2)],
                    "half": [(128, 96, 3, 2), (64, 192, 6, 2),
@@ -393,6 +414,14 @@ def fail(msg: str) -> None:
 
 def log(msg: str) -> None:
     print(f"[smoke] {msg}", flush=True)
+
+
+T_START = time.perf_counter()
+
+
+def phase_start(n: int) -> None:
+    """Log the seconds since the script started, where phase n starts."""
+    log(f"phase {n}: starts at {time.perf_counter() - T_START:.1f} s")
 
 
 def cuda_ms(torch, fn, reps: int = 10) -> float:
@@ -926,8 +955,8 @@ def check_kernels(torch, dev, reports, core, gemm, gemm16, rows16, cluster,
             r["repeats"].append((f"K6 {r['kind']} {label} C={c} "
                                  f"mask={mask is not None}", fn, fn()))
 
-    def check_core(label, depth, c, heads, hp, dtype):
-        """The attention core alone in `dtype` at one Swin-L stage, through
+    def check_core(model, label, depth, c, heads, hp, dtype):
+        """The attention core alone in `dtype` at one ws=12 stage, through
         flash_window_attention on [B_, heads, 144, 32] views of a packed
         [B_, 144, 3C] projection (the rows K1 reads): unmasked and with the
         offset mask's region ids, depth / 2 calls of each per forward."""
@@ -943,7 +972,7 @@ def check_kernels(torch, dev, reports, core, gemm, gemm16, rows16, cluster,
             args = (q, k, v, bias, mask)
             fn = partial(flash_window_attn.flash_window_attention, *args)
             r["core"].check(
-                torch, "swin_l", f"{label} B_={b_} heads={heads}"
+                torch, model, f"{label} B_={b_} heads={heads}"
                 f"{'' if mask is None else ' offset mask'}", depth // 2, fn,
                 partial(plain, *args),
                 (nbytes(qkv, bias, mask) + b_ * 144 * c * qkv.element_size(),
@@ -1168,7 +1197,7 @@ def check_kernels(torch, dev, reports, core, gemm, gemm16, rows16, cluster,
                 hp = -(-h // ws) * ws
                 label = f"{pass_name} st{i} Hp={hp}"
                 for dtype in (bf, f32):
-                    if model == "swin_l" and c >= P.INT8_MLP_MIN_CHANNELS:
+                    if ws == 12 and c >= P.INT8_MLP_MIN_CHANNELS:
                         # K1-int8's qkv and proj on the canvas, one of each
                         # per block, with the dtype's epilogues.
                         t_canvas = BATCH * hp * hp
@@ -1176,25 +1205,39 @@ def check_kernels(torch, dev, reports, core, gemm, gemm16, rows16, cluster,
                                 (t_canvas, 3 * c, c, by_dtype[dtype]["store"]),
                                 (t_canvas, c, c, "residual")):
                             check_gemm(label, depth, m, n, k, epilogue,
-                                       "swin_l", dtype)
-                    if model == "swin_l":
+                                       model, dtype)
+                    if ws == 12:
                         # K1's qkv and proj on the canvas, one of each per
                         # block.
                         for n, epilogue in ((3 * c, "store"), (c, "residual")):
-                            check_float_gemm("swin_l k1", label, depth,
+                            check_float_gemm(f"{model} k1", label, depth,
                                              BATCH * hp * hp, n, c, epilogue,
                                              dtype)
                         check_k1(model, f"{label} C={c}", depth,
                                  randn((BATCH, h, h, c), 1.0, dtype), h, c,
                                  heads, ws, hp)
-                        check_core(label, depth, c, heads, hp, dtype)
+                        check_core(model, label, depth, c, heads, hp, dtype)
                     else:
                         check_k6(label, depth, h, c, heads, hp, dtype)
                     check_k2_k3_k4(model, f"{pass_name} st{i}", i, depth, h,
                                    c, dtype)
 
+    def launched(wrapper, fn, label):
+        """fn() must move `wrapper`'s launch count by one: the call went
+        through the kernel, not around it."""
+        n0 = wrapper.launches
+        fn()
+        if wrapper.launches != n0 + 1:
+            fail(f"{label}: {wrapper.__name__} counted "
+                 f"{wrapper.launches - n0} launches for one call")
+
     def check_api(key, label, b_, heads, n, d, nw, causal, dtype):
-        """K7 or K8 at one JAX test shape in `dtype`."""
+        """K7 or K8 at one API shape in `dtype`, its sums under "api" (the
+        JAX test shapes) or "api tiled" (the key-tiled core's shapes). The
+        operations of the bound are what the function needs: 4 N^2 d per
+        window and head, or 4 d N (N + 1) / 2 when causal, whose query row
+        i needs only its first i + 1 keys (the masked half is not
+        counted); the key-tiled core's second q k^T is not counted."""
         r = by_dtype[dtype]
         q, k, v = (randn((b_, heads, n, d), 1.0, dtype) for _ in range(3))
         if causal is None:
@@ -1211,27 +1254,67 @@ def check_kernels(torch, dev, reports, core, gemm, gemm16, rows16, cluster,
             kernel = flash_window_attn.flash_attention
             plain = flash_window_attn.flash_attention_plain
             tail = (causal,)
+        fn = partial(kernel, q, k, v, *tail)
+        launched(kernel, fn, f"{r[key].entry['name']} {label}")
         # flash_attention's kernel reads no bias (a causal flag or none).
-        r[key].check(torch, "api", f"{label} ({b_},{heads},{n},{d})", 1,
-                     partial(kernel, q, k, v, *tail),
-                     partial(plain, q, k, v, *tail),
+        model = "api tiled" if label.startswith("tiled") else "api"
+        r[key].check(torch, model, f"{label} ({b_},{heads},{n},{d})", 1,
+                     fn, partial(plain, q, k, v, *tail),
                      (nbytes(q, k, v, None if causal is not None else bias,
                              mask) + nbytes(q),
-                      r["mm"](4 * n * n * d * b_ * heads)),
+                      r["mm"]((4 * d * n * (n + 1) // 2 if causal
+                               else 4 * n * n * d) * b_ * heads)),
                      library_fn=sdpa(q, k, v, bias, mask),
                      control_fn=tf32_control(plain, dtype, (q, k, v), *tail))
 
     # K7 and K8 at the JAX package's test shapes (no forward calls them):
     # (B_, heads, N, d, nW or None); one call at each shape, in bf16 and in
-    # f32 (the f32 causal addend is -1e9 unrounded).
+    # f32 (the f32 causal addend is -1e9 unrounded). Then the shapes of the
+    # key-tiled core: N past 256 (K7 with a dense mask over 24^2 windows,
+    # K8 with a bias at N = 257, flash_attention causal at N = 1024 and
+    # 4096), a padded head dim (d = 20), d = 96, and a head dim of two
+    # output slices (d = 160).
     for key, label, b_, heads, n, d, nw, causal in (
             ("k7", "shifted mask", 36, 4, 144, 32, 9, None),
             ("k7", "mask period", 8, 2, 16, 8, 4, None),
             ("k8", "simple bias", 4, 2, 16, 8, None, None),
             ("k8", "flash_attention", 4, 2, 16, 8, None, False),
-            ("k8", "flash_attention causal", 4, 2, 16, 8, None, True)):
+            ("k8", "flash_attention causal", 4, 2, 16, 8, None, True),
+            ("k7", "tiled dense mask", 8, 4, 576, 32, 2, None),
+            ("k8", "tiled bias", 8, 4, 257, 64, None, None),
+            ("k8", "tiled padded d", 8, 4, 144, 20, None, None),
+            ("k8", "tiled d=96", 8, 4, 144, 96, None, None),
+            ("k8", "tiled flash_attention causal", 2, 8, 1024, 128, None,
+             True),
+            ("k8", "tiled flash_attention causal", 1, 8, 4096, 64, None,
+             True),
+            ("k8", "tiled two slices", 4, 2, 144, 160, None, None)):
         for dtype in (bf, f32):
             check_api(key, label, b_, heads, n, d, nw, causal, dtype)
+    # K6 on a packed projection whose head dim the wrapper pads (C = 60,
+    # 3 heads of 20) and at N = 289 (17^2 windows).
+    for label, b_, heads, n, c in (("tiled padded d", 8, 3, 49, 60),
+                                   ("tiled N=289", 8, 3, 289, 96)):
+        for dtype in (bf, f32):
+            r = by_dtype[dtype]
+            qkv = randn((b_, n, 3 * c), 1.0, dtype)
+            bias = randn((heads, n, n))
+            q, k, v = qkv.view(b_, n, 3, heads, c // heads).permute(
+                2, 0, 3, 1, 4).contiguous()
+            fn = partial(flash_window_attn.flash_window_attention_qkv, qkv,
+                         bias, None, heads)
+            launched(flash_window_attn.flash_window_attention_qkv, fn,
+                     f"K6 {label}")
+            r["k6"].check(
+                torch, "api tiled", f"{label} B_={b_} N={n} C={c}", 1, fn,
+                partial(flash_window_attn.flash_window_attention_qkv_plain,
+                        qkv, bias, None, heads),
+                (nbytes(qkv, bias) + b_ * n * c * qkv.element_size(),
+                 r["mm"](4 * n * n * c * b_)),
+                library_fn=sdpa(q, k, v, bias, None),
+                control_fn=tf32_control(
+                    flash_window_attn.flash_window_attention_qkv_plain,
+                    dtype, (qkv,), bias, None, heads))
 
     def check_deform(side, k, calls, dtype):
         """D1 in `dtype` at one ASPP site shape of the forward (C = 64),
@@ -1573,12 +1656,14 @@ def drive_deformable(torch, bmodel, pipeline, reports, cfg, tree, frames,
     ref, _, ref_sites = with_features(bmodel, ref_fn, frames, True)
     stats = offset_stats(aspp, ref_fn, frames)
     del ref_fn
-    log("phase 4: swin_l deformable tree: |offset| per site, mean / max px: "
-        + " ".join(f"{side}^2k{k} {m:.2f}/{x:.1f}" for side, k, m, x in stats))
+    log(f"phase 4: {cfg.backbone} deformable tree: |offset| per site, mean / "
+        f"max px: " + " ".join(f"{side}^2k{k} {m:.2f}/{x:.1f}"
+                               for side, k, m, x in stats))
     _, _, plain = with_features(bmodel, pipeline.make_infer_fn(
         tree, cfg, ComputeConfig(dtype=torch.bfloat16), dev,
         as_uint8=False), frames, True)
-    plain_errs = site_errors("swin_l plain bf16 deformable", plain, ref_sites)
+    plain_errs = site_errors(f"{cfg.backbone} plain bf16 deformable", plain,
+                             ref_sites)
     del plain
 
     def gate(path, compute, errs):
@@ -2249,39 +2334,74 @@ def entry_points_phase(torch, dev, smi):
                               "img_s_sequential": rates["sequential"],
                               "launches": want}
 
-        # cli.main on the 1440x1080 image with its defaults: the f32 kernel
-        # tier, deformable, at the frame's own size.
-        img = paths[0]
-        out_png = os.path.join(tmp, "cli_mask.png")
+        def run_cli(label, model_cfg, model_ckpt, flags):
+            """cli.main on the 1440x1080 image with its defaults (the f32
+            kernel tier, deformable, at the frame's own size): its launches
+            and its mask bitwise make_infer_fn's for the same frame."""
+            img = paths[0]
+            out_png = os.path.join(tmp, label.replace(" ", "_") + ".png")
+            stdout, infer, captured, counted = run_entry(
+                torch, pipeline, label, cli.main,
+                [img, out_png, "--checkpoint", model_ckpt, *flags])
+            check_launches(label, captured, counted, CLI_LAUNCHES)
+            stats = re.search(r"Mask stats - min: ([0-9.]+), max: ([0-9.]+), "
+                              r"mean: ([0-9.]+)", stdout)
+            if stats is None:
+                fail(f"phase 9: {label} printed no mask stats")
+            times = re.findall(r"Inference time \([^)]*\): ([0-9.]+)s",
+                               stdout)
+            del infer
+            torch.cuda.empty_cache()
+            ref = pipeline.make_infer_fn(
+                load_checkpoint(model_ckpt, model_cfg), model_cfg,
+                ComputeConfig(use_flash_attention=True), dev)
+            with Image.open(img) as im:
+                frame = np.array(im.convert("RGB"), np.uint8)
+            want_mask = ref(frame[None]).cpu().numpy()[0]
+            got = np.asarray(Image.open(out_png))
+            if got.shape != frame.shape[:2] or not np.array_equal(got,
+                                                                  want_mask):
+                fail(f"phase 9: {label}'s mask {got.shape} is not "
+                     f"make_infer_fn's for the same frame and flags")
+            log(f"phase 9: {label}'s {got.shape[1]}x{got.shape[0]} mask "
+                f"bitwise make_infer_fn's (f32 kernel tier, deformable); "
+                f"first call {times[0]} s, steady state {times[1]} s ({smi})")
+            results[label] = {
+                "launches": CLI_LAUNCHES,
+                "seconds_first_steady": [float(t) for t in times],
+                "mask_stats": [float(v) for v in stats.groups()]}
+            del ref
+            torch.cuda.empty_cache()
+
+        run_cli("cli.main", cfg, ckpt, [])
+
+        # swin_b through both entry points, one call each on its defaults:
+        # serve.main (bf16, deformable) with its masks bitwise the
+        # sequential path's on the same function, cli.main as above.
+        cfg_b = BiRefNetConfig.for_backbone("swin_v1_b")
+        ckpt_b = os.path.join(tmp, "swin_b.safetensors")
+        save_file(random_checkpoint(cfg_b, 0), ckpt_b)
+        label = "serve.main --backbone swin_v1_b"
+        out = os.path.join(tmp, "serve_swin_b")
         stdout, infer, captured, counted = run_entry(
-            torch, pipeline, "cli.main", cli.main,
-            [img, out_png, "--checkpoint", ckpt])
-        check_launches("cli.main", captured, counted, CLI_LAUNCHES)
-        stats = re.search(r"Mask stats - min: ([0-9.]+), max: ([0-9.]+), "
-                          r"mean: ([0-9.]+)", stdout)
-        if stats is None:
-            fail("phase 9: cli.main printed no mask stats")
-        times = re.findall(r"Inference time \([^)]*\): ([0-9.]+)s", stdout)
+            torch, pipeline, label, serve.main,
+            [*paths, "--out", out, "--batch", str(BATCH), "--backbone",
+             "swin_v1_b", "--checkpoint", ckpt_b])
+        want = SERVE_FLAGS["serve.main default"][1]
+        check_launches(label, captured, counted, want)
+        rate = serve_sequential(serve, infer, paths, SIZE, BATCH,
+                                out + "_sequential")
+        if not same_masks(out, out + "_sequential", paths):
+            fail(f"phase 9: {label}: the masks differ from the sequential "
+                 f"path's")
+        log(f"phase 9: {label}: {len(paths)} masks bitwise the sequential "
+            f"path's (serve.segment on the same function); sequential "
+            f"{rate:.2f} img/s ({smi})")
+        results[label] = {"launches": want, "img_s_sequential": rate}
         del infer
         torch.cuda.empty_cache()
-        ref = pipeline.make_infer_fn(load_checkpoint(ckpt, cfg), cfg,
-                                     ComputeConfig(use_flash_attention=True),
-                                     dev)
-        with Image.open(img) as im:
-            frame = np.array(im.convert("RGB"), np.uint8)
-        want_mask = ref(frame[None]).cpu().numpy()[0]
-        got = np.asarray(Image.open(out_png))
-        if got.shape != frame.shape[:2] or not np.array_equal(got, want_mask):
-            fail(f"phase 9: cli.main's mask {got.shape} is not make_infer_fn's "
-                 f"for the same frame and flags")
-        log(f"phase 9: cli.main's {got.shape[1]}x{got.shape[0]} mask bitwise "
-            f"make_infer_fn's (f32 kernel tier, deformable); first call "
-            f"{times[0]} s, steady state {times[1]} s ({smi})")
-        results["cli.main"] = {"launches": CLI_LAUNCHES,
-                               "seconds_first_steady": [float(t) for t in times],
-                               "mask_stats": [float(v) for v in stats.groups()]}
-        del ref
-        torch.cuda.empty_cache()
+        run_cli("cli.main --backbone swin_v1_b", cfg_b, ckpt_b,
+                ["--backbone", "swin_v1_b"])
 
         # evaluate.main on the served masks of the small images against
         # their seeded disks.
@@ -2856,6 +2976,7 @@ def main() -> int:
     # PyTorch's TF32 flags stay as a user finds them (cuDNN's on): phase 3
     # sets them off for its plain versions, and phase 4 runs make_infer_fn,
     # which sets them for an f32 forward itself.
+    phase_start(3)
     log(f"phase 3: TF32 flags as found: matmul "
         f"{torch.backends.cuda.matmul.allow_tf32}, cudnn "
         f"{torch.backends.cudnn.allow_tf32}")
@@ -2885,13 +3006,17 @@ def main() -> int:
         if "tf32_control_min" in src:
             common["tf32_control_min"] = src["tf32_control_min"]
         f32r["fused_block_attn_f32"].entry[key] = dict(
-            f32_sums[name][k1_model], **common)
+            f32_sums[name][k1_model],
+            swin_b=f32_sums[name][k1_model.replace("swin_l", "swin_b")],
+            **common)
         if k2_model is not None:
             f32r["fused_mlp_f32"].entry[key] = dict(
                 f32_sums[name][k2_model], swin_t=f32_sums[name]["swin_t k2"],
-                **common)
+                swin_b=f32_sums[name]["swin_b k2"], **common)
     for name in (*f32_sums, "fused_block_attn_f32", "fused_mlp_f32",
-                 "row_ln_f32", "flash_window_attn_qkv_f32"):
+                 "row_ln_f32", "flash_window_attn_qkv_f32",
+                 "flash_window_attn_masked_f32", "flash_window_attn_plain_f32",
+                 "fused_block_attn_int8_f32", "fused_mlp_int8_f32"):
         for model, m in f32r[name].by_model().items():
             lib = ("n/a" if m["library_ms"] is None
                    else f"{m['library_ms']:.4f} ms")
@@ -2899,16 +3024,29 @@ def main() -> int:
                 f"{m['ms']:.4f} ms, library {lib}, plain {m['plain_ms']:.4f} "
                 f"ms, bound {m['bound_ms']:.4f} ms ({m['bound_by']}); "
                 f"{m['bound_ms'] / m['ms']:.3f} of the bound ({smi})")
-    sums = core.by_model()["swin_l"]
+    # The bf16 kernels per forward of each ws=12 model (K1, K1-int8, K2,
+    # K3, K4; K5 is one head call) and K6-K8 at the API shapes.
+    for name in ("fused_block_attn", "fused_block_attn_int8", "fused_mlp",
+                 "fused_mlp_int8", "row_ln", "flash_window_attn_qkv",
+                 "flash_window_attn_masked", "flash_window_attn_plain"):
+        for model, m in reports[name].by_model().items():
+            lib = ("n/a" if m["library_ms"] is None
+                   else f"{m['library_ms']:.4f} ms")
+            log(f"phase 3: {name} at {model}'s shapes per forward: kernel "
+                f"{m['ms']:.4f} ms, library {lib}, plain {m['plain_ms']:.4f} "
+                f"ms, bound {m['bound_ms']:.4f} ms ({m['bound_by']}); "
+                f"{m['bound_ms'] / m['ms']:.3f} of the bound ({smi})")
+    core_sums = core.by_model()
+    sums = core_sums["swin_l"]
     reports["fused_block_attn"].entry["core"] = dict(
         sums, source=core.entry["source"],
         max_abs_err=core.entry["max_abs_err"],
-        mean_rel_err=core.entry["mean_rel_err"])
+        mean_rel_err=core.entry["mean_rel_err"], swin_b=core_sums["swin_b"])
     gemm_sums = gemm.by_model()
     reports["fused_block_attn_int8"].entry["int8_gemm"] = dict(
         gemm_sums["swin_l"], source=gemm.entry["source"],
         max_abs_err=gemm.entry["max_abs_err"],
-        mean_rel_err=gemm.entry["mean_rel_err"],
+        mean_rel_err=gemm.entry["mean_rel_err"], swin_b=gemm_sums["swin_b"],
         library="torch._int_mm: the s32 product only, no dequant epilogue")
     # K3: the route, its cluster kernel alone, torch._int_mm of its two
     # products (two calls, so not a library_ms), the LN code flips.
@@ -2920,7 +3058,7 @@ def main() -> int:
     k3.entry["cluster"] = dict(
         k3_sums["swin_l"], source=cluster.entry["source"],
         max_abs_err=cluster.entry["max_abs_err"], bitwise=True,
-        swin_t=k3_sums["swin_t"])
+        swin_t=k3_sums["swin_t"], swin_b=k3_sums["swin_b"])
     k3.entry["int_mm_ms"] = extra["int_mm_ms"].get("swin_l")
     k3.entry["int_mm_ms_by_model"] = extra["int_mm_ms"]
     for name, tally in extra["ln_code_flips"].items():
@@ -2929,7 +3067,7 @@ def main() -> int:
             f"{tally['flipped']} of {tally['codes']} differ, by at most "
             f"{tally['max_step']}")
     k3m = k3.by_model()
-    for model in ("swin_l", "swin_t"):
+    for model in ("swin_l", "swin_b", "swin_t"):
         m, cm = k3m[model], k3_sums[model]
         mm = extra["int_mm_ms"].get(model)
         log(f"phase 3: K3 at {model}'s shapes per forward: kernel "
@@ -2954,7 +3092,7 @@ def main() -> int:
     k332.entry["cluster"] = dict(
         cl32_sums["swin_l"], source=cl32.entry["source"],
         max_abs_err=cl32.entry["max_abs_err"], bitwise=True,
-        swin_t=cl32_sums["swin_t"])
+        swin_t=cl32_sums["swin_t"], swin_b=cl32_sums["swin_b"])
     k332.entry["int_mm_ms"] = extra["int_mm_ms_f32"].get("swin_l")
     k332.entry["int_mm_ms_by_model"] = extra["int_mm_ms_f32"]
     for name, model, m, mm in (
@@ -2983,21 +3121,29 @@ def main() -> int:
             rsums["swin_l k2"], source=rep.entry["source"],
             max_abs_err=rep.entry["max_abs_err"],
             mean_rel_err=rep.entry["mean_rel_err"], library=lib,
-            k1=rsums["swin_l k1"], swin_t=rsums["swin_t k2"])
-        for model in ("swin_l k1", "swin_l k2", "swin_t k2"):
+            k1=rsums["swin_l k1"], swin_t=rsums["swin_t k2"],
+            swin_b=rsums["swin_b k2"], swin_b_k1=rsums["swin_b k1"])
+        for model in ("swin_l k1", "swin_l k2", "swin_b k1", "swin_b k2",
+                      "swin_t k2"):
             m = rsums[model]
             log(f"phase 3: {key} at {model}'s shapes per forward: kernel "
                 f"{m['ms']:.4f} ms, library {m['library_ms']:.4f} ms, plain "
                 f"{m['plain_ms']:.4f} ms, bound {m['bound_ms']:.4f} ms "
                 f"({m['bound_by']}); {m['bound_ms'] / m['ms']:.3f} of the "
                 f"bound ({smi})")
-    for name, m in (("Swin-L attention core", sums),
-                    ("swin_t K6", reports["flash_window_attn_qkv"].by_model()
-                     ["swin_t"])):
+    # The first core's rows, re-timed beside PERF.md's (4.77 ms, 1.263 ms):
+    # the key-tiled core left them as they were.
+    for name, m, perf in (
+            ("Swin-L attention core", sums, 4.77),
+            ("swin_b attention core", core_sums["swin_b"], None),
+            ("swin_t K6", reports["flash_window_attn_qkv"].by_model()
+             ["swin_t"], 1.263)):
         log(f"phase 3: {name} per forward: kernel {m['ms']:.4f} ms, SDPA "
             f"{m['library_ms']:.4f} ms, plain {m['plain_ms']:.4f} ms, bound "
             f"{m['bound_ms']:.4f} ms ({m['bound_by']}); kernel / SDPA "
-            f"{m['ms'] / m['library_ms']:.3f} ({smi})")
+            f"{m['ms'] / m['library_ms']:.3f}"
+            + ("" if perf is None else
+               f"; {m['ms'] / perf:.3f} x PERF.md's {perf} ms") + f" ({smi})")
     for name, r in (("D1 deform_im2col bf16", reports["deform_im2col"]),
                     ("D1 deform_im2col f32", f32r["deform_im2col_f32"])):
         m = r.by_model()["swin_l"]
@@ -3006,7 +3152,8 @@ def main() -> int:
             f"{m['bound_ms']:.4f} ms ({m['bound_by']}); "
             f"{m['bound_ms'] / m['ms']:.3f} of the bound; columns bitwise "
             f"the plain version's at every shape ({smi})")
-    for name, m in (("K1-int8's int8 GEMMs", gemm_sums["swin_l"]),):
+    for name, m in (("K1-int8's int8 GEMMs", gemm_sums["swin_l"]),
+                    ("swin_b K1-int8's int8 GEMMs", gemm_sums["swin_b"])):
         lib = ("n/a" if m["library_ms"] is None
                else f"{m['library_ms']:.4f} ms")
         log(f"phase 3: {name} per forward: kernel {m['ms']:.4f} ms, "
@@ -3014,6 +3161,7 @@ def main() -> int:
             f"ms, bound {m['bound_ms']:.4f} ms ({m['bound_by']}); "
             f"{m['bound_ms'] / m['ms']:.3f} of the bound ({smi})")
 
+    phase_start(4)
     frames = np.random.default_rng(42).integers(
         0, 256, size=(BATCH, SIZE, SIZE, 3), dtype=np.uint8)
     frames_dev = torch.from_numpy(frames).to(dev)
@@ -3044,6 +3192,17 @@ def main() -> int:
                                   (0, 0, 24, 0, 16, 0, 24, 0, 0, 0)),
                    "swin_t f32 int8": (f32_int8,
                                        (0, 0, 20, 4, 16, 0, 24, 0, 0, 0))},
+        # swin_b: ws=12 blocks of 4-32 heads, W8A8 at stage 3 only (C =
+        # 1024 >= INT8_MLP_MIN_CHANNELS); swin_s: swin_t's ws=7 tier with
+        # 18 blocks at stage 2 (int8_attn inert at ws=7).
+        "swin_b": {"swin_b bf16": (bf16, (48, 0, 48, 0, 16, 1, 0, 0, 0, 0)),
+                   "swin_b int8": (int8, (44, 4, 44, 4, 16, 1, 0, 0, 0, 0)),
+                   "swin_b f32": (f32_tier,
+                                  (48, 0, 48, 0, 16, 0, 0, 0, 0, 0))},
+        "swin_s": {"swin_s bf16": (bf16, (0, 0, 48, 0, 16, 1, 48, 0, 0, 0)),
+                   "swin_s int8": (int8, (0, 0, 44, 4, 16, 1, 48, 0, 0, 0)),
+                   "swin_s f32": (f32_tier,
+                                  (0, 0, 48, 0, 16, 0, 48, 0, 0, 0))},
     }
     # Swin-L's deformable paths: the same kernels and D1 at its 20 sites.
     int8_def = int8.with_overrides(deform_mode="deformable")
@@ -3056,20 +3215,50 @@ def main() -> int:
                                    (48, 0, 48, 0, 16, 1, 0, 0, 0, 20)),
         "swin_l f32 deformable": (f32_def,
                                   (48, 0, 48, 0, 16, 0, 0, 0, 0, 20))}
+    # The variants' serve default (bf16, deformable), one path each.
+    variant_deform_paths = {
+        "swin_b": {"swin_b bf16 deformable": (
+            bf16_def, (48, 0, 48, 0, 16, 1, 0, 0, 0, 20))},
+        "swin_s": {"swin_s bf16 deformable": (
+            bf16_def, (0, 0, 48, 0, 16, 1, 48, 0, 0, 20))}}
     cfgs = {"swin_l": BiRefNetConfig.swin_l(),
-            "swin_t": BiRefNetConfig.for_backbone("swin_v1_t")}
+            "swin_t": BiRefNetConfig.for_backbone("swin_v1_t"),
+            "swin_b": BiRefNetConfig.for_backbone("swin_v1_b"),
+            "swin_s": BiRefNetConfig.for_backbone("swin_v1_s")}
     flat = {m: random_checkpoint(cfg, 0) for m, cfg in cfgs.items()}
-    flat["swin_t"] = {k: v * REL_POS_BIAS_SCALE if k.endswith(
-        "relative_position_bias_table") else v for k, v in flat["swin_t"].items()}
+    for m in ("swin_t", "swin_s"):
+        flat[m] = {k: v * REL_POS_BIAS_SCALE if k.endswith(
+            "relative_position_bias_table") else v for k, v in flat[m].items()}
     params = {m: build_param_tree(flat[m], cfg) for m, cfg in cfgs.items()}
     del flat
     tiers = {m: {p: (c, dict(zip(names, w))) for p, (c, w) in ps.items()}
              for m, ps in paths.items()}
     deform_tiers = {p: (c, dict(zip(names, w)))
                     for p, (c, w) in deform_paths.items()}
-    if any(len(w) != len(names) for ps in (*paths.values(), deform_paths)
+    variant_deform_tiers = {
+        m: {p: (c, dict(zip(names, w))) for p, (c, w) in ps.items()}
+        for m, ps in variant_deform_paths.items()}
+    if any(len(w) != len(names)
+           for ps in (*paths.values(), deform_paths,
+                      *variant_deform_paths.values())
            for _, w in ps.values()):
         fail(f"a path's launch counts do not name every kernel of {names}")
+
+    def rolled_bias_control(model, ref_feats, plain_errs):
+        """The model's rel-pos bias rolled by one head on the bf16 kernel
+        tier must break the stage gate (FEATURE_RATIO_T x plain bf16)."""
+        rolled = tree_map(lambda k, v: torch.roll(v, 1, 0)
+                          if k == "cached_bias" else v, params[model])
+        _, feats = with_features(bmodel, pipeline.make_infer_fn(
+            rolled, cfgs[model], bf16, dev, as_uint8=False), frames_dev)
+        bad = stage_ratio(feature_errors(f"{model} rolled rel-pos bias", feats,
+                                         ref_feats), plain_errs)
+        log(f"phase 4: {model} with the rel-pos bias rolled by one head: "
+            f"{bad:.3f} x the plain bf16 error (must break the gate "
+            f"{FEATURE_RATIO_T})")
+        if not bad > FEATURE_RATIO_T:
+            fail(f"the {model} feature gate does not see a rel-pos bias "
+                 f"rolled by one head")
 
     # Swin-L: the int8 path against its bf16 tier, and the rolled-scale
     # negative control.
@@ -3116,17 +3305,8 @@ def main() -> int:
         fail(f"swin_t kernel-tier features {ratio} x the plain bf16 error")
     int8_gate("swin_t int8", errs, "swin_t bf16")
     f32_int8_gate("swin_t f32 int8", errs, "swin_t int8")
-    rolled = tree_map(lambda k, v: torch.roll(v, 1, 0) if k == "cached_bias"
-                      else v, params["swin_t"])
-    _, feats = with_features(bmodel, pipeline.make_infer_fn(
-        rolled, cfgs["swin_t"], bf16, dev, as_uint8=False), frames_dev)
-    bad = stage_ratio(feature_errors("swin_t rolled rel-pos bias", feats,
-                                     ref_feats), errs["plain bf16"])
-    log(f"phase 4: swin_t with the rel-pos bias rolled by one head: {bad:.3f} x "
-        f"the plain bf16 error (must break the gate {FEATURE_RATIO_T})")
-    if not bad > FEATURE_RATIO_T:
-        fail("the feature gate does not see a rel-pos bias rolled by one head")
-    del rolled, feats, ref_feats
+    rolled_bias_control("swin_t", ref_feats, errs["plain bf16"])
+    del ref_feats
 
     # Swin-L in deformable mode, offset convs scaled: each path's 20 site
     # outputs against the f32 plain deformable pipeline's, regular mode as
@@ -3135,6 +3315,35 @@ def main() -> int:
     deform_results = drive_deformable(torch, bmodel, pipeline, reports,
                                       cfgs["swin_l"], def_tree, frames_dev,
                                       frames2_dev, deform_tiers)
+
+    # swin_b (ws=12: K1 and K1-int8 at 4-32 heads, the row passes at rows
+    # of 128 2^k) and swin_s (ws=7: K6 at swin_t's shapes, 18 blocks at
+    # stage 2), at full preset depth: each model's bf16 kernel tier stage by
+    # stage against its plain bf16 pipeline, its int8 flags against its
+    # bf16 tier, its f32 kernel tier to the f32 bar with cuDNN's TF32 as
+    # the control, swin_s's rolled rel-pos bias as the stage gate's
+    # control; then serve's default (bf16, deformable) on each model's
+    # offset-scaled tree, regular mode as the control.
+    for model in ("swin_b", "swin_s"):
+        errs, ref_feats = drive_model(torch, bmodel, pipeline, reports,
+                                      cfgs[model], params[model], frames_dev,
+                                      frames2_dev, tiers[model],
+                                      plain_bf16=True, tf32_control=True)
+        ratio = stage_ratio(errs[f"{model} bf16"], errs["plain bf16"])
+        log(f"phase 4: {model} bf16 kernel tier's feature error, stage by "
+            f"stage, at most {ratio:.3f} x the plain bf16 pipeline's (gate <= "
+            f"{FEATURE_RATIO_T})")
+        if not ratio <= FEATURE_RATIO_T:
+            fail(f"{model} kernel-tier features {ratio} x the plain bf16 "
+                 f"error")
+        int8_gate(f"{model} int8", errs, f"{model} bf16")
+        if model == "swin_s":
+            rolled_bias_control(model, ref_feats, errs["plain bf16"])
+        del ref_feats
+        deform_results.update(drive_deformable(
+            torch, bmodel, pipeline, reports, cfgs[model],
+            scale_offset_convs(params[model], OFFSET_SCALE), frames_dev,
+            frames2_dev, variant_deform_tiers[model]))
     for r in reports.values():
         r.finish("api" if r in (reports["flash_window_attn_masked"],
                                 reports["flash_window_attn_plain"])
@@ -3173,6 +3382,7 @@ def main() -> int:
             fail(f"f32 {name} golden logits differ by {diff.max()}")
     del params_golden
 
+    phase_start(5)
     rng = np.random.default_rng(7)
     sizes = [(720, 1280), (1024, 1024), (480, 640), (1500, 900)]
     images = [rng.integers(0, 256, (h, w, 3), dtype=np.uint8) for h, w in sizes]
@@ -3195,9 +3405,10 @@ def main() -> int:
     # Each tier's function graphed and its eager body, 5 calls each in
     # turns, one function at a time (each graph keeps its own memory pool),
     # the tiers in order and then in reverse.
+    phase_start(6)
     plain_bf16 = ComputeConfig(dtype=torch.bfloat16, deform_mode="regular")
     summary = {}
-    for model in MODELS:
+    for model in ("swin_l", "swin_b", "swin_t", "swin_s"):
         tiers6 = {f"{model} int8 path": int8,
                   f"{model} bf16 kernel tier": bf16,
                   f"{model} plain bf16": plain_bf16}
@@ -3243,6 +3454,7 @@ def main() -> int:
     log(f"phase 6: max allocated "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
+    phase_start(7)
     # Phase 7: one profiled replay of the Swin-L int8 path's graph and one
     # profiled eager call (tools/gpu_profile.py). Where the profiler resolves
     # the graph's kernels, their launches per group must match what the
@@ -3301,15 +3513,18 @@ def main() -> int:
                  f"{want_groups}")
     del fn
 
+    phase_start(8)
     # Phase 8: training (train.py, finetune.py, D1b).
     d1b, train_results = train_phase(torch, dev, pipeline, cfgs["swin_l"],
                                      def_tree, frames_dev, smi)
     log(f"phase 8: train results {json.dumps(train_results)}")
 
+    phase_start(9)
     # Phase 9: the entry points (serve.main, cli.main, evaluate.main).
     torch.cuda.empty_cache()
     log(f"phase 9: results {json.dumps(entry_points_phase(torch, dev, smi))}")
 
+    phase_start(10)
     # Phase 10: data parallelism and the 2048^2 HR configuration.
     torch.cuda.empty_cache()
     log(f"phase 10: results {json.dumps(parallel_phase(torch, dev, smi))}")

@@ -46,6 +46,12 @@ MEAN_BOUND_I8 = 1e-4
 # bound is the one chip_smoke.py holds K1-int8 to. The cluster kernel's
 # arithmetic is held bitwise from given codes below.
 MEAN_BOUND_I8_F32 = 1e-3
+# K1-int8 at a model's int8 width (C >= 768: swin_b's C = 1024, 32 heads):
+# the H100 read 1.1e-4 to 2.2e-4 at C = 1024 in bf16 and f32 (chip_smoke.py
+# read up to 2.0e-4 at Swin-L's stage-3 shapes), so the bound is about 2.3x
+# the largest reading. That the LN1 codes flip no more often at this width
+# is held by test_ln_code_flips_are_rare_and_one_step at C = 1024.
+MEAN_BOUND_K1_I8_WIDE = 5e-4
 # The bf16 GEMM and row pass round at their plain versions' points and sum
 # in f32 in another order, so they differ only where a sum lands on a bf16
 # rounding boundary: mean|kernel - plain| / mean|plain| <= MEAN_BOUND_BF16.
@@ -84,7 +90,10 @@ def _assert_close(got, want, mean_bound=None):
 # leave lanes of the last register slot idle (640 bf16, 200 f32 and bf16).
 @pytest.mark.parametrize("shape", [(1000, 192), (37, 3072), (2, 7, 9, 768),
                                    (1000, 96), (50, 384), (1001, 1536),
-                                   (101, 640), (99, 200)])
+                                   (101, 640), (99, 200),
+                                   # swin_b's rows, 128 2^k (the 4-slot path)
+                                   (1000, 128), (500, 256), (301, 512),
+                                   (200, 1024), (101, 2048)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_row_ln_kernel_matches_plain(dev, shape, dtype):
     gen = torch.Generator(dev).manual_seed(0)
@@ -309,7 +318,9 @@ def _block_params(gen, c, heads, dev):
 
 @pytest.mark.parametrize("shift", [0, 6])
 @pytest.mark.parametrize("hw", [(24, 24), (20, 17), (16, 16)])
-@pytest.mark.parametrize("heads,c", [(2, 64), (6, 192)])
+# Swin-L's head width and swin_b's stages 0-2 (4, 8 and 16 heads of 32).
+@pytest.mark.parametrize("heads,c", [(2, 64), (6, 192), (4, 128), (8, 256),
+                                     (16, 512)])
 def test_fused_block_attn_kernel_matches_plain(dev, shift, hw, heads, c):
     gen = torch.Generator(dev).manual_seed(2)
     h, w = hw
@@ -345,7 +356,8 @@ def _quantized(tree, key, dtype=torch.bfloat16):
 # cluster, slices padded past 4C), and tails: M tails of 100 and 48 rows,
 # C = 64 (one CTA, 256 of its 384 hidden units real) and 192.
 K3_SHAPES = [(8192, 768), (2048, 768), (2048, 1536), (512, 1536),
-             (2048, 1024), (100, 64), (512, 192), (512, 768), (48, 1536)]
+             (2048, 1024), (512, 1024), (100, 64), (512, 192), (512, 768),
+             (48, 1536)]
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -433,7 +445,8 @@ def _flat(tree, prefix=""):
 
 # (rows, C, canvas) of the LN row pass: K1-int8's LN1 on the Swin-L int8
 # canvases (stage 2 full and half pass, rolled and offset; stage 3) and K3's
-# LN2 on the real tokens (stages 2 and 3, full and half pass).
+# LN2 on the real tokens (stages 2 and 3, full and half pass); then swin_b's
+# stage 3 (C = 1024): K1-int8's canvases, plain and shifted, and K3's rows.
 LN_FLIP_CASES = [
     (2 * 72 * 72, 768, (72, 72, 6, 0, 64, 64)),
     (2 * 72 * 72, 768, (72, 72, 0, 4, 64, 64)),
@@ -442,6 +455,9 @@ LN_FLIP_CASES = [
     (2 * 24 * 24, 1536, (24, 24, 6, 0, 16, 16)),
     (8192, 768, None), (2048, 768, None), (2048, 1536, None),
     (512, 1536, None),
+    (2 * 36 * 36, 1024, (36, 36, 0, 0, 32, 32)),
+    (2 * 36 * 36, 1024, (36, 36, 6, 0, 32, 32)),
+    (2048, 1024, None), (512, 1024, None),
 ]
 
 
@@ -468,7 +484,8 @@ def test_ln_code_flips_are_rare_and_one_step(dev, t, c, canvas, dtype):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("shift", [0, 6])
 @pytest.mark.parametrize("hw", [(24, 24), (20, 17), (16, 16)])
-@pytest.mark.parametrize("heads,c", [(2, 64), (6, 192)])
+# and swin_b's stage 3 (32 heads at C = 1024)
+@pytest.mark.parametrize("heads,c", [(2, 64), (6, 192), (32, 1024)])
 def test_fused_block_attn_int8_kernel_matches_plain(dev, shift, hw, heads, c,
                                                     dtype):
     gen = torch.Generator(dev).manual_seed(7)
@@ -489,7 +506,8 @@ def test_fused_block_attn_int8_kernel_matches_plain(dev, shift, hw, heads, c,
     if k_shift:
         got = W.roll_2d(got, k_shift, k_shift)
         want = W.roll_2d(want, k_shift, k_shift)
-    _assert_close(got[crop], want[crop], MEAN_BOUND_I8)
+    _assert_close(got[crop], want[crop],
+                  MEAN_BOUND_K1_I8_WIDE if c >= 768 else MEAN_BOUND_I8)
 
 
 def test_int8_kernels_refuse_f32(dev):
@@ -764,15 +782,22 @@ def test_fused_block_attn_takes_region_ids(dev, hw):
 
 
 def test_flash_window_attn_refuses_f32_and_wide_heads(dev):
-    """Wide heads are refused in either dtype, and so are q, k, v of mixed
-    dtypes; f32 alone runs (the f32 tier below)."""
+    """q, k, v of mixed dtypes are refused; wide heads (d = 72, which the
+    key-tiled core takes) run in either dtype, f32 included, and match the
+    plain version. The name is kept from when f32 and d > 64 were
+    refused."""
     q = torch.zeros((2, 1, 16, 8), device=dev)
     with pytest.raises(TypeError):
         flash_window_attn.flash_attention(q, q.bfloat16(), q)
+    gen = torch.Generator(dev).manual_seed(18)
     for dtype in (torch.bfloat16, torch.float32):
-        wide = torch.zeros((2, 1, 16, 72), device=dev, dtype=dtype)
-        with pytest.raises(ValueError, match="multiple of 8 up to 64"):
-            flash_window_attn.flash_attention(wide, wide, wide)
+        wide = _randn(gen, (2, 1, 16, 72), dev, 1.0, dtype)
+        got = flash_window_attn.flash_attention(wide, wide, wide)
+        want = flash_window_attn.flash_attention_plain(wide, wide, wide)
+        if dtype == torch.float32:
+            _assert_close_f32(got, want)
+        else:
+            _assert_close(got, want, MEAN_BOUND_FWA)
 
 
 @pytest.mark.parametrize("kernel", ["fused_block_attn", "flash_window_attn"])
@@ -1083,7 +1108,7 @@ def test_fused_mlp_f32_matches_plain(dev, t, c):
 @pytest.mark.parametrize("mask_form", ["dense", "ids"])
 @pytest.mark.parametrize("shift", [0, 6])
 @pytest.mark.parametrize("hw", [(24, 24), (20, 17), (16, 16)])
-@pytest.mark.parametrize("heads,c", [(2, 64), (6, 192)])
+@pytest.mark.parametrize("heads,c", [(2, 64), (6, 192), (4, 128), (16, 512)])
 def test_fused_block_attn_f32_matches_plain(dev, shift, hw, heads, c,
                                             mask_form):
     gen = torch.Generator(dev).manual_seed(2)
@@ -1694,3 +1719,56 @@ def test_train_step_on_the_card_runs_d1_and_d1b_only(dev):
     assert counts == {"deform_im2col.deform_im2col": 20,
                       "deform_im2col.deform_col2im": 20}
     assert np.isfinite(float(m["loss"]))
+
+
+# The key-tiled core (csrc/window_core.cuh core_tiled, window_core_f32.cuh
+# core_f32_tiled): the shapes the first core does not take, in bf16 and
+# f32. (kind, B_, heads, N, d): K7 with a dense mask over 24^2 windows
+# (N = 576) and with region ids over 17^2 windows; K8 with a bias at
+# N = 257, a padded head dim (d = 20, 3), d = 96 and d = 160 (two output
+# slices); flash_attention causal at N = 1024 (d = 128) and 4096 (d = 64);
+# K6 on a packed projection of head dim 20 (padded) and at N = 289.
+TILED_CASES = [("dense", 8, 4, 576, 32), ("ids", 8, 2, 289, 32),
+               ("bias", 8, 4, 257, 64), ("bias", 8, 4, 144, 20),
+               ("bias", 6, 2, 100, 3), ("bias", 8, 4, 144, 96),
+               ("bias", 4, 2, 144, 160), ("causal", 2, 8, 1024, 128),
+               ("causal", 1, 8, 4096, 64), ("qkv", 8, 3, 49, 20),
+               ("qkv", 8, 3, 289, 32)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kind,b_,heads,n,d", TILED_CASES)
+def test_window_core_tiled_matches_plain(dev, kind, b_, heads, n, d, dtype):
+    gen = torch.Generator(dev).manual_seed(n + d)
+    fwa = flash_window_attn
+    bias = _randn(gen, (heads, n, n), dev, 3.0)
+    if kind == "qkv":
+        wrapper = fwa.flash_window_attention_qkv
+        qkv = _randn(gen, (b_, n, 3 * heads * d), dev, 1.0, dtype)
+        args = (qkv, bias, None, heads)
+        plain = fwa.flash_window_attention_qkv_plain
+    else:
+        q, k, v = (_randn(gen, (b_, heads, n, d), dev, 1.0, dtype)
+                   for _ in range(3))
+        if kind == "causal":
+            wrapper, plain, args = (fwa.flash_attention,
+                                    fwa.flash_attention_plain,
+                                    (q, k, v, True))
+        else:
+            wrapper, plain = (fwa.flash_window_attention,
+                              fwa.flash_window_attention_plain)
+            mask = None
+            if kind == "dense":
+                mask = torch.where(torch.rand((2, n, n), generator=gen,
+                                              device=dev) < 0.3, -100.0, 0.0)
+            elif kind == "ids":
+                mask = W.sw_msa_region_ids(34, 34, 17, 8, dev)
+            args = (q, k, v, bias, mask)
+    n0 = wrapper.launches
+    got = wrapper(*args)
+    assert wrapper.launches == n0 + 1
+    want = plain(*args)
+    if dtype == torch.float32:
+        _assert_close_f32(got, want)
+    else:
+        _assert_close(got, want, MEAN_BOUND_FWA)

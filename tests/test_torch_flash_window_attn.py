@@ -218,3 +218,88 @@ def test_causal_flag_matches_causal_bias(causal):
         *(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)), causal=causal,
         interpret=True).astype(jnp.float32))
     _assert_within_one_bf16_ulp(got, want)
+
+
+# Shapes past the kernel's first core (N > 256, head dims above 64 or not a
+# multiple of 8): the key-tiled core takes them on the card with the same
+# plain versions, which must still match the JAX entry points. (kind, B_,
+# heads, N, d, nW): K7 masked at N = 300, d = 40; K8 with a bias at
+# N = 576, d = 72; flash_attention causal at N = 1024, d = 16.
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind,b_,heads,n,d,nw", [
+    ("masked", 2, 2, 300, 40, 2), ("bias", 1, 2, 576, 72, None),
+    ("causal", 1, 2, 1024, 16, None)])
+def test_plain_matches_pallas_past_the_first_core(kind, b_, heads, n, d, nw,
+                                                  dtype):
+    rng = np.random.default_rng(n + d)
+    q, k, v = (_rand(rng, (b_, heads, n, d)) for _ in range(3))
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+    jq, jk, jv = (jnp.asarray(a, jdt) for a in (q, k, v))
+    tq, tk, tv = (torch.from_numpy(a).to(tdt) for a in (q, k, v))
+    before = [f.launches for f in WRAPPERS]
+    if kind == "causal":
+        want = jfwa.flash_attention(jq, jk, jv, causal=True, interpret=True)
+        got = fwa.flash_attention(tq, tk, tv, causal=True)
+    else:
+        bias = _rand(rng, (heads, n, n))
+        mask = None if nw is None else np.where(
+            rng.uniform(size=(nw, n, n)) < 0.3, -100.0, 0.0).astype(np.float32)
+        want = jfwa.flash_window_attention(
+            jq, jk, jv, jnp.asarray(bias, jdt),
+            None if mask is None else jnp.asarray(mask, jdt), interpret=True)
+        got = fwa.flash_window_attention(
+            tq, tk, tv, torch.from_numpy(bias),
+            None if mask is None else torch.from_numpy(mask))
+    assert [f.launches for f in WRAPPERS] == before
+    assert got.shape == (b_, heads, n, d) and got.dtype == tdt
+    want = np.asarray(want.astype(jnp.float32))
+    if dtype == "float32":
+        np.testing.assert_allclose(got.numpy(), want, **TOL)
+    else:
+        # One bf16 ulp of each value, or of max|want| / 4 where P v's f32
+        # sum over hundreds of keys cancels to near zero (a sum in another
+        # order moves such a value by more than its own ulp).
+        diff = np.abs(got.float().numpy() - want)
+        floor = 2.0 ** -9 * np.abs(want).max()
+        mag = np.maximum(np.abs(want), np.float32(2.0 ** -126))
+        over = diff > np.maximum(np.exp2(np.floor(np.log2(mag)) - 7), floor)
+        assert not over.any(), (f"{over.sum()} of {over.size} elements off, "
+                                f"max |diff| {diff.max()}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [20, 36, 3])
+def test_head_dim_padding_is_exact(d, dtype):
+    """A head dim the kernel pads to a multiple of 8: pad_head_dim gives
+    contiguous copies whose extra columns are zero, so q k^T is unchanged
+    (bitwise, on integer-valued inputs whose sums are exact in any order),
+    and head_dim_scale(d) is the true d's d^-0.5 as the plain version
+    multiplies q by it, not the padded width's. The padded kernel is held
+    against the unpadded plain version on the card."""
+    rng = np.random.default_rng(50 + d)
+    b_, heads, n = 4, 2, 49
+    q, k, v = (torch.from_numpy(rng.integers(-4, 5, (b_, heads, n, d))
+                                .astype(np.float32)).to(dtype)
+               for _ in range(3))
+    padded = [fwa.pad_head_dim(t) for t in (q, k, v)]
+    dp = fwa.padded_head_dim(d)
+    assert dp % 8 == 0 and d <= dp < d + 8
+    assert all(p.shape == (b_, heads, n, dp) and p.is_contiguous()
+               and not p[..., d:].any() and torch.equal(p[..., :d], t)
+               for p, t in zip(padded, (q, k, v)))
+    assert torch.equal(padded[0].float() @ padded[1].float().mT,
+                       q.float() @ k.float().mT)
+    assert fwa.head_dim_scale(d, dtype) == float(
+        torch.tensor(d ** -0.5, dtype=dtype))
+    assert fwa.head_dim_scale(d, dtype) != fwa.head_dim_scale(dp, dtype)
+
+
+@pytest.mark.parametrize("d", [8, 72, 128, 160, 256, 264, 1000])
+def test_column_slices_cover_the_head_dim(d):
+    """One launch per slice of at most 128 output columns: the slices are
+    contiguous, start at 0, end at d and overlap nowhere."""
+    slices = fwa.column_slices(d)
+    assert slices[0][0] == 0 and slices[-1][1] == d
+    assert all(0 < c1 - c0 <= fwa.SLICE for c0, c1 in slices)
+    assert all(a[1] == b[0] for a, b in zip(slices, slices[1:]))
+    assert len(slices) == -(-d // fwa.SLICE)

@@ -2,7 +2,7 @@
 
 Every .py file of birefnet_tpu_torch/ (parallel/ included: its spawned
 ranks import the port alone), chip_smoke.py and the tools that
-run on the GPU machine (gpu_profile.py, k3_phases.py, core_f32_time.py,
+run on the GPU machine (gpu_profile.py, k3_phases.py, core_time.py,
 tf32_check.py, tap_conv_phases.py, deform_im2col_time.py,
 deform_col2im_time.py and serve_stages.py; that machine has no JAX) is parsed
 with `ast`; an import of `jax`, `birefnet_tpu` (not `birefnet_tpu_torch`),
@@ -25,7 +25,7 @@ FILES = sorted(
                        recursive=True)
 ) + ["chip_smoke.py", os.path.join("tools", "gpu_profile.py"),
      os.path.join("tools", "k3_phases.py"),
-     os.path.join("tools", "core_f32_time.py"),
+     os.path.join("tools", "core_time.py"),
      os.path.join("tools", "tf32_check.py"),
      os.path.join("tools", "tap_conv_phases.py"),
      os.path.join("tools", "deform_im2col_time.py"),

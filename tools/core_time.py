@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Time the f32 window-attention core (csrc/window_core_f32.cuh) alone.
+"""Time the f32 window-attention core (csrc/window_core_f32.cuh) alone,
+or with --bf16 the bf16 core (csrc/window_core.cuh).
 
-    python3 tools/core_f32_time.py [ROOT]
+    python3 tools/core_time.py [ROOT] [--bf16]
 
 ROOT is a checkout of this repository (default: the one holding this
 file); its package is imported and its kernels built into its own
@@ -10,16 +11,23 @@ build/kernels/. Times the core per 1024^2 batch-2 forward by CUDA events
 forward): through flash_window_attention at Swin-L's 16 core shapes (both
 passes, N = 144, unmasked and with the offset mask's region ids: the
 calls K1 makes), and through flash_window_attention_qkv at swin_t's 16 K6
-shapes (N = 49); checks every output against the plain version (f32, TF32
-off) and prints the largest difference. To compare variants of the core,
-run it on copies of the tree that differ in the header, one process each,
-in turns (A, B, B, A). Needs one CUDA device.
+shapes (N = 49), in f32 or bf16; then the same calls of one forward
+captured in a CUDA graph and replayed (mean of 20 replays: the device
+time of a forward's calls, without the host's launch path, which the
+event sums of calls under 0.1 ms follow); checks every output against
+the plain version (TF32 off) and prints the largest difference. To
+compare variants of the core, run it on copies of the tree that differ
+in the header, one process each, in turns (A, B, B, A). Needs one CUDA
+device.
 """
 
 import os
 import sys
+from functools import partial
 
-ROOT = sys.argv[1] if len(sys.argv) > 1 else os.path.dirname(
+ARGS = [a for a in sys.argv[1:] if a != "--bf16"]
+BF16 = "--bf16" in sys.argv[1:]
+ROOT = ARGS[0] if ARGS else os.path.dirname(
     os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -50,8 +58,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     gen = torch.Generator(dev).manual_seed(0)
+    dtype = torch.bfloat16 if BF16 else torch.float32
     worst = 0.0
-    totals = {}
+    totals, calls = {}, {}
     # (ws, (Hp, C, heads, depth) per stage of both passes) of each model.
     for model, ws, stages in (
             ("swin_l", 12, ((264, 192, 6, 2), (132, 384, 12, 2),
@@ -65,7 +74,8 @@ def main() -> int:
         n = ws * ws
         for hp, c, heads, depth in stages:
             b_ = 2 * (hp // ws) ** 2
-            qkv = torch.randn((b_, n, 3 * c), generator=gen, device=dev)
+            qkv = torch.randn((b_, n, 3 * c), generator=gen,
+                              device=dev).to(dtype)
             bias = torch.randn((heads, n, n), generator=gen, device=dev)
             masks = (None, W.sw_msa_region_ids(hp, hp, ws, ws // 2, dev,
                                                offset=ws == 12))
@@ -81,12 +91,31 @@ def main() -> int:
                     kernel, plain = (fwa.flash_window_attention_qkv,
                                      fwa.flash_window_attention_qkv_plain)
                 worst = max(worst, float(
-                    (kernel(*args) - plain(*args)).abs().max()))
+                    (kernel(*args).float() - plain(*args).float()).abs().max()))
                 totals[model] = totals.get(model, 0.0) + depth // 2 * cuda_ms(
                     torch, lambda: kernel(*args))
-    print(f"[core_f32] {ROOT}: Swin-L core per forward "
-          f"{totals['swin_l']:.4f} ms, swin_t K6 {totals['swin_t']:.4f} ms, "
-          f"max|kernel - plain| {worst:.3e} ({torch.cuda.get_device_name(0)})")
+                calls.setdefault(model, []).append(
+                    (partial(kernel, *args), depth // 2))
+    graphed = {}
+    for model, fns in calls.items():
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):  # warm up outside the capture
+            for fn, _ in fns:
+                fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for fn, reps in fns:
+                for _ in range(reps):
+                    fn()
+        graphed[model] = cuda_ms(torch, graph.replay, 20)
+    tag = "core_bf16" if BF16 else "core_f32"
+    print(f"[{tag}] {ROOT}: Swin-L core per forward "
+          f"{totals['swin_l']:.4f} ms (graphed {graphed['swin_l']:.4f}), "
+          f"swin_t K6 {totals['swin_t']:.4f} ms (graphed "
+          f"{graphed['swin_t']:.4f}), max|kernel - plain| {worst:.3e} "
+          f"({torch.cuda.get_device_name(0)})")
     return 0
 
 
