@@ -7,7 +7,11 @@
 // for the int8 GEMM's store and residual epilogues (K1-int8 on f32
 // activations). K3's cluster kernel
 // (fused_mlp_i8.cu) takes the ring's pieces: the mbarrier helpers, TMA
-// loads and descriptors, and the GELU.
+// loads and descriptors, and the GELU. So do the key-tiled attention
+// cores (window_core.cuh core_tiled, window_core_f32.cuh core_f32_tiled),
+// with the pieces added for them below: wgmma of 64 and 32 columns (bf16
+// with A from registers and B MN-major), 4-D tensor maps, and cp.async
+// completing on an mbarrier.
 //
 //   out[M, N] = epilogue(A[M, K] W[N, K]^T), A and W row-major (K-major),
 //   int8 with an exact s32 sum dequantized as acc * (sa[m] * sw[n]) + b[n],
@@ -266,6 +270,108 @@ struct Mma<float> {
 
 #undef BT_WG_ACC
 #undef BT_WG_REGS
+
+// The key-tiled attention cores' products (window_core.cuh core_tiled,
+// window_core_f32.cuh core_f32_tiled), on 32 or 16 accumulators a thread.
+#define BT_WG_ACC32(c)                                                                        \
+  "+" c(d[0]), "+" c(d[1]), "+" c(d[2]), "+" c(d[3]), "+" c(d[4]), "+" c(d[5]), "+" c(d[6]),   \
+      "+" c(d[7]), "+" c(d[8]), "+" c(d[9]), "+" c(d[10]), "+" c(d[11]), "+" c(d[12]),         \
+      "+" c(d[13]), "+" c(d[14]), "+" c(d[15]), "+" c(d[16]), "+" c(d[17]), "+" c(d[18]),      \
+      "+" c(d[19]), "+" c(d[20]), "+" c(d[21]), "+" c(d[22]), "+" c(d[23]), "+" c(d[24]),      \
+      "+" c(d[25]), "+" c(d[26]), "+" c(d[27]), "+" c(d[28]), "+" c(d[29]), "+" c(d[30]),      \
+      "+" c(d[31])
+#define BT_WG_REGS32                                                                           \
+  "{ %0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"                    \
+  " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+
+// D[64, 64] (+)= A[64, 16] B[64, 16]^T in bf16 with f32 accumulators, both
+// operands K-major from 128-byte-swizzled descriptors (sw128_desc).
+__device__ __forceinline__ void wgmma_bf16_n64(float (&d)[32], uint64_t da, uint64_t db, int acc) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " BT_WG_REGS32
+               ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+               : BT_WG_ACC32("f")
+               : "l"(da), "l"(db), "r"(acc));
+}
+
+// D[64, 64] (+)= A[64, 16] B[16, 64] in bf16: A from registers (each warp's
+// 16 rows as the mma.m16n8k16 A fragment: a[0] row g cols 2t, 2t + 1, a[1]
+// row g + 8, a[2] row g cols 2t + 8, + 9, a[3] row g + 8 cols 2t + 8, + 9),
+// B MN-major (its 64 columns contiguous, k rows of 128 bytes) from an
+// sw128_mn_desc descriptor, read transposed.
+__device__ __forceinline__ void wgmma_bf16_n64_rs_mn(float (&d)[32], const uint32_t (&a)[4],
+                                                     uint64_t db, int acc) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " BT_WG_REGS32
+               ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+               : BT_WG_ACC32("f")
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+#undef BT_WG_ACC32
+#undef BT_WG_REGS32
+
+// D[64, 32] (+)= A[64, 8] B[32, 8]^T in TF32 with f32 accumulators, both
+// operands K-major from 128-byte-swizzled descriptors (rows of 32 floats).
+__device__ __forceinline__ void wgmma_tf32_n32(float (&d)[16], uint64_t da, uint64_t db, int acc) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+               "{ %0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+               ", %16, %17, p, 1, 1;\n}\n"
+               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+                 "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+                 "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+               : "l"(da), "l"(db), "r"(acc));
+}
+
+// wgmma descriptor of an MN-major tile one 128-byte swizzle atom wide (64
+// bf16 columns, contiguous) with k rows of 128 bytes: 1024 bytes between
+// groups of 8 k rows. Both offset fields hold 1024, so the descriptor does
+// not depend on which of them the hardware reads for the k step (the other
+// one, the step between atoms along N, is never taken at N = 64). Moving
+// the start by 2048 bytes (+128) steps k by 16.
+__device__ __forceinline__ uint64_t sw128_mn_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(1024 >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// A box of a 4-D tensor map at coordinates (c0, c1, c2, c3), innermost
+// first, into shared memory, completing on `bar`.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// 4 bytes from global memory into shared memory (zero-filled where !valid).
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// 16 bytes from global memory into shared memory (zero-filled where
+// !valid), bypassing L1; both addresses 16-byte aligned.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// One arrival on `bar` once this thread's earlier cp.async copies are done;
+// the arrival is counted in the barrier's initial count (.noinc).
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+
+// This thread's shared-memory writes made visible to the async proxy
+// (wgmma operands, and TMA writes that follow into the same bytes).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
 
 // EPI is an Epilogue (common.cuh). The int8 GEMM's y is the dequant
 // acc * (sa * sw) + b; the bf16 GEMM's y is acc + b (sa, sw unused). Out
@@ -545,6 +651,20 @@ bool encode(CUtensorMap* map, const In* base, int rows, int K, int box_rows) {
   return fn(map, Mma<In>::kMapType, 2, const_cast<In*>(base), dims, strides, box, elem,
             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A 4-D tensor map of `type` over dims[0..3] (dims[0] contiguous, the
+// others at byte strides[0..2]) read in boxes of box[0..3] elements with
+// the given swizzle; out-of-range elements read as 0.
+bool encode_4d(CUtensorMap* map, CUtensorMapDataType type, const void* base,
+               const cuuint64_t (&dims)[4], const cuuint64_t (&strides)[3],
+               const cuuint32_t (&box)[4], CUtensorMapSwizzle swizzle) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map, type, 4, const_cast<void*>(base), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // One launch of gemm_kernel<In, EPI, Out> on a grid of min(tiles, SMs)

@@ -656,6 +656,12 @@ cudaError_t run(const Rows& rows, const Addends& ad, int windows, int heads, int
 }
 
 }  // namespace core
+}  // namespace bt
+
+// The key-tiled cores build on the wgmma/TMA ring's pieces.
+#include "wgmma_ring.cuh"
+
+namespace bt {
 
 // The key-tiled core: K6-K8 at the shapes the core above does not take
 // (N > 256, a head dim above 64, or a head dim that the wrapper padded to a
@@ -670,9 +676,9 @@ cudaError_t run(const Rows& rows, const Addends& ad, int windows, int heads, int
 // any N and d) to blocks of 64 query rows that walk the keys in tiles of
 // 64, twice:
 //
-// - Pass 1 computes each tile's scores (q k^T by mma.sync m16n8k16 over d
-//   in chunks of up to 64 columns, plus the addends) and keeps each row's
-//   running max and sum in f32, rescaling the sum at each new max.
+// - Pass 1 computes each tile's scores (q k^T plus the addends) and keeps
+//   each row's running max and sum in f32, rescaling the sum at each new
+//   max.
 // - Pass 2 recomputes the same scores tile by tile (bitwise the first
 //   pass's), forms exp(s - m) / l, rounds it to bf16 and accumulates P v in
 //   f32 registers.
@@ -682,304 +688,858 @@ cudaError_t run(const Rows& rows, const Addends& ad, int windows, int heads, int
 // and the plain version's, which normalize before the cast. The price is a
 // second q k^T, on an API path no forward calls.
 //
-// What bounds it: the scores are recomputed, so per (window, head) it does
-// 6 N^2 d flops (two q k^T, one P v) against 8 N d bytes plus the addends;
-// at N = 1024, d = 128 that is about 770 flops a byte, above the H100's
-// bf16 ridge, so large calls are bound by the tensor cores and small ones
-// (N = 257, 576) by latency. The design answers the latency:
-// - The key tiles stream through two buffers: the next (key tile, d chunk)
-//   stage of k (and, in pass 2, the next tile's v rows) is copied by
-//   cp.async while the current one computes. A first body that waited for
-//   each tile's copies ran N = 4096 causal at 8.5x SDPA's time.
+// What bounds it: per (window, head) 6 N^2 d flops (two q k^T, one P v)
+// against 8 N d bytes plus the addends; at N = 1024, d = 128 that is about
+// 770 flops a byte, above the H100's bf16 ridge, so large calls are bound
+// by the tensor cores (and, as in every attention kernel on this card, by
+// the softmax's exp and max between the products), small ones (N = 257,
+// 576: a few hundred blocks) by latency. The design, for sm_90a:
+//
+// - One block is a consumer warpgroup (128 threads, 64 query rows) and a
+//   producer warp. The products are wgmma: S = q k^T as m64n64k16 with q
+//   and k from 128-byte-swizzled shared memory (q scaled and rounded to
+//   bf16 in place once per block, not once per tile: a q that stays in
+//   shared memory costs no registers and takes any d), and P v as
+//   m64n64k16 with P from registers (the probabilities straight from the
+//   score accumulators, packed to bf16) and v MN-major, read transposed, in
+//   one or two column blocks of 64.
+// - The producer warp fills a ring of 2-8 stages (full and empty mbarriers,
+//   wgmma_ring.cuh) ahead of the consumer: per key tile the k rows, in pass
+//   2 the v rows, and the tile's f32 addends (the bias rows and dense mask
+//   rows of the block's 64 query rows), so that they arrive before the
+//   tile's epilogue instead of being read from L2 after its products. q, k
+//   and v come by TMA through 4-D tensor maps of (d, then token, head and
+//   window in the order of their strides), which take K6's strided heads
+//   in the packed projection as well as K7/K8's [B_, heads, N, d] and zero
+//   the rows past N and the columns past d. The addends come by TMA where
+//   their rows are 16-byte aligned (N % 4 == 0), into 128-byte-swizzled
+//   [64 rows, 32 keys] boxes that the epilogue reads as float pairs; else
+//   (N = 257, 289, ...) the producer's 32 lanes copy the aligned 16-byte
+//   chunks around each row with cp.async (4-byte copies ran at about one
+//   element a cycle and bounded those shapes), into rows of KT + 4 floats
+//   that the epilogue reads at each row's shift. The lanes' copies, and
+//   the keys' region ids, complete on the same full barrier (.noinc
+//   arrivals counted in its initial count).
+// - Where one block an SM of half the length takes fewer block times than
+//   two blocks an SM (grids of up to one block an SM, the small API shapes:
+//   N = 144 at d = 96 or 160, K6 at N = 289; and grids whose last wave at
+//   two an SM would be half full or less: 288 blocks at N = 576), a block
+//   runs two consumer warpgroups on the same 64 query rows, each taking
+//   every other key tile of the ring: after pass 1 they merge each row's
+//   max and sum through shared memory, after pass 2 warpgroup 1 leaves its
+//   P v sums in the (then idle) ring and warpgroup 0 adds them in f32 and
+//   stores. Other grids run one warpgroup a block, two blocks an SM. Each
+//   warpgroup owns half the ring's slots (a shared slot let one warpgroup
+//   wait on a barrier a phase behind and take the older phase for its
+//   own), so a block splits only where the ring has four slots or more.
+// - A stage carries up to 128 columns of k; a head dim above 128 walks a
+//   tile's columns over several stages. q stays for the block up to 256
+//   columns; past that its columns stream beside k's (and are scaled per
+//   stage).
 // - flash_attention's causal flag skips the key tiles past a block's last
 //   query row in both passes: their probabilities are exactly 0 (bf16(-1e9)
 //   under every row's max, whose exp underflows) and their sums exactly 0,
-//   so the output is bitwise what the whole walk gives.
-// - The addends are read in place: the f32 bias and a dense f32 mask from
-//   device memory and L2 (too large to stage at these N), region ids from
-//   L1, the causal flag from nothing. q stays in shared memory for the
-//   whole block where d <= 128 (else its chunks stream beside k's).
+//   so the output is bitwise what the whole walk gives. The grid runs the
+//   query tiles in descending order, so the longest blocks start first.
 //
 // Head dim: q k^T contracts over dqk (a multiple of 8), and one launch
 // writes dv <= 128 output columns of v's (the caller's) view: the wrapper
 // launches one slice per 128 columns where d > 128. Pad keys get
 // probability 0, pad query rows and columns are never written.
+//
+// The f32 key-tiled core (window_core_f32.cuh core_f32_tiled) shares this
+// namespace's block walk, producer, ring layout and tensor maps.
 namespace core_tiled {
 
-constexpr int kRows = 64;  // query rows a block: four warps of 16-row strips
-constexpr int kKeys = 64;  // keys a tile
-constexpr int kThreads = 128;
+constexpr int kRows = 64;         // query rows a block
+constexpr int kConsumers = 128;   // threads of a consumer warpgroup
+// A block runs one or two consumer warpgroups and the producer warp: 160
+// or 288 threads. The kernels are bounded for 320 threads, a cap of 204
+// registers a thread, so that two blocks of 160 fit an SM.
+constexpr int kBoundThreads = 320;
+constexpr int kBlock = kRows * 128;        // a [64 rows, 128 bytes] tile
+constexpr float kLog2e = 1.4426950408889634f;
 
-// Chunks of q kept in shared memory: two of 64 columns (d <= 128 stays for
-// the whole block; above, the two slots hold the streamed chunks), one of a
-// narrower chunk (d fits it).
-__host__ __device__ constexpr int q_chunks(int dk) { return dk == 64 ? 2 : 1; }
+// Per element type: keys a tile, elements in a 128-byte row (a column
+// block), and column blocks a stage carries (128 columns).
+// q stays in shared memory for the block up to kQRes column blocks (256
+// bf16 or 128 f32 columns), else its columns stream with k's.
+template <typename T>
+struct Tile;
+template <>
+struct Tile<bf16> {
+  static constexpr int kKeys = 64, kCols = 64, kGroup = 2, kQRes = 4;
+};
+template <>
+struct Tile<float> {
+  static constexpr int kKeys = 32, kCols = 32, kGroup = 4, kQRes = 4;
+};
 
-// q's chunks, then two buffers each of k chunks and v tiles.
-__host__ __device__ constexpr size_t smem_bytes(int dk, int dv) {
-  return ((size_t)q_chunks(dk) * kRows * dk + 2 * (size_t)kKeys * dk + 2 * (size_t)kKeys * dv) *
-         2;
+// Byte offsets in the block's dynamic shared memory (after aligning it to
+// 1024) and within a stage; -1 where a launch has no such region.
+struct Layout {
+  int stages, stage;        // ring slots and the bytes of one
+  int ring, bars;           // the ring; the barriers (full, empty, q)
+  int qres;                 // q's column blocks for the whole block, or -1
+  int qlo, klo;             // f32: the lo parts of q's and k's blocks, else -1
+                            // (per consumer warpgroup where they stream)
+  int qlo_wg, klo_wg;       // bytes between the warpgroups' lo scratch
+  int xch;                  // split blocks: the warpgroups' row max and sum
+  int k, q, v, bias, mask, ids;  // in a stage (q: -1 unless streamed)
+  int bytes;                // dynamic shared memory to request
+};
+
+struct Params {
+  Layout L;
+  int n, dqk, dv, nqt, items, heads, nw, kind;
+  int nqb, nvb;             // column blocks of q (and k) and of v to load
+  int cwg;                  // consumer warpgroups: 1, or 2 splitting the keys
+  int tma_add;              // the bias and mask tiles come by TMA
+  int use_cp;               // the producer's lanes copy (addends, ids)
+  int perm_q, perm_k, perm_v;  // tensor-map positions of token, head, window
+  float scale, causal_neg;
+  const float* bias;
+  const float* mask;
+  const int* ids;
+};
+
+struct Maps {
+  CUtensorMap q, k, v, bias, mask;
+};
+
+// The block's (window, head) item, first query row and key tiles to walk.
+// blockIdx.x runs over items fastest, query tiles in descending order.
+template <int KT>
+__device__ __forceinline__ void block_item(const Params& p, int& w, int& h, int& row0,
+                                           int& nkt) {
+  const int step = blockIdx.x / p.items, item = blockIdx.x - step * p.items;
+  w = item / p.heads;
+  h = item - w * p.heads;
+  row0 = (p.nqt - 1 - step) * kRows;
+  nkt = (p.n + KT - 1) / KT;
+  if (p.kind == kCausal) nkt = min(nkt, (min(row0 + kRows, p.n) - 1) / KT + 1);
 }
 
-// Copy rows [r0, r0 + 64) and columns [c0, c0 + W) of operand `part` of
-// head h into a [64, W] tile, swizzled as core::swz; zero at rows past n
-// and columns past `cols`.
-template <class Rows, int W>
-__device__ __forceinline__ void stage(const Rows& rows, bf16* dst, int part, long long item,
-                                      int h, int r0, int n, int c0, int cols) {
-  constexpr int cpr = W / 8;
-  for (int e = threadIdx.x; e < 64 * cpr; e += kThreads) {
-    const int i = e / cpr, c = e - (e / cpr) * cpr;
-    const int r = r0 + i, col = c0 + c * 8;
-    const bool valid = r < n && col < cols;
-    const bf16* src = valid ? rows.in(part, item, h, r) + col : rows.in(part, item, h, 0);
-    core::cp_async16(dst + i * W + core::swz<W>(i, c) * 8, src, valid);
+// A consumer warpgroup's place in its share of the ring: in a split block
+// each warpgroup owns stages / 2 slots and takes its stages in order, so
+// that no warpgroup ever waits on a slot whose barrier is a phase behind (a
+// parity wait would take that older phase for its own). Slots [first, last]
+// are taken in turn, the phase parity flipping at each wrap.
+struct Cursor {
+  int slot, first, last;
+  uint32_t parity;
+  __device__ __forceinline__ Cursor(int f, int n) : slot(f), first(f), last(f + n - 1), parity(0) {}
+  __device__ __forceinline__ void next() {
+    parity ^= slot == last;
+    slot = slot == last ? first : slot + 1;
+  }
+};
+
+// A box of q, k or v: `col` along d, `row` along the tokens, of head h in
+// window w; perm holds the map positions (1-3) of token, head and window.
+__device__ __forceinline__ void load_rows(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                          int perm, int col, int row, int h, int w) {
+  const int tp = perm & 3, hp = (perm >> 2) & 3;
+  const int c1 = tp == 1 ? row : (hp == 1 ? h : w);
+  const int c2 = tp == 2 ? row : (hp == 2 ? h : w);
+  const int c3 = tp == 3 ? row : (hp == 3 ? h : w);
+  ring::tma_load_4d(dst, map, bar, col, c1, c2, c3);
+}
+
+// Byte offset of f32 addend (r, c) of a tile in [64 rows, 32 keys] boxes
+// of 128-byte rows with the 128-byte swizzle (as TMA writes them).
+__device__ __forceinline__ int addend_at(int r, int c) {
+  return (c >> 5) * kBlock + r * 128 + ((((c & 31) >> 2) ^ (r & 7)) << 4) + ((c & 3) << 2);
+}
+
+// An f32 addend tile (query rows row0.., keys key0..) of one [n, n] plane
+// whose rows are not 16-byte aligned (n % 4 != 0), copied by the 32
+// producer lanes with 16-byte cp.async: each real row's keys come with the
+// aligned 16-byte chunks that hold them, into a row of KT + 4 floats whose
+// first key sits at float `shift` (0-3, the row's misalignment; see
+// row_shift). Chunks that start past the tensor's end are not read, and
+// rows past n are not copied: pad rows and keys never reach an output.
+template <int KT>
+__device__ __forceinline__ void copy_addend(uint32_t dst, const float* plane, const float* end,
+                                            int n, int row0, int key0, int lane) {
+  constexpr int kChunks = KT / 4 + 1;
+  const int rows = min(kRows, n - row0);
+  for (int e = lane; e < rows * kChunks; e += 32) {
+    const int r = e / kChunks, k = e - r * kChunks;
+    const uintptr_t first = reinterpret_cast<uintptr_t>(plane + (size_t)(row0 + r) * n + key0);
+    const float* chunk = reinterpret_cast<const float*>(first & ~uintptr_t(15)) + 4 * k;
+    const bool valid = chunk < end;
+    ring::cp_async16(dst + r * (KT * 4 + 16) + 16 * k, valid ? chunk : plane, valid);
   }
 }
 
-// One block: query rows [64 qt, +64) of window w, head h; blockIdx.x =
-// w * nqt + qt. DK: width of a q/k chunk (16, 32 or 64); DV: width of the
-// v tile and the output slice (16 to 128).
-template <class Rows, int DK, int DV>
-__global__ void __launch_bounds__(kThreads)
-window_tiled_kernel(Rows rows, Addends ad, int n, int dqk, int dv, int nqt, float scale,
-                    float causal_neg) {
-  constexpr int KD = DK / 16, OT = DV / 8, NT = kKeys / 8, QC = q_chunks(DK);
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem);  // QC x [64, DK]
-  bf16* ks = qs + QC * kRows * DK;           // 2 x [64, DK]
-  bf16* vs = ks + 2 * kKeys * DK;            // 2 x [64, DV]
+// The float position of row r's first key in copy_addend's rows.
+__device__ __forceinline__ int row_shift(const float* plane, int n, int r) {
+  return (int)((reinterpret_cast<uintptr_t>(plane + (size_t)r * n) >> 2) & 3);
+}
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int w = blockIdx.x / nqt, qt = blockIdx.x - w * nqt, h = blockIdx.y;
-  const long long item = rows.item(w);
-  const int row0 = qt * kRows;
-  const int r0 = row0 + warp * 16 + g, r1 = r0 + 8;
-  const int nck = (dqk + DK - 1) / DK;
-  const bool qres = nck <= QC;
-  const int kind = ad.mask_kind;
-  // Key tiles to walk: all of them, or with the causal flag those up to the
-  // block's last real query row.
-  int nkt = (n + kKeys - 1) / kKeys;
-  if (kind == kCausal) nkt = min(nkt, (min(row0 + kRows, n) - 1) / kKeys + 1);
-  const int stages = nkt * nck;  // (key tile, d chunk) stages of one pass
-  const float* bias = ad.bias != nullptr ? ad.bias + (size_t)h * n * n : nullptr;
-  const float* dense = kind == kMaskF32
-                           ? static_cast<const float*>(ad.mask) + (size_t)(w % ad.nw) * n * n
-                           : nullptr;
-  const int* ids = kind == kRegionIds
-                       ? static_cast<const int*>(ad.mask) + (size_t)(w % ad.nw) * n
-                       : nullptr;
-  const int id0 = ids != nullptr && r0 < n ? __ldg(ids + r0) : 0;
-  const int id1 = ids != nullptr && r1 < n ? __ldg(ids + r1) : 0;
-
-  if (qres) {
-    for (int c = 0; c < nck; ++c)
-      stage<Rows, DK>(rows, qs + c * kRows * DK, 0, item, h, row0, n, c * DK, dqk);
-    asm volatile("cp.async.commit_group;\n");
+// The producer warp: the block's resident q blocks, then every stage of
+// both passes in the order the consumer takes them (per pass, per key
+// tile, per group of up to kGroup column blocks; the tile's v rows, in
+// pass 2, and its addends ride with its last group).
+template <typename T>
+__device__ __forceinline__ void produce(const Maps& maps, const Params& p, uint32_t base, int w,
+                                        int h, int row0, int nkt) {
+  constexpr int KT = Tile<T>::kKeys, CB = Tile<T>::kCols, GB = Tile<T>::kGroup;
+  constexpr int kKeyBlock = KT * 128;
+  const Layout& L = p.L;
+  const int lane = threadIdx.x & 31;
+  const int ngrp = (p.nqb + GB - 1) / GB;
+  const bool dense = p.kind == kMaskF32, ids = p.kind == kRegionIds;
+  const int wm = w % p.nw;
+  const uint32_t qbar = base + L.bars + 16 * L.stages;
+  if (L.qres >= 0 && lane == 0) {
+    ring::mbar_expect_tx(qbar, p.nqb * kBlock);
+    for (int b = 0; b < p.nqb; ++b)
+      load_rows(base + L.qres + b * kBlock, &maps.q, qbar, p.perm_q, b * CB, row0, h, w);
   }
-
-  // Copy stage i (key tile i / nck, d chunk i % nck) into buffer i % 2: its
-  // k chunk, q's chunk where q does not stay, and with with_v the tile's v
-  // rows (at its first chunk) into v buffer kt % 2. One commit group a
-  // stage, empty past the last.
-  auto fetch = [&](int i, bool with_v) {
-    if (i < stages) {
-      const int kt = i / nck, c = i - kt * nck;
-      if (!qres) stage<Rows, DK>(rows, qs + (i & 1) * kRows * DK, 0, item, h, row0, n, c * DK, dqk);
-      stage<Rows, DK>(rows, ks + (i & 1) * kKeys * DK, 1, item, h, kt * kKeys, n, c * DK, dqk);
-      if (with_v && c == 0)
-        stage<Rows, DV>(rows, vs + (kt & 1) * kKeys * DV, 2, item, h, kt * kKeys, n, 0, dv);
-    }
-    asm volatile("cp.async.commit_group;\n");
-  };
-
-  // Scores of key tile kt (stages kt nck ..) with their addends (pad keys
-  // -inf), the next stage's copies requested before each chunk computes.
-  auto scores = [&](int kt, bool with_v, float (&sc)[NT][4]) {
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int u = 0; u < 4; ++u) sc[j][u] = 0.f;
-    for (int c = 0; c < nck; ++c) {
-      const int i = kt * nck + c;
-      __syncthreads();  // every warp is past its reads of buffer (i + 1) % 2
-      fetch(i + 1, with_v);
-      asm volatile("cp.async.wait_group 1;\n");
-      __syncthreads();
-      __syncwarp();
-      const bf16* qc = qs + (qres ? c : (i & 1)) * kRows * DK;
-      const bf16* kc = ks + (i & 1) * kKeys * DK;
-#pragma unroll
-      for (int kk = 0; kk < KD; ++kk) {
-        unsigned qa[4];
-        const int r = warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-        const int cq = 2 * kk + (lane >> 4);
-        core::ldsm_x4(qa, qc + r * DK + core::swz<DK>(r, cq) * 8);
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const float2 f = core::unpack_bf16(qa[u]);
-          qa[u] = core::pack_bf16(f.x * scale, f.y * scale);
-        }
-#pragma unroll
-        for (int j = 0; j < NT; j += 2) {
-          const int rk = 8 * j + (lane & 7) + (lane >> 4) * 8;
-          const int ck = 2 * kk + ((lane >> 3) & 1);
-          unsigned kb[4];
-          core::ldsm_x4(kb, kc + rk * DK + core::swz<DK>(rk, ck) * 8);
-          core::mma16816(sc[j], qa, kb[0], kb[1]);
-          core::mma16816(sc[j + 1], qa, kb[2], kb[3]);
-        }
+  // The two warpgroups' cursors (in a block of one, its tiles all take c0).
+  const int per_wg = L.stages / p.cwg;
+  Cursor c0(0, per_wg), c1(per_wg, per_wg);
+  for (int s = 0; s < 2 * nkt * ngrp; ++s) {
+    // Stage s: pass s / (nkt ngrp), key tile kt, column group g.
+    const bool pass2 = s >= nkt * ngrp;
+    const int kt = s / ngrp - (pass2 ? nkt : 0), g = s % ngrp;
+    const bool odd = p.cwg == 2 && (kt & 1);
+    const int slot = odd ? c1.slot : c0.slot;
+    const uint32_t full = base + L.bars + 8 * slot, empty = full + 8 * L.stages;
+    ring::mbar_wait(empty, (odd ? c1.parity : c0.parity) ^ 1);
+    if (odd)
+      c1.next();
+    else
+      c0.next();
+    const bool last = g == ngrp - 1;
+    const int kb = min(GB, p.nqb - g * GB);
+    const uint32_t st = base + L.ring + slot * L.stage;
+    if (lane == 0) {
+      const int vb = pass2 && last ? p.nvb : 0;
+      const int ab = last && p.tma_add ? KT / 32 : 0;  // boxes per addend
+      const int na = (p.bias != nullptr) + dense;
+      ring::mbar_expect_tx(full, kb * kKeyBlock + (L.q >= 0 ? kb * kBlock : 0) +
+                                     vb * kKeyBlock + ab * na * kBlock);
+      for (int b = 0; b < kb; ++b)
+        load_rows(st + L.k + b * kKeyBlock, &maps.k, full, p.perm_k, (g * GB + b) * CB, kt * KT,
+                  h, w);
+      if (L.q >= 0)
+        for (int b = 0; b < kb; ++b)
+          load_rows(st + L.q + b * kBlock, &maps.q, full, p.perm_q, (g * GB + b) * CB, row0, h,
+                    w);
+      for (int b = 0; b < vb; ++b)
+        load_rows(st + L.v + b * kKeyBlock, &maps.v, full, p.perm_v, b * CB, kt * KT, h, w);
+      for (int b = 0; b < ab; ++b) {
+        if (p.bias != nullptr)
+          ring::tma_load_4d(st + L.bias + b * kBlock, &maps.bias, full, kt * KT + 32 * b, row0, h,
+                            0);
+        if (dense)
+          ring::tma_load_4d(st + L.mask + b * kBlock, &maps.mask, full, kt * KT + 32 * b, row0,
+                            wm, 0);
       }
     }
+    if (p.use_cp) {
+      if (last) {
+        const size_t nn = (size_t)p.n * p.n;
+        if (!p.tma_add && p.bias != nullptr)
+          copy_addend<KT>(st + L.bias, p.bias + h * nn, p.bias + p.heads * nn, p.n, row0,
+                          kt * KT, lane);
+        if (!p.tma_add && dense)
+          copy_addend<KT>(st + L.mask, p.mask + wm * nn, p.mask + p.nw * nn, p.n, row0, kt * KT,
+                          lane);
+        if (ids)
+          for (int c = lane; c < KT; c += 32) {
+            const int key = kt * KT + c;
+            ring::cp_async4(st + L.ids + 4 * c, p.ids + (size_t)wm * p.n + (key < p.n ? key : 0),
+                            key < p.n);
+          }
+      }
+      ring::cp_async_arrive(full);
+    }
+  }
+  if (p.use_cp) asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The thread's warpgroup: 0 (and 1 in a split block) consume, p.cwg is the
+// producer warp. A value the compiler sees as warp-uniform (a broadcast),
+// so that it does not take the consumers' wgmma for code on a divergent
+// path and serialize them.
+__device__ __forceinline__ int role() {
+  return __shfl_sync(0xffffffffu, (int)threadIdx.x / kConsumers, 0);
+}
+
+// Barriers: full (the producer's expect_tx arrival, and the 32 lanes'
+// cp.async arrivals where it copies), empty (lane 0 of each warp of the
+// consumer warpgroup that takes the stage), q (the resident q blocks' TMA).
+__device__ __forceinline__ void init_barriers(const Params& p, uint32_t base) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < p.L.stages; ++s) {
+      ring::mbar_init(base + p.L.bars + 8 * s, 1 + (p.use_cp ? 32 : 0));
+      ring::mbar_init(base + p.L.bars + 8 * (p.L.stages + s), kConsumers / 32);
+    }
+    ring::mbar_init(base + p.L.bars + 16 * p.L.stages, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// Where a thread finds its addends in a stage's copy_addend rows: the byte
+// offsets of its two rows' key 0 in the bias and mask tiles, each row's
+// shift included (unused for the TMA tiles, read through addend_at).
+struct AddendRows {
+  int b0, b1, m0, m1;
+};
+
+// The bias and dense-mask pair at tile column c (even) of a row at byte
+// offset `row` (copy_addend's rows) or of row rr (TMA tiles), rounded to
+// bf16 where ROUND (the bf16 core).
+template <bool ROUND>
+__device__ __forceinline__ float2 addend_pair(const Params& p, const uint8_t* tile, int row,
+                                              int rr, int c) {
+  float2 v;
+  if (p.tma_add) {
+    v = *reinterpret_cast<const float2*>(tile + addend_at(rr, c));
+  } else {
+    const float* f = reinterpret_cast<const float*>(tile + row) + c;
+    v = make_float2(f[0], f[1]);
+  }
+  return ROUND ? __bfloat1622float2(__floats2bfloat162_rn(v.x, v.y)) : v;
+}
+
+// The thread's AddendRows for rows rr0 and rr0 + 8 of the block (row0..):
+// in copy_addend's layout, row stride KT + 4 floats and each row's shift.
+template <int KT>
+__device__ __forceinline__ AddendRows addend_rows(const Params& p, int w, int h, int row0,
+                                                  int rr0) {
+  AddendRows a{0, 0, 0, 0};
+  if (p.tma_add) return a;
+  const size_t nn = (size_t)p.n * p.n;
+  const int stride = KT * 4 + 16, r0 = row0 + rr0;
+  const int ra = r0 < p.n ? r0 : 0, rb = r0 + 8 < p.n ? r0 + 8 : 0;
+  if (p.bias != nullptr) {
+    const float* plane = p.bias + h * nn;
+    a.b0 = rr0 * stride + 4 * row_shift(plane, p.n, ra);
+    a.b1 = (rr0 + 8) * stride + 4 * row_shift(plane, p.n, rb);
+  }
+  if (p.kind == kMaskF32) {
+    const float* plane = p.mask + (w % p.nw) * nn;
+    a.m0 = rr0 * stride + 4 * row_shift(plane, p.n, ra);
+    a.m1 = (rr0 + 8) * stride + 4 * row_shift(plane, p.n, rb);
+  }
+  return a;
+}
+
+// The score epilogue's addends of one n8 tile at tile column c (even) for
+// the thread's rows rr0 and rr0 + 8 of the block (r0 and r0 + 8 of the
+// window): the bias and a dense mask from the stage, summed in f32;
+// region ids (-100 where they differ); the causal addend where a key lies
+// after its query, on the tiles that hold such a key (`diag`).
+// a[0..1]: row rr0, a[2..3]: row rr0 + 8.
+template <bool ROUND>
+__device__ __forceinline__ void addends(const Params& p, const uint8_t* st, const AddendRows& ar,
+                                        int rr0, int r0, int c, int key, int id0, int id1,
+                                        bool diag, float (&a)[4]) {
+  const Layout& L = p.L;
+  a[0] = a[1] = a[2] = a[3] = 0.f;
+  if (p.bias != nullptr) {
+    const float2 b0 = addend_pair<ROUND>(p, st + L.bias, ar.b0, rr0, c);
+    const float2 b1 = addend_pair<ROUND>(p, st + L.bias, ar.b1, rr0 + 8, c);
+    a[0] = b0.x, a[1] = b0.y, a[2] = b1.x, a[3] = b1.y;
+  }
+  if (p.kind == kMaskF32) {
+    const float2 m0 = addend_pair<ROUND>(p, st + L.mask, ar.m0, rr0, c);
+    const float2 m1 = addend_pair<ROUND>(p, st + L.mask, ar.m1, rr0 + 8, c);
+    a[0] += m0.x, a[1] += m0.y, a[2] += m1.x, a[3] += m1.y;
+  } else if (p.kind == kRegionIds) {
+    const int2 ic = *reinterpret_cast<const int2*>(st + L.ids + 4 * c);
+    a[0] += ic.x != id0 ? -100.f : 0.f;
+    a[1] += ic.y != id0 ? -100.f : 0.f;
+    a[2] += ic.x != id1 ? -100.f : 0.f;
+    a[3] += ic.y != id1 ? -100.f : 0.f;
+  } else if (diag) {
+    a[0] += key > r0 ? p.causal_neg : 0.f;
+    a[1] += key + 1 > r0 ? p.causal_neg : 0.f;
+    a[2] += key > r0 + 8 ? p.causal_neg : 0.f;
+    a[3] += key + 1 > r0 + 8 ? p.causal_neg : 0.f;
+  }
+}
+
+// Adds the addends of key tile kt to the scores (accumulator 4 j + u: row
+// rr0 + 8 (u >> 1), tile column 8 j + 2 t + (u & 1)) and sets the pad keys
+// to -inf, with uniform branches around what a tile does not need: no
+// addend work where the call has no bias or mask and the tile holds no key
+// after a query row, no pad test before the last tile.
+template <bool ROUND, int KT>
+__device__ __forceinline__ void score_epilogue(const Params& p, const uint8_t* st,
+                                               const AddendRows& ar, int kt, int row0, int rr0,
+                                               int id0, int id1, float (&S)[KT / 2]) {
+  const int t = threadIdx.x & 3, r0 = row0 + rr0;
+  const bool diag = p.kind == kCausal && kt * KT + KT - 1 > row0;
+  const bool add = p.bias != nullptr || p.kind == kMaskF32 || p.kind == kRegionIds || diag;
+  const bool pad = kt * KT + KT > p.n;
+  if (add) {
 #pragma unroll
-    for (int j = 0; j < NT; ++j)
+    for (int j = 0; j < KT / 8; ++j) {
+      float a[4];
+      addends<ROUND>(p, st, ar, rr0, r0, 8 * j + 2 * t, kt * KT + 8 * j + 2 * t, id0, id1, diag,
+                     a);
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int r = u < 2 ? r0 : r1, cc = kt * kKeys + 8 * j + 2 * t + (u & 1);
-        if (cc >= n) {
-          sc[j][u] = -INFINITY;
+      for (int u = 0; u < 4; ++u) S[4 * j + u] += a[u];
+    }
+  }
+  if (pad) {
+#pragma unroll
+    for (int j = 0; j < KT / 8; ++j)
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        S[4 * j + u] = kt * KT + 8 * j + 2 * t + (u & 1) < p.n ? S[4 * j + u] : -INFINITY;
+  }
+}
+
+// 2^x by the hardware ex2 (what __expf runs after its multiply by log2 e).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// q scaled by `scale` and rounded to bf16, in place: `chunks` 16-byte
+// pieces from p (a multiple of `threads`), by consumer threads tid <
+// threads, every thread the same count.
+__device__ __forceinline__ void scale_q(uint8_t* p, int chunks, float scale, int tid,
+                                        int threads) {
+  for (int e0 = 0; e0 < chunks; e0 += threads) {
+    const int e = e0 + tid;
+    uint4 v = *reinterpret_cast<const uint4*>(p + 16 * e);
+    uint32_t* u = &v.x;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = core::unpack_bf16(u[i]);
+      u[i] = core::pack_bf16(f.x * scale, f.y * scale);
+    }
+    *reinterpret_cast<uint4*>(p + 16 * e) = v;
+  }
+}
+
+// A split block's pass-1 merge: each consumer warpgroup has the max and sum
+// of its own key tiles for the thread's two rows (m[0], l[0]: row rr0;
+// m[1], l[1]: rr0 + 8); both leave with those of all the keys, merged in
+// warpgroup order so that the two compute them alike. EXPF: the core's exp.
+template <bool EXPF>
+__device__ __forceinline__ void merge_stats(uint8_t* sm, const Layout& L, int wg, float (&m)[2],
+                                            float (&l)[2]) {
+  float* x = reinterpret_cast<float*>(sm + L.xch);
+  const int tid = threadIdx.x & (kConsumers - 1);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    x[(2 * i) * 2 * kConsumers + wg * kConsumers + tid] = m[i];
+    x[(2 * i + 1) * 2 * kConsumers + wg * kConsumers + tid] = l[i];
+  }
+  ring::bar_sync(1, 2 * kConsumers);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float ma = x[(2 * i) * 2 * kConsumers + tid];
+    const float la = x[(2 * i + 1) * 2 * kConsumers + tid];
+    const float mb = x[(2 * i) * 2 * kConsumers + kConsumers + tid];
+    const float lb = x[(2 * i + 1) * 2 * kConsumers + kConsumers + tid];
+    m[i] = fmaxf(ma, mb);
+    l[i] = EXPF ? la * expf(ma - m[i]) + lb * expf(mb - m[i])
+                : la * __expf(ma - m[i]) + lb * __expf(mb - m[i]);
+  }
+}
+
+// A split block's pass-2 merge: warpgroup 1 leaves its `n` output sums a
+// thread in the ring (free once both are past their last stage), and
+// warpgroup 0 adds them to its own in f32; true for warpgroup 0, which
+// then stores the rows.
+template <int B, int N>
+__device__ __forceinline__ bool merge_out(uint8_t* sm, const Layout& L, int wg,
+                                          float (&o)[B][N]) {
+  float* x = reinterpret_cast<float*>(sm + L.ring);
+  const int tid = threadIdx.x & (kConsumers - 1);
+  ring::bar_sync(1, 2 * kConsumers);
+  if (wg == 1) {
+#pragma unroll
+    for (int b = 0; b < B; ++b)
+#pragma unroll
+      for (int e = 0; e < N; ++e) x[(b * N + e) * kConsumers + tid] = o[b][e];
+  }
+  ring::bar_sync(1, 2 * kConsumers);
+  if (wg == 1) return false;
+#pragma unroll
+  for (int b = 0; b < B; ++b)
+#pragma unroll
+    for (int e = 0; e < N; ++e) o[b][e] = __fadd_rn(o[b][e], x[(b * N + e) * kConsumers + tid]);
+  return true;
+}
+
+// One block (block_item): warpgroup 0, or warpgroups 0 and 1 each taking
+// every other key tile (p.cwg = 2, for grids of no more blocks than SMs),
+// consume; the warp after them produces. DV: output columns of P v, 64 or
+// 128 (one or two MN-major column blocks of v).
+template <class Rows, int DV>
+__global__ void __launch_bounds__(kBoundThreads, 1)
+window_tiled_kernel(const __grid_constant__ Maps maps, const __grid_constant__ Params p,
+                    const Rows rows) {
+  constexpr int KT = Tile<bf16>::kKeys, NB = DV / 64;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (ring::smem_u32(smem_raw) + 1023) & ~1023u;
+  uint8_t* sm = smem_raw + (base - ring::smem_u32(smem_raw));
+  const Layout& L = p.L;
+  int w, h, row0, nkt;
+  block_item<KT>(p, w, h, row0, nkt);
+  init_barriers(p, base);
+  const int wg = role();
+  if (wg == p.cwg) {
+    produce<bf16>(maps, p, base, w, h, row0, nkt);
+    return;
+  }
+
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3, n = p.n;
+  const int rr0 = 16 * warp + g, r0 = row0 + rr0, r1 = r0 + 8;
+  const int ngrp = (p.nqb + 1) / 2;
+  const int* idw = p.kind == kRegionIds ? p.ids + (size_t)(w % p.nw) * n : nullptr;
+  const int id0 = idw != nullptr && r0 < n ? __ldg(idw + r0) : 0;
+  const int id1 = idw != nullptr && r1 < n ? __ldg(idw + r1) : 0;
+  const AddendRows ar = addend_rows<KT>(p, w, h, row0, rr0);
+  if (L.qres >= 0) {
+    ring::mbar_wait(base + L.bars + 16 * L.stages, 0);
+    scale_q(sm + L.qres, p.nqb * kRows * 8, p.scale, threadIdx.x, p.cwg * kConsumers);
+    ring::fence_proxy_async();
+    ring::bar_sync(1, p.cwg * kConsumers);
+  }
+
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f, inv0 = 0.f, inv1 = 0.f;
+  float S[32], O[NB][32];
+#pragma unroll
+  for (int b = 0; b < NB; ++b)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) O[b][e] = 0.f;
+  Cursor cur(wg * (L.stages / p.cwg), L.stages / p.cwg);
+  for (int pass = 0; pass < 2; ++pass) {
+    for (int kt = wg; kt < nkt; kt += p.cwg) {
+      for (int gi = 0; gi < ngrp; ++gi, cur.next()) {
+        const uint32_t full = base + L.bars + 8 * cur.slot, empty = full + 8 * L.stages;
+        const uint32_t st = base + L.ring + cur.slot * L.stage;
+        ring::mbar_wait(full, cur.parity);
+        __syncwarp();
+        const int kb = min(2, p.nqb - 2 * gi);
+        uint32_t qa = base + L.qres + 2 * gi * kBlock;
+        if (L.q >= 0) {  // q's columns of this group, streamed: scaled here
+          scale_q(sm + (st - base) + L.q, kb * kRows * 8, p.scale, threadIdx.x & 127,
+                  kConsumers);
+          ring::fence_proxy_async();
+          ring::bar_sync(2 + wg, kConsumers);
+          qa = st + L.q;
+        }
+        // S (+)= q k^T over the group's column blocks, k16 steps up to d.
+        ring::fence_acc(S);
+        ring::wgmma_fence();
+        for (int b = 0; b < kb; ++b) {
+          const int cols = min(64, p.dqk - (2 * gi + b) * 64);
+          const uint64_t da = ring::sw128_desc(qa + b * kBlock);
+          const uint64_t db = ring::sw128_desc(st + L.k + b * kBlock);
+          for (int kk = 0; 16 * kk < cols; ++kk)
+            ring::wgmma_bf16_n64(S, da + 2 * kk, db + 2 * kk, (gi | b | kk) != 0);
+        }
+        ring::wgmma_commit();
+        ring::wgmma_wait<0>();
+        ring::fence_acc(S);
+        if (gi + 1 < ngrp) {
+          __syncwarp();
+          if (lane == 0) ring::mbar_arrive(empty);
           continue;
         }
-        float e = 0.f;
-        if (bias != nullptr && r < n) e = core::load_addend(bias, (size_t)r * n + cc);
-        if (ids != nullptr)
-          e += __ldg(ids + cc) != (u < 2 ? id0 : id1) ? -100.f : 0.f;
-        else if (kind == kCausal)
-          e += cc > r ? causal_neg : 0.f;
-        else if (dense != nullptr && r < n)
-          e += core::load_addend(dense, (size_t)r * n + cc);
-        sc[j][u] += e;
-      }
-  };
 
-  // Pass 1: each row's max and sum of exp(s - max) over the key tiles.
-  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
-  float sc[NT][4];
-  fetch(0, false);
-  for (int kt = 0; kt < nkt; ++kt) {
-    scores(kt, false, sc);
-    float x0 = -INFINITY, x1 = -INFINITY;
+        score_epilogue<true, KT>(p, sm + (st - base), ar, kt, row0, rr0, id0, id1, S);
+        if (pass == 0) {
+          float x0 = -INFINITY, x1 = -INFINITY;
 #pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      x0 = fmaxf(x0, fmaxf(sc[j][0], sc[j][1]));
-      x1 = fmaxf(x1, fmaxf(sc[j][2], sc[j][3]));
-    }
-    x0 = fmaxf(x0, __shfl_xor_sync(0xffffffffu, x0, 1));
-    x0 = fmaxf(x0, __shfl_xor_sync(0xffffffffu, x0, 2));
-    x1 = fmaxf(x1, __shfl_xor_sync(0xffffffffu, x1, 1));
-    x1 = fmaxf(x1, __shfl_xor_sync(0xffffffffu, x1, 2));
-    // Every tile holds a real key, so the new max is finite; the old sum
-    // (0 before the first tile) is rescaled to it.
-    const float n0 = fmaxf(m0, x0), n1 = fmaxf(m1, x1);
-    float s0 = 0.f, s1 = 0.f;
+          for (int j = 0; j < KT / 8; ++j) {
+            x0 = fmaxf(x0, fmaxf(S[4 * j], S[4 * j + 1]));
+            x1 = fmaxf(x1, fmaxf(S[4 * j + 2], S[4 * j + 3]));
+          }
+          // Each row's max and sum of exp(s - max), rescaled at a new max
+          // (the tile holds a real key, so the new max is finite).
+          x0 = fmaxf(x0, __shfl_xor_sync(0xffffffffu, x0, 1));
+          x0 = fmaxf(x0, __shfl_xor_sync(0xffffffffu, x0, 2));
+          x1 = fmaxf(x1, __shfl_xor_sync(0xffffffffu, x1, 1));
+          x1 = fmaxf(x1, __shfl_xor_sync(0xffffffffu, x1, 2));
+          const float n0 = fmaxf(m0, x0), n1 = fmaxf(m1, x1);
+          const float c0 = n0 * kLog2e, c1 = n1 * kLog2e;
+          float s0 = 0.f, s1 = 0.f;
 #pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      s0 += __expf(sc[j][0] - n0) + __expf(sc[j][1] - n0);
-      s1 += __expf(sc[j][2] - n1) + __expf(sc[j][3] - n1);
-    }
-    s0 += __shfl_xor_sync(0xffffffffu, s0, 1);
-    s0 += __shfl_xor_sync(0xffffffffu, s0, 2);
-    s1 += __shfl_xor_sync(0xffffffffu, s1, 1);
-    s1 += __shfl_xor_sync(0xffffffffu, s1, 2);
-    l0 = l0 * __expf(m0 - n0) + s0;
-    l1 = l1 * __expf(m1 - n1) + s1;
-    m0 = n0;
-    m1 = n1;
-  }
-  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
-
-  // Pass 2: O = P v, P normalized and then rounded to bf16.
-  float o[OT][4];
+          for (int j = 0; j < KT / 8; ++j) {
+            s0 += ex2(fmaf(S[4 * j], kLog2e, -c0)) + ex2(fmaf(S[4 * j + 1], kLog2e, -c0));
+            s1 += ex2(fmaf(S[4 * j + 2], kLog2e, -c1)) + ex2(fmaf(S[4 * j + 3], kLog2e, -c1));
+          }
+          s0 += __shfl_xor_sync(0xffffffffu, s0, 1);
+          s0 += __shfl_xor_sync(0xffffffffu, s0, 2);
+          s1 += __shfl_xor_sync(0xffffffffu, s1, 1);
+          s1 += __shfl_xor_sync(0xffffffffu, s1, 2);
+          l0 = l0 * __expf(m0 - n0) + s0;
+          l1 = l1 * __expf(m1 - n1) + s1;
+          m0 = n0;
+          m1 = n1;
+        } else {
+          // O += P v, P normalized and then rounded to bf16, in the A
+          // fragments of four k16 steps over the tile's keys.
+          uint32_t pa[KT / 16][4];
+          const float c0 = m0 * kLog2e, c1 = m1 * kLog2e;
+          auto prob = [&](float x, float c, float inv) { return ex2(fmaf(x, kLog2e, -c)) * inv; };
 #pragma unroll
-  for (int jd = 0; jd < OT; ++jd)
+          for (int kk = 0; kk < KT / 16; ++kk) {
+            const float* s0 = S + 8 * kk;
+            pa[kk][0] = core::pack_bf16(prob(s0[0], c0, inv0), prob(s0[1], c0, inv0));
+            pa[kk][1] = core::pack_bf16(prob(s0[2], c1, inv1), prob(s0[3], c1, inv1));
+            pa[kk][2] = core::pack_bf16(prob(s0[4], c0, inv0), prob(s0[5], c0, inv0));
+            pa[kk][3] = core::pack_bf16(prob(s0[6], c1, inv1), prob(s0[7], c1, inv1));
+          }
 #pragma unroll
-    for (int u = 0; u < 4; ++u) o[jd][u] = 0.f;
-  __syncthreads();  // every warp is past pass 1's reads of buffer 0
-  fetch(0, true);
-  for (int kt = 0; kt < nkt; ++kt) {
-    scores(kt, true, sc);
-    // The tile's v rows arrived with its first stage.
-    const bf16* vt = vs + (kt & 1) * kKeys * DV;
+          for (int b = 0; b < NB; ++b) ring::fence_acc(O[b]);
+          ring::wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < NT; j += 2) {
-      const unsigned pa[4] = {
-          core::pack_bf16(__expf(sc[j][0] - m0) * inv0, __expf(sc[j][1] - m0) * inv0),
-          core::pack_bf16(__expf(sc[j][2] - m1) * inv1, __expf(sc[j][3] - m1) * inv1),
-          core::pack_bf16(__expf(sc[j + 1][0] - m0) * inv0, __expf(sc[j + 1][1] - m0) * inv0),
-          core::pack_bf16(__expf(sc[j + 1][2] - m1) * inv1, __expf(sc[j + 1][3] - m1) * inv1)};
+          for (int b = 0; b < NB; ++b) {
+            const uint64_t dv = ring::sw128_mn_desc(st + L.v + b * KT * 128);
 #pragma unroll
-      for (int jd = 0; jd < OT; jd += 2) {
-        const int r = 8 * j + (lane & 7) + ((lane >> 3) & 1) * 8;
-        const int c = jd + (lane >> 4);
-        unsigned vb[4];
-        core::ldsm_x4_trans(vb, vt + r * DV + core::swz<DV>(r, c) * 8);
-        core::mma16816(o[jd], pa, vb[0], vb[1]);
-        core::mma16816(o[jd + 1], pa, vb[2], vb[3]);
+            for (int kk = 0; kk < KT / 16; ++kk)
+              ring::wgmma_bf16_n64_rs_mn(O[b], pa[kk], dv + 128 * kk, 1);
+          }
+          ring::wgmma_commit();
+          ring::wgmma_wait<0>();
+#pragma unroll
+          for (int b = 0; b < NB; ++b) ring::fence_acc(O[b]);
+        }
+        __syncwarp();
+        if (lane == 0) ring::mbar_arrive(empty);
       }
     }
+    if (pass == 0 && p.cwg == 2) {
+      float m[2] = {m0, m1}, l[2] = {l0, l1};
+      merge_stats<false>(sm, L, wg, m, l);
+      m0 = m[0], m1 = m[1], l0 = l[0], l1 = l[1];
+    }
+    inv0 = 1.f / l0;
+    inv1 = 1.f / l1;
   }
-  asm volatile("cp.async.wait_group 0;\n");
+  if (p.cwg == 2 && !merge_out(sm, L, wg, O)) return;
 
   // The rows' outputs rounded to bf16, two columns a store.
 #pragma unroll
-  for (int jd = 0; jd < OT; ++jd) {
-    const int col = 8 * jd + 2 * t;
-    if (col >= dv) continue;
-    if (r0 < n)
-      *reinterpret_cast<unsigned*>(rows.dst(item, h, r0) + col) = core::pack_bf16(o[jd][0], o[jd][1]);
-    if (r1 < n)
-      *reinterpret_cast<unsigned*>(rows.dst(item, h, r1) + col) = core::pack_bf16(o[jd][2], o[jd][3]);
+  for (int b = 0; b < NB; ++b)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = 64 * b + 8 * j + 2 * t;
+      if (col >= p.dv) continue;
+      if (r0 < n)
+        *reinterpret_cast<uint32_t*>(rows.dst(w, h, r0) + col) =
+            core::pack_bf16(O[b][4 * j], O[b][4 * j + 1]);
+      if (r1 < n)
+        *reinterpret_cast<uint32_t*>(rows.dst(w, h, r1) + col) =
+            core::pack_bf16(O[b][4 * j + 2], O[b][4 * j + 3]);
+    }
+}
+
+// A 4-D tensor map of q, k or v (`cols` elements of d, then token, head
+// and window, ordered by stride) in boxes of [box_rows tokens, 128 bytes]
+// with the 128-byte swizzle; perm gets the map positions of token, head
+// and window (2 bits each). A dimension of extent 1 is never stepped and
+// takes the largest stride, so that the strides ascend.
+template <typename T>
+bool encode_rows(CUtensorMap* map, const T* base, int cols, int n, int heads, int windows,
+                 const Strides& st, int box_rows, int& perm) {
+  struct Dim {
+    long long ext, stride;
+    int id;
+  } d[3] = {{n, st.token, 0}, {heads, st.head, 1}, {windows, st.window, 2}};
+  long long top = cols;
+  for (const Dim& e : d)
+    if (e.ext > 1 && e.stride > top) top = e.stride;
+  for (Dim& e : d) {
+    if (e.ext == 1) e.stride = top;
+    if (e.stride <= 0 || (e.stride * (long long)sizeof(T)) % 16 != 0) return false;
   }
+  for (int i = 1; i < 3; ++i)
+    for (int j = i; j > 0 && d[j].stride < d[j - 1].stride; --j) {
+      const Dim x = d[j];
+      d[j] = d[j - 1];
+      d[j - 1] = x;
+    }
+  const cuuint64_t dims[4] = {(cuuint64_t)cols, (cuuint64_t)d[0].ext, (cuuint64_t)d[1].ext,
+                              (cuuint64_t)d[2].ext};
+  const cuuint64_t strides[3] = {(cuuint64_t)(d[0].stride * sizeof(T)),
+                                 (cuuint64_t)(d[1].stride * sizeof(T)),
+                                 (cuuint64_t)(d[2].stride * sizeof(T))};
+  cuuint32_t box[4] = {128 / (cuuint32_t)sizeof(T), 1, 1, 1};
+  perm = 0;
+  for (int i = 0; i < 3; ++i) {
+    if (d[i].id == 0) box[i + 1] = box_rows;
+    perm |= (i + 1) << (2 * d[i].id);
+  }
+  return ring::encode_4d(map, std::is_same<T, float>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                                            : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                         base, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// An f32 addend [planes, n, n] as [32 keys, 64 rows] boxes, 128-byte swizzle.
+inline bool encode_addend(CUtensorMap* map, const float* base, int n, int planes) {
+  const cuuint64_t dims[4] = {(cuuint64_t)n, (cuuint64_t)n, (cuuint64_t)planes, 1};
+  const cuuint64_t row = (cuuint64_t)n * 4, plane = row * n;
+  const cuuint64_t strides[3] = {row, plane, plane * planes};
+  const cuuint32_t box[4] = {32, kRows, 1, 1};
+  return ring::encode_4d(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, base, dims, strides, box,
+                         CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// The shared-memory layout of a launch: resident q where d fits (else
+// streamed in each stage), f32's lo scratch, a split block's exchange, and
+// as many ring stages (2 to kMaxStages) as fit two blocks an SM, else one
+// (and always one for a split block): a
+// consumer that is quick with its tiles waits on the copies' latency, which
+// only more stages in flight hide.
+constexpr int kMaxStages = 8;
+template <typename T>
+bool plan(Layout& L, int nqb, int nvb, bool bias, bool dense, bool ids, bool tma_add, int cwg) {
+  constexpr int KT = Tile<T>::kKeys, GB = Tile<T>::kGroup;
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  const int kb = nqb < GB ? nqb : GB;
+  const bool qres = nqb <= Tile<T>::kQRes;
+  int off = 0;
+  L.qres = qres ? off : -1;
+  off += qres ? nqb * kBlock : 0;
+  // f32: q's lo parts (once per block, or per warpgroup where they stream)
+  // and k's (per warpgroup).
+  L.qlo = kF32 ? off : -1;
+  L.qlo_wg = qres ? 0 : kb * kBlock;
+  off += kF32 ? (qres ? nqb : kb) * kBlock + (cwg - 1) * L.qlo_wg : 0;
+  L.klo = kF32 ? off : -1;
+  L.klo_wg = kb * KT * 128;
+  off += kF32 ? cwg * L.klo_wg : 0;
+  L.xch = cwg == 2 ? off : -1;
+  off += cwg == 2 ? 4 * 2 * kConsumers * 4 : 0;
+  L.ring = off;
+  int st = 0;
+  L.k = st;
+  st += kb * KT * 128;
+  L.q = qres ? -1 : st;
+  st += qres ? 0 : kb * kBlock;
+  L.v = st;
+  st += nvb * KT * 128;
+  const int tile = tma_add ? KT / 32 * kBlock : kRows * (KT * 4 + 16);  // an addend tile
+  L.bias = bias ? st : -1;
+  st += bias ? tile : 0;
+  L.mask = dense ? st : -1;
+  st += dense ? tile : 0;
+  L.ids = ids ? st : -1;
+  st += ids ? KT * 4 : 0;
+  L.stage = (int)align128(st);
+  L.stage = (L.stage + 1023) & ~1023;
+  auto bytes = [&](int stages) { return 1024 + off + stages * L.stage + 16 * stages + 8; };
+  // A split block runs alone on its SM: it takes the whole budget.
+  const int two_per_sm = cwg == 2 ? 0 : 113 * 1024;
+  for (L.stages = kMaxStages; L.stages > 2 && bytes(L.stages) > two_per_sm; --L.stages) {
+  }
+  if (bytes(L.stages) > two_per_sm)
+    for (L.stages = kMaxStages; L.stages > 2 && bytes(L.stages) > core::kSmemLimit; --L.stages) {
+    }
+  L.stages -= L.stages % cwg;  // a split block's warpgroups own half the slots each
+  L.bars = off + L.stages * L.stage;
+  L.bytes = bytes(L.stages);
+  // A split block's warpgroup 1 leaves its output sums in the ring.
+  const bool out_fits = cwg == 1 || L.stages * L.stage >= nvb * Tile<T>::kCols * kRows * 4;
+  return L.bytes <= core::kSmemLimit && out_fits;
+}
+
+// The maps and parameters of a launch of DV output columns a block, and
+// its grid; cudaErrorInvalidValue where a shape or layout is refused.
+template <typename T, class Rows>
+cudaError_t prepare(const Rows& rows, const Addends& ad, int windows, int heads, int n, int dqk,
+                    int dv, int DV, bool split, float scale, float causal_neg, Maps& maps,
+                    Params& p, int& blocks) {
+  constexpr int KT = Tile<T>::kKeys, CB = Tile<T>::kCols;
+  if (windows <= 0 || heads <= 0 || n <= 0 || dqk <= 0 || dqk % 8 != 0 || dv <= 0 ||
+      dv > DV || dv % 8 != 0 || ad.nw <= 0 || ad.mask_kind < kNoMask || ad.mask_kind > kCausal ||
+      ((ad.mask_kind == kNoMask || ad.mask_kind == kCausal) != (ad.mask == nullptr)))
+    return cudaErrorInvalidValue;
+  p = Params{};
+  p.n = n, p.dqk = dqk, p.dv = dv, p.heads = heads, p.nw = ad.nw, p.kind = ad.mask_kind;
+  p.nqt = (n + kRows - 1) / kRows;
+  p.items = windows * heads;
+  if ((long long)windows * heads * p.nqt > 0x7fffffffLL) return cudaErrorInvalidValue;
+  blocks = p.items * p.nqt;
+  p.nqb = (dqk + CB - 1) / CB;
+  p.nvb = (dv + CB - 1) / CB;
+  p.scale = scale, p.causal_neg = causal_neg;
+  p.bias = ad.bias;
+  const bool dense = ad.mask_kind == kMaskF32, ids = ad.mask_kind == kRegionIds;
+  p.mask = dense ? static_cast<const float*>(ad.mask) : nullptr;
+  p.ids = ids ? static_cast<const int*>(ad.mask) : nullptr;
+  p.tma_add = n % 4 == 0 && (reinterpret_cast<uintptr_t>(p.bias) & 15) == 0 &&
+              (reinterpret_cast<uintptr_t>(p.mask) & 15) == 0;
+  p.use_cp = (!p.tma_add && (p.bias != nullptr || dense)) || ids;
+  // Two consumer warpgroups split each block's key tiles (one block an SM,
+  // each half as long) where that takes fewer block times than one
+  // warpgroup a block at two blocks an SM: where ceil(blocks / SMs) is odd,
+  // i.e. the last wave of two-per-SM blocks would be half full or less
+  // (every grid up to one block an SM, 288 blocks at N = 576). Each
+  // warpgroup needs two ring slots at least.
+  const int waves = (blocks + sm_count() - 1) / sm_count();
+  p.cwg = split && waves % 2 == 1 ? 2 : 1;
+  if (p.cwg == 2 &&
+      !(plan<T>(p.L, p.nqb, DV / CB, p.bias != nullptr, dense, ids, p.tma_add, 2) &&
+        p.L.stages >= 4))
+    p.cwg = 1;
+  if (p.cwg == 1 && !plan<T>(p.L, p.nqb, DV / CB, p.bias != nullptr, dense, ids, p.tma_add, 1))
+    return cudaErrorInvalidValue;
+  maps = Maps{};
+  if (!encode_rows<T>(&maps.q, rows.q, dqk, n, heads, windows, rows.sq, kRows, p.perm_q) ||
+      !encode_rows<T>(&maps.k, rows.k, dqk, n, heads, windows, rows.sk, KT, p.perm_k) ||
+      !encode_rows<T>(&maps.v, rows.v, dv, n, heads, windows, rows.sv, KT, p.perm_v))
+    return cudaErrorInvalidValue;
+  if (p.tma_add && ((p.bias != nullptr && !encode_addend(&maps.bias, p.bias, n, heads)) ||
+                    (dense && !encode_addend(&maps.mask, p.mask, n, ad.nw))))
+    return cudaErrorInvalidValue;
+  return cudaSuccess;
 }
 
 // Whether a kernel's shared-memory limit is raised yet, per instantiation,
 // per device and per translation unit.
 namespace {
-template <class Rows, int DK, int DV>
+template <class Rows, int DV>
 bool smem_raised[kMaxDevices];
 }  // namespace
 
-template <class Rows, int DK, int DV>
+template <class Rows, int DV>
 cudaError_t launch(const Rows& rows, const Addends& ad, int windows, int heads, int n, int dqk,
-                   int dv, float scale, float causal_neg, cudaStream_t s) {
-  const int nqt = (n + kRows - 1) / kRows;
-  if ((long long)windows * nqt > 0x7fffffffLL) return cudaErrorInvalidValue;
-  auto kernel = window_tiled_kernel<Rows, DK, DV>;
-  const size_t smem = smem_bytes(DK, DV);
-  const cudaError_t err = once_per_device(smem_raised<Rows, DK, DV>, [&] {
-    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                   int dv, float scale, cudaStream_t s) {
+  Maps maps;
+  Params p;
+  int blocks = 0;
+  cudaError_t err = prepare<bf16>(rows, ad, windows, heads, n, dqk, dv, DV, true, scale,
+                                  core::round_bf16_host(-1e9f), maps, p, blocks);
+  if (err != cudaSuccess) return err;
+  auto kernel = window_tiled_kernel<Rows, DV>;
+  err = once_per_device(smem_raised<Rows, DV>, [&] {
+    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                core::kSmemLimit);
   });
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(windows * nqt, heads), kThreads, smem, s>>>(rows, ad, n, dqk, dv, nqt, scale,
-                                                            causal_neg);
+  kernel<<<blocks, p.cwg * kConsumers + 32, p.L.bytes, s>>>(maps, p, rows);
   return cudaGetLastError();
 }
 
 // K6-K8 on `windows` x `heads` items of any N = n: q k^T over dqk columns
 // (a multiple of 8), dv <= 128 output columns (a multiple of 8) of v's and
 // out's views, scores scaled by `scale` (rounded to bf16 by the caller).
+// Every pointer and stride 16-byte aligned, as the tensor maps need.
 template <class Rows>
 cudaError_t run(const Rows& rows, const Addends& ad, int windows, int heads, int n, int dqk,
                 int dv, float scale, cudaStream_t s) {
-  if (windows <= 0 || heads <= 0 || heads > 65535 || n <= 0 || dqk <= 0 || dqk % 8 != 0 ||
-      dv <= 0 || dv > 128 || dv % 8 != 0 || ad.nw <= 0 || ad.mask_kind < kNoMask ||
-      ad.mask_kind > kCausal ||
-      ((ad.mask_kind == kNoMask || ad.mask_kind == kCausal) != (ad.mask == nullptr)))
-    return cudaErrorInvalidValue;
-  const float causal_neg = core::round_bf16_host(-1e9f);
-  if (dqk <= 16 && dv <= 16)
-    return launch<Rows, 16, 16>(rows, ad, windows, heads, n, dqk, dv, scale, causal_neg, s);
-  if (dqk <= 32 && dv <= 32)
-    return launch<Rows, 32, 32>(rows, ad, windows, heads, n, dqk, dv, scale, causal_neg, s);
-  if (dv <= 16)
-    return launch<Rows, 64, 16>(rows, ad, windows, heads, n, dqk, dv, scale, causal_neg, s);
-  if (dv <= 32)
-    return launch<Rows, 64, 32>(rows, ad, windows, heads, n, dqk, dv, scale, causal_neg, s);
-  if (dv <= 64)
-    return launch<Rows, 64, 64>(rows, ad, windows, heads, n, dqk, dv, scale, causal_neg, s);
-  return launch<Rows, 64, 128>(rows, ad, windows, heads, n, dqk, dv, scale, causal_neg, s);
+  if (dv <= 64) return launch<Rows, 64>(rows, ad, windows, heads, n, dqk, dv, scale, s);
+  return launch<Rows, 128>(rows, ad, windows, heads, n, dqk, dv, scale, s);
 }
 
 }  // namespace core_tiled

@@ -526,306 +526,292 @@ cudaError_t run(const Rows& rows, const Addends& ad, int windows, int heads, int
 
 }  // namespace core_f32
 
+
 // The key-tiled f32 core: the f32 branch of K6-K8 at the shapes the core
 // above does not take (N > 256, a head dim above 64, or a padded head dim
-// with its true d^-0.5 given), after core_tiled in window_core.cuh: blocks
-// of 64 query rows (four warps of 16-row strips) walk the keys in tiles of
-// 32 twice, pass 1 for each row's max and sum of exp(s - max) in f32
-// (rescaled at each new max), pass 2 recomputing the scores for
-// exp(s - m) / l, kept in f32 and split for 3xTF32, and P v. The tile of
-// 32 keys keeps a thread's registers within the budget of 128 threads: 16
-// score floats and, for 128 output columns, 64 output sums and 64 sums of
-// the current tile. Every product runs as three TF32 products (mma.sync
-// m16n8k8, hi/lo splits, as above); q k^T takes a fresh accumulator per
-// chunk of 32 columns of d and P v one per key tile, each added in f32, so
-// that no accumulator takes more than 12 of the tensor cores' truncating
-// additions. The scale, the bias and a dense mask are unrounded f32, region
-// ids give -100, the causal flag -1e9. Bound: 3 x 6 N^2 d TF32 operations
-// (q k^T twice, P v) against 16 N d bytes and the addends: the tensor cores
-// at N = 1024, d = 128, latency at the small API shapes. As in core_tiled,
-// the (key tile, d chunk) stages stream through two buffers by cp.async
-// while the current one computes, and the causal flag skips the key tiles
-// past a block's last query row (exactly: their probabilities are 0). The
-// bias and a dense mask are read in place, q stays in shared memory where
-// d <= 128 (else its chunks stream beside k's).
+// with its true d^-0.5 given), on core_tiled's block walk, producer warp,
+// mbarrier ring and tensor maps (window_core.cuh): blocks of 64 query rows
+// walk the keys in tiles of 32 twice, pass 1 for each row's max and sum of
+// exp(s - max) in f32 (rescaled at each new max), pass 2 recomputing the
+// scores for exp(s - m) / l, kept in f32 and split for 3xTF32, and P v.
+// The scale, the bias and a dense mask are unrounded f32, region ids give
+// -100, the causal flag -1e9. Small grids split each block's key walk
+// between two consumer warpgroups as core_tiled does (not at 128 output
+// columns, whose 252 registers a thread leave no room for them). Bound:
+// 3 x 6 N^2 d TF32 operations (q k^T twice, P v) against 16 N d bytes and
+// the addends: the tensor cores at N = 1024, d = 128, latency at the small
+// API shapes.
+//
+// Every product runs as three TF32 products (hi/lo splits, lo_a hi_b +
+// hi_a lo_b + hi_a hi_b, as above):
+// - q k^T is wgmma m64n32k8.tf32 with both operands from 128-byte-swizzled
+//   shared memory. q s is split once per block, in place (hi) and into a lo
+//   scratch: q is reused by every key tile, so neither registers nor a
+//   per-tile split go to it (where d > 128 its columns stream with k's and
+//   are split per stage). Each stage's k columns are split once, by the
+//   consumer warpgroup (hi in place, lo into a scratch), where the earlier
+//   body split every k fragment in each of its four warps.
+// - P v stays on mma.sync m16n8k8: tf32 wgmma reads both operands K-major,
+//   and v's tile is [keys, dv], so a wgmma P v would need each v tile
+//   transposed and split into two more shared-memory tiles per stage, which
+//   at d = 128 do not fit beside q's hi/lo, the k scratch and a two-stage
+//   ring (the block then holds 176 of its 227 KB). The probabilities go
+//   from the score accumulators (the wgmma accumulator layout is the
+//   m16n8 one, per warp) straight into A fragments, key 8j + 2t in column
+//   t and 8j + 2t + 1 in column t + 4, and v's B fragments are read in the
+//   same key order from the TMA tile (conflict-free under its swizzle) and
+//   split as they are loaded.
+// - The fold rule of the earlier body stands: q k^T takes a fresh
+//   accumulator per 32 columns of d and P v one per key tile of 32, each
+//   added in f32, so that no accumulator takes more than 12 of the tensor
+//   cores' truncating additions (tools/tf32_accum_model.py); the products
+//   are issued in the same order, so the fold is the same.
 namespace core_f32_tiled {
 
-constexpr int kRows = 64;
-constexpr int kKeys = 32;
-constexpr int kThreads = 128;
+namespace ct = core_tiled;
 
-__host__ __device__ constexpr int q_chunks(int dk) { return dk == 32 ? 4 : 1; }
-
-// q's chunks, then two buffers each of k chunks and v tiles.
-__host__ __device__ constexpr size_t smem_bytes(int dk, int dv) {
-  return ((size_t)q_chunks(dk) * kRows * dk + 2 * (size_t)kKeys * dk + 2 * (size_t)kKeys * dv) *
-         4;
-}
-
-// Copy `nrows` rows from r0 and columns [c0, c0 + W) of operand `part` of
-// head h into an [nrows, W] tile, swizzled as core_f32::swz; zero at rows
-// past n and columns past `cols`.
-template <class Rows, int W>
-__device__ __forceinline__ void stage(const Rows& rows, float* dst, int part, long long item,
-                                      int h, int r0, int nrows, int n, int c0, int cols) {
-  constexpr int cpr = W / 4;
-  for (int e = threadIdx.x; e < nrows * cpr; e += kThreads) {
-    const int i = e / cpr, c = e - (e / cpr) * cpr;
-    const int r = r0 + i, col = c0 + c * 4;
-    const bool valid = r < n && col < cols;
-    const float* src = valid ? rows.in(part, item, h, r) + col : rows.in(part, item, h, 0);
-    core::cp_async16(dst + i * W + core_f32::swz<W>(i, c) * 4, src, valid);
+// x s split into TF32 hi (in place) and lo (at the same offset in lo):
+// `chunks` 16-byte pieces (a multiple of `threads`), by consumer threads
+// tid < threads, every thread the same count.
+__device__ __forceinline__ void split(uint8_t* hi, uint8_t* lo, int chunks, float s, int tid,
+                                      int threads) {
+  for (int e0 = 0; e0 < chunks; e0 += threads) {
+    const int e = e0 + tid;
+    float4 x = *reinterpret_cast<const float4*>(hi + 16 * e);
+    uint32_t h[4], l[4];
+    tf32_split(__fmul_rn(x.x, s), h[0], l[0]);
+    tf32_split(__fmul_rn(x.y, s), h[1], l[1]);
+    tf32_split(__fmul_rn(x.z, s), h[2], l[2]);
+    tf32_split(__fmul_rn(x.w, s), h[3], l[3]);
+    *reinterpret_cast<uint4*>(hi + 16 * e) = make_uint4(h[0], h[1], h[2], h[3]);
+    *reinterpret_cast<uint4*>(lo + 16 * e) = make_uint4(l[0], l[1], l[2], l[3]);
   }
 }
 
-// One block: query rows [64 qt, +64) of window w, head h; blockIdx.x =
-// w * nqt + qt. DK: width of a q/k chunk in floats (8, 16 or 32); DV: width
-// of the v tile and the output slice (8 to 128).
-template <class Rows, int DK, int DV>
-__global__ void __launch_bounds__(kThreads)
-window_f32_tiled_kernel(Rows rows, Addends ad, int n, int dqk, int dv, int nqt, float scale) {
-  constexpr int KD = DK / 8, OT = DV / 8, NT = kKeys / 8, QC = q_chunks(DK);
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* qs = reinterpret_cast<float*>(smem);  // QC x [64, DK]
-  float* ks = qs + QC * kRows * DK;            // 2 x [32, DK]
-  float* vs = ks + 2 * kKeys * DK;             // 2 x [32, DV]
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int w = blockIdx.x / nqt, qt = blockIdx.x - w * nqt, h = blockIdx.y;
-  const long long item = rows.item(w);
-  const int row0 = qt * kRows;
-  const int sr0 = warp * 16 + g, sr1 = sr0 + 8;  // the thread's rows in the q tile
-  const int r0 = row0 + sr0, r1 = row0 + sr1;
-  const int nck = (dqk + DK - 1) / DK;
-  const bool qres = nck <= QC;
-  const int kind = ad.mask_kind;
-  int nkt = (n + kKeys - 1) / kKeys;
-  if (kind == kCausal) nkt = min(nkt, (min(row0 + kRows, n) - 1) / kKeys + 1);
-  const int stages = nkt * nck;
-  const float* bias = ad.bias != nullptr ? ad.bias + (size_t)h * n * n : nullptr;
-  const float* dense = kind == kMaskF32
-                           ? static_cast<const float*>(ad.mask) + (size_t)(w % ad.nw) * n * n
-                           : nullptr;
-  const int* ids = kind == kRegionIds
-                       ? static_cast<const int*>(ad.mask) + (size_t)(w % ad.nw) * n
-                       : nullptr;
-  const int id0 = ids != nullptr && r0 < n ? __ldg(ids + r0) : 0;
-  const int id1 = ids != nullptr && r1 < n ? __ldg(ids + r1) : 0;
-
-  if (qres) {
-    for (int c = 0; c < nck; ++c)
-      stage<Rows, DK>(rows, qs + c * kRows * DK, 0, item, h, row0, kRows, n, c * DK, dqk);
-    asm volatile("cp.async.commit_group;\n");
+// One block (core_tiled::block_item): one consumer warpgroup, or two that
+// take every other key tile (p.cwg = 2), and the producer warp after them.
+// DV: output columns, 32, 64 or 128 (one to four column blocks of v); at
+// 128 the block is never split: its 252 registers a thread leave no room
+// for a second warpgroup.
+template <class Rows, int DV>
+__global__ void __launch_bounds__(DV == 128 ? ct::kConsumers + 32 : ct::kBoundThreads, 1)
+window_f32_tiled_kernel(const __grid_constant__ ct::Maps maps,
+                        const __grid_constant__ ct::Params p, const Rows rows) {
+  constexpr int KT = ct::Tile<float>::kKeys, OT = DV / 8;
+  constexpr int kKeyBlock = KT * 128;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (ring::smem_u32(smem_raw) + 1023) & ~1023u;
+  uint8_t* sm = smem_raw + (base - ring::smem_u32(smem_raw));
+  const ct::Layout& L = p.L;
+  int w, h, row0, nkt;
+  ct::block_item<KT>(p, w, h, row0, nkt);
+  ct::init_barriers(p, base);
+  const int wg = ct::role();
+  if (wg == p.cwg) {
+    ct::produce<float>(maps, p, base, w, h, row0, nkt);
+    return;
   }
 
-  // Copy stage i (key tile i / nck, d chunk i % nck) into buffer i % 2, as
-  // in core_tiled; v rows into v buffer kt % 2 at a tile's first chunk.
-  auto fetch = [&](int i, bool with_v) {
-    if (i < stages) {
-      const int kt = i / nck, c = i - kt * nck;
-      if (!qres)
-        stage<Rows, DK>(rows, qs + (i & 1) * kRows * DK, 0, item, h, row0, kRows, n, c * DK, dqk);
-      stage<Rows, DK>(rows, ks + (i & 1) * kKeys * DK, 1, item, h, kt * kKeys, kKeys, n, c * DK,
-                      dqk);
-      if (with_v && c == 0)
-        stage<Rows, DV>(rows, vs + (kt & 1) * kKeys * DV, 2, item, h, kt * kKeys, kKeys, n, 0, dv);
-    }
-    asm volatile("cp.async.commit_group;\n");
-  };
-
-  // Scores of key tile kt with their addends (pad keys -inf), the next
-  // stage's copies requested before each chunk computes.
-  auto scores = [&](int kt, bool with_v, float (&sc)[NT][4]) {
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int u = 0; u < 4; ++u) sc[j][u] = 0.f;
-    for (int c = 0; c < nck; ++c) {
-      const int i = kt * nck + c;
-      __syncthreads();  // every warp is past its reads of buffer (i + 1) % 2
-      fetch(i + 1, with_v);
-      asm volatile("cp.async.wait_group 1;\n");
-      __syncthreads();
-      __syncwarp();
-      const float* qc = qs + (qres ? c : (i & 1)) * kRows * DK;
-      const float* kc = ks + (i & 1) * kKeys * DK;
-      float part[NT][4];
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int u = 0; u < 4; ++u) part[j][u] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KD; ++kk) {
-        const float x[4] = {qc[sr0 * DK + core_f32::swz<DK>(sr0, 2 * kk) * 4 + t],
-                            qc[sr1 * DK + core_f32::swz<DK>(sr1, 2 * kk) * 4 + t],
-                            qc[sr0 * DK + core_f32::swz<DK>(sr0, 2 * kk + 1) * 4 + t],
-                            qc[sr1 * DK + core_f32::swz<DK>(sr1, 2 * kk + 1) * 4 + t]};
-        uint32_t qh[4], ql[4];
-#pragma unroll
-        for (int u = 0; u < 4; ++u) tf32_split(__fmul_rn(x[u], scale), qh[u], ql[u]);
-#pragma unroll
-        for (int j = 0; j < NT; ++j) {
-          const int kr = 8 * j + g;
-          uint32_t kh[2], kl[2];
-          tf32_split(kc[kr * DK + core_f32::swz<DK>(kr, 2 * kk) * 4 + t], kh[0], kl[0]);
-          tf32_split(kc[kr * DK + core_f32::swz<DK>(kr, 2 * kk + 1) * 4 + t], kh[1], kl[1]);
-          core_f32::mma3(part[j], qh, ql, kh, kl);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int u = 0; u < 4; ++u) sc[j][u] = __fadd_rn(sc[j][u], part[j][u]);
-    }
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int r = u < 2 ? r0 : r1, cc = kt * kKeys + 8 * j + 2 * t + (u & 1);
-        if (cc >= n) {
-          sc[j][u] = -INFINITY;
-          continue;
-        }
-        float e = 0.f;
-        if (bias != nullptr && r < n) e = __ldg(bias + (size_t)r * n + cc);
-        if (ids != nullptr)
-          e += __ldg(ids + cc) != (u < 2 ? id0 : id1) ? -100.f : 0.f;
-        else if (kind == kCausal)
-          e += cc > r ? -1e9f : 0.f;
-        else if (dense != nullptr && r < n)
-          e += __ldg(dense + (size_t)r * n + cc);
-        sc[j][u] += e;
-      }
-  };
-
-  // Pass 1: each row's max and sum of exp(s - max) over the key tiles.
-  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
-  float sc[NT][4];
-  fetch(0, false);
-  for (int kt = 0; kt < nkt; ++kt) {
-    scores(kt, false, sc);
-    float x0 = -INFINITY, x1 = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      x0 = fmaxf(x0, fmaxf(sc[j][0], sc[j][1]));
-      x1 = fmaxf(x1, fmaxf(sc[j][2], sc[j][3]));
-    }
-    x0 = fmaxf(x0, __shfl_xor_sync(0xffffffffu, x0, 1));
-    x0 = fmaxf(x0, __shfl_xor_sync(0xffffffffu, x0, 2));
-    x1 = fmaxf(x1, __shfl_xor_sync(0xffffffffu, x1, 1));
-    x1 = fmaxf(x1, __shfl_xor_sync(0xffffffffu, x1, 2));
-    const float n0 = fmaxf(m0, x0), n1 = fmaxf(m1, x1);
-    float s0 = 0.f, s1 = 0.f;
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      s0 += expf(sc[j][0] - n0) + expf(sc[j][1] - n0);
-      s1 += expf(sc[j][2] - n1) + expf(sc[j][3] - n1);
-    }
-    s0 += __shfl_xor_sync(0xffffffffu, s0, 1);
-    s0 += __shfl_xor_sync(0xffffffffu, s0, 2);
-    s1 += __shfl_xor_sync(0xffffffffu, s1, 1);
-    s1 += __shfl_xor_sync(0xffffffffu, s1, 2);
-    l0 = l0 * expf(m0 - n0) + s0;
-    l1 = l1 * expf(m1 - n1) + s1;
-    m0 = n0;
-    m1 = n1;
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int tid = threadIdx.x & (ct::kConsumers - 1);
+  const int g = lane >> 2, t = lane & 3, n = p.n;
+  const int rr0 = 16 * warp + g, r0 = row0 + rr0, r1 = r0 + 8;
+  const int ngrp = (p.nqb + 3) / 4;
+  const int* idw = p.kind == kRegionIds ? p.ids + (size_t)(w % p.nw) * n : nullptr;
+  const int id0 = idw != nullptr && r0 < n ? __ldg(idw + r0) : 0;
+  const int id1 = idw != nullptr && r1 < n ? __ldg(idw + r1) : 0;
+  const ct::AddendRows ar = ct::addend_rows<KT>(p, w, h, row0, rr0);
+  // This warpgroup's lo scratch: q's where it streams, and k's.
+  const int qlo = L.qlo + wg * L.qlo_wg, klo = L.klo + wg * L.klo_wg;
+  if (L.qres >= 0) {  // q split once, by every consumer thread
+    ring::mbar_wait(base + L.bars + 16 * L.stages, 0);
+    split(sm + L.qres, sm + L.qlo, p.nqb * ct::kRows * 8, p.scale, threadIdx.x,
+          p.cwg * ct::kConsumers);
+    ring::fence_proxy_async();
+    ring::bar_sync(1, p.cwg * ct::kConsumers);
   }
 
-  // Pass 2: O = P v with P = exp(s - m) / l in f32, key 8j + 2t in A
-  // column t and 8j + 2t + 1 in column t + 4 (as the core above); each
-  // tile's sums in a fresh accumulator, added to O in f32.
-  float o[OT][4];
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f, inv0 = 0.f, inv1 = 0.f;
+  float S[16], part[16], o[OT][4];
 #pragma unroll
   for (int jd = 0; jd < OT; ++jd)
 #pragma unroll
     for (int u = 0; u < 4; ++u) o[jd][u] = 0.f;
-  __syncthreads();  // every warp is past pass 1's reads of buffer 0
-  fetch(0, true);
-  for (int kt = 0; kt < nkt; ++kt) {
-    scores(kt, true, sc);
-    const float* vt = vs + (kt & 1) * kKeys * DV;
-    float part[OT][4];
+  ct::Cursor cur(wg * (L.stages / p.cwg), L.stages / p.cwg);
+  for (int pass = 0; pass < 2; ++pass) {
+    for (int kt = wg; kt < nkt; kt += p.cwg) {
+      for (int gi = 0; gi < ngrp; ++gi, cur.next()) {
+        const uint32_t full = base + L.bars + 8 * cur.slot, empty = full + 8 * L.stages;
+        const uint32_t st = base + L.ring + cur.slot * L.stage;
+        uint8_t* sp = sm + (st - base);
+        const int kb = min(4, p.nqb - 4 * gi);
+        ring::mbar_wait(full, cur.parity);
+        // Every warp of the warpgroup is past its last wgmma on the lo
+        // scratch before it is written again.
+        ring::bar_sync(2 + wg, ct::kConsumers);
+        uint32_t qh = base + L.qres;
+        if (L.q >= 0) {  // q's columns of this group, streamed: split here
+          split(sp + L.q, sm + qlo, kb * ct::kRows * 8, p.scale, tid, ct::kConsumers);
+          qh = st + L.q;
+        }
+        split(sp + L.k, sm + klo, kb * KT * 8, 1.f, tid, ct::kConsumers);
+        ring::fence_proxy_async();
+        ring::bar_sync(2 + wg, ct::kConsumers);
+        // S = q s k^T, a fresh accumulator per column block of 32 added in
+        // f32; per k8 step lo_q hi_k, hi_q lo_k, hi_q hi_k.
+        for (int b = 0; b < kb; ++b) {
+          const int cols = min(32, p.dqk - (4 * gi + b) * 32);
+          const uint64_t dqh = ring::sw128_desc(qh + b * ct::kBlock);
+          const uint64_t dql = ring::sw128_desc(base + qlo + b * ct::kBlock);
+          const uint64_t dkh = ring::sw128_desc(st + L.k + b * kKeyBlock);
+          const uint64_t dkl = ring::sw128_desc(base + klo + b * kKeyBlock);
+          ring::fence_acc(part);
+          ring::wgmma_fence();
+          for (int kk = 0; 8 * kk < cols; ++kk) {
+            ring::wgmma_tf32_n32(part, dql + 2 * kk, dkh + 2 * kk, kk != 0);
+            ring::wgmma_tf32_n32(part, dqh + 2 * kk, dkl + 2 * kk, 1);
+            ring::wgmma_tf32_n32(part, dqh + 2 * kk, dkh + 2 * kk, 1);
+          }
+          ring::wgmma_commit();
+          ring::wgmma_wait<0>();
+          ring::fence_acc(part);
+          const bool first = gi == 0 && b == 0;
 #pragma unroll
-    for (int jd = 0; jd < OT; ++jd)
+          for (int e = 0; e < 16; ++e) S[e] = first ? part[e] : __fadd_rn(S[e], part[e]);
+        }
+        if (gi + 1 < ngrp) {
+          __syncwarp();
+          if (lane == 0) ring::mbar_arrive(empty);
+          continue;
+        }
+
+        // The addends, unrounded (pad keys -inf).
+        ct::score_epilogue<false, KT>(p, sp, ar, kt, row0, rr0, id0, id1, S);
+        if (pass == 0) {
+          float x0 = -INFINITY, x1 = -INFINITY;
 #pragma unroll
-      for (int u = 0; u < 4; ++u) part[jd][u] = 0.f;
+          for (int j = 0; j < KT / 8; ++j) {
+            x0 = fmaxf(x0, fmaxf(S[4 * j], S[4 * j + 1]));
+            x1 = fmaxf(x1, fmaxf(S[4 * j + 2], S[4 * j + 3]));
+          }
+          x0 = fmaxf(x0, __shfl_xor_sync(0xffffffffu, x0, 1));
+          x0 = fmaxf(x0, __shfl_xor_sync(0xffffffffu, x0, 2));
+          x1 = fmaxf(x1, __shfl_xor_sync(0xffffffffu, x1, 1));
+          x1 = fmaxf(x1, __shfl_xor_sync(0xffffffffu, x1, 2));
+          const float n0 = fmaxf(m0, x0), n1 = fmaxf(m1, x1);
+          float s0 = 0.f, s1 = 0.f;
 #pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      uint32_t ph[4], pl[4];
-      tf32_split(expf(sc[j][0] - m0) / l0, ph[0], pl[0]);
-      tf32_split(expf(sc[j][2] - m1) / l1, ph[1], pl[1]);
-      tf32_split(expf(sc[j][1] - m0) / l0, ph[2], pl[2]);
-      tf32_split(expf(sc[j][3] - m1) / l1, ph[3], pl[3]);
-      const int vr = 8 * j + 2 * t;
+          for (int j = 0; j < KT / 8; ++j) {
+            s0 += expf(S[4 * j] - n0) + expf(S[4 * j + 1] - n0);
+            s1 += expf(S[4 * j + 2] - n1) + expf(S[4 * j + 3] - n1);
+          }
+          s0 += __shfl_xor_sync(0xffffffffu, s0, 1);
+          s0 += __shfl_xor_sync(0xffffffffu, s0, 2);
+          s1 += __shfl_xor_sync(0xffffffffu, s1, 1);
+          s1 += __shfl_xor_sync(0xffffffffu, s1, 2);
+          l0 = l0 * expf(m0 - n0) + s0;
+          l1 = l1 * expf(m1 - n1) + s1;
+          m0 = n0;
+          m1 = n1;
+        } else {
+          // O += P v with P = exp(s - m) (1 / l) in f32 (within an ulp of
+          // the plain version's exp(s - m) / l, with one division a row);
+          // the tile's sums in a fresh accumulator, added to O in f32. v
+          // (key kr, column c) of the TMA tile: block c / 32, row kr, chunk
+          // (c % 32) / 4 ^ kr % 8.
+          const uint8_t* vt = sp + L.v;
+          float pt[OT][4];
 #pragma unroll
-      for (int jd = 0; jd < OT; ++jd) {
-        const int c = 2 * jd + (g >> 2), e = g & 3;
-        uint32_t vh[2], vl[2];
-        tf32_split(vt[vr * DV + core_f32::swz<DV>(vr, c) * 4 + e], vh[0], vl[0]);
-        tf32_split(vt[(vr + 1) * DV + core_f32::swz<DV>(vr + 1, c) * 4 + e], vh[1], vl[1]);
-        core_f32::mma3(part[jd], ph, pl, vh, vl);
+          for (int jd = 0; jd < OT; ++jd)
+#pragma unroll
+            for (int u = 0; u < 4; ++u) pt[jd][u] = 0.f;
+#pragma unroll
+          for (int j = 0; j < KT / 8; ++j) {
+            uint32_t ph[4], pl[4];
+            tf32_split(expf(S[4 * j] - m0) * inv0, ph[0], pl[0]);
+            tf32_split(expf(S[4 * j + 2] - m1) * inv1, ph[1], pl[1]);
+            tf32_split(expf(S[4 * j + 1] - m0) * inv0, ph[2], pl[2]);
+            tf32_split(expf(S[4 * j + 3] - m1) * inv1, ph[3], pl[3]);
+            const int kr = 8 * j + 2 * t;
+#pragma unroll
+            for (int jd = 0; jd < OT; ++jd) {
+              const int chunk = 2 * (jd & 3) + (g >> 2);
+              const uint8_t* col = vt + (jd >> 2) * kKeyBlock + ((g & 3) << 2);
+              uint32_t vh[2], vl[2];
+              tf32_split(*reinterpret_cast<const float*>(col + kr * 128 + ((chunk ^ (kr & 7)) << 4)),
+                         vh[0], vl[0]);
+              tf32_split(*reinterpret_cast<const float*>(col + (kr + 1) * 128 +
+                                                         ((chunk ^ ((kr + 1) & 7)) << 4)),
+                         vh[1], vl[1]);
+              core_f32::mma3(pt[jd], ph, pl, vh, vl);
+            }
+          }
+#pragma unroll
+          for (int jd = 0; jd < OT; ++jd)
+#pragma unroll
+            for (int u = 0; u < 4; ++u) o[jd][u] = __fadd_rn(o[jd][u], pt[jd][u]);
+        }
+        __syncwarp();
+        if (lane == 0) ring::mbar_arrive(empty);
       }
     }
-#pragma unroll
-    for (int jd = 0; jd < OT; ++jd)
-#pragma unroll
-      for (int u = 0; u < 4; ++u) o[jd][u] = __fadd_rn(o[jd][u], part[jd][u]);
+    if (pass == 0 && p.cwg == 2) {
+      float m[2] = {m0, m1}, l[2] = {l0, l1};
+      ct::merge_stats<true>(sm, L, wg, m, l);
+      m0 = m[0], m1 = m[1], l0 = l[0], l1 = l[1];
+    }
+    inv0 = 1.f / l0;
+    inv1 = 1.f / l1;
   }
-  asm volatile("cp.async.wait_group 0;\n");
+  if (p.cwg == 2 && !ct::merge_out(sm, L, wg, o)) return;
 
 #pragma unroll
   for (int jd = 0; jd < OT; ++jd) {
     const int col = 8 * jd + 2 * t;
-    if (col >= dv) continue;
+    if (col >= p.dv) continue;
     if (r0 < n)
-      *reinterpret_cast<float2*>(rows.dst(item, h, r0) + col) = make_float2(o[jd][0], o[jd][1]);
+      *reinterpret_cast<float2*>(rows.dst(w, h, r0) + col) = make_float2(o[jd][0], o[jd][1]);
     if (r1 < n)
-      *reinterpret_cast<float2*>(rows.dst(item, h, r1) + col) = make_float2(o[jd][2], o[jd][3]);
+      *reinterpret_cast<float2*>(rows.dst(w, h, r1) + col) = make_float2(o[jd][2], o[jd][3]);
   }
 }
 
 // Whether a kernel's shared-memory limit is raised yet, per instantiation,
 // per device and per translation unit.
 namespace {
-template <class Rows, int DK, int DV>
+template <class Rows, int DV>
 bool smem_raised[kMaxDevices];
 }  // namespace
 
-template <class Rows, int DK, int DV>
+template <class Rows, int DV>
 cudaError_t launch(const Rows& rows, const Addends& ad, int windows, int heads, int n, int dqk,
                    int dv, float scale, cudaStream_t s) {
-  const int nqt = (n + kRows - 1) / kRows;
-  if ((long long)windows * nqt > 0x7fffffffLL) return cudaErrorInvalidValue;
-  auto kernel = window_f32_tiled_kernel<Rows, DK, DV>;
-  const size_t smem = smem_bytes(DK, DV);
-  const cudaError_t err = once_per_device(smem_raised<Rows, DK, DV>, [&] {
-    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  ct::Maps maps;
+  ct::Params p;
+  int blocks = 0;
+  cudaError_t err = ct::prepare<float>(rows, ad, windows, heads, n, dqk, dv, DV, DV < 128, scale,
+                                       -1e9f, maps, p, blocks);
+  if (err != cudaSuccess) return err;
+  auto kernel = window_f32_tiled_kernel<Rows, DV>;
+  err = once_per_device(smem_raised<Rows, DV>, [&] {
+    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                core::kSmemLimit);
   });
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(windows * nqt, heads), kThreads, smem, s>>>(rows, ad, n, dqk, dv, nqt, scale);
+  kernel<<<blocks, p.cwg * ct::kConsumers + 32, p.L.bytes, s>>>(maps, p, rows);
   return cudaGetLastError();
 }
 
 // The f32 branch of K6-K8 on `windows` x `heads` items of any N = n: q k^T
 // over dqk columns (a multiple of 8), dv <= 128 output columns (a multiple
-// of 8) of v's and out's views, scores scaled by `scale`.
+// of 8) of v's and out's views, scores scaled by `scale`. Every pointer and
+// stride 16-byte aligned, as the tensor maps need.
 template <class Rows>
 cudaError_t run(const Rows& rows, const Addends& ad, int windows, int heads, int n, int dqk,
                 int dv, float scale, cudaStream_t s) {
-  if (windows <= 0 || heads <= 0 || heads > 65535 || n <= 0 || dqk <= 0 || dqk % 8 != 0 ||
-      dv <= 0 || dv > 128 || dv % 8 != 0 || ad.nw <= 0 || ad.mask_kind < kNoMask ||
-      ad.mask_kind > kCausal ||
-      ((ad.mask_kind == kNoMask || ad.mask_kind == kCausal) != (ad.mask == nullptr)))
-    return cudaErrorInvalidValue;
-  if (dqk <= 8 && dv <= 8) return launch<Rows, 8, 8>(rows, ad, windows, heads, n, dqk, dv, scale, s);
-  if (dqk <= 16 && dv <= 16)
-    return launch<Rows, 16, 16>(rows, ad, windows, heads, n, dqk, dv, scale, s);
-  if (dv <= 8) return launch<Rows, 32, 8>(rows, ad, windows, heads, n, dqk, dv, scale, s);
-  if (dv <= 16) return launch<Rows, 32, 16>(rows, ad, windows, heads, n, dqk, dv, scale, s);
-  if (dv <= 32) return launch<Rows, 32, 32>(rows, ad, windows, heads, n, dqk, dv, scale, s);
-  if (dv <= 64) return launch<Rows, 32, 64>(rows, ad, windows, heads, n, dqk, dv, scale, s);
-  return launch<Rows, 32, 128>(rows, ad, windows, heads, n, dqk, dv, scale, s);
+  if (dv <= 32) return launch<Rows, 32>(rows, ad, windows, heads, n, dqk, dv, scale, s);
+  if (dv <= 64) return launch<Rows, 64>(rows, ad, windows, heads, n, dqk, dv, scale, s);
+  return launch<Rows, 128>(rows, ad, windows, heads, n, dqk, dv, scale, s);
 }
 
 }  // namespace core_f32_tiled

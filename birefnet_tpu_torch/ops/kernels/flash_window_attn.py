@@ -36,11 +36,18 @@ Every N and head dim d that the JAX entry points take runs on the card.
 N <= 256 with d a multiple of 8 up to 64 (every model site) runs the core
 above; any other shape runs the key-tiled core of the same sources (two
 passes over key tiles, so the probabilities are normalized before they
-are rounded, as in the JAX kernel): d not a multiple of 8 is zero-padded
-to one in scratch copies of q, k and v (`pad_head_dim`) and scaled by the
-true d's d^-0.5 (`head_dim_scale`), and a head dim above 128 is written
-in output slices of at most 128 columns (`column_slices`), one launch
-each, every launch contracting q k^T over all of d.
+are rounded, as in the JAX kernel): blocks of 64 query rows, a consumer
+warpgroup running q k^T and P v as wgmma (the f32 core: q k^T as wgmma
+in three TF32 products, P v on mma.sync) and a producer warp filling an
+mbarrier ring with k, v and the f32 addend tiles by TMA (cp.async where
+an addend row is not 16-byte aligned) before their tile's epilogue. d not
+a multiple of 8 is zero-padded to one in scratch copies of q, k and v
+(`pad_head_dim`) and scaled by the true d's d^-0.5 (`head_dim_scale`),
+and a head dim above 128 is written in output slices of at most 128
+columns (`column_slices`), one launch each, every launch contracting
+q k^T over all of d. The tiled cores read q, k and v through TMA tensor
+maps, so their pointers and strides must be 16-byte aligned, as
+`_strides` checks.
 
 f32 q, k and v (ComputeConfig(dtype=float32) on the kernel tier) run the
 f32 branch of the same Pallas kernels, whose dots run at

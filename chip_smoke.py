@@ -18,7 +18,9 @@ Phases, each printed as it runs; any failure exits non-zero:
    at the JAX package's test shapes and at the shapes of the key-tiled
    core (N = 257, 576, 1024 and 4096, d = 20 padded, 96, 128 and 160 in
    two output slices; K6 at d = 20 and N = 289), each call's launch
-   counted. bf16
+   counted; those nine key-tiled shapes, in bf16 and f32, also run
+   REPEATS_TILED times back to back in the repeat check (the ring's
+   mbarrier phases). bf16
    kernels run on bf16 weights, the W8A8 kernels (K1-int8, K3) on weights
    quantized from f32 by params.quantize_*_int8; those two and K6-K8 also
    hold a bound on mean|kernel - plain| / mean|plain|. Time each kernel,
@@ -398,8 +400,9 @@ SERVE_FLAGS = {
                              {K1: 8, K1Q: 40, K2: 8, K3: 40, K4: 16, K5: 1}),
 }
 CLI_LAUNCHES = {K1: 48, K2: 48, K4: 16, D1: 20}
-# Calls of each shape in phase 3's repeat check (the f32 shapes: fewer).
-REPEATS, REPEATS_F32 = 200, 100
+# Calls of each shape in phase 3's repeat check (the f32 shapes: fewer;
+# the key-tiled cores' API shapes, both dtypes: a few each).
+REPEATS, REPEATS_F32, REPEATS_TILED = 200, 100, 20
 # Published H100 SXM peaks (dense): memory bytes/s and operations/s by type.
 MEM_RATE = 3.35e12
 # Dense peaks of the H100 SXM; "tf32" is the tensor cores' TF32 rate, on
@@ -780,6 +783,7 @@ def check_kernels(torch, dev, reports, core, gemm, gemm16, rows16, cluster,
     gen = torch.Generator(dev).manual_seed(0)
     repeats = []  # (label, fn, expected output) for the repeat check
     repeats_f32 = []  # the same for the f32 GEMM, core and K1 shapes
+    repeats_tiled = []  # the key-tiled cores' shapes, bf16 and f32
     bf = torch.bfloat16
 
     def randn(shape, scale=1.0, dtype=torch.float32):
@@ -1258,6 +1262,9 @@ def check_kernels(torch, dev, reports, core, gemm, gemm16, rows16, cluster,
         launched(kernel, fn, f"{r[key].entry['name']} {label}")
         # flash_attention's kernel reads no bias (a causal flag or none).
         model = "api tiled" if label.startswith("tiled") else "api"
+        if model == "api tiled":
+            repeats_tiled.append((f"{key} {r['kind']} {label} "
+                                  f"({b_},{heads},{n},{d})", fn, fn()))
         r[key].check(torch, model, f"{label} ({b_},{heads},{n},{d})", 1,
                      fn, partial(plain, q, k, v, *tail),
                      (nbytes(q, k, v, None if causal is not None else bias,
@@ -1305,6 +1312,8 @@ def check_kernels(torch, dev, reports, core, gemm, gemm16, rows16, cluster,
                          bias, None, heads)
             launched(flash_window_attn.flash_window_attention_qkv, fn,
                      f"K6 {label}")
+            repeats_tiled.append((f"k6 {r['kind']} {label} B_={b_} N={n} "
+                                  f"C={c}", fn, fn()))
             r["k6"].check(
                 torch, "api tiled", f"{label} B_={b_} N={n} C={c}", 1, fn,
                 partial(flash_window_attn.flash_window_attention_qkv_plain,
@@ -1398,6 +1407,7 @@ def check_kernels(torch, dev, reports, core, gemm, gemm16, rows16, cluster,
 
     repeat_check(torch, repeats)
     repeat_check(torch, repeats_f32, REPEATS_F32)
+    repeat_check(torch, repeats_tiled, REPEATS_TILED)
 
 
 def with_features(bmodel, infer, frames, sites=False):

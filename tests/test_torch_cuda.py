@@ -32,7 +32,7 @@ from birefnet_tpu_torch.ops import window as W
 from birefnet_tpu_torch.ops.kernels import (bf16_gemm, deform_im2col,
                                             f32_gemm, flash_window_attn,
                                             fused_block_attn, fused_mlp,
-                                            int8_gemm, row_ln, tap_conv)
+                                            int8_gemm, row_ln, tap_conv, tf32)
 
 pytestmark = pytest.mark.cuda
 # The int8 kernels are also held to mean|kernel - plain| / mean|plain|: at
@@ -1724,16 +1724,23 @@ def test_train_step_on_the_card_runs_d1_and_d1b_only(dev):
 # The key-tiled core (csrc/window_core.cuh core_tiled, window_core_f32.cuh
 # core_f32_tiled): the shapes the first core does not take, in bf16 and
 # f32. (kind, B_, heads, N, d): K7 with a dense mask over 24^2 windows
-# (N = 576) and with region ids over 17^2 windows; K8 with a bias at
-# N = 257, a padded head dim (d = 20, 3), d = 96 and d = 160 (two output
-# slices); flash_attention causal at N = 1024 (d = 128) and 4096 (d = 64);
-# K6 on a packed projection of head dim 20 (padded) and at N = 289.
+# (N = 576, rows that TMA takes) and with region ids over 17^2 windows; K8
+# with a bias at N = 257, a padded head dim (d = 20, 3), d = 96 and d = 160
+# (two output slices, q's columns streamed per stage); flash_attention
+# causal at N = 1024 (d = 128) and 4096 (d = 64); K6 on a packed projection
+# of head dim 20 (padded) and at N = 289. Then the edges of the wgmma
+# design: causal N = 1000 (no multiple of the row block or a key tile), the
+# narrowest column blocks (d = 8 and 24 at N = 300), and a dense mask over
+# nW = 3 windows at B_ = 9 and N = 257 (the mask's period, its rows copied
+# by the producer's lanes: 1,028 bytes, no TMA row).
 TILED_CASES = [("dense", 8, 4, 576, 32), ("ids", 8, 2, 289, 32),
                ("bias", 8, 4, 257, 64), ("bias", 8, 4, 144, 20),
                ("bias", 6, 2, 100, 3), ("bias", 8, 4, 144, 96),
                ("bias", 4, 2, 144, 160), ("causal", 2, 8, 1024, 128),
                ("causal", 1, 8, 4096, 64), ("qkv", 8, 3, 49, 20),
-               ("qkv", 8, 3, 289, 32)]
+               ("qkv", 8, 3, 289, 32), ("causal", 1, 2, 1000, 64),
+               ("bias", 2, 2, 300, 8), ("bias", 2, 2, 300, 24),
+               ("dense3", 9, 2, 257, 32)]
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -1758,8 +1765,9 @@ def test_window_core_tiled_matches_plain(dev, kind, b_, heads, n, d, dtype):
             wrapper, plain = (fwa.flash_window_attention,
                               fwa.flash_window_attention_plain)
             mask = None
-            if kind == "dense":
-                mask = torch.where(torch.rand((2, n, n), generator=gen,
+            if kind in ("dense", "dense3"):
+                nw = 3 if kind == "dense3" else 2
+                mask = torch.where(torch.rand((nw, n, n), generator=gen,
                                               device=dev) < 0.3, -100.0, 0.0)
             elif kind == "ids":
                 mask = W.sw_msa_region_ids(34, 34, 17, 8, dev)
@@ -1770,5 +1778,15 @@ def test_window_core_tiled_matches_plain(dev, kind, b_, heads, n, d, dtype):
     want = plain(*args)
     if dtype == torch.float32:
         _assert_close_f32(got, want)
+        # Control: the plain version on TF32-rounded operands with the TF32
+        # flags on must break the mean bound.
+        ops = 1 if kind == "qkv" else 3  # qkv, or q, k and v
+        rounded = [tf32.tf32_round(a) for a in args[:ops]] + list(args[ops:])
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            control = plain(*rounded)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        assert _f32_error(got, control)[1] > MEAN_BOUND_F32
     else:
         _assert_close(got, want, MEAN_BOUND_FWA)
